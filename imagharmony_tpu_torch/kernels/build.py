@@ -1,0 +1,70 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. It
+is compiled with ``nvcc`` into a shared library under ``_build/`` (listed in
+``.gitignore``), named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads the cached library. Only the
+sources in this directory are compiled; nothing is downloaded.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+# sm_90a (not sm_90): the Hopper-only instructions later kernels will use
+# (wgmma, setmaxnreg) exist only for the "a" target.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels need it")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is not built yet, then load
+    it. Raises RuntimeError with nvcc's stderr when the build fails."""
+    import ctypes
+
+    so = library_path(name)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed to build {name} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return ctypes.CDLL(str(so))

@@ -1,0 +1,302 @@
+// K1: fused self-attention on the packed (B, S, H*D) layout, bf16 in and out.
+//
+// Replaces the TPU kernel `_attn_nhd_kernel` (imagharmony_tpu/kernels/
+// flash_attention.py:415), reached through `flash_attention_nhd` (:576).
+// Unlike the Pallas kernel it computes the exact softmax: a running row max
+// and sum (online softmax), no clamp on the exp2 argument, and no padding
+// of the sequence on the host (ragged key columns and query rows are masked
+// here).
+//
+// What bounds it on an H100: at head_dim 64 the work is 4*B*H*Sq*Sk*D flops
+// against (3+1)*B*S*H*D*2 bytes, e.g. S=4096, H=10, B=2: 86 GFLOP against
+// 42 MB, about 2000 flop/byte, far above the card's ~295 flop/byte ridge. So
+// it is bound by the tensor cores, and the design keeps the (Sq, Sk) logits
+// out of device memory entirely: they live in registers, one 64-key tile at
+// a time.
+//
+// Design (simple and correct first; wgmma/TMA/warp specialisation are later
+// work):
+//   * grid (ceil(Sq/64), H, B); one CTA of 4 warps per 64 query rows of one
+//     head; each warp owns 16 query rows.
+//   * K and V tiles of 64 rows are staged in shared memory (V transposed, so
+//     the PV operand is a plain 32-bit load); Q goes through shared memory
+//     once into registers, pre-scaled by scale*log2(e) as the Pallas kernel
+//     does (:428).
+//   * QK^T and PV are mma.sync.m16n8k16 bf16 products with fp32
+//     accumulation; P is rounded to bf16 before PV.
+//   * q, k and v take a row stride and a batch stride, so they can be column
+//     slices of one packed to_qkv output (row stride 3*H*D) with no copy. The
+//     output is a contiguous (B, Sq, H*D) tensor.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 64;   // query rows per CTA
+constexpr int kBlockN = 64;   // keys per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copy a (64, D) tile of rows [row0, row0+64) of one head into shared memory
+// (row pitch D + kPad), zero-filling rows >= n_rows. 16-byte loads.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int64_t row_stride, int row0, int n_rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows) {
+      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+  }
+}
+
+// Same as load_tile, but stores the tile transposed: dst[d][row], pitch
+// kBlockN + kPad. Rows >= n_rows are zero, never garbage: a zero P times a
+// NaN would still poison the output.
+template <int D>
+__device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            int64_t row_stride, int row0, int n_rows) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows) {
+      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
+    }
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * (kBlockN + kPad) + r] = e[j];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o,
+                      int sq, int sk, int heads,
+                      int64_t q_row, int64_t k_row, int64_t v_row,
+                      int64_t q_batch, int64_t k_batch, int64_t v_batch,
+                      float scale_log2) {
+  // sK holds Q first (same shape), then each K tile.
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * (D + kPad)];
+  __shared__ __align__(16) __nv_bfloat16 sVt[D * (kBlockN + kPad)];
+
+  const int m0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // mma group: row within the 8-row slab
+  const int t = lane % 4;   // thread in group: column pair
+
+  const __nv_bfloat16* qh = q + b * q_batch + (int64_t)h * D;
+  const __nv_bfloat16* kh = k + b * k_batch + (int64_t)h * D;
+  const __nv_bfloat16* vh = v + b * v_batch + (int64_t)h * D;
+
+  // ---- Q fragments (A operand), pre-scaled by scale*log2(e) ----
+  load_tile<D>(sK, qh, q_row, m0, sq);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  {
+    const int r0 = warp * 16 + g;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c0 = kk * 16 + 2 * t;
+      const __nv_bfloat16* p0 = sK + r0 * (D + kPad);
+      const __nv_bfloat16* p1 = sK + (r0 + 8) * (D + kPad);
+      const __nv_bfloat16* src[4] = {p0 + c0, p1 + c0, p0 + c0 + 8, p1 + c0 + 8};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = __bfloat162float(src[i][0]) * scale_log2;
+        const float x1 = __bfloat162float(src[i][1]) * scale_log2;
+        qf[kk][i] = pack_bf16(x0, x1);
+      }
+    }
+  }
+  __syncthreads();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+  // rows g and g+8 of this warp's 16
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+
+  for (int n0 = 0; n0 < sk; n0 += kBlockN) {
+    load_tile<D>(sK, kh, k_row, n0, sk);
+    load_tile_t<D>(sVt, vh, v_row, n0, sk);
+    __syncthreads();
+
+    // ---- S = Q K^T for this warp's 16 rows x 64 keys (log2 domain) ----
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
+      const __nv_bfloat16* krow = sK + (nb * 8 + g) * (D + kPad);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t b0 = ld32(krow + kk * 16 + 2 * t);
+        const uint32_t b1 = ld32(krow + kk * 16 + 8 + 2 * t);
+        mma_bf16_16816(s[nb], qf[kk], b0, b1);
+      }
+    }
+
+    // ---- mask the ragged key edge, then the online-softmax update ----
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + nb * 8 + 2 * t + (i & 1);
+        if (col >= sk) s[nb][i] = -INFINITY;
+        tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nb][i]);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the 4 threads of a group hold the same row
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(row_max[r], tile_max[r]);
+      // a row with no valid key yet keeps max -inf: use 0 as the base so
+      // exp2(-inf - 0) = 0 and no inf - inf NaN appears
+      m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[r] = exp2f(row_max[r] - m_use[r]);
+      row_max[r] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(s[nb][i] - m_use[i >> 1]);
+        s[nb][i] = p;
+        tile_sum[i >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
+      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
+      row_sum[r] = row_sum[r] * alpha[r] + tile_sum[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+
+    // ---- O += P V: the S accumulator layout is the A-operand layout ----
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const __nv_bfloat16* vrow = sVt + (nd * 8 + g) * (kBlockN + kPad) + kk * 16;
+        const uint32_t b0 = ld32(vrow + 2 * t);
+        const uint32_t b1 = ld32(vrow + 8 + 2 * t);
+        mma_bf16_16816(acc[nd], pf, b0, b1);
+      }
+    }
+    __syncthreads();  // before the next tile overwrites sK / sVt
+  }
+
+  // ---- normalise and store rows < sq ----
+  const int64_t hd = (int64_t)heads * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + warp * 16 + g + 8 * r;
+    if (row >= sq) continue;
+    const float inv = row_sum[r] > 0.f ? 1.f / row_sum[r] : 0.f;
+    __nv_bfloat16* orow = o + ((int64_t)b * sq + row) * hd + (int64_t)h * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const uint32_t val = pack_bf16(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t) = val;
+    }
+  }
+}
+
+template <int D>
+void launch(const void* q, const void* k, const void* v, void* o, int batch, int sq,
+            int sk, int heads, int64_t q_row, int64_t k_row, int64_t v_row,
+            int64_t q_batch, int64_t k_batch, int64_t v_batch, float scale_log2,
+            cudaStream_t stream) {
+  dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
+  flash_attn_nhd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk,
+      heads, q_row, k_row, v_row, q_batch, k_batch, v_batch, scale_log2);
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Strides are in elements. Returns
+// cudaGetLastError() after the launch (0 on success); an unsupported
+// head_dim or an empty shape returns cudaErrorInvalidValue without launching.
+extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, void* o,
+                                   int batch, int sq, int sk, int heads, int head_dim,
+                                   long long q_row, long long k_row, long long v_row,
+                                   long long q_batch, long long k_batch,
+                                   long long v_batch, float scale_log2, void* stream) {
+  if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      launch<32>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+                 v_batch, scale_log2, s);
+      break;
+    case 64:
+      launch<64>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+                 v_batch, scale_log2, s);
+      break;
+    case 128:
+      launch<128>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+                  v_batch, scale_log2, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,122 @@
+"""Multi-head attention with a decoupled image-prompt (IP) branch
+(port of imagharmony_tpu/nn/attention.py).
+
+* Self-attention goes through K1 (kernels/flash_attention.py) on the packed
+  (B, S, H*D) layout: on a CUDA tensor the hand-written kernel, on a CPU
+  tensor its plain version. With packed projections (``pack_inference_params``)
+  q, k and v are column views of one (B, S, 3*H*D) ``to_qkv`` output and go
+  to the kernel without a copy.
+* The text cross-attention (77 keys) and the IP branch (4 keys) stay plain
+  fp32-softmax attention, as in the JAX package. The output is
+  text_attn + ip_scale * ip_attn.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from imagharmony_tpu_torch import dtypes
+from imagharmony_tpu_torch.kernels import flash_attention
+from imagharmony_tpu_torch.nn.layers import Linear
+
+
+def split_heads(x, heads):
+    b, s, d = x.shape
+    return x.reshape(b, s, heads, d // heads).transpose(1, 2)
+
+
+def merge_heads(x):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def sdpa(q, k, v, *, scale=None, mask=None):
+    """softmax(q k^T * scale + mask) v with fp32 logits and softmax.
+
+    q: (B, H, Sq, D); k, v: (B, H, Sk, D); mask additive, broadcastable to
+    (B, H, Sq, Sk). The probabilities are cast to v's dtype for PV."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    f32 = dtypes.SOFTMAX_DTYPE
+    logits = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.to(f32)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)
+
+
+class Attention(nn.Module):
+    """The attention layer of SDXL transformer blocks (diffusers Attention
+    parameter names: to_q/to_k/to_v without bias, to_out.0 with bias, plus
+    to_k_ip/to_v_ip when ``with_ip``). ``context_dim`` set means
+    cross-attention."""
+
+    def __init__(self, query_dim, *, heads, head_dim=None, context_dim=None,
+                 with_ip=False, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        inner = heads * (head_dim or query_dim // heads)
+        ctx = context_dim or query_dim
+        self.heads = heads
+        self.is_cross = context_dim is not None
+        self.to_q = Linear(query_dim, inner, bias=False, **kw)
+        self.to_k = Linear(ctx, inner, bias=False, **kw)
+        self.to_v = Linear(ctx, inner, bias=False, **kw)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim, **kw)])
+        if with_ip:
+            self.to_k_ip = Linear(ctx, inner, bias=False, **kw)
+            self.to_v_ip = Linear(ctx, inner, bias=False, **kw)
+
+    def forward(self, x, context=None, ip_context=None, ip_scale=1.0):
+        """context=None -> self-attention. ip_context: (B, S_ip, ctx_dim)
+        image-prompt tokens for the decoupled branch."""
+        if context is None and hasattr(self, "to_qkv"):
+            q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+        elif context is not None and hasattr(self, "to_kv"):
+            q = self.to_q(x)
+            k, v = self.to_kv(context).chunk(2, dim=-1)
+        else:
+            ctx = x if context is None else context
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+
+        if context is None and ip_context is None:
+            head_dim = q.shape[-1] // self.heads
+            out = flash_attention.flash_attention_nhd(
+                q, k, v, scale=head_dim**-0.5, head_dim=head_dim
+            )
+            return self.to_out[0](out)
+
+        qh = split_heads(q, self.heads)
+        out = sdpa(qh, split_heads(k, self.heads), split_heads(v, self.heads))
+        if ip_context is not None:
+            k_ip = split_heads(self.to_k_ip(ip_context), self.heads)
+            v_ip = split_heads(self.to_v_ip(ip_context), self.heads)
+            out = out + ip_scale * sdpa(qh, k_ip, v_ip)
+        return self.to_out[0](merge_heads(out))
+
+    @torch.no_grad()
+    def pack_(self):
+        """Merge to_q/to_k/to_v into one to_qkv (self-attention) or to_k/to_v
+        into to_kv (cross-attention), in place: one wide projection instead
+        of three narrow ones. The unpacked modules are removed, so the
+        state_dict keys change; pack an inference copy only."""
+        if not hasattr(self, "to_k"):  # already packed
+            return
+        names = ("to_k", "to_v") if self.is_cross else ("to_q", "to_k", "to_v")
+        mods = [getattr(self, n) for n in names]
+        w = torch.cat([m.weight for m in mods], dim=0)
+        packed = Linear(w.shape[1], w.shape[0], bias=False, device=w.device, dtype=w.dtype)
+        packed.weight.copy_(w)
+        for n in names:
+            delattr(self, n)
+        setattr(self, "to_kv" if self.is_cross else "to_qkv", packed)
+
+
+def pack_inference_params(module: nn.Module) -> nn.Module:
+    """Pack every Attention under ``module`` in place (see Attention.pack_)
+    and return it."""
+    for m in module.modules():
+        if isinstance(m, Attention):
+            m.pack_()
+    return module

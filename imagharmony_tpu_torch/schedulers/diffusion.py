@@ -1,0 +1,106 @@
+"""Euler discrete scheduler (port of the Euler path of
+imagharmony_tpu/schedulers/diffusion.py).
+
+A schedule is a bundle of precomputed per-step host constants (timesteps
+and sigmas as float32 numpy arrays); the step functions take one step's
+constants. Only the SDXL default is ported: scaled_linear betas, leading
+timestep spacing, epsilon prediction. The other samplers and options of
+the JAX module (euler_a, ddim, dpm++, lcm, trailing/linspace spacing,
+karras sigmas, zero-SNR, v/sample prediction) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseScheduleConfig:
+    """Defaults = SDXL scheduler_config.json (scaled_linear betas)."""
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    steps_offset: int = 1
+
+
+def alphas_cumprod(cfg: NoiseScheduleConfig) -> np.ndarray:
+    """scaled_linear betas -> cumulative alpha products, float32."""
+    betas = np.linspace(
+        cfg.beta_start**0.5, cfg.beta_end**0.5, cfg.num_train_timesteps, dtype=np.float64
+    ) ** 2
+    return np.cumprod(1.0 - betas).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """kind: "euler"; timesteps (num_steps,); sigmas (num_steps + 1,), last
+    entry 0; init_noise_sigma multiplies the initial N(0, 1) latents."""
+
+    kind: str
+    timesteps: np.ndarray
+    sigmas: np.ndarray
+    init_noise_sigma: float
+
+    @property
+    def num_steps(self) -> int:
+        return self.timesteps.shape[0]
+
+
+def _leading_timesteps(num_steps, cfg: NoiseScheduleConfig) -> np.ndarray:
+    ratio = cfg.num_train_timesteps // num_steps
+    ts = (np.arange(num_steps) * ratio).round()[::-1].astype(np.float32)
+    return ts + cfg.steps_offset
+
+
+def euler_schedule(num_steps, cfg: NoiseScheduleConfig = NoiseScheduleConfig()) -> Schedule:
+    acp = alphas_cumprod(cfg)
+    all_sigmas = ((1.0 - acp) / acp) ** 0.5
+    ts = _leading_timesteps(num_steps, cfg)
+    sigmas = np.interp(ts, np.arange(len(all_sigmas)), all_sigmas)
+    sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float32)
+    # diffusers EulerDiscreteScheduler.init_noise_sigma with leading spacing
+    init_sigma = float((sigmas.max() ** 2 + 1.0) ** 0.5)
+    return Schedule(kind="euler", timesteps=ts, sigmas=sigmas, init_noise_sigma=init_sigma)
+
+
+def make(kind: str, num_steps: int, cfg: NoiseScheduleConfig = NoiseScheduleConfig()) -> Schedule:
+    if kind != "euler":
+        raise ValueError(f"scheduler {kind!r} is not ported yet (euler only)")
+    return euler_schedule(num_steps, cfg)
+
+
+def scale_model_input_c(kind: str, sigma, sample: torch.Tensor) -> torch.Tensor:
+    """Pre-UNet input scaling from one step's sigma."""
+    if kind != "euler":
+        raise ValueError(kind)
+    denom = np.sqrt(np.float32(sigma) ** 2 + np.float32(1.0), dtype=np.float32)
+    return sample / torch.tensor(float(denom), dtype=sample.dtype)
+
+
+def step_c(kind: str, sigma, sigma_next, model_output, sample):
+    """Euler reverse step (epsilon prediction) in fp32, cast back to the
+    sample's dtype."""
+    if kind != "euler":
+        raise ValueError(kind)
+    sigma, sigma_next = float(np.float32(sigma)), float(np.float32(sigma_next))
+    s32 = sample.float()
+    eps = model_output.float()
+    denoised = s32 - sigma * eps
+    derivative = (s32 - denoised) / sigma
+    return (s32 + derivative * (sigma_next - sigma)).to(sample.dtype)
+
+
+def init_solver_state(kind: str, latents):
+    """Euler is single-step: its solver state is empty."""
+    if kind != "euler":
+        raise ValueError(kind)
+    return ()
+
+
+def step_s(kind: str, sigma, sigma_next, model_output, sample, state):
+    """State-carrying step, ``(new_sample, new_state)``; Euler carries none."""
+    return step_c(kind, sigma, sigma_next, model_output, sample), state
