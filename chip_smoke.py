@@ -8,31 +8,54 @@ Phases, each printed as it finishes; any failure raises and the exit code
 is non-zero:
 
 1. device and power limit (nvidia-smi); no CUDA -> fail;
-2. build K1 (the hand-written CUDA attention kernel) from the sources in
-   the checkout;
+2. build K1 (the hand-written CUDA attention kernel) and K3 (its backward)
+   from the sources in the checkout, one nvcc per source, in parallel;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
-   path's two shapes and two edge shapes, with timings;
+   path's two shapes and two edge shapes, with timings of K1, the plain
+   version and, as a yardstick, F.scaled_dot_product_attention;
+3b. K1's row log-sum-exp and K3 against their plain versions at the
+   training shapes (512² and 1024²) and two edge shapes, with timings of
+   K3 (in total and per kernel), the plain backward and, as a yardstick,
+   F.scaled_dot_product_attention's forward and backward;
 4. the tiny pipeline on the card (bf16, K1) against the same weights on the
    CPU (fp32, plain attention);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
-   random weights from a seed, with the K1 launch count checked.
+   random weights from a seed, with the K1 launch count checked;
+6. one tiny training step on the card (bf16, K1 and K3) against the same
+   weights and draws on the CPU (fp32, plain versions);
+7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
+   batch 1, bf16, gradient checkpointing) for 4 steps on synthetic data,
+   with the K3 launches per step checked against the count the UNet config
+   gives.
 
-The line before the last is a JSON object describing each kernel of the
-path; the last line is {"ok": true, "device": {...}}.
+Each timing is taken twice: as the device time of the kernels the call
+launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
+the median CUDA-event time of the call, which also holds the host's launch
+work (for SDPA's backward, the autograd call). The line before the last is
+a JSON object describing each kernel of the paths: its ``ms``, ``plain_ms``
+and ``library_ms`` (SDPA) are device times, all taken the same way, and
+``event_ms`` holds the three CUDA-event times. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from imagharmony_tpu_torch.utils import profiling
 
 # K1 against its plain version: bf16 kernel vs fp32 reference on the same
 # bf16 inputs. Tolerances: one bf16 rounding of P and of the output, well
@@ -49,6 +72,24 @@ SELF_ATTN_PER_UNET_CALL = 70  # SDXL at 1024²: 10 at S=4096 + 60 at S=1024
 MAIN_SHAPES = [(4096, 10, 64), (1024, 20, 64)]
 EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
 
+# K3 against the fp32 plain backward on the same bf16 inputs: bf16 rounding
+# of P, dS and the outputs
+K3_MAX_REL = 2e-2  # of the reference's max-abs, per gradient
+K3_MIN_COSINE = 0.9995
+# K1 rounds q*scale*log2(e) to bf16 (relative 2^-9): ~1e-2 log2 units at |s| ~ 5
+LSE_MAX_ABS = 2e-2
+# (B, S, H, D): 512² training (the first is K3's headline shape), then 1024²
+K3_SHAPES = [(1, 1024, 10, 64), (1, 256, 20, 64), (1, 4096, 10, 64), (1, 1024, 20, 64)]
+K3_EDGES = [(2, 1000, 2, 64), (2, 64, 4, 32)]
+# tiny training step, bf16 on the card vs fp32 on the CPU
+TRAIN_MAX_LOSS_REL = 2e-2
+TRAIN_MIN_GRAD_COSINE = 0.99
+TRAIN_STEPS = 4
+
+# one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
 
 def _cuda_ms(fn, reps=20, warmup=3):
     """Median CUDA-event time of ``fn`` in milliseconds."""
@@ -64,6 +105,31 @@ def _cuda_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _device_ms(fn, names=()):
+    """Device ms per call of ``fn`` (in total and per named kernel); fails
+    where no two profiler traces in a row agree on its kernels."""
+    ms = profiling.kernel_ms(fn, names)
+    if ms["total"] is None:
+        raise RuntimeError("the profiler's traces give no kernel time on the card")
+    return ms
+
+
+def _timings(fns, names=()):
+    """{key: (device ms, CUDA-event ms)} of each callable in ``fns``; the
+    device time of "kernel" also per kernel in ``names``."""
+    out = {}
+    for key, fn in fns.items():
+        dev = _device_ms(fn, names if key == "kernel" else ())
+        out[key] = (dev.pop("total"), _cuda_ms(fn))
+        if key == "kernel":
+            out["per_kernel"] = dev
+    return out
+
+
+def _fmt(t):
+    return f"{t[0]:.4f} ms (event {t[1]:.4f})"
 
 
 def _cosine(a, b):
@@ -87,8 +153,27 @@ def phase_device():
 
 def phase_build(fa):
     t0 = time.perf_counter()
-    fa._entry()
-    print(f"phase 2 build K1: {time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fa._entry), pool.submit(fa._bwd_entry)]:
+            f.result()
+    print(f"phase 2 build K1 and K3 (in parallel): {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _bound(flops, nbytes):
+    """(least ms, "operations" or "bytes") at the card's peak rates."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_bound(b, s, h, d):
+    # q, k, v read once and out written once, bf16; QK^T and PV
+    return _bound(4 * b * h * s * s * d, 2 * 4 * b * s * h * d)
+
+
+def k3_bound(b, s, h, d):
+    # q, k, v, out, dout and the fp32 lse read once, dq, dk, dv written
+    # once; S, dP, dV, dQ, dK
+    return _bound(10 * b * h * s * s * d, 2 * 8 * b * s * h * d + 4 * b * h * s)
 
 
 @torch.inference_mode()
@@ -110,17 +195,81 @@ def phase_k1(fa):
             raise AssertionError(f"K1 disagrees with its plain version at S={s} H={h} D={d}")
         max_err = max(max_err, err)
         if (s, h, d) in MAIN_SHAPES:
-            ms = _cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d))
-            plain_ms = _cuda_ms(
-                lambda: fa.flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=d))
-            main_ms[(s, h, d)] = (ms, plain_ms)
-            print(f"phase 3 time S={s} H={h} D={d}: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms",
+            # the yardstick: one PyTorch call for the same function on the
+            # same tensors viewed (B, H, S, D); the port never calls it
+            qh, kh, vh = (x.view(2, s, h, d).transpose(1, 2) for x in (q, k, v))
+            t = _timings({
+                "kernel": lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d),
+                "plain": lambda: fa.flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=d),
+                "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
+            })
+            main_ms[(s, h, d)] = t
+            print(f"phase 3 time S={s} H={h} D={d}, device (CUDA event): K1 "
+                  f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}",
                   flush=True)
     return max_err, main_ms
 
 
+def phase_k3(fa):
+    """K1's lse and K3 against their plain versions, and their timings."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err, times = 0.0, {}
+    for b, s, h, d in K3_SHAPES + K3_EDGES:
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        dout = torch.randn((b, s, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(scale=d**-0.5, head_dim=d)
+        out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+        grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v, dout)]
+        lse_err = float((lse - fa.lse_plain(f32[0], f32[1], **kw)).abs().max())
+        msg = [f"lse max_abs={lse_err:.3e}"]
+        ok = lse_err <= LSE_MAX_ABS
+        for name, g, r in zip(("dq", "dk", "dv"), grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
+            err, cos, ref_max = float((g.float() - r).abs().max()), _cosine(g.float(), r), \
+                float(r.abs().max())
+            msg.append(f"{name} max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f}")
+            ok = ok and err <= K3_MAX_REL * ref_max and cos >= K3_MIN_COSINE
+            max_err = max(max_err, err)
+        print(f"phase 3b K3 B={b} S={s} H={h} D={d}: " + ", ".join(msg), flush=True)
+        if not ok:
+            raise AssertionError(f"K1's lse or K3 disagrees with the plain version at "
+                                 f"B={b} S={s} H={h} D={d}")
+        if (b, s, h, d) not in K3_SHAPES:
+            continue
+        # K1 with and without its lse output, same inputs, alternated
+        k1 = [_cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw)),
+              _cuda_ms(lambda: fa.flash_attention_nhd_fwd(q, k, v, **kw)),
+              _cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw))]
+        # the yardstick: one PyTorch call for the same function on the same
+        # tensors viewed (B, H, S, D); the port never calls it
+        qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
+        sdpa_fwd = _cuda_ms(lambda: sdpa(qh, kh, vh))
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+            o = sdpa(*leaves)
+            doh = dout.view(b, s, h, d).transpose(1, 2)
+            t = _timings({
+                "kernel": lambda: fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw),
+                "plain": lambda: fa.flash_attention_nhd_bwd_plain(q, k, v, dout, **kw),
+                "library": lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True),
+            }, profiling.K3_KERNELS)
+        bound, by = k3_bound(b, s, h, d)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        kern = ", ".join(f"{n} {v:.4f}" if v else f"{n} not measured"
+                         for n, v in t["per_kernel"].items())
+        print(f"phase 3b time B={b} S={s} H={h} D={d}, device (CUDA event): K3 "
+              f"{_fmt(t['kernel'])} ({kern}), plain backward {_fmt(t['plain'])}, SDPA "
+              f"backward {_fmt(t['library'])}; CUDA event: K1 {k1[0]:.4f} / with lse "
+              f"{k1[1]:.4f} / {k1[2]:.4f} ms, SDPA forward {sdpa_fwd:.4f} ms; K3 bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+    return max_err, times
+
+
 def phase_tiny(fa, HarmonyPipeline):
-    cpu = HarmonyPipeline.random_tiny(seed=0)
+    cpu = HarmonyPipeline.random_tiny(seed=0, device="cpu")
     card = HarmonyPipeline(
         copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
     )
@@ -171,25 +320,169 @@ def phase_full(fa, HarmonyPipeline):
     return launches
 
 
+def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
+    state = step_lib.init_state(comps, tcfg)
+    d = step_lib.Draws(*(x.to(dev) for x in (draws.noise, draws.timesteps, draws.latent_eps)))
+    loss = step_lib.loss_fn(comps, tcfg, step_lib.to_device(batch, dev), d)
+    loss.backward()
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+                      .flatten() for p in state.trainable.values()])
+    return float(loss.detach()), flat
+
+
+def phase_train_tiny(fa, comp, step_lib):
+    cfgs = comp.tiny_configs()
+    cpu = comp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
+    card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    tcfg = step_lib.TrainConfig(unet_cfg=cfgs.unet)
+    batch = step_lib.dummy_batch(cfgs, 2, 32)
+    draws = step_lib.draw(torch.Generator().manual_seed(1), cfgs, tcfg, 2, 32)
+    loss_cpu, g_cpu = _loss_and_grads(cpu, tcfg, batch, draws, "cpu", step_lib)
+    fa.launches = fa.bwd_launches = 0
+    loss_card, g_card = _loss_and_grads(card, tcfg, batch, draws, "cuda", step_lib)
+    torch.cuda.synchronize()
+    cos = _cosine(g_card, g_cpu)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"phase 6 tiny train step card bf16 vs cpu fp32: loss {loss_card:.6f} vs "
+          f"{loss_cpu:.6f} (rel {rel:.3e}), gradient cosine={cos:.6f}, K1 launches "
+          f"{fa.launches}, K3 launches {fa.bwd_launches}", flush=True)
+    if not (rel <= TRAIN_MAX_LOSS_REL and cos >= TRAIN_MIN_GRAD_COSINE and fa.bwd_launches > 0):
+        raise AssertionError("the tiny train step on the card disagrees with the CPU")
+
+
+def expected_k3_per_step(ucfg):
+    """Self-attentions that need a gradient in one UNet backward: those
+    downstream of the first IP-active cross-attention (in forward order, a
+    transformer block runs attn1 then attn2)."""
+    layers = []
+    for i, btype in enumerate(ucfg.down_block_types):
+        if btype == "CrossAttnDownBlock2D":
+            layers += [(f"down_blocks.{i}.attentions.{j}", ucfg.transformer_layers_per_block[i])
+                       for j in range(ucfg.layers_per_block)]
+    last = len(ucfg.block_out_channels) - 1
+    layers.append(("mid_block.attentions.0", ucfg.transformer_layers_per_block[last]))
+    for i, btype in enumerate(ucfg.up_block_types):
+        if btype == "CrossAttnUpBlock2D":
+            layers += [(f"up_blocks.{i}.attentions.{j}",
+                        ucfg.transformer_layers_per_block[last - i])
+                       for j in range(ucfg.layers_per_block + 1)]
+    count, live = 0, False
+    for name, n_blocks in layers:
+        for _ in range(n_blocks):
+            count += live  # this block's attn1
+            live = live or ucfg.is_ip_active(name)  # its attn2
+    return count
+
+
+def phase_train_full(fa, comp, step_lib, trainer):
+    """trainer.main at full width; a wrapper around the step's update
+    records the launch counts and the gradients of each step."""
+    expected = expected_k3_per_step(comp.sdxl_configs().unet)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    steps = []
+    update = step_lib.apply_update
+
+    def watched(state, cfg):
+        def max_grad(pred):
+            gs = [p.grad.abs().max() for n, p in state.trainable.items()
+                  if pred(n) and p.grad is not None]
+            return float(torch.stack(gs).max()) if gs else 0.0
+
+        steps.append({
+            "k1": fa.launches, "k3": fa.bwd_launches,
+            "ip": max_grad(lambda n: "down_blocks.2.attentions.1." in n and "_ip." in n),
+            "harmony": max_grad(lambda n: n.startswith("harmony.")),
+        })
+        return update(state, cfg)
+
+    step_lib.apply_update = watched
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        final = trainer.main(["--full_random", "--synthetic_data", str(TRAIN_STEPS),
+                              "--max_steps", str(TRAIN_STEPS), "--log_every", "1",
+                              "--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+    finally:
+        step_lib.apply_update = update
+        shutil.rmtree(out_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1 = [s["k1"] - (steps[i - 1]["k1"] if i else 0) for i, s in enumerate(steps)]
+    k3 = [s["k3"] - (steps[i - 1]["k3"] if i else 0) for i, s in enumerate(steps)]
+    step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
+    for m, s, a, c in zip(metrics, steps, k1, k3):
+        print(f"phase 7 step {m['step']}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6e}, "
+              f"step {m['step_time_s']:.4f} s, max |grad| live IP {s['ip']:.3e}, harmony "
+              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}", flush=True)
+    print(f"phase 7 full-width training {final} steps: total {wall:.3f} s, step time median "
+          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3 "
+          f"launches per step {k1[-1]}/{k3[-1]} (K3 expected {expected})", flush=True)
+    if final != TRAIN_STEPS or len(metrics) != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"the trainer ran {final} steps, logged {len(metrics)}")
+    for m, s in zip(metrics, steps):
+        if not (m["loss"] == m["loss"] and abs(m["loss"]) < float("inf")
+                and m["grad_norm"] > 0 and s["ip"] > 0 and s["harmony"] > 0):
+            raise AssertionError(f"step {m['step']}: non-finite loss or a zero gradient")
+    if any(c != expected for c in k3) or min(k1) <= 0:
+        raise AssertionError(f"K3 launches per step {k3}, expected {expected}; K1 {k1}")
+    return sum(k1), sum(k3)
+
+
+def _line_times(t, bound):
+    """The times of a kernel's entry in the kernels line: device times, all
+    three taken the same way, and the CUDA-event times, which hold the
+    host's launch work, apart."""
+    return {
+        "ms": t["kernel"][0],
+        "plain_ms": t["plain"][0],
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": t["library"][0],
+        "event_ms": {k: t[k][1] for k in ("kernel", "plain", "library")},
+    }
+
+
 def main():
     from imagharmony_tpu_torch.kernels import flash_attention as fa
+    from imagharmony_tpu_torch.pipelines import components as comp
     from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
+    from imagharmony_tpu_torch.train import step as step_lib
+    from imagharmony_tpu_torch.train import trainer
 
     phase_device()
     phase_build(fa)
     max_err, main_ms = phase_k1(fa)
+    k3_err, k3_times = phase_k3(fa)
     phase_tiny(fa, HarmonyPipeline)
     launches = phase_full(fa, HarmonyPipeline)
-    ms, plain_ms = main_ms[MAIN_SHAPES[0]]
+    phase_train_tiny(fa, comp, step_lib)
+    k1_train, k3_train = phase_train_full(fa, comp, step_lib, trainer)
+    k3 = k3_times[K3_SHAPES[0]]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:415",
         "launches": launches,
+        "launches_by_path": {"generate": launches, "train": k1_train},
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "shape": [2, *MAIN_SHAPES[0]],
+        **_line_times(main_ms[MAIN_SHAPES[0]], k1_bound(2, *MAIN_SHAPES[0])),
+    }, {
+        "name": "flash_attention_nhd_bwd",
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd_bwd.cu",
+        "replaces": "imagharmony_tpu/kernels/flash_attention.py:220",
+        "launches": k3_train,
+        "launches_by_path": {"train": k3_train},
+        "max_abs_err": k3_err,
+        "shape": list(K3_SHAPES[0]),
+        **_line_times(k3, k3["bound"]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,6 +27,11 @@
 //   * q, k and v take a row stride and a batch stride, so they can be column
 //     slices of one packed to_qkv output (row stride 3*H*D) with no copy. The
 //     output is a contiguous (B, Sq, H*D) tensor.
+//   * optionally (lse != nullptr) the row log-sum-exp in the scaled-log2
+//     domain, lse = m + log2(l) with m the row max of s = q.k*scale*log2(e)
+//     and l = sum exp2(s - m), fp32 (B, H, Sq): what the backward (K3,
+//     flash_attn_nhd_bwd.cu) needs to recompute P = exp2(s - lse). A null
+//     pointer writes nothing, so inference pays nothing for it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -102,6 +107,7 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse,
                       int sq, int sk, int heads,
                       int64_t q_row, int64_t k_row, int64_t v_row,
                       int64_t q_batch, int64_t k_batch, int64_t v_batch,
@@ -240,12 +246,15 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // before the next tile overwrites sK / sVt
   }
 
-  // ---- normalise and store rows < sq ----
+  // ---- normalise and store rows < sq (and their lse, if asked) ----
   const int64_t hd = (int64_t)heads * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = m0 + warp * 16 + g + 8 * r;
     if (row >= sq) continue;
+    if (lse != nullptr && t == 0) {
+      lse[((int64_t)b * heads + h) * sq + row] = row_max[r] + log2f(row_sum[r]);
+    }
     const float inv = row_sum[r] > 0.f ? 1.f / row_sum[r] : 0.f;
     __nv_bfloat16* orow = o + ((int64_t)b * sq + row) * hd + (int64_t)h * D;
 #pragma unroll
@@ -257,23 +266,25 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, int batch, int sq,
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
             int sk, int heads, int64_t q_row, int64_t k_row, int64_t v_row,
             int64_t q_batch, int64_t k_batch, int64_t v_batch, float scale_log2,
             cudaStream_t stream) {
   dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
   flash_attn_nhd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk,
       heads, q_row, k_row, v_row, q_batch, k_batch, v_batch, scale_log2);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Strides are in elements. Returns
-// cudaGetLastError() after the launch (0 on success); an unsupported
-// head_dim or an empty shape returns cudaErrorInvalidValue without launching.
+// Plain C entry point (loaded with ctypes). Strides are in elements; lse is
+// null or a contiguous fp32 (B, H, Sq) buffer. Returns cudaGetLastError()
+// after the launch (0 on success); an unsupported head_dim or an empty shape
+// returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, void* o,
+                                   float* lse,
                                    int batch, int sq, int sk, int heads, int head_dim,
                                    long long q_row, long long k_row, long long v_row,
                                    long long q_batch, long long k_batch,
@@ -284,15 +295,15 @@ extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      launch<32>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+      launch<32>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
                  v_batch, scale_log2, s);
       break;
     case 64:
-      launch<64>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+      launch<64>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
                  v_batch, scale_log2, s);
       break;
     case 128:
-      launch<128>(q, k, v, o, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
+      launch<128>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
                   v_batch, scale_log2, s);
       break;
     default:

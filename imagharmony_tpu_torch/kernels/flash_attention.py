@@ -1,4 +1,5 @@
-"""K1: fused self-attention on the packed (B, S, H*D) layout.
+"""K1: fused self-attention on the packed (B, S, H*D) layout, and K3, its
+backward.
 
 ``flash_attention_nhd`` replaces the TPU kernel ``_attn_nhd_kernel``
 (imagharmony_tpu/kernels/flash_attention.py:415, entry
@@ -7,12 +8,19 @@ sm_90a kernel in ``csrc/flash_attn_nhd.cu``; on a CPU tensor it runs
 ``flash_attention_nhd_plain``. There is no fallback between the two: a CUDA
 tensor the kernel does not take raises.
 
+When a gradient is needed (grad mode on and an input requires grad) the
+call goes through ``FlashAttnNHD``, whose backward replaces the TPU kernel
+``_attn_bwd_kernel`` (:220, reached from ``_flash_nhd_bwd`` :540): on CUDA
+tensors K3 (``csrc/flash_attn_nhd_bwd.cu``), fed by the row log-sum-exp K1
+writes in that case; on CPU tensors ``flash_attention_nhd_bwd_plain``.
+
 What bounds K1 on an H100: at head_dim 64 it is compute-bound. S=4096 with
 10 heads and B=2 is 4*B*H*S*S*D = 86 GFLOP per call against ~42 MB of q, k,
 v and output, about 2000 flop/byte, far above the ~295 flop/byte at which
 the tensor cores become the limit. The kernel therefore keeps the (Sq, Sk)
 logits in registers (online softmax over 64-key tiles) and never writes
-them to device memory, which the plain version does in fp32.
+them to device memory, which the plain version does in fp32. K3 does
+10*B*H*S*S*D flops with the same property and the same design.
 
 The TPU kernel's dispatch rules (Sk >= 512, heads packed into 128 lanes, the
 no-max clamped exp2, sequences padded to 256) are TPU rules and are not
@@ -28,27 +36,56 @@ import torch
 
 from imagharmony_tpu_torch.kernels import build
 
-# Kernel launches since the last reset; only the CUDA launch adds to it.
-launches = 0
+# Kernel launches since the last reset; only the CUDA launches add to them.
+launches = 0       # K1
+bwd_launches = 0   # K3 (one per backward call: its three kernels together)
 
 HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64)
 _LOG2E = 1.4426950408889634
+
+
+def _split(x, head_dim):
+    b, s, hd = x.shape
+    return x.reshape(b, s, hd // head_dim, head_dim).transpose(1, 2).float()
+
+
+def _merge(x):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
 
 
 def flash_attention_nhd_plain(q, k, v, *, scale, head_dim):
     """Reference: fp32 logits, fp32 softmax, fp32 PV, cast back to q's dtype.
 
     q: (B, Sq, H*D); k, v: (B, Sk, H*D) -> (B, Sq, H*D)."""
-    b, sq, hd = q.shape
-    heads = hd // head_dim
-
-    def split(x):
-        return x.reshape(b, x.shape[1], heads, head_dim).transpose(1, 2).float()
-
-    logits = torch.matmul(split(q), split(k).transpose(-1, -2)) * scale
+    logits = torch.matmul(_split(q, head_dim), _split(k, head_dim).transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs, split(v))
-    return out.transpose(1, 2).reshape(b, sq, hd).to(q.dtype)
+    return _merge(torch.matmul(probs, _split(v, head_dim))).to(q.dtype)
+
+
+def lse_plain(q, k, *, scale, head_dim):
+    """The row log-sum-exp K1 writes, in its scaled-log2 domain:
+    log2(sum_j 2^(s_j)) with s = q.k * scale * log2(e), i.e. the natural
+    logsumexp of the logits times log2(e). fp32 (B, H, Sq)."""
+    logits = torch.matmul(_split(q, head_dim), _split(k, head_dim).transpose(-1, -2)) * scale
+    return torch.logsumexp(logits, dim=-1) * _LOG2E
+
+
+def flash_attention_nhd_bwd_plain(q, k, v, dout, *, scale, head_dim):
+    """Reference backward in explicit fp32 formulas (the counterpart of the
+    JAX package's ``_bwd_xla``): P = softmax(q k^T scale), dV = P^T dO,
+    dP = dO V^T, dS = P o (dP - rowsum(dP o P)), dQ = scale dS K,
+    dK = scale dS^T Q. Returns (dq, dk, dv) in the inputs' dtypes, packed
+    (B, S, H*D)."""
+    qh, kh, vh, gh = (_split(x, head_dim) for x in (q, k, v, dout))
+    probs = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(probs.transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return _merge(dq).to(q.dtype), _merge(dk).to(k.dtype), _merge(dv).to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,8 +96,19 @@ def _entry():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                    i64, i64, i64, i64, i64, i64, ctypes.c_float, ptr]
+    fn.restype = i32
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    import ctypes
+
+    fn = build.load("flash_attn_nhd_bwd").flash_attn_nhd_bwd_bf16
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 10 + [f32, f32, ptr]
     fn.restype = i32
     return fn
 
@@ -77,19 +125,9 @@ def _check_operand(name, x, batch, hd):
         )
 
 
-def flash_attention_nhd(q, k, v, *, scale, head_dim):
-    """softmax(q k^T * scale) v per head on packed (B, S, H*D) tensors.
-
-    q: (B, Sq, H*D); k, v: (B, Sk, H*D), each with unit stride on the last
-    axis and any row stride (column slices of one packed to_qkv output are
-    taken as they are). Returns a contiguous (B, Sq, H*D) tensor.
-
-    CPU tensors go to ``flash_attention_nhd_plain``. CUDA tensors must be
-    bf16 with head_dim in HEAD_DIMS; anything else raises.
-    """
-    global launches
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=head_dim)
+def _check_cuda(q, k, v, head_dim, head_dims):
+    """The checks K1 and K3 share: one CUDA device, bf16, a supported head
+    dim, packed shapes with 16-byte aligned rows, a nonempty k."""
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(
             f"flash_attention_nhd: q, k, v must all be on one CUDA device or all "
@@ -100,26 +138,39 @@ def flash_attention_nhd(q, k, v, *, scale, head_dim):
             f"flash_attention_nhd: the CUDA kernel takes bf16, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_nhd: head_dim {head_dim} not in {HEAD_DIMS}")
-    b, sq, hd = q.shape
+    if head_dim not in head_dims:
+        raise ValueError(f"flash_attention_nhd: head_dim {head_dim} not in {head_dims}")
+    b, _, hd = q.shape
     if hd % head_dim:
         raise ValueError(f"flash_attention_nhd: width {hd} is not a multiple of {head_dim}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, b, hd)
-    sk = k.shape[1]
-    if v.shape[1] != sk:
-        raise ValueError(f"k and v lengths differ: {sk} vs {v.shape[1]}")
-    out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
-    if b == 0 or sq == 0:
-        return out
-    if sk == 0:
+    if v.shape[1] != k.shape[1]:
+        raise ValueError(f"k and v lengths differ: {k.shape[1]} vs {v.shape[1]}")
+    if k.shape[1] == 0:
         raise ValueError("flash_attention_nhd: k is empty")
+
+
+def _on_cpu(*xs):
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def _launch_fwd(q, k, v, *, scale, head_dim, with_lse):
+    """K1 on CUDA tensors -> (out, lse or None)."""
+    global launches
+    _check_cuda(q, k, v, head_dim, HEAD_DIMS)
+    b, sq, hd = q.shape
+    out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((b, hd // head_dim, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if b == 0 or sq == 0:
+        return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, hd // head_dim, head_dim,
+            lse.data_ptr() if with_lse else None,
+            b, sq, k.shape[1], hd // head_dim, head_dim,
             q.stride(1), k.stride(1), v.stride(1),
             q.stride(0), k.stride(0), v.stride(0),
             float(scale) * _LOG2E, stream,
@@ -127,4 +178,104 @@ def flash_attention_nhd(q, k, v, *, scale, head_dim):
     if rc != 0:
         raise RuntimeError(f"flash_attention_nhd: kernel launch failed with CUDA error {rc}")
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_nhd_fwd(q, k, v, *, scale, head_dim):
+    """The forward with the row log-sum-exp the backward needs: (out, lse),
+    lse fp32 (B, H, Sq) in the scaled-log2 domain (see ``lse_plain``). CPU
+    tensors take the plain versions; CUDA tensors launch K1."""
+    if _on_cpu(q, k, v):
+        return (flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=head_dim),
+                lse_plain(q, k, scale=scale, head_dim=head_dim))
+    return _launch_fwd(q, k, v, scale=scale, head_dim=head_dim, with_lse=True)
+
+
+def flash_attention_nhd_bwd(q, k, v, out, lse, dout, *, scale, head_dim):
+    """K3 on CUDA tensors: (dq, dk, dv), each contiguous bf16 (B, S, H*D).
+
+    q, k, v as for K1 (row-strided views allowed); out and lse from
+    ``flash_attention_nhd_fwd`` on the same inputs; dout the gradient of
+    out. Raises on anything the kernel does not take (including head dims
+    outside BWD_HEAD_DIMS)."""
+    global bwd_launches
+    _check_cuda(q, k, v, head_dim, BWD_HEAD_DIMS)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    heads = hd // head_dim
+    for name, x in (("out", out), ("dout", dout)):
+        if x.device != q.device or x.dtype != torch.bfloat16 or x.shape != q.shape:
+            raise ValueError(f"{name} must be bf16 {tuple(q.shape)} on {q.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        _check_operand(name, x, b, hd)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, heads, sq) or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous fp32 {(b, heads, sq)} on {q.device}")
+    dq = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((b, sk, hd), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty((b, sk, hd), dtype=torch.bfloat16, device=q.device)
+    if b == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, heads, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, heads, head_dim,
+            q.stride(1), k.stride(1), v.stride(1), out.stride(1), dout.stride(1),
+            q.stride(0), k.stride(0), v.stride(0), out.stride(0), dout.stride(0),
+            float(scale), float(scale) * _LOG2E, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_nhd_bwd: kernel launch failed with CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttnNHD(torch.autograd.Function):
+    """K1 with a gradient. Forward saves q, k, v, out and lse; backward runs
+    K3 on CUDA tensors and ``flash_attention_nhd_bwd_plain`` on CPU tensors,
+    and returns the gradients of the inputs that need them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, head_dim):
+        out, lse = flash_attention_nhd_fwd(q, k, v, scale=scale, head_dim=head_dim)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.head_dim = scale, head_dim
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        kw = dict(scale=ctx.scale, head_dim=ctx.head_dim)
+        if _on_cpu(q, k, v):
+            grads = flash_attention_nhd_bwd_plain(q, k, v, dout, **kw)
+        else:
+            # autograd may hand an expanded (zero-stride) gradient
+            grads = flash_attention_nhd_bwd(q, k, v, out, lse, dout.contiguous(), **kw)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:3])) + (None, None)
+
+
+def flash_attention_nhd(q, k, v, *, scale, head_dim):
+    """softmax(q k^T * scale) v per head on packed (B, S, H*D) tensors.
+
+    q: (B, Sq, H*D); k, v: (B, Sk, H*D), each with unit stride on the last
+    axis and any row stride (column slices of one packed to_qkv output are
+    taken as they are). Returns a contiguous (B, Sq, H*D) tensor.
+
+    CPU tensors go to ``flash_attention_nhd_plain``. CUDA tensors must be
+    bf16 with head_dim in HEAD_DIMS (BWD_HEAD_DIMS when a gradient is
+    needed); anything else raises. With grad mode on and an input that
+    requires grad, the call goes through ``FlashAttnNHD`` so the result has
+    a ``grad_fn``.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if not _on_cpu(q, k, v):
+            _check_cuda(q, k, v, head_dim, BWD_HEAD_DIMS)
+        return FlashAttnNHD.apply(q, k, v, scale, head_dim)
+    if _on_cpu(q, k, v):
+        return flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=head_dim)
+    return _launch_fwd(q, k, v, scale=scale, head_dim=head_dim, with_lse=False)[0]
+

@@ -1,12 +1,19 @@
-"""SDXL AutoencoderKL decoder (port of the decode path of
-imagharmony_tpu/models/vae.py).
+"""SDXL AutoencoderKL (port of imagharmony_tpu/models/vae.py): the encoder
+training runs and the decoder the edit pipeline runs.
 
-NCHW; diffusers parameter names (``decoder.*``, ``post_quant_conv``). The
-mid-block attention is single-head over the H*W tokens and stays a plain
-product with fp32 logits and softmax, as in the JAX package: at 1024² it is
-S=16384 with one 512-wide head, whose fp32 logits take 1 GiB.
+NCHW; diffusers parameter names (``encoder.*``, ``quant_conv``,
+``decoder.*``, ``post_quant_conv``). The mid-block attention is single-head
+over the H*W tokens and stays a plain product with fp32 logits and softmax,
+as in the JAX package: at 1024² it is S=16384 with one 512-wide head, whose
+fp32 logits take 1 GiB.
 
-Not ported yet: the encoder (img2img) and the tiled decode.
+The encode always computes in fp32, as the JAX training step asks of it
+(``policy=FP32`` on whatever the weights' dtype): ``encode_moments`` runs
+the encoder and ``quant_conv`` through ``torch.func.functional_call`` with
+fp32 copies of their weights, so bf16 weights are cast once per call and
+no layer changes. The decode computes in the weights' dtype.
+
+Not ported yet: the tiled decode.
 """
 
 from __future__ import annotations
@@ -86,6 +93,60 @@ class _MidBlock(nn.Module):
         return self.resnets[1](h)
 
 
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, *, n_resnets, groups, downsample, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_ch if j == 0 else out_ch, out_ch, None, groups=groups, eps=1e-6, **kw)
+            for j in range(n_resnets)
+        ])
+        # stride-2 conv without padding after diffusers' asymmetric (0, 1) pad
+        self.downsamplers = (
+            nn.ModuleList([_Downsample(out_ch, **kw)]) if downsample else None
+        )
+
+    def forward(self, h):
+        for res in self.resnets:
+            h = res(h)
+        if self.downsamplers is not None:
+            h = self.downsamplers[0](h)
+        return h
+
+
+class _Downsample(nn.Module):
+    def __init__(self, ch, *, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, stride=2, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        ch, g = cfg.block_out_channels, cfg.norm_num_groups
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1, **kw)
+        self.down_blocks = nn.ModuleList([
+            _DownBlock(ch[max(i - 1, 0)], ch[i], n_resnets=cfg.layers_per_block, groups=g,
+                       downsample=i < len(ch) - 1, **kw)
+            for i in range(len(ch))
+        ])
+        self.mid_block = _MidBlock(ch[-1], groups=g, **kw)
+        self.conv_norm_out = GroupNorm(g, ch[-1], eps=1e-6, **kw)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1, **kw)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
 class _UpBlock(nn.Module):
     def __init__(self, in_ch, out_ch, *, n_resnets, groups, upsample, device=None, dtype=None):
         super().__init__()
@@ -127,15 +188,45 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
-class AutoencoderKL(nn.Module):
-    """Decode half of the VAE: ``post_quant_conv`` + ``decoder``."""
+class _EncodePath(nn.Module):
+    """encoder + quant_conv, the function ``encode_moments`` calls in fp32."""
 
+    def __init__(self, encoder, quant_conv):
+        super().__init__()
+        self.encoder, self.quant_conv = encoder, quant_conv
+
+    def forward(self, images):
+        return self.quant_conv(self.encoder(images))
+
+
+class AutoencoderKL(nn.Module):
     def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1,
-                                      device=device, dtype=dtype)
-        self.decoder = Decoder(cfg, device=device, dtype=dtype)
+        self.encoder = Encoder(cfg, **kw)
+        self.quant_conv = Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, **kw)
+        self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1, **kw)
+        self.decoder = Decoder(cfg, **kw)
+
+    def encode_moments(self, images):
+        """Images (B, 3, H, W) in [-1, 1] -> (mean, logvar), each fp32
+        (B, 4, h, w), logvar clipped to [-30, 20]; computed in fp32 whatever
+        the weights' dtype."""
+        path = _EncodePath(self.encoder, self.quant_conv)
+        params = {k: v.float() for k, v in path.named_parameters()}
+        moments = torch.func.functional_call(path, params, (images.float(),))
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, images, eps=None):
+        """Images -> scaled latents, fp32: the posterior mean, or with
+        ``eps`` (a N(0, 1) draw of the mean's shape) the posterior sample
+        mean + exp(logvar / 2) * eps, times the scaling factor."""
+        mean, logvar = self.encode_moments(images)
+        if eps is not None:
+            mean = mean + torch.exp(0.5 * logvar) * eps.float()
+        return mean * self.cfg.scaling_factor
 
     def decode(self, latents):
         """Scaled latents (B, 4, h, w) -> images (B, 3, H, W) in [-1, 1]."""

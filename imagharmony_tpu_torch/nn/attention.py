@@ -5,7 +5,9 @@
   (B, S, H*D) layout: on a CUDA tensor the hand-written kernel, on a CPU
   tensor its plain version. With packed projections (``pack_inference_params``)
   q, k and v are column views of one (B, S, 3*H*D) ``to_qkv`` output and go
-  to the kernel without a copy.
+  to the kernel without a copy. When the input needs a gradient (training,
+  downstream of a trainable layer) the call goes through K1's autograd
+  Function, whose backward is K3.
 * The text cross-attention (77 keys) and the IP branch (4 keys) stay plain
   fp32-softmax attention, as in the JAX package. The output is
   text_attn + ip_scale * ip_attn.

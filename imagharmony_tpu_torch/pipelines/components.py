@@ -33,15 +33,16 @@ class ComponentConfigs:
     num_ip_tokens: int = 4
 
 
-def sdxl_configs() -> ComponentConfigs:
-    """Full-size SDXL-base + ViT-bigG image encoder + shipped HA dims."""
+def sdxl_configs(harmony_cfg: harmony.HarmonyConfig | None = None) -> ComponentConfigs:
+    """Full-size SDXL-base + ViT-bigG image encoder + the shipped HA dims
+    (or ``harmony_cfg``)."""
     return ComponentConfigs(
         unet=unet.UNetConfig(),
         vae=vae.VAEConfig(),
         text_l=clip_text.clip_l_config(),
         text_g=clip_text.clip_bigg_config(),
         vision=clip_vision.CLIPVisionConfig(),
-        harmony=harmony.HarmonyConfig(),
+        harmony=harmony_cfg or harmony.HarmonyConfig(),
     )
 
 
@@ -79,17 +80,10 @@ class Components(nn.Module):
         )
 
 
-# state_dict keys of the JAX bundle the port has no module for yet (the VAE
-# encoder serves img2img, which is not ported)
-UNPORTED_PREFIXES = ("vae.encoder.", "vae.quant_conv.")
-
-
 def load_state_dict_(comps: Components, state_dict) -> Components:
     """Load a bundle state_dict (e.g. io/from_jax.state_dict) into ``comps``,
-    casting to its dtype and device. Every parameter of ``comps`` must be
-    present; extra keys are allowed only for the unported VAE encoder."""
+    casting to its dtype and device. The keys must match exactly."""
     missing, unexpected = comps.load_state_dict(state_dict, strict=False)
-    unexpected = [k for k in unexpected if not k.startswith(UNPORTED_PREFIXES)]
     if missing or unexpected:
         raise KeyError(
             f"state_dict mismatch: {len(missing)} missing (first: {missing[:5]}), "
@@ -124,10 +118,22 @@ def init_weights_(root: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def init_params(generator: torch.Generator, cfgs: ComponentConfigs, *,
-                dtype=torch.float32, device="cpu") -> Components:
+                dtype=torch.float32, device="cuda") -> Components:
     """Random-weight bundle built directly on ``device`` (no host copy of
     the full-size weights); ``generator`` must live on the same device."""
     with torch.device("meta"):
         comps = Components(cfgs, dtype=dtype)
     comps = comps.to_empty(device=device)
     return init_weights_(comps, generator)
+
+
+@torch.no_grad()
+def seed_ip_from_unet(unet_module: nn.Module) -> nn.Module:
+    """Copy each cross-attention's to_k/to_v weights into its to_k_ip/to_v_ip
+    (the JAX trainer's ``_seed_ip_from_unet``, reference train.py:554-561): a
+    warm start for a fresh IP branch. In place; returns the module."""
+    for m in unet_module.modules():
+        if hasattr(m, "to_k_ip") and hasattr(m, "to_k"):
+            m.to_k_ip.weight.copy_(m.to_k.weight)
+            m.to_v_ip.weight.copy_(m.to_v.weight)
+    return unet_module

@@ -175,7 +175,7 @@ class HarmonyPipeline:
         return cls(comps.eval().requires_grad_(False), tok_lib.SDXLTokenizers(toy, toy))
 
     @classmethod
-    def random_tiny(cls, seed=0, *, device="cpu", dtype=torch.float32):
+    def random_tiny(cls, seed=0, *, device="cuda", dtype=torch.float32):
         """Random-weight miniature pipeline (tests)."""
         cfgs = comp.tiny_configs(vocab_size=len(tok_lib.build_toy_tokenizer().encoder))
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -189,7 +189,7 @@ class HarmonyPipeline:
         return cls._build(comp.init_params(gen, comp.sdxl_configs(), dtype=dtype, device=device))
 
     @classmethod
-    def from_state_dict(cls, state_dict, cfgs: comp.ComponentConfigs, *, device="cpu",
+    def from_state_dict(cls, state_dict, cfgs: comp.ComponentConfigs, *, device="cuda",
                         dtype=torch.float32):
         """Pipeline over given weights (e.g. io/from_jax.state_dict of a
         JAX bundle), with the toy tokenizer."""

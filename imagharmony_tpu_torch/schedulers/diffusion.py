@@ -1,12 +1,15 @@
-"""Euler discrete scheduler (port of the Euler path of
+"""Euler discrete scheduler and the DDPM training forward process (port of
+the Euler path and the training half of
 imagharmony_tpu/schedulers/diffusion.py).
 
 A schedule is a bundle of precomputed per-step host constants (timesteps
 and sigmas as float32 numpy arrays); the step functions take one step's
-constants. Only the SDXL default is ported: scaled_linear betas, leading
-timestep spacing, epsilon prediction. The other samplers and options of
-the JAX module (euler_a, ddim, dpm++, lcm, trailing/linspace spacing,
-karras sigmas, zero-SNR, v/sample prediction) are not ported yet.
+constants. For inference only the SDXL default is ported: scaled_linear
+betas, leading timestep spacing, epsilon prediction. Training adds the
+zero-terminal-SNR rescale of ``alphas_cumprod``, ``add_noise`` and
+``velocity_target``. The other samplers and options of the JAX module
+(euler_a, ddim, dpm++, lcm, trailing/linspace spacing, karras sigmas) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -25,14 +28,48 @@ class NoiseScheduleConfig:
     beta_start: float = 0.00085
     beta_end: float = 0.012
     steps_offset: int = 1
+    # read by training only: the loss target, and the zero terminal SNR
+    # rescale of alphas_cumprod (arXiv 2305.08891 §3.1)
+    prediction_type: str = "epsilon"
+    rescale_betas_zero_snr: bool = False
 
 
 def alphas_cumprod(cfg: NoiseScheduleConfig) -> np.ndarray:
-    """scaled_linear betas -> cumulative alpha products, float32."""
+    """scaled_linear betas -> cumulative alpha products, float32. With
+    ``rescale_betas_zero_snr``, sqrt(acp) is shifted and rescaled so its
+    first entry is kept and its last is exactly 0 (diffusers
+    rescale_zero_terminal_snr)."""
     betas = np.linspace(
         cfg.beta_start**0.5, cfg.beta_end**0.5, cfg.num_train_timesteps, dtype=np.float64
     ) ** 2
-    return np.cumprod(1.0 - betas).astype(np.float32)
+    acp = np.cumprod(1.0 - betas)
+    if cfg.rescale_betas_zero_snr:
+        sa = np.sqrt(acp)
+        sa0, sa_t = sa[0], sa[-1]
+        acp = ((sa - sa_t) * (sa0 / (sa0 - sa_t))) ** 2
+    return acp.astype(np.float32)
+
+
+def _sqrt_alphas(acp, latents, timesteps):
+    """sqrt(acp_t) and sqrt(1 - acp_t) per sample, fp32 then cast to the
+    latents' dtype, shaped to broadcast over the non-batch axes."""
+    a = torch.as_tensor(acp, dtype=torch.float32, device=latents.device)[timesteps]
+    shape = (-1,) + (1,) * (latents.dim() - 1)
+    return (a.sqrt().reshape(shape).to(latents.dtype),
+            (1.0 - a).sqrt().reshape(shape).to(latents.dtype))
+
+
+def add_noise(acp, latents, noise, timesteps):
+    """q(x_t | x_0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps (training
+    forward); timesteps (B,) integer indices into ``acp``."""
+    sa, sb = _sqrt_alphas(acp, latents, timesteps)
+    return sa * latents + sb * noise
+
+
+def velocity_target(acp, latents, noise, timesteps):
+    """v-prediction target sqrt(acp_t) eps - sqrt(1 - acp_t) x0."""
+    sa, sb = _sqrt_alphas(acp, latents, timesteps)
+    return sa * noise - sb * latents
 
 
 @dataclasses.dataclass(frozen=True)

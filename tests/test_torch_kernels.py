@@ -1,10 +1,11 @@
-"""K1 (imagharmony_tpu_torch/kernels/flash_attention.py).
+"""K1 and its backward K3 (imagharmony_tpu_torch/kernels/flash_attention.py).
 
-On the CPU: the plain version against the JAX package's Pallas
-``flash_attention_nhd`` run in interpret mode (Sk >= 512, where the JAX
-kernel accepts the shape), and the wrapper's routing. On a card (tests
-marked ``cuda``, taking the ``cuda`` fixture): the CUDA kernel against the
-plain version; they skip without one. The machine with the card has no
+On the CPU: the plain versions against the JAX package's Pallas
+``flash_attention_nhd`` (and its custom_vjp backward) run in interpret mode
+(Sk >= 512, where the JAX kernel accepts the shape), the autograd Function's
+plumbing, and the wrapper's routing. On a card (tests marked ``cuda``,
+taking the ``cuda`` fixture): the CUDA kernels against the plain versions;
+they skip without one. The machine with the card has no
 JAX, so this module imports JAX only inside the tests that compare with it;
 run the card's tests there with
 
@@ -44,6 +45,59 @@ def test_plain_matches_pallas_interpret(jfa, s, heads, d):
     close(out, ref)
 
 
+def test_bwd_plain_matches_pallas_interpret_vjp(jfa):
+    """K3's plain version against ``jax.vjp`` of the JAX
+    ``flash_attention_nhd`` in Pallas interpret mode (its backward runs
+    ``_attn_bwd_kernel``), and against torch.autograd of the plain forward,
+    fp32, at the shape of tests/test_flash_attention.py's
+    test_nhd_gradient_parity. Tolerance 1e-4 absolute and relative: fp32
+    sums in another order, and the Pallas kernel's no-max exp clamped at
+    80 is exact at these logits."""
+    import jax
+    import jax.numpy as jnp
+
+    heads, d, s, sk = 2, 64, 256, 512
+    q, k, v = randn(10, 1, s, heads * d), randn(11, 1, sk, heads * d), randn(12, 1, sk, heads * d)
+    g = randn(13, 1, s, heads * d)
+    kw = dict(scale=d**-0.5, head_dim=d)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_nhd(q, k, v, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(g))
+    out = fa.flash_attention_nhd_bwd_plain(t(q), t(k), t(v), t(g), **kw)
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    fa.flash_attention_nhd_plain(tq, tk, tv, **kw).backward(t(g))
+    for o, r, a in zip(out, ref, (tq.grad, tk.grad, tv.grad)):
+        close(o, r, rtol=1e-4, atol=1e-4)
+        close(o, a, rtol=1e-4, atol=1e-4)
+
+
+def test_function_on_cpu_matches_autograd_of_plain():
+    """The autograd Function on CPU tensors: its gradients equal autograd
+    through the plain forward, its lse equals torch.logsumexp of the logits
+    (times log2(e)), and q/k/v given as column views of one packed tensor
+    get the gradients of contiguous copies. fp32, tolerance 1e-5."""
+    heads, d = 2, 32
+    kw = dict(scale=d**-0.5, head_dim=d)
+    qkv = t(randn(14, 2, 70, 3 * heads * d)).requires_grad_()
+    q, k, v = qkv.chunk(3, dim=-1)
+    g = t(randn(15, 2, 70, heads * d))
+    out = fa.flash_attention_nhd(q, k, v, **kw)
+    assert out.grad_fn is not None and "FlashAttnNHD" in type(out.grad_fn).__name__
+    out.backward(g)
+    ref_in = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention_nhd_plain(*ref_in, **kw).backward(g)
+    close(qkv.grad, torch.cat([x.grad for x in ref_in], dim=-1), rtol=1e-5, atol=1e-5)
+
+    _, lse = fa.flash_attention_nhd_fwd(q.detach(), k.detach(), v.detach(), **kw)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.detach().reshape(2, 70, heads, d),
+                          k.detach().reshape(2, 70, heads, d)) * kw["scale"]
+    close(lse, torch.logsumexp(logits, dim=-1) * 1.4426950408889634, rtol=1e-5, atol=1e-5)
+    assert lse.shape == (2, heads, 70)
+
+    with torch.no_grad():  # no gradient needed: no Function, no grad_fn
+        assert fa.flash_attention_nhd(q, k, v, **kw).grad_fn is None
+
+
 def test_wrapper_routes_cpu_to_plain_and_takes_strided_slices():
     """A CPU tensor takes the plain version (no launch counted); q/k/v as
     column views of one packed (B, S, 3*H*D) tensor give the result of
@@ -69,9 +123,11 @@ def test_wrapper_raises_off_cpu_and_cuda():
 def test_library_path_is_keyed_by_source():
     """The built library's name carries a hash of the source and the flags,
     so an edited source rebuilds instead of loading a stale library."""
-    path = build.library_path("flash_attn_nhd")
-    assert path.parent == build.BUILD_DIR and path.name.startswith("libflash_attn_nhd-")
-    assert path == build.library_path("flash_attn_nhd")
+    for name in ("flash_attn_nhd", "flash_attn_nhd_bwd"):
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+        assert path == build.library_path(name)
+    assert build.library_path("flash_attn_nhd") != build.library_path("flash_attn_nhd_bwd")
 
 
 @pytest.mark.cuda
@@ -94,6 +150,69 @@ def test_cuda_kernel_matches_plain(cuda, s, heads, d):
     assert float(cos) >= 0.9999
 
 
+def _bf16_case(cuda, b, s, heads, d, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * heads * d), generator=gen, device=cuda).to(torch.bfloat16)
+    dout = torch.randn((b, s, heads * d), generator=gen, device=cuda).to(torch.bfloat16)
+    return (*qkv.chunk(3, dim=-1), dout)
+
+
+def _agree(out, ref, *, max_rel=2e-2, min_cos=0.9995):
+    ref = ref.float()
+    err = float((out.float() - ref).abs().max())
+    cos = torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0)
+    assert err <= max_rel * float(ref.abs().max()) and float(cos) >= min_cos, (err, float(cos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d", [(1, 1024, 10, 64), (2, 1000, 2, 64), (2, 64, 4, 32),
+                                         (1, 5, 3, 32)])
+def test_cuda_bwd_kernel_matches_plain(cuda, b, s, heads, d):
+    """K3 (fed by K1's lse) against the fp32 plain backward on the same bf16
+    inputs, q/k/v as strided slices: each of dq, dk, dv within 2e-2 of the
+    reference's max-abs and at cosine >= 0.9995 (bf16 rounding of P, dS and
+    the outputs). K1's lse against the plain one at 2e-2 log2 units: K1
+    rounds q*scale*log2(e) to bf16 (relative 2^-9), so a logit s of size
+    ~5 carries ~1e-2 of error, in the forward as in this lse."""
+    q, k, v, dout = _bf16_case(cuda, b, s, heads, d)
+    kw = dict(scale=d**-0.5, head_dim=d)
+    out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+    before = fa.bwd_launches
+    grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    f32 = [x.float() for x in (q, k, v, dout)]
+    ref_lse = fa.lse_plain(f32[0], f32[1], **kw)
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    for g, r in zip(grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
+        _agree(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_goes_through_k3(cuda, monkeypatch):
+    """A CUDA input that requires grad gets K1's output with a grad_fn; its
+    backward launches K3 once, never the plain backward, and agrees with
+    the plain backward."""
+    q, k, v, dout = _bf16_case(cuda, 1, 256, 4, 64, seed=1)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    k1, k3 = fa.launches, fa.bwd_launches
+    out = fa.flash_attention_nhd(*leaves, scale=0.125, head_dim=64)
+    assert out.grad_fn is not None
+    plain = fa.flash_attention_nhd_bwd_plain
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain backward ran on CUDA tensors")
+
+    monkeypatch.setattr(fa, "flash_attention_nhd_bwd_plain", refuse)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(fa, "flash_attention_nhd_bwd_plain", plain)
+    assert (fa.launches, fa.bwd_launches) == (k1 + 1, k3 + 1)
+    ref = plain(q.float(), k.float(), v.float(), dout.float(), scale=0.125, head_dim=64)
+    for leaf, r in zip(leaves, ref):
+        _agree(leaf.grad, r)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     x = torch.zeros((1, 64, 128), device=cuda)
@@ -104,3 +223,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         fa.flash_attention_nhd(xb, xb, xb, scale=0.125, head_dim=16)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_nhd(xb, xb.cpu(), xb, scale=0.125, head_dim=64)
+    # K3 takes head dims 32 and 64 only: a gradient at 128 raises up front
+    x128 = torch.zeros((1, 64, 128), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_nhd(x128, x128, x128, scale=0.125, head_dim=128)

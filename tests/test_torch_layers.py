@@ -120,6 +120,26 @@ def test_self_attention():
     close(port(t(x)), jattn.attention(jp, jnp.asarray(x), heads=2, policy=FP32))
 
 
+def test_self_attention_gradient_goes_through_k1_function():
+    """The unpacked self-attention, given an input that needs a gradient,
+    reaches K1's autograd Function, and the input's gradient equals JAX's
+    vjp."""
+    jp, port = _attn()
+    x, g = randn(17, 2, 40, 64), randn(18, 2, 40, 64)
+    tx = t(x).requires_grad_()
+    out = port(tx)
+    nodes, seen = [out.grad_fn], set()
+    while nodes:
+        n = nodes.pop()
+        if n is not None and n not in seen:
+            seen.add(n)
+            nodes.extend(f for f, _ in n.next_functions)
+    assert any("FlashAttnNHD" in type(n).__name__ for n in seen)
+    out.backward(t(g))
+    _, vjp = jax.vjp(lambda x: jattn.attention(jp, x, heads=2, policy=FP32), jnp.asarray(x))
+    close(tx.grad, vjp(jnp.asarray(g))[0])
+
+
 @pytest.mark.parametrize("ip_scale", [None, 0.7])
 def test_cross_attention(ip_scale):
     """Text cross-attention, and text + ip_scale * IP (ip_scale != 1)."""

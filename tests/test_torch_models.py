@@ -1,9 +1,10 @@
 """Port (imagharmony_tpu_torch.models/adapters/schedulers) vs JAX on the
 CPU at the tiny configs, fp32 on both sides: the UNet forward, the VAE
-decode, both CLIP text towers, the CLIP vision tower, the HA
-``cross_attention`` fusion with ImageProjModel, and the Euler schedule and
-step."""
+encode and decode, both CLIP text towers, the CLIP vision tower, the HA
+``cross_attention`` fusion with ImageProjModel, the Euler schedule and
+step, and the training forward process."""
 
+import copy
 import functools
 
 import jax
@@ -75,13 +76,71 @@ def test_vae_decode():
     """Tiny VAE decode incl. the mid-block attention."""
     cfg = jvae.tiny_config()
     jp = jvae.init(0, cfg)
-    port = load(pvae.AutoencoderKL(pvae.tiny_config()), jp,
-                skip_prefixes=("encoder.", "quant_conv."))
+    port = load(pvae.AutoencoderKL(pvae.tiny_config()), jp)
     lat = randn(5, 1, 8, 8, 4)
     ref = jax.jit(functools.partial(jvae.decode, cfg=cfg, policy=FP32))(jp, latents=jnp.asarray(lat))
     with torch.no_grad():
         out = port.decode(nchw(lat))
     close(nhwc(out), ref)
+
+
+@pytest.fixture(scope="module")
+def vae_case():
+    cfg = jvae.tiny_config()
+    jp = jvae.init(0, cfg)
+    return cfg, jp, load(pvae.AutoencoderKL(pvae.tiny_config()), jp)
+
+
+def test_vae_encode_moments(vae_case):
+    """The tiny encoder (asymmetric-pad downsample, mid-block attention,
+    quant_conv, logvar clip) and the posterior sample on the JAX draw."""
+    cfg, jp, port = vae_case
+    img = randn(20, 2, 16, 16, 3)
+    key = jax.random.PRNGKey(3)
+
+    @jax.jit
+    def ref_fn(jp, img):
+        return (jvae.encode_moments(jp, cfg, img, policy=FP32),
+                jvae.encode(jp, cfg, img, key, policy=FP32))
+
+    (mean, logvar), ref = ref_fn(jp, jnp.asarray(img))
+    eps = np.asarray(jax.random.normal(key, mean.shape, mean.dtype))
+    with torch.no_grad():
+        pm, plv = port.encode_moments(nchw(img))
+        sample = port.encode(nchw(img), eps=nchw(eps))
+    close(nhwc(pm), mean)
+    close(nhwc(plv), logvar)
+    close(nhwc(sample), ref)
+
+
+def test_vae_encode_is_fp32_on_bf16_weights(vae_case):
+    """bf16 weights encode in fp32: the result is fp32 and equals an fp32
+    encoder holding the same (bf16-rounded) weights, exactly."""
+    _, _, port = vae_case
+    bf = copy.deepcopy(port).to(torch.bfloat16)
+    rounded = copy.deepcopy(bf).float()
+    img = nchw(randn(21, 1, 16, 16, 3))
+    with torch.no_grad():
+        a, b = bf.encode_moments(img), rounded.encode_moments(img)
+    assert a[0].dtype == torch.float32
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("zero_snr", [False, True], ids=["scaled_linear", "zero_snr"])
+def test_training_forward_process(zero_snr):
+    """alphas_cumprod (with the zero-terminal-SNR rescale), add_noise and
+    velocity_target against JAX, fp32."""
+    jcfg = jsched.NoiseScheduleConfig(rescale_betas_zero_snr=zero_snr)
+    acp = psched.alphas_cumprod(psched.NoiseScheduleConfig(rescale_betas_zero_snr=zero_snr))
+    np.testing.assert_array_equal(acp, jsched.alphas_cumprod(jcfg))
+    lat, noise = randn(22, 3, 4, 4, 4), randn(23, 3, 4, 4, 4)
+    ts = np.array([0, 517, 999], np.int32)
+    for pfn, jfn in ((psched.add_noise, jsched.add_noise),
+                     (psched.velocity_target, jsched.velocity_target)):
+        out = pfn(acp, t(lat), t(noise), torch.as_tensor(ts).long())
+        close(out, jfn(acp, jnp.asarray(lat), jnp.asarray(noise), jnp.asarray(ts)),
+              rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("tower", ["clip_l", "bigg"])

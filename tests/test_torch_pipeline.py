@@ -37,7 +37,7 @@ def pipes():
     jpipe.policy = jdt.FP32
     params = jax.device_get(jpipe.params)
     cfgs = pcomp.tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder))
-    port = phe.HarmonyPipeline.from_state_dict(from_jax.state_dict(params), cfgs)
+    port = phe.HarmonyPipeline.from_state_dict(from_jax.state_dict(params), cfgs, device="cpu")
     return jpipe, port
 
 
@@ -80,7 +80,7 @@ def test_build_conditioning_matches_jax(pipes):
 def test_generate_tiny():
     """generate() end to end on the CPU: uint8 (1, H, W, 3), deterministic
     for a seed, phase timings recorded on request."""
-    pipe = phe.HarmonyPipeline.random_tiny(seed=0)
+    pipe = phe.HarmonyPipeline.random_tiny(seed=0, device="cpu")
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=2, height=32,
               width=32, seed=3)
     timings = {}
@@ -114,7 +114,7 @@ def test_tokenizer_ids_match_jax(text):
 
 def test_from_jax_keys_and_shapes_match_export_tree(pipes):
     """io/from_jax gives export_tree's keys and shapes, and the port's
-    modules have exactly those keys (less the unported VAE encoder)."""
+    modules have exactly those keys."""
     jpipe, _ = pipes
     params = jax.device_get(jpipe.params)
     sd = from_jax.state_dict(params)
@@ -124,8 +124,7 @@ def test_from_jax_keys_and_shapes_match_export_tree(pipes):
         assert tuple(sd[k].shape) == tuple(v.shape), k
     with torch.device("meta"):
         comps = pcomp.Components(pcomp.tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder)))
-    ported = {k for k in sd if not k.startswith(pcomp.UNPORTED_PREFIXES)}
-    assert set(comps.state_dict()) == ported
+    assert set(comps.state_dict()) == set(sd)
 
 
 def test_port_imports_no_jax():
