@@ -8,8 +8,9 @@ Phases, each printed as it finishes; any failure raises and the exit code
 is non-zero:
 
 1. device and power limit (nvidia-smi); no CUDA -> fail;
-2. build K1 (the hand-written CUDA attention kernel) and K3 (its backward)
-   from the sources in the checkout, one nvcc per source, in parallel;
+2. build K1 and K4 (the hand-written CUDA attention kernel under its packed
+   and its head-split entry point, one source) and K3 (K1's backward) from
+   the sources in the checkout, one nvcc per source, in parallel;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes, with timings of K1, the plain
@@ -18,6 +19,10 @@ is non-zero:
    training shapes (512² and 1024²) and two edge shapes, with timings of
    K3 (in total and per kernel), the plain backward and, as a yardstick,
    F.scaled_dot_product_attention's forward and backward;
+3c. K4 against its plain version at the four self-attention shapes of the
+   SD1.5 UNet at 512² (head dims 40, 80, 160) and at an odd length, on
+   contiguous (B, H, S, D) tensors and on strided views of one packed
+   to_qkv tensor, with timings of K4, the plain version and SDPA;
 4. the tiny pipeline on the card (bf16, K1) against the same weights on the
    CPU (fp32, plain attention);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
@@ -27,7 +32,14 @@ is non-zero:
 7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
    batch 1, bf16, gradient checkpointing) for 4 steps on synthetic data,
    with the K3 launches per step checked against the count the UNet config
-   gives.
+   gives;
+8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4)
+   against the same weights on the CPU (fp32, plain attention), and a short
+   run of it with the ``resampler`` and with the ``mlp_proj`` head;
+9. the full-width SD1.5 ``generate()`` at 512², 30 Euler steps, random
+   weights from a seed, with the K4 launch count checked (480, and no K1
+   launch), then a 10-step call under the profiler for the device time by
+   kernel class and the idle share.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -42,6 +54,7 @@ and ``library_ms`` (SDPA) are device times, all taken the same way, and
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -69,8 +82,16 @@ TINY_MIN_COSINE = 0.999
 FULL_STEPS = 30
 SELF_ATTN_PER_UNET_CALL = 70  # SDXL at 1024²: 10 at S=4096 + 60 at S=1024
 
+SD15_SELF_ATTN_PER_UNET_CALL = 16  # SD1.5 at 512²: 5 + 5 + 5 + 1, see K4_SHAPES
+SD15_PROFILED_STEPS = 10
+
 MAIN_SHAPES = [(4096, 10, 64), (1024, 20, 64)]
 EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
+
+# K4, (B, S, H, D): the SD1.5 UNet's self-attentions at 512² with the CFG pair
+# on the batch axis (5, 5, 5 and 1 per UNet call), then an odd length
+K4_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8, 160)]
+K4_EDGES = [(2, 1000, 8, 40)]
 
 # K3 against the fp32 plain backward on the same bf16 inputs: bf16 rounding
 # of P, dS and the outputs
@@ -151,12 +172,23 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build(fa):
+def phase_build(fa, build):
+    """Builds the kernels and, beside them, asks ptxas what each uses."""
+    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fa._entry), pool.submit(fa._bwd_entry)]:
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry)]
+        usage = [pool.submit(build.resource_usage, name) for name in sources]
+        for f in builds:
             f.result()
-    print(f"phase 2 build K1 and K3 (in parallel): {time.perf_counter() - t0:.2f} s", flush=True)
+        fa._bhsd_entry()  # K4: the second entry point of K1's library
+        print(f"phase 2 build K1/K4 and K3 (in parallel): {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        for name, f in zip(sources, usage):
+            for kernel, u in sorted(f.result().items()):
+                print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
+                      f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled",
+                      flush=True)
 
 
 def _bound(flops, nbytes):
@@ -165,8 +197,8 @@ def _bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def k1_bound(b, s, h, d):
-    # q, k, v read once and out written once, bf16; QK^T and PV
+def fwd_bound(b, s, h, d):
+    # K1 and K4: q, k, v read once and out written once, bf16; QK^T and PV
     return _bound(4 * b * h * s * s * d, 2 * 4 * b * s * h * d)
 
 
@@ -265,6 +297,46 @@ def phase_k3(fa):
               f"backward {_fmt(t['library'])}; CUDA event: K1 {k1[0]:.4f} / with lse "
               f"{k1[1]:.4f} / {k1[2]:.4f} ms, SDPA forward {sdpa_fwd:.4f} ms; K3 bound "
               f"{bound:.4f} ms ({by})", flush=True)
+    return max_err, times
+
+
+@torch.inference_mode()
+def phase_k4(fa):
+    """K4 against its plain version, contiguous and as views of a packed
+    to_qkv tensor, and its timings on the packed views (what the UNet hands
+    it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err, times = 0.0, {}
+    for b, s, h, d in K4_SHAPES + K4_EDGES:
+        scale = d**-0.5
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        views = tuple(x.view(b, s, h, d).transpose(1, 2) for x in qkv.chunk(3, dim=-1))
+        for layout, (q, k, v) in (("packed views", views),
+                                  ("contiguous", tuple(x.contiguous() for x in views))):
+            out = fa.flash_attention(q, k, v, scale=scale)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=scale)
+            err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+            print(f"phase 3c K4 B={b} S={s} H={h} D={d} {layout}: max_abs={err:.3e} "
+                  f"cosine={cos:.7f}", flush=True)
+            if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE):
+                raise AssertionError(f"K4 disagrees with its plain version at B={b} S={s} "
+                                     f"H={h} D={d} ({layout})")
+            max_err = max(max_err, err)
+        if (b, s, h, d) not in K4_SHAPES:
+            continue
+        q, k, v = views
+        t = _timings({
+            "kernel": lambda: fa.flash_attention(q, k, v, scale=scale),
+            "plain": lambda: fa.flash_attention_plain(q, k, v, scale=scale),
+            "library": lambda: sdpa(q, k, v),
+        })
+        bound, by = fwd_bound(b, s, h, d)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        print(f"phase 3c time B={b} S={s} H={h} D={d}, device (CUDA event): K4 "
+              f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}; "
+              f"bound {bound:.5f} ms ({by})", flush=True)
     return max_err, times
 
 
@@ -433,6 +505,100 @@ def phase_train_full(fa, comp, step_lib, trainer):
     return sum(k1), sum(k3)
 
 
+def narrow_sd15_configs(comp, proj_kind="image_proj"):
+    """The SD1.5 bundle at narrow widths whose head dims are the real 40, 80
+    and 160 (``sd15_tiny_configs`` has 8, 16 and 32, which K4 does not take).
+    Channel counts divide by 32, the transformers' group count."""
+    from imagharmony_tpu_torch.adapters import resampler
+    from imagharmony_tpu_torch.models import unet
+
+    cfgs = comp.sd15_tiny_configs()
+    u = unet.sd15_config(block_out_channels=(160, 320, 640, 640),
+                         num_attention_heads=(4, 4, 4, 4), cross_attention_dim=24,
+                         sample_size=8)
+    rs = resampler.tiny_config(embedding_dim=cfgs.vision.hidden_size,
+                               output_dim=u.cross_attention_dim)
+    return dataclasses.replace(cfgs, unet=u, proj_kind=proj_kind, resampler=rs)
+
+
+def phase_sd15_narrow(fa, comp, HarmonyPipeline):
+    img = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
+    noise = np.random.default_rng(1).standard_normal((1, 32, 32, 4)).astype(np.float32)
+    kw = dict(prompt="a dog", height=64, width=64, noise=noise, output_type="raw")
+    cpu = HarmonyPipeline.random(narrow_sd15_configs(comp), seed=0, device="cpu")
+    card = HarmonyPipeline(
+        copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
+    )
+    ref = cpu.generate(img, num_inference_steps=3, **kw)
+    fa.launches = fa.bhsd_launches = 0
+    out = card.generate(img, num_inference_steps=3, **kw)
+    torch.cuda.synchronize()
+    cos = _cosine(out.float().cpu(), ref)
+    expected = 3 * SD15_SELF_ATTN_PER_UNET_CALL
+    print(f"phase 8 narrow SD1.5 pipeline card bf16 vs cpu fp32: image cosine={cos:.6f}, "
+          f"K4 launches={fa.bhsd_launches} (expected {expected}), K1 launches={fa.launches}",
+          flush=True)
+    if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE):
+        raise AssertionError("the narrow SD1.5 pipeline on the card disagrees with the CPU")
+    if (fa.bhsd_launches, fa.launches) != (expected, 0):
+        raise AssertionError(f"K4 launched {fa.bhsd_launches} times, expected {expected}; "
+                             f"K1 {fa.launches}, expected 0")
+    for kind in ("resampler", "mlp_proj"):
+        pipe = HarmonyPipeline.random(narrow_sd15_configs(comp, kind), seed=0, device="cuda",
+                                      dtype=torch.bfloat16)
+        fa.bhsd_launches = 0
+        out = pipe.generate(img, num_inference_steps=2, **kw)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        print(f"phase 8 narrow SD1.5 with proj_kind={kind}: shape {tuple(out.shape)}, "
+              f"finite {finite}, K4 launches={fa.bhsd_launches}", flush=True)
+        if tuple(out.shape) != (1, 64, 64, 3) or not finite or fa.bhsd_launches <= 0:
+            raise AssertionError(f"the {kind} pipeline on the card gave a bad output")
+
+
+def phase_sd15_full(fa, HarmonyPipeline):
+    t0 = time.perf_counter()
+    pipe = HarmonyPipeline.random_full_sd15(seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.components.parameters())
+    print(f"phase 9 built random_full_sd15: {n_params / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    img = np.random.default_rng(0).integers(0, 255, (512, 512, 3), dtype=np.uint8)
+    kw = dict(prompt="a photo of six sheep on a meadow", num_samples=1, seed=0,
+              guidance_scale=5.0, height=512, width=512, output_type="raw")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
+        timings = {}
+        fa.launches = fa.bhsd_launches = 0
+        t0 = time.perf_counter()
+        out = pipe.generate(img, num_inference_steps=FULL_STEPS, timings=timings, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0, timings))
+    k1, k4 = fa.launches, fa.bhsd_launches
+    finite = bool(torch.isfinite(out).all())
+    for name, (wall, tm) in zip(("first", "second"), walls):
+        print(f"phase 9 SD1.5 generate 512² {FULL_STEPS} steps, {name} call: total {wall:.3f} s, "
+              f"conditioning {tm['conditioning_s']:.3f} s, denoise {tm['denoise_s']:.3f} s, "
+              f"decode {tm['decode_s']:.3f} s", flush=True)
+    print(f"phase 9 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K4 launches "
+          f"{k4}, K1 launches {k1}, shape {tuple(out.shape)}, finite {finite}", flush=True)
+    if tuple(out.shape) != (1, 512, 512, 3) or not finite:
+        raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
+    expected = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    if (k4, k1) != (expected, 0):
+        raise AssertionError(f"K4 launched {k4} times, expected {expected}; K1 {k1}, expected 0")
+    # where a call's time goes: a short generate() under the profiler
+    n = SD15_PROFILED_STEPS
+    _, wall_ms, kernels = profiling.profiled(
+        lambda: pipe.generate(img, num_inference_steps=n, **kw))
+    prof = profiling.summarize(kernels, 1, wall_ms)
+    print(f"phase 9 profile of a {n}-step generate(): "
+          + json.dumps({k.replace("_per_step", ""): v for k, v in prof.items()}), flush=True)
+    return k4
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -448,6 +614,7 @@ def _line_times(t, bound):
 
 
 def main():
+    from imagharmony_tpu_torch.kernels import build
     from imagharmony_tpu_torch.kernels import flash_attention as fa
     from imagharmony_tpu_torch.pipelines import components as comp
     from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
@@ -455,14 +622,18 @@ def main():
     from imagharmony_tpu_torch.train import trainer
 
     phase_device()
-    phase_build(fa)
+    phase_build(fa, build)
     max_err, main_ms = phase_k1(fa)
     k3_err, k3_times = phase_k3(fa)
+    k4_err, k4_times = phase_k4(fa)
     phase_tiny(fa, HarmonyPipeline)
     launches = phase_full(fa, HarmonyPipeline)
     phase_train_tiny(fa, comp, step_lib)
     k1_train, k3_train = phase_train_full(fa, comp, step_lib, trainer)
+    phase_sd15_narrow(fa, comp, HarmonyPipeline)
+    k4_launches = phase_sd15_full(fa, HarmonyPipeline)
     k3 = k3_times[K3_SHAPES[0]]
+    k4 = k4_times[K4_SHAPES[0]]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
         "route": "cuda",
@@ -472,7 +643,7 @@ def main():
         "launches_by_path": {"generate": launches, "train": k1_train},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
-        **_line_times(main_ms[MAIN_SHAPES[0]], k1_bound(2, *MAIN_SHAPES[0])),
+        **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
     }, {
         "name": "flash_attention_nhd_bwd",
         "route": "cuda",
@@ -483,6 +654,18 @@ def main():
         "max_abs_err": k3_err,
         "shape": list(K3_SHAPES[0]),
         **_line_times(k3, k3["bound"]),
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
+        "replaces": "imagharmony_tpu/kernels/flash_attention.py:95",
+        "launches": k4_launches,
+        "launches_by_path": {"generate_sd15": k4_launches},
+        "max_abs_err": k4_err,
+        "shape": list(K4_SHAPES[0]),
+        **_line_times(k4, k4["bound"]),
+        "by_shape": [{"shape": list(shape), **_line_times(t, t["bound"])}
+                     for shape, t in k4_times.items()],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

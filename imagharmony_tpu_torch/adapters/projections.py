@@ -1,7 +1,10 @@
-"""ImageProjModel: CLIP image embedding -> prompt tokens (port of
-``image_proj`` in imagharmony_tpu/adapters/projections.py): linear,
-reshape to N tokens, LayerNorm. The IPAdapterFull MLP head is not ported
-yet."""
+"""CLIP image embedding -> prompt tokens (port of
+imagharmony_tpu/adapters/projections.py).
+
+* ``ImageProjModel`` (``image_proj``): linear, reshape to N tokens, LayerNorm;
+* ``MLPProjModel`` (``mlp_proj``): per-patch Linear / GELU / Linear /
+  LayerNorm, the IPAdapterFull head.
+"""
 
 from __future__ import annotations
 
@@ -23,3 +26,19 @@ class ImageProjModel(nn.Module):
         """(B, clip_dim) -> (B, num_tokens, cross_dim)."""
         x = self.proj(image_embeds).reshape(image_embeds.shape[0], self.num_tokens, -1)
         return self.norm(x)
+
+
+class MLPProjModel(nn.Module):
+    def __init__(self, *, clip_hidden_dim=1664, cross_attention_dim=2048, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.proj = nn.Sequential(
+            Linear(clip_hidden_dim, clip_hidden_dim, **kw), nn.GELU(),
+            Linear(clip_hidden_dim, cross_attention_dim, **kw),
+            LayerNorm(cross_attention_dim, **kw),
+        )
+
+    def forward(self, patch_embeds):
+        """(B, P, hidden) -> (B, P, cross_dim): one token per patch."""
+        return self.proj(patch_embeds)

@@ -9,7 +9,8 @@ port never imports the JAX package):
   becomes ``encoder.layers`` and the FFN's ``net_0_proj``/``net_2`` become
   ``net.0.proj``/``net.2``;
 * a diffusers ``to_out`` is a ModuleList, so its weight and bias live at
-  ``to_out.0``;
+  ``to_out.0`` (the resampler's bias-free ``to_out`` too, as the JAX
+  exporter writes it);
 * 2-D ``weight`` leaves are transposed from (in, out) to torch's (out, in),
   except embedding tables;
 * 4-D ``weight`` leaves go from HWIO to OIHW;

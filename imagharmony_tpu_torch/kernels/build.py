@@ -15,8 +15,10 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -68,3 +70,31 @@ def load(name: str) -> ctypes.CDLL:
             )
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return ctypes.CDLL(str(so))
+
+
+def resource_usage(name: str) -> dict:
+    """What ptxas reports for each kernel of ``csrc/<name>.cu``, from a
+    compile with ``-Xptxas -v`` whose object file is thrown away:
+    {kernel name with its template arguments: {"registers", "smem_bytes",
+    "spill_bytes"}}."""
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "out.o"),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):\n{proc.stderr}")
+        filt = shutil.which("c++filt")
+        text = proc.stderr
+        if filt:
+            text = subprocess.run([filt], input=text, capture_output=True, text=True).stdout
+    usage = {}
+    pattern = re.compile(
+        r"Function properties for (?P<fn>.+)\n.*?(?P<store>\d+) bytes spill stores, "
+        r"(?P<load>\d+) bytes spill loads\n.*?Used (?P<regs>\d+) registers"
+        r"(?:.*?(?P<smem>\d+) bytes smem)?")
+    for m in pattern.finditer(text):
+        short = re.search(r"\w+(?:<[^>]*>)?(?=\()", m["fn"])  # demangled: name<args>(
+        usage[short[0] if short else m["fn"].strip()] = {"registers": int(m["regs"]), "smem_bytes": int(m["smem"] or 0),
+                     "spill_bytes": int(m["store"]) + int(m["load"])}
+    return usage

@@ -1,8 +1,19 @@
-// K1: fused self-attention on the packed (B, S, H*D) layout, bf16 in and out.
+// K1 and K4: fused self-attention, bf16 in and out. One device kernel under
+// two entry points that differ only in the strides they hand it:
 //
-// Replaces the TPU kernel `_attn_nhd_kernel` (imagharmony_tpu/kernels/
-// flash_attention.py:415), reached through `flash_attention_nhd` (:576).
-// Unlike the Pallas kernel it computes the exact softmax: a running row max
+//   * K1, `flash_attn_nhd_bf16`: the packed (B, S, H*D) layout, head h at
+//     column h*D. Replaces the TPU kernel `_attn_nhd_kernel` (imagharmony_tpu/
+//     kernels/flash_attention.py:415), reached through `flash_attention_nhd`
+//     (:576). Head dims 32, 64, 128.
+//   * K4, `flash_attn_bhsd_bf16`: the head-split (B, H, S, D) layout with a
+//     batch, head and row stride for q, k, v and the output. Replaces the TPU
+//     kernel `_attn_kernel` (:95), reached through `flash_attention` (:369) ->
+//     `_flash_fwd_impl` (:138). Head dims 40, 80, 160 as well: the QK^T
+//     contraction runs over D rounded up to 16 with the extra columns zero in
+//     shared memory only, so nothing is padded in device memory (the Pallas
+//     kernel pads D to a multiple of 64 and Sk to 256 on the host).
+//
+// Unlike the Pallas kernels it computes the exact softmax: a running row max
 // and sum (online softmax), no clamp on the exp2 argument, and no padding
 // of the sequence on the host (ragged key columns and query rows are masked
 // here).
@@ -24,9 +35,10 @@
 //     does (:428).
 //   * QK^T and PV are mma.sync.m16n8k16 bf16 products with fp32
 //     accumulation; P is rounded to bf16 before PV.
-//   * q, k and v take a row stride and a batch stride, so they can be column
-//     slices of one packed to_qkv output (row stride 3*H*D) with no copy. The
-//     output is a contiguous (B, Sq, H*D) tensor.
+//   * q, k and v take a row, a head and a batch stride, so they can be column
+//     slices of one packed to_qkv output (row stride 3*H*D, head stride D)
+//     with no copy. The output takes the same three strides; both wrappers
+//     hand it a contiguous (B, Sq, H*D) buffer.
 //   * optionally (lse != nullptr) the row log-sum-exp in the scaled-log2
 //     domain, lse = m + log2(l) with m the row max of s = q.k*scale*log2(e)
 //     and l = sum exp2(s - m), fp32 (B, H, Sq): what the backward (K3,
@@ -64,20 +76,27 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The QK^T contraction takes 16 columns a step: D rounded up to 16 (40 -> 48).
+template <int D>
+constexpr int kContraction = (D + 15) / 16 * 16;
+
 // Copy a (64, D) tile of rows [row0, row0+64) of one head into shared memory
-// (row pitch D + kPad), zero-filling rows >= n_rows. 16-byte loads.
+// (row pitch kContraction<D> + kPad), zero-filling rows >= n_rows and
+// the columns from D up to the contraction width: zero, never garbage, since
+// the contraction reads them. 16-byte loads.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           int64_t row_stride, int row0, int n_rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kDK = kContraction<D>;
+  constexpr int kChunks = kDK / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
+    if (row0 + r < n_rows && c < D) {
       val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
     }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * (kDK + kPad) + c) = val;
   }
 }
 
@@ -101,19 +120,26 @@ __device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, const __nv_bfloa
   }
 }
 
+// Element strides of one operand: between batches, heads and rows.
+struct Strides {
+  int64_t batch, head, row;
+};
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse,
-                      int sq, int sk, int heads,
-                      int64_t q_row, int64_t k_row, int64_t v_row,
-                      int64_t q_batch, int64_t k_batch, int64_t v_batch,
-                      float scale_log2) {
-  // sK holds Q first (same shape), then each K tile.
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * (D + kPad)];
+flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse,
+                  int sq, int sk, int heads,
+                  Strides qs, Strides ks, Strides vs, Strides os,
+                  float scale_log2) {
+  constexpr int kDK = kContraction<D>;
+  constexpr int kPitch = kDK + kPad;
+  // sK holds Q first (same shape), then each K tile. 44.5 KB together at
+  // D=160, under the 48 KB a kernel may declare statically.
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * kPitch];
   __shared__ __align__(16) __nv_bfloat16 sVt[D * (kBlockN + kPad)];
 
   const int m0 = blockIdx.x * kBlockM;
@@ -124,21 +150,21 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane / 4;   // mma group: row within the 8-row slab
   const int t = lane % 4;   // thread in group: column pair
 
-  const __nv_bfloat16* qh = q + b * q_batch + (int64_t)h * D;
-  const __nv_bfloat16* kh = k + b * k_batch + (int64_t)h * D;
-  const __nv_bfloat16* vh = v + b * v_batch + (int64_t)h * D;
+  const __nv_bfloat16* qh = q + b * qs.batch + h * qs.head;
+  const __nv_bfloat16* kh = k + b * ks.batch + h * ks.head;
+  const __nv_bfloat16* vh = v + b * vs.batch + h * vs.head;
 
   // ---- Q fragments (A operand), pre-scaled by scale*log2(e) ----
-  load_tile<D>(sK, qh, q_row, m0, sq);
+  load_tile<D>(sK, qh, qs.row, m0, sq);
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kDK / 16][4];
   {
     const int r0 = warp * 16 + g;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kDK / 16; ++kk) {
       const int c0 = kk * 16 + 2 * t;
-      const __nv_bfloat16* p0 = sK + r0 * (D + kPad);
-      const __nv_bfloat16* p1 = sK + (r0 + 8) * (D + kPad);
+      const __nv_bfloat16* p0 = sK + r0 * kPitch;
+      const __nv_bfloat16* p1 = sK + (r0 + 8) * kPitch;
       const __nv_bfloat16* src[4] = {p0 + c0, p1 + c0, p0 + c0 + 8, p1 + c0 + 8};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -160,8 +186,8 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
   float row_sum[2] = {0.f, 0.f};
 
   for (int n0 = 0; n0 < sk; n0 += kBlockN) {
-    load_tile<D>(sK, kh, k_row, n0, sk);
-    load_tile_t<D>(sVt, vh, v_row, n0, sk);
+    load_tile<D>(sK, kh, ks.row, n0, sk);
+    load_tile_t<D>(sVt, vh, vs.row, n0, sk);
     __syncthreads();
 
     // ---- S = Q K^T for this warp's 16 rows x 64 keys (log2 domain) ----
@@ -170,9 +196,9 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < kBlockN / 8; ++nb) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
-      const __nv_bfloat16* krow = sK + (nb * 8 + g) * (D + kPad);
+      const __nv_bfloat16* krow = sK + (nb * 8 + g) * kPitch;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kDK / 16; ++kk) {
         const uint32_t b0 = ld32(krow + kk * 16 + 2 * t);
         const uint32_t b1 = ld32(krow + kk * 16 + 8 + 2 * t);
         mma_bf16_16816(s[nb], qf[kk], b0, b1);
@@ -247,7 +273,6 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // ---- normalise and store rows < sq (and their lse, if asked) ----
-  const int64_t hd = (int64_t)heads * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = m0 + warp * 16 + g + 8 * r;
@@ -256,7 +281,7 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
       lse[((int64_t)b * heads + h) * sq + row] = row_max[r] + log2f(row_sum[r]);
     }
     const float inv = row_sum[r] > 0.f ? 1.f / row_sum[r] : 0.f;
-    __nv_bfloat16* orow = o + ((int64_t)b * sq + row) * hd + (int64_t)h * D;
+    __nv_bfloat16* orow = o + b * os.batch + h * os.head + row * os.row;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
       const uint32_t val = pack_bf16(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
@@ -265,49 +290,79 @@ flash_attn_nhd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int batch, sq, sk, heads;
+  Strides qs, ks, vs, os;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
-            int sk, int heads, int64_t q_row, int64_t k_row, int64_t v_row,
-            int64_t q_batch, int64_t k_batch, int64_t v_batch, float scale_log2,
-            cudaStream_t stream) {
-  dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_attn_nhd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk,
-      heads, q_row, k_row, v_row, q_batch, k_batch, v_batch, scale_log2);
+void launch(const Args& a) {
+  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.heads, a.batch);
+  flash_attn_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.sq,
+      a.sk, a.heads, a.qs, a.ks, a.vs, a.os, a.scale_log2);
+}
+
+// Launch at head_dim; `odd_dims` also admits 40, 80 and 160. Returns
+// cudaGetLastError() after the launch (0 on success); an unsupported head_dim
+// or an empty shape returns cudaErrorInvalidValue without launching.
+int dispatch(const Args& a, int head_dim, bool odd_dims) {
+  if (a.batch <= 0 || a.sq <= 0 || a.sk <= 0 || a.heads <= 0 || a.heads > 65535 ||
+      a.batch > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!odd_dims && head_dim % 32) return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 32: launch<32>(a); break;
+    case 40: launch<40>(a); break;
+    case 64: launch<64>(a); break;
+    case 80: launch<80>(a); break;
+    case 128: launch<128>(a); break;
+    case 160: launch<160>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Strides are in elements; lse is
-// null or a contiguous fp32 (B, H, Sq) buffer. Returns cudaGetLastError()
-// after the launch (0 on success); an unsupported head_dim or an empty shape
-// returns cudaErrorInvalidValue without launching.
+// Plain C entry points (loaded with ctypes). Strides are in elements.
+
+// K1: packed (B, S, H*D) q, k, v with a row and a batch stride each; o is a
+// contiguous (B, Sq, H*D) buffer; lse is null or a contiguous fp32 (B, H, Sq)
+// buffer. head_dim 32, 64 or 128.
 extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, void* o,
                                    float* lse,
                                    int batch, int sq, int sk, int heads, int head_dim,
                                    long long q_row, long long k_row, long long v_row,
                                    long long q_batch, long long k_batch,
                                    long long v_batch, float scale_log2, void* stream) {
-  if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      launch<32>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
-                 v_batch, scale_log2, s);
-      break;
-    case 64:
-      launch<64>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
-                 v_batch, scale_log2, s);
-      break;
-    case 128:
-      launch<128>(q, k, v, o, lse, batch, sq, sk, heads, q_row, k_row, v_row, q_batch, k_batch,
-                  v_batch, scale_log2, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const long long hd = (long long)heads * head_dim;
+  const Args a{q, k, v, o, lse, batch, sq, sk, heads,
+               {q_batch, head_dim, q_row}, {k_batch, head_dim, k_row},
+               {v_batch, head_dim, v_row}, {sq * hd, head_dim, hd},
+               scale_log2, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, false);
+}
+
+// K4: head-split (B, H, S, D) q, k, v and o, each with a batch, a head and a
+// row stride (unit stride along D). head_dim 32, 40, 64, 80, 128 or 160.
+extern "C" int flash_attn_bhsd_bf16(const void* q, const void* k, const void* v, void* o,
+                                    int batch, int sq, int sk, int heads, int head_dim,
+                                    long long q_batch, long long q_head, long long q_row,
+                                    long long k_batch, long long k_head, long long k_row,
+                                    long long v_batch, long long v_head, long long v_row,
+                                    long long o_batch, long long o_head, long long o_row,
+                                    float scale_log2, void* stream) {
+  const Args a{q, k, v, o, nullptr, batch, sq, sk, heads,
+               {q_batch, q_head, q_row}, {k_batch, k_head, k_row},
+               {v_batch, v_head, v_row}, {o_batch, o_head, o_row},
+               scale_log2, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, true);
 }

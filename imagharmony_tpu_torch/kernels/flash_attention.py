@@ -1,5 +1,5 @@
-"""K1: fused self-attention on the packed (B, S, H*D) layout, and K3, its
-backward.
+"""K1: fused self-attention on the packed (B, S, H*D) layout; K3, its
+backward; K4: the same forward on the head-split (B, H, S, D) layout.
 
 ``flash_attention_nhd`` replaces the TPU kernel ``_attn_nhd_kernel``
 (imagharmony_tpu/kernels/flash_attention.py:415, entry
@@ -22,10 +22,22 @@ logits in registers (online softmax over 64-key tiles) and never writes
 them to device memory, which the plain version does in fp32. K3 does
 10*B*H*S*S*D flops with the same property and the same design.
 
-The TPU kernel's dispatch rules (Sk >= 512, heads packed into 128 lanes, the
-no-max clamped exp2, sequences padded to 256) are TPU rules and are not
-carried over: every self-attention of the UNet goes through K1, and K1
-computes the exact softmax with the ragged edges masked in the kernel.
+``flash_attention`` (K4) replaces the TPU kernel ``_attn_kernel`` (:95, entry
+``flash_attention`` :369 through ``_flash_fwd_impl`` :138): the same forward
+on (B, H, S, D) tensors with a batch, a head and a row stride each, at head
+dims 40, 80 and 160 (the SD1.5 family) besides K1's. On CUDA tensors it
+launches the second entry point of ``csrc/flash_attn_nhd.cu``: the device
+kernel is K1's, handed other strides, and it rounds the QK^T contraction up
+to 16 columns in shared memory only, where the TPU kernel pads d to a
+multiple of 64 in device memory. At d=40 and S=4096 (B=2, H=8) it is
+compute-bound like K1: 43 GFLOP against 21 MB. K4 has no CUDA backward yet:
+a gradient request on CUDA tensors raises.
+
+The TPU kernels' dispatch rules (Sk >= 512, heads packed into 128 lanes, the
+no-max clamped exp2, sequences padded to 256, the measured gate on head dim
+and length) are TPU rules and are not carried over: every self-attention of
+the UNets goes through K1 or K4, and both compute the exact softmax with the
+ragged edges masked in the kernel.
 """
 
 from __future__ import annotations
@@ -39,9 +51,11 @@ from imagharmony_tpu_torch.kernels import build
 # Kernel launches since the last reset; only the CUDA launches add to them.
 launches = 0       # K1
 bwd_launches = 0   # K3 (one per backward call: its three kernels together)
+bhsd_launches = 0  # K4
 
 HEAD_DIMS = (32, 64, 128)
 BWD_HEAD_DIMS = (32, 64)
+BHSD_HEAD_DIMS = (32, 40, 64, 80, 128, 160)
 _LOG2E = 1.4426950408889634
 
 
@@ -109,6 +123,17 @@ def _bwd_entry():
     fn = build.load("flash_attn_nhd_bwd").flash_attn_nhd_bwd_bf16
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 10 + [f32, f32, ptr]
+    fn.restype = i32
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bhsd_entry():
+    import ctypes
+
+    fn = build.load("flash_attn_nhd").flash_attn_bhsd_bf16
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
     fn.restype = i32
     return fn
 
@@ -279,3 +304,100 @@ def flash_attention_nhd(q, k, v, *, scale, head_dim):
         return flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=head_dim)
     return _launch_fwd(q, k, v, scale=scale, head_dim=head_dim, with_lse=False)[0]
 
+
+def flash_attention_plain(q, k, v, *, scale):
+    """K4's reference: fp32 logits, fp32 softmax, fp32 PV, cast back to q's
+    dtype. q: (B, H, Sq, D); k, v: (B, H, Sk, D) -> (B, H, Sq, D)."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+def _check_bhsd(q, k, v):
+    """What K4 takes: one CUDA device and an operand layout
+    ``_check_bhsd_layout`` accepts."""
+    if not (q.is_cuda and q.device == k.device == v.device):
+        raise ValueError(
+            f"flash_attention: q, k, v must all be on one CUDA device or all on the "
+            f"CPU, got {q.device}, {k.device}, {v.device}"
+        )
+    _check_bhsd_layout(q, k, v)
+
+
+def _check_bhsd_layout(q, k, v):
+    """K4's operands whatever their device: bf16, (B, H, S, D) with a head
+    dim in BHSD_HEAD_DIMS, unit stride along D, every other stride and the
+    address 16-byte aligned, a nonempty k, grid-sized batch and heads."""
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(
+            f"flash_attention: the CUDA kernel takes bf16, got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
+            (q.shape[0], q.shape[1], q.shape[3]) != (k.shape[0], k.shape[1], k.shape[3])):
+        raise ValueError(
+            f"flash_attention: q must be (B, H, Sq, D) and k, v (B, H, Sk, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, _, d = q.shape
+    if d not in BHSD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {BHSD_HEAD_DIMS}")
+    if h > 65535 or b > 65535:
+        raise ValueError(f"flash_attention: batch {b} and heads {h} must each be <= 65535")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: k is empty")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(
+                f"flash_attention: {name} must have unit stride on its last axis, "
+                f"got {x.stride()}"
+            )
+        if any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name}'s batches, heads and rows must be 16-byte "
+                f"aligned (strides {x.stride()}, address {x.data_ptr():#x})"
+            )
+
+
+def _launch_bhsd(q, k, v, *, scale):
+    """K4 on CUDA tensors -> (B, H, Sq, D) view of a contiguous (B, Sq, H*D)
+    buffer."""
+    global bhsd_launches
+    _check_bhsd(q, k, v)
+    b, h, sq, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    if b == 0 or h == 0 or sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bhsd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, k.shape[2], h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale) * _LOG2E, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
+    bhsd_launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, scale):
+    """softmax(q k^T * scale) v per head on head-split tensors (K4).
+
+    q: (B, H, Sq, D); k, v: (B, H, Sk, D), each with unit stride along D and
+    any 16-byte aligned batch, head and row stride: ``split_heads`` views of a
+    packed to_qkv output are taken as they are. Returns (B, H, Sq, D) as a
+    view of a contiguous (B, Sq, H*D) buffer, so merging the heads is free.
+
+    CPU tensors go to ``flash_attention_plain``, which autograd
+    differentiates. CUDA tensors must be bf16 with D in BHSD_HEAD_DIMS;
+    anything else raises. K4 has no backward kernel yet: a call on CUDA
+    tensors that needs a gradient raises NotImplementedError.
+    """
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            f"flash_attention (K4): no backward kernel on CUDA tensors yet (head_dim "
+            f"{q.shape[-1]}); K3 at head dims 40/80/160 is ROADMAP queue B's next slice"
+        )
+    return _launch_bhsd(q, k, v, scale=scale)

@@ -35,6 +35,12 @@ class CLIPVisionConfig:
         return (self.image_size // self.patch_size) ** 2 + 1
 
 
+def vit_h_config() -> CLIPVisionConfig:
+    """CLIP ViT-H/14 (the SD1.5 IP-Adapter image encoder)."""
+    return CLIPVisionConfig(hidden_size=1280, num_layers=32, num_heads=16,
+                            intermediate_size=5120, projection_dim=1024)
+
+
 def tiny_config(**overrides) -> CLIPVisionConfig:
     base = dict(image_size=28, patch_size=7, hidden_size=32, num_layers=2, num_heads=4,
                 intermediate_size=64, projection_dim=24)

@@ -1,5 +1,5 @@
-"""SDXL UNet2DConditionModel, forward pass (port of
-imagharmony_tpu/models/unet.py).
+"""UNet2DConditionModel of SDXL and of the SD1.5 family, forward pass (port
+of imagharmony_tpu/models/unet.py).
 
 NCHW activations, diffusers parameter names. The IP-Adapter is a static
 config (``UNetConfig.ip_layers``): each transformer knows at build time
@@ -44,7 +44,7 @@ class UNetConfig:
     attention_head_dim: int | None = None
     cross_attention_dim: int = 2048
     norm_num_groups: int = 32
-    # "text_time" (SDXL micro-conditioning) or None
+    # "text_time" (SDXL micro-conditioning) or None (SD1.5: no add-embeds)
     addition_embed_type: str | None = "text_time"
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: int = 2816
@@ -53,6 +53,12 @@ class UNetConfig:
     # inert to_k_ip/to_v_ip weights
     ip_layers: Tuple[str, ...] = ("down_blocks.2.attentions.1",)
     num_ip_tokens: int = 4
+
+    @staticmethod
+    def ip_all_layers() -> Tuple[str, ...]:
+        """``ip_layers`` value that makes the IP branch live on every
+        cross-attention (the vanilla IP-Adapter of the SD1.5 family)."""
+        return ("",)
 
     @property
     def time_embed_dim(self) -> int:
@@ -82,6 +88,31 @@ def tiny_config(**overrides) -> UNetConfig:
         norm_num_groups=8,
         addition_time_embed_dim=16,
         projection_class_embeddings_input_dim=16 * 6 + 32,
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
+def sd15_config(**overrides) -> UNetConfig:
+    """Stable Diffusion 1.5 UNet: four stages, 8 heads everywhere (head dims
+    40/80/160), one transformer layer per block, no add-embedding, the IP
+    branch on every cross-attention."""
+    base = dict(
+        sample_size=64,
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=(
+            "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+            "DownBlock2D",
+        ),
+        up_block_types=(
+            "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+        ),
+        transformer_layers_per_block=(1, 1, 1, 1),
+        num_attention_heads=(8, 8, 8, 8),
+        attention_head_dim=None,
+        cross_attention_dim=768,
+        addition_embed_type=None,
+        ip_layers=UNetConfig.ip_all_layers(),
     )
     base.update(overrides)
     return UNetConfig(**base)
@@ -244,8 +275,9 @@ class UNet2DConditionModel(nn.Module):
         sample:                (B, 4, H, W) NCHW latents
         timesteps:             (B,) or scalar
         encoder_hidden_states: (B, S_text, cross_attention_dim)
-        pooled_text_embeds:    (B, 1280) pooled text embedding (tower 2)
-        time_ids:              (B, 6) SDXL micro-conditioning
+        pooled_text_embeds:    (B, 1280) pooled text embedding (tower 2);
+                               None without an add-embedding (SD1.5)
+        time_ids:              (B, 6) SDXL micro-conditioning; None likewise
         ip_tokens:             (B, num_ip_tokens, cross_attention_dim) or None
         ip_scale:              IP branch weight
 

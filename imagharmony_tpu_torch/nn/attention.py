@@ -1,13 +1,15 @@
 """Multi-head attention with a decoupled image-prompt (IP) branch
 (port of imagharmony_tpu/nn/attention.py).
 
-* Self-attention goes through K1 (kernels/flash_attention.py) on the packed
-  (B, S, H*D) layout: on a CUDA tensor the hand-written kernel, on a CPU
-  tensor its plain version. With packed projections (``pack_inference_params``)
-  q, k and v are column views of one (B, S, 3*H*D) ``to_qkv`` output and go
-  to the kernel without a copy. When the input needs a gradient (training,
-  downstream of a trainable layer) the call goes through K1's autograd
-  Function, whose backward is K3.
+* Self-attention goes through the kernels of kernels/flash_attention.py, by
+  head dim: K1 on the packed (B, S, H*D) layout at K1's head dims (SDXL's
+  64), K4 on head-split (B, H, S, D) views at any other (the SD1.5 family's
+  40/80/160). On a CUDA tensor that is the hand-written kernel, on a CPU
+  tensor its plain version. With packed projections
+  (``pack_inference_params``) q, k and v are column views of one
+  (B, S, 3*H*D) ``to_qkv`` output and go to either kernel without a copy.
+  When the input needs a gradient (training, downstream of a trainable
+  layer) K1's call goes through its autograd Function, whose backward is K3.
 * The text cross-attention (77 keys) and the IP branch (4 keys) stay plain
   fp32-softmax attention, as in the JAX package. The output is
   text_attn + ip_scale * ip_attn.
@@ -48,8 +50,23 @@ def sdpa(q, k, v, *, scale=None, mask=None):
     return torch.matmul(probs.to(v.dtype), v)
 
 
+def self_attention(q, k, v, heads):
+    """softmax(q k^T / sqrt(D)) v per head on packed (B, S, H*D) tensors (row
+    strides free): through K1 at K1's head dims, else through K4 on
+    ``split_heads`` views, whose (B, H, S, D) output merges without a copy.
+    On CUDA tensors a head dim neither kernel takes raises."""
+    head_dim = q.shape[-1] // heads
+    scale = head_dim**-0.5
+    if head_dim in flash_attention.HEAD_DIMS:
+        return flash_attention.flash_attention_nhd(q, k, v, scale=scale, head_dim=head_dim)
+    out = flash_attention.flash_attention(
+        split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale=scale
+    )
+    return merge_heads(out)
+
+
 class Attention(nn.Module):
-    """The attention layer of SDXL transformer blocks (diffusers Attention
+    """The attention layer of the UNets' transformer blocks (diffusers Attention
     parameter names: to_q/to_k/to_v without bias, to_out.0 with bias, plus
     to_k_ip/to_v_ip when ``with_ip``). ``context_dim`` set means
     cross-attention."""
@@ -83,11 +100,7 @@ class Attention(nn.Module):
             q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
         if context is None and ip_context is None:
-            head_dim = q.shape[-1] // self.heads
-            out = flash_attention.flash_attention_nhd(
-                q, k, v, scale=head_dim**-0.5, head_dim=head_dim
-            )
-            return self.to_out[0](out)
+            return self.to_out[0](self_attention(q, k, v, self.heads))
 
         qh = split_heads(q, self.heads)
         out = sdpa(qh, split_heads(k, self.heads), split_heads(v, self.heads))

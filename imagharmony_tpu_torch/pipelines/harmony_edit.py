@@ -6,6 +6,13 @@ image projection -> an Euler denoise loop with the CFG pair packed on the
 batch axis ([uncond | cond]) -> VAE decode. The device and dtype come from
 the weights; there is no platform switch.
 
+Two families run it. SDXL: both text towers, micro-conditioning, the HA
+fusion with extra_text. SD1.5 (``cfgs.family == "sd15"``): CLIP-L's last
+hidden state alone as the context, no pooled embedding and no time ids, no
+HA head, the IP branch on every cross-attention. Either takes the
+``image_proj`` head or, from the penultimate patch features, the
+``resampler`` (Plus) or ``mlp_proj`` (Full) head.
+
 The pipeline surface keeps the JAX layout: noise is (B, h, w, 4) and images
 are (B, H, W, 3) in [-1, 1]. Inside the models activations are NCHW.
 
@@ -65,15 +72,23 @@ def ip_scale_schedule(opts: EditOptions) -> np.ndarray:
 
 
 def encode_texts(comps: comp.Components, ids_l, ids_g):
-    """SDXL dual-tower text conditioning: (context, pooled)."""
+    """Text conditioning (context, pooled): the dual-tower concatenation for
+    SDXL; CLIP-L's last hidden state alone, with pooled None, for SD1.5."""
+    if comps.cfgs.family == "sd15":
+        return comps.text_encoder(ids_l)["last"], None
     return clip_text.encode_for_sdxl(comps.text_encoder, comps.text_encoder_2, ids_l, ids_g)
 
 
 def image_prompt_tokens(comps: comp.Components, pixel_values, extra_context):
     """CLIP vision -> (HA fuse with extra_text) -> prompt tokens, plus the
-    unconditional tokens from a zeroed embedding."""
-    embeds = comps.image_encoder(pixel_values)["projected"]
-    if extra_context is not None:
+    unconditional tokens: from a zeroed embedding for ``image_proj``, from a
+    black image's patch features for ``resampler`` and ``mlp_proj``."""
+    vision_out = comps.image_encoder(pixel_values)
+    if comps.cfgs.proj_kind != "image_proj":
+        black = comps.image_encoder(torch.zeros_like(pixel_values))
+        return comps.project_image_embeds(vision_out), comps.project_image_embeds(black)
+    embeds = vision_out["projected"]
+    if extra_context is not None and comps.harmony is not None:
         embeds = harmony.fuse_image_embeds(comps.harmony, extra_context, embeds)
     cond = comps.image_proj(embeds)
     uncond = comps.image_proj(torch.zeros_like(embeds))
@@ -83,12 +98,12 @@ def image_prompt_tokens(comps: comp.Components, pixel_values, extra_context):
 def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_values, *,
                        num_samples):
     """CFG-packed conditioning, each (2 * num_samples, ...) in [uncond | cond]
-    row order: (context2, pooled2, time_ids, ip2)."""
+    row order: (context2, pooled2, time_ids, ip2); pooled2 and time_ids are
+    None for the SD1.5 family."""
     ids_l = torch.cat([ids["neg_l"], ids["pos_l"]])
     ids_g = torch.cat([ids["neg_g"], ids["pos_g"]])
     context, pooled = encode_texts(comps, ids_l, ids_g)
     neg_ctx, pos_ctx = context.chunk(2)
-    neg_pooled, pos_pooled = pooled.chunk(2)
 
     extra_ctx = None
     if opts.use_harmony and "extra_l" in ids:
@@ -100,6 +115,9 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
     ip_cond, ip_uncond = image_prompt_tokens(comps, pixel_values, extra_ctx)
     ip2 = torch.cat([rep(ip_uncond), rep(ip_cond)])
     context2 = torch.cat([rep(neg_ctx), rep(pos_ctx)])
+    if comps.cfgs.family == "sd15":
+        return context2, None, None, ip2
+    neg_pooled, pos_pooled = pooled.chunk(2)
     pooled2 = torch.cat([rep(neg_pooled), rep(pos_pooled)])
     tid = torch.tensor([opts.time_ids()], dtype=torch.float32, device=context.device)
     time_ids = tid.repeat(2 * num_samples, 1)
@@ -109,7 +127,8 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
 def cfg_eps(unet, lat, t, sigma, context, pooled, time_ids, ip_tokens, *, kind,
             guidance_scale, ip_scale):
     """One CFG-pair UNet evaluation: the batch is [lat | lat] against the
-    [uncond | cond] conditioning; returns the guided epsilon."""
+    [uncond | cond] conditioning (pooled and time_ids None for SD1.5);
+    returns the epsilon after classifier-free guidance."""
     lat_in = sched.scale_model_input_c(kind, sigma, torch.cat([lat, lat]))
     ts = torch.full((lat_in.shape[0],), float(t), dtype=torch.float32, device=lat.device)
     eps = unet(lat_in, ts, context, pooled_text_embeds=pooled, time_ids=time_ids,
@@ -168,25 +187,44 @@ class HarmonyPipeline:
 
     @classmethod
     def _build(cls, comps):
-        # inference packing: one to_qkv per self-attention, so K1 gets q/k/v
-        # as strided column views of a single projection output
+        # inference packing: one to_qkv per self-attention, so K1 and K4 get
+        # q/k/v as strided column views of a single projection output
         pack_inference_params(comps.unet)
         toy = tok_lib.build_toy_tokenizer()
         return cls(comps.eval().requires_grad_(False), tok_lib.SDXLTokenizers(toy, toy))
 
     @classmethod
-    def random_tiny(cls, seed=0, *, device="cuda", dtype=torch.float32):
-        """Random-weight miniature pipeline (tests)."""
-        cfgs = comp.tiny_configs(vocab_size=len(tok_lib.build_toy_tokenizer().encoder))
+    def random(cls, cfgs: comp.ComponentConfigs, seed=0, *, device="cuda",
+               dtype=torch.float32):
+        """Random-weight pipeline over ``cfgs`` with the toy tokenizer (random
+        weights make the vocab irrelevant), built on ``device``."""
         gen = torch.Generator(device=device).manual_seed(seed)
         return cls._build(comp.init_params(gen, cfgs, dtype=dtype, device=device))
 
     @classmethod
+    def random_tiny(cls, seed=0, *, proj_kind="image_proj", device="cuda",
+                    dtype=torch.float32):
+        """Random-weight miniature SDXL pipeline (tests)."""
+        cfgs = comp.tiny_configs(vocab_size=len(tok_lib.build_toy_tokenizer().encoder),
+                                 proj_kind=proj_kind)
+        return cls.random(cfgs, seed, device=device, dtype=dtype)
+
+    @classmethod
+    def random_tiny_sd15(cls, seed=0, *, device="cuda", dtype=torch.float32):
+        """Random-weight miniature SD1.5 pipeline (single text tower, vanilla
+        IP-Adapter on every cross-attention, no HA)."""
+        cfgs = comp.sd15_tiny_configs(vocab_size=len(tok_lib.build_toy_tokenizer().encoder))
+        return cls.random(cfgs, seed, device=device, dtype=dtype)
+
+    @classmethod
     def random_full(cls, seed=0, *, device="cuda", dtype=dtypes.COMPUTE_DTYPE):
-        """Full-size random-weight SDXL pipeline with the toy tokenizer
-        (random weights make the vocab irrelevant), built on ``device``."""
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return cls._build(comp.init_params(gen, comp.sdxl_configs(), dtype=dtype, device=device))
+        """Full-size random-weight SDXL pipeline."""
+        return cls.random(comp.sdxl_configs(), seed, device=device, dtype=dtype)
+
+    @classmethod
+    def random_full_sd15(cls, seed=0, *, device="cuda", dtype=dtypes.COMPUTE_DTYPE):
+        """Full-size random-weight SD1.5 pipeline (CLIP-L, ViT-H, 4 tokens)."""
+        return cls.random(comp.sd15_configs(), seed, device=device, dtype=dtype)
 
     @classmethod
     def from_state_dict(cls, state_dict, cfgs: comp.ComponentConfigs, *, device="cuda",
@@ -226,11 +264,13 @@ class HarmonyPipeline:
     @torch.inference_mode()
     def generate(self, pil_image, *, prompt: Optional[str] = None,
                  extra_text: Optional[str] = None, num_samples: int = 1,
-                 seed: Optional[int] = None, guidance_scale: float = 5.0,
+                 scale: float = 1.0, seed: Optional[int] = None,
+                 guidance_scale: float = 5.0,
                  num_inference_steps: int = 30, height: int = 1024, width: int = 1024,
                  noise=None, output_type: str = "np", timings: Optional[dict] = None):
         """Edit ``pil_image`` (PIL image or HWC uint8 array).
 
+        scale: the weight of the image-prompt (IP) branch.
         noise: optional (num_samples, h, w, 4) initial N(0, 1) latents;
         otherwise drawn from ``seed`` with a torch.Generator on the device.
         output_type: "np" (uint8 (B, H, W, 3)) or "raw" (float tensor in
@@ -243,7 +283,8 @@ class HarmonyPipeline:
         pixel_values = self._pixel_values(pil_image)
         ids = self._ids(prompt or DEFAULT_PROMPT, extra_text)
         opts = EditOptions(height=height, width=width, num_inference_steps=num_inference_steps,
-                           guidance_scale=guidance_scale, use_harmony=extra_text is not None)
+                           guidance_scale=guidance_scale, ip_scale=scale,
+                           use_harmony=extra_text is not None)
         schedule = sched.make("euler", opts.num_inference_steps)
         ip_scales = ip_scale_schedule(opts)
 

@@ -1,6 +1,7 @@
 """Numerical-parity harness (port of imagharmony_tpu/utils/parity.py).
 
-``run_capture`` runs an edit and keeps every intermediate latent, reusing a
+``run_capture`` runs an edit of either family (SDXL, or SD1.5 with no pooled
+embedding and no time ids) and keeps every intermediate latent, reusing a
 given initial noise so that two implementations share x_T; ``compare``
 scores the per-step cosine between two captures. Captures hold numpy
 arrays in the JAX layout (latents (steps+1, B, h, w, 4), image

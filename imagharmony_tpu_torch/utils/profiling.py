@@ -35,7 +35,7 @@ K3_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 
 # first match wins; names are lowercased
 KERNEL_CLASSES = (
-    ("K1", ("flash_attn_nhd_kernel",)),
+    ("K1/K4", ("flash_attn_kernel",)),  # one device kernel under both entry points
     ("K3", K3_KERNELS),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "nchw", "cudnn")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),

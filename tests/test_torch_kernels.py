@@ -130,6 +130,36 @@ def test_library_path_is_keyed_by_source():
     assert build.library_path("flash_attn_nhd") != build.library_path("flash_attn_nhd_bwd")
 
 
+def test_resource_usage_reads_ptxas_report(monkeypatch, tmp_path):
+    """``build.resource_usage`` on a stand-in compiler that prints what
+    ``nvcc -Xptxas -v`` prints: registers, shared memory and spills per
+    kernel, keyed by the kernel's name (demangled where c++filt exists)."""
+    report = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3abc17flash_attn_kernelILi160EEEvPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc17flash_attn_kernelILi160EEEvPKfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 218 registers, used 1 barriers, 44544 bytes smem
+ptxas info    : Compile time = 266.200 ms
+ptxas info    : Compiling entry function '_ZN3abc12delta_kernelEvPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc12delta_kernelEvPKfi
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+    (tmp_path / "report.txt").write_text(report)
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!/bin/sh\ncat {tmp_path / 'report.txt'} >&2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    usage = build.resource_usage("flash_attn_nhd")
+    by_suffix = {("160" in k, "delta" in k): v for k, v in usage.items()}
+    assert by_suffix[(True, False)] == {"registers": 218, "smem_bytes": 44544, "spill_bytes": 0}
+    assert by_suffix[(False, True)] == {"registers": 32, "smem_bytes": 0, "spill_bytes": 20}
+    fake.write_text("#!/bin/sh\necho boom >&2\nexit 3\n")
+    with pytest.raises(RuntimeError, match="boom"):
+        build.resource_usage("flash_attn_nhd")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,heads,d", [(1024, 20, 64), (1000, 2, 64), (64, 4, 32), (5, 3, 128)])
 def test_cuda_kernel_matches_plain(cuda, s, heads, d):
