@@ -9,8 +9,11 @@ is non-zero:
 
 1. device and power limit (nvidia-smi); no CUDA -> fail;
 2. build K1 and K4 (the hand-written CUDA attention kernel under its packed
-   and its head-split entry point, one source) and K3 (K1's backward) from
-   the sources in the checkout, one nvcc per source, in parallel;
+   and its head-split entry point, one source), K3 (their backward, under
+   the same two layouts) and K2 (the fused text + IP cross-attention) from
+   the sources in the checkout, one nvcc per source, in parallel, with what
+   ptxas reports per kernel and the dynamic shared memory K3's launches ask
+   for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes, with timings of K1, the plain
@@ -23,31 +26,45 @@ is non-zero:
    SD1.5 UNet at 512² (head dims 40, 80, 160) and at an odd length, on
    contiguous (B, H, S, D) tensors and on strided views of one packed
    to_qkv tensor, with timings of K4, the plain version and SDPA;
+3d. K2 against its plain version at every cross-attention shape of both
+   UNets (77 text keys; 4, 16 and 257 IP keys; ip_scale 0; an odd length),
+   k and v as views of one packed to_kv tensor, with timings of K2, the
+   plain version and, as a yardstick, SDPA on the text branch plus SDPA on
+   the IP branch;
+3e. K4's lse and K3 at head dims 40/80/160 against their plain versions at
+   the SD1.5 training shapes, on views of a packed to_qkv tensor, with
+   timings of K3, the plain backward and SDPA's backward;
 4. the tiny pipeline on the card (bf16, K1) against the same weights on the
    CPU (fp32, plain attention);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
-   random weights from a seed, with the K1 launch count checked;
+   random weights from a seed, with the K1 and K2 launch counts checked;
 6. one tiny training step on the card (bf16, K1 and K3) against the same
    weights and draws on the CPU (fp32, plain versions);
 7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
    batch 1, bf16, gradient checkpointing) for 4 steps on synthetic data,
    with the K3 launches per step checked against the count the UNet config
-   gives;
+   gives, and the K2 launches per step (forward and recompute);
 8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4)
    against the same weights on the CPU (fp32, plain attention), and a short
    run of it with the ``resampler`` and with the ``mlp_proj`` head;
 9. the full-width SD1.5 ``generate()`` at 512², 30 Euler steps, random
-   weights from a seed, with the K4 launch count checked (480, and no K1
-   launch), then a 10-step call under the profiler for the device time by
-   kernel class and the idle share.
+   weights from a seed, with the K4 and K2 launch counts checked (480
+   each, and no K1 launch), then a 10-step call under the profiler for the
+   device time by kernel class and the idle share;
+10. the full-width SD1.5 UNet at 512², batch 1, bf16, forward and backward
+   to the IP projections: 16 K4, 16 K2 and the K3 launches the config gives
+   (15), then the narrow SD1.5 UNet's IP gradients on the card (bf16)
+   against the CPU (fp32).
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
 the median CUDA-event time of the call, which also holds the host's launch
 work (for SDPA's backward, the autograd call). The line before the last is
 a JSON object describing each kernel of the paths: its ``ms``, ``plain_ms``
-and ``library_ms`` (SDPA) are device times, all taken the same way, and
-``event_ms`` holds the three CUDA-event times. The last line is
+and ``library_ms`` (SDPA; for K2 SDPA on the text branch plus SDPA on the
+IP branch) are device times, all taken the same way, and ``event_ms`` holds
+the three CUDA-event times. A shape's ``shape`` is (B, S, H, D), for K2
+(B, Sq, H, D, IP keys) with 77 text keys. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -93,6 +110,21 @@ EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
 K4_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8, 160)]
 K4_EDGES = [(2, 1000, 8, 40)]
 
+# K2, (B, Sq, H, D, Sk_ip, ip_scale), 77 text keys: the main paths' shapes
+# (timed) -- SDXL at 1024² with the CFG pair on the batch axis (10 calls at
+# S=4096, 60 at S=1024 per UNet call, 10 of those with the IP branch), the
+# SD1.5 UNet at 512² (5, 5, 5 and 1 per UNet call, IP on all) -- then the
+# Resampler's 16 and MLPProj's 257 IP keys, ip_scale 0, an odd length and
+# training's batch 1
+K2_SHAPES = [(2, 4096, 10, 64, 0, 1.0), (2, 1024, 20, 64, 0, 1.0), (2, 1024, 20, 64, 4, 1.0),
+             (2, 4096, 8, 40, 4, 1.0), (2, 1024, 8, 80, 4, 1.0), (2, 256, 8, 160, 4, 1.0),
+             (2, 64, 8, 160, 4, 1.0)]
+K2_EDGES = [(2, 1024, 8, 80, 16, 0.7), (2, 256, 8, 160, 257, 0.7), (2, 1024, 8, 80, 4, 0.0),
+            (2, 1000, 8, 40, 4, 0.5), (1, 256, 20, 64, 4, 1.0)]
+TEXT_KEYS = 77
+SDXL_CROSS_PER_UNET_CALL = 70
+SDXL_IP_CROSS_PER_UNET_CALL = 10  # down_blocks.2.attentions.1: 10 blocks at S=1024
+
 # K3 against the fp32 plain backward on the same bf16 inputs: bf16 rounding
 # of P, dS and the outputs
 K3_MAX_REL = 2e-2  # of the reference's max-abs, per gradient
@@ -102,6 +134,10 @@ LSE_MAX_ABS = 2e-2
 # (B, S, H, D): 512² training (the first is K3's headline shape), then 1024²
 K3_SHAPES = [(1, 1024, 10, 64), (1, 256, 20, 64), (1, 4096, 10, 64), (1, 1024, 20, 64)]
 K3_EDGES = [(2, 1000, 2, 64), (2, 64, 4, 32)]
+# K3 on K4's layout: the SD1.5 UNet's self-attentions at 512², batch 1, then
+# an odd length
+K3_BHSD_SHAPES = [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 256, 8, 160), (1, 64, 8, 160)]
+K3_BHSD_EDGES = [(2, 1000, 2, 40)]
 # tiny training step, bf16 on the card vs fp32 on the CPU
 TRAIN_MAX_LOSS_REL = 2e-2
 TRAIN_MIN_GRAD_COSINE = 0.99
@@ -172,23 +208,28 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build(fa, build):
+def phase_build(fa, ca, build):
     """Builds the kernels and, beside them, asks ptxas what each uses."""
-    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd")
+    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry)]
+    with ThreadPoolExecutor(6) as pool:
+        builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry), pool.submit(ca._entry)]
         usage = [pool.submit(build.resource_usage, name) for name in sources]
         for f in builds:
             f.result()
         fa._bhsd_entry()  # K4: the second entry point of K1's library
-        print(f"phase 2 build K1/K4 and K3 (in parallel): {time.perf_counter() - t0:.2f} s",
+        fa._bhsd_bwd_entry()  # K3 on K4's layout
+        print(f"phase 2 build K1/K4, K3 and K2 (in parallel): {time.perf_counter() - t0:.2f} s",
               flush=True)
         for name, f in zip(sources, usage):
             for kernel, u in sorted(f.result().items()):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
                       f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled",
                       flush=True)
+    for d in fa.BWD_HEAD_DIMS:
+        dyn = fa.bwd_smem_bytes(d)
+        print(f"phase 2 K3 d={d}: dynamic shared memory per launch dkdv_kernel "
+              f"{dyn['dkdv_kernel']} B, dq_kernel {dyn['dq_kernel']} B", flush=True)
 
 
 def _bound(flops, nbytes):
@@ -206,6 +247,13 @@ def k3_bound(b, s, h, d):
     # q, k, v, out, dout and the fp32 lse read once, dq, dk, dv written
     # once; S, dP, dV, dQ, dK
     return _bound(10 * b * h * s * s * d, 2 * 8 * b * s * h * d + 4 * b * h * s)
+
+
+def k2_bound(b, sq, h, d, sk_ip):
+    # q, k, v, k_ip, v_ip read once and out written once, bf16; QK^T and PV
+    # over the text and the IP keys
+    keys = TEXT_KEYS + sk_ip
+    return _bound(4 * b * h * sq * keys * d, 2 * b * h * d * (2 * sq + 2 * keys))
 
 
 @torch.inference_mode()
@@ -340,6 +388,109 @@ def phase_k4(fa):
     return max_err, times
 
 
+@torch.inference_mode()
+def phase_k2(ca):
+    """K2 against its plain version, k and v as views of a packed to_kv
+    tensor (what the UNet hands it), and its timings at the main paths'
+    shapes."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    max_err, times = 0.0, {}
+    for b, sq, h, d, sk_ip, ip_scale in K2_SHAPES + K2_EDGES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        q = rnd(b, sq, h * d)
+        k, v = rnd(b, TEXT_KEYS, 2 * h * d).chunk(2, dim=-1)
+        k_ip, v_ip = (rnd(b, sk_ip, h * d), rnd(b, sk_ip, h * d)) if sk_ip else (None, None)
+        kw = dict(scale=d**-0.5, head_dim=d, k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
+        out = ca.flash_cross_nhd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        f32 = [None if x is None else x.float() for x in (q, k, v, k_ip, v_ip)]
+        ref = ca.flash_cross_nhd_plain(*f32[:3], scale=d**-0.5, head_dim=d, k_ip=f32[3],
+                                       v_ip=f32[4], ip_scale=ip_scale)
+        err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+        label = f"B={b} Sq={sq} H={h} D={d} IP keys={sk_ip} ip_scale={ip_scale}"
+        print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f}", flush=True)
+        if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE):
+            raise AssertionError(f"K2 disagrees with its plain version at {label}")
+        max_err = max(max_err, err)
+        if (b, sq, h, d, sk_ip, ip_scale) not in K2_SHAPES:
+            continue
+        # the yardstick: SDPA on each branch, on (B, H, S, D) views of the
+        # same tensors; the port never calls it
+        heads = [x if x is None else x.view(b, -1, h, d).transpose(1, 2)
+                 for x in (q, k, v, k_ip, v_ip)]
+
+        def library():
+            sdpa(*heads[:3])
+            if sk_ip:
+                sdpa(heads[0], heads[3], heads[4])
+
+        t = _timings({
+            "kernel": lambda: ca.flash_cross_nhd(q, k, v, **kw),
+            "plain": lambda: ca.flash_cross_nhd_plain(q, k, v, **kw),
+            "library": library,
+        })
+        bound, by = k2_bound(b, sq, h, d, sk_ip)
+        times[(b, sq, h, d, sk_ip)] = dict(t, bound=(bound, by))
+        print(f"phase 3d time {label}, device (CUDA event): K2 {_fmt(t['kernel'])}, plain "
+              f"{_fmt(t['plain'])}, SDPA text + IP {_fmt(t['library'])}; bound {bound:.5f} ms "
+              f"({by})", flush=True)
+    return max_err, times
+
+
+def phase_k3_bhsd(fa, split_heads):
+    """K4's lse and K3 on K4's layout against their plain versions, on views
+    of a packed to_qkv tensor, and their timings at the SD1.5 training
+    shapes."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_err, times = 0.0, {}
+    for b, s, h, d in K3_BHSD_SHAPES + K3_BHSD_EDGES:
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (split_heads(x, h) for x in qkv.chunk(3, dim=-1))
+        dout = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        scale = d**-0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v, dout)]
+        logits = f32[0] @ f32[1].transpose(-1, -2) * scale
+        ref_lse = torch.logsumexp(logits, dim=-1) * 1.4426950408889634  # log2 domain
+        lse_err = float((lse - ref_lse).abs().max())
+        msg, ok = [f"lse max_abs={lse_err:.3e}"], lse_err <= LSE_MAX_ABS
+        refs = fa.flash_attention_bwd_plain(*f32, scale=scale)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            err, cos, ref_max = float((g.float() - r).abs().max()), _cosine(g.float(), r), \
+                float(r.abs().max())
+            msg.append(f"{name} max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f}")
+            ok = ok and err <= K3_MAX_REL * ref_max and cos >= K3_MIN_COSINE
+            max_err = max(max_err, err)
+        print(f"phase 3e K3 B={b} S={s} H={h} D={d}: " + ", ".join(msg), flush=True)
+        if not ok:
+            raise AssertionError(f"K4's lse or K3 disagrees with the plain version at "
+                                 f"B={b} S={s} H={h} D={d}")
+        if (b, s, h, d) not in K3_BHSD_SHAPES:
+            continue
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = sdpa(*leaves)
+            t = _timings({
+                "kernel": lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale),
+                "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, dout, scale=scale),
+                "library": lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+            }, profiling.K3_KERNELS)
+        bound, by = k3_bound(b, s, h, d)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        kern = ", ".join(f"{n} {v:.4f}" if v else f"{n} not measured"
+                         for n, v in t["per_kernel"].items())
+        print(f"phase 3e time B={b} S={s} H={h} D={d}, device (CUDA event): K3 "
+              f"{_fmt(t['kernel'])} ({kern}), plain backward {_fmt(t['plain'])}, SDPA "
+              f"backward {_fmt(t['library'])}; bound {bound:.5f} ms ({by})", flush=True)
+    return max_err, times
+
+
 def phase_tiny(fa, HarmonyPipeline):
     cpu = HarmonyPipeline.random_tiny(seed=0, device="cpu")
     card = HarmonyPipeline(
@@ -360,7 +511,7 @@ def phase_tiny(fa, HarmonyPipeline):
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
 
 
-def phase_full(fa, HarmonyPipeline):
+def phase_full(fa, ca, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -370,26 +521,29 @@ def phase_full(fa, HarmonyPipeline):
     img = np.random.default_rng(0).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
     torch.cuda.reset_peak_memory_stats()
     timings = {}
-    fa.launches = 0
+    fa.launches = ca.cross_launches = ca.cross_ip_launches = 0
     t0 = time.perf_counter()
     out = pipe.generate(img, prompt="a photo of six sheep on a meadow", extra_text="six sheep",
                         num_samples=1, seed=0, num_inference_steps=FULL_STEPS,
                         guidance_scale=5.0, output_type="raw", timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.launches
+    launches, k2 = fa.launches, (ca.cross_launches, ca.cross_ip_launches)
     finite = bool(torch.isfinite(out).all())
     print(f"phase 5 generate 1024² {FULL_STEPS} steps: total {wall:.3f} s, "
           f"conditioning {timings['conditioning_s']:.3f} s, denoise {timings['denoise_s']:.3f} s, "
           f"decode {timings['decode_s']:.3f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 launches {launches}, "
-          f"shape {tuple(out.shape)}, finite {finite}", flush=True)
+          f"K2 launches {k2[0]} ({k2[1]} with the IP branch), shape {tuple(out.shape)}, "
+          f"finite {finite}", flush=True)
     expected = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    expected_k2 = (SDXL_CROSS_PER_UNET_CALL * FULL_STEPS, SDXL_IP_CROSS_PER_UNET_CALL * FULL_STEPS)
     if tuple(out.shape) != (1, 1024, 1024, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
-    if launches != expected:
-        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
-    return launches
+    if launches != expected or k2 != expected_k2:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}; K2 {k2}, "
+                             f"expected {expected_k2}")
+    return launches, k2[0]
 
 
 def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
@@ -446,7 +600,7 @@ def expected_k3_per_step(ucfg):
     return count
 
 
-def phase_train_full(fa, comp, step_lib, trainer):
+def phase_train_full(fa, ca, comp, step_lib, trainer):
     """trainer.main at full width; a wrapper around the step's update
     records the launch counts and the gradients of each step."""
     expected = expected_k3_per_step(comp.sdxl_configs().unet)
@@ -461,7 +615,7 @@ def phase_train_full(fa, comp, step_lib, trainer):
             return float(torch.stack(gs).max()) if gs else 0.0
 
         steps.append({
-            "k1": fa.launches, "k3": fa.bwd_launches,
+            "k1": fa.launches, "k3": fa.bwd_launches, "k2": ca.cross_launches,
             "ip": max_grad(lambda n: "down_blocks.2.attentions.1." in n and "_ip." in n),
             "harmony": max_grad(lambda n: n.startswith("harmony.")),
         })
@@ -471,7 +625,7 @@ def phase_train_full(fa, comp, step_lib, trainer):
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.bwd_launches = 0
+        fa.launches = fa.bwd_launches = ca.cross_launches = 0
         t0 = time.perf_counter()
         final = trainer.main(["--full_random", "--synthetic_data", str(TRAIN_STEPS),
                               "--max_steps", str(TRAIN_STEPS), "--log_every", "1",
@@ -484,25 +638,29 @@ def phase_train_full(fa, comp, step_lib, trainer):
         step_lib.apply_update = update
         shutil.rmtree(out_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    k1 = [s["k1"] - (steps[i - 1]["k1"] if i else 0) for i, s in enumerate(steps)]
-    k3 = [s["k3"] - (steps[i - 1]["k3"] if i else 0) for i, s in enumerate(steps)]
+    k1, k2, k3 = ([s[key] - (steps[i - 1][key] if i else 0) for i, s in enumerate(steps)]
+                  for key in ("k1", "k2", "k3"))
     step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
-    for m, s, a, c in zip(metrics, steps, k1, k3):
+    for m, s, a, c, x in zip(metrics, steps, k1, k3, k2):
         print(f"phase 7 step {m['step']}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6e}, "
               f"step {m['step_time_s']:.4f} s, max |grad| live IP {s['ip']:.3e}, harmony "
-              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}", flush=True)
+              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}, K2 launches {x}",
+              flush=True)
+    expected_k2 = 2 * SDXL_CROSS_PER_UNET_CALL  # forward and checkpoint recompute
     print(f"phase 7 full-width training {final} steps: total {wall:.3f} s, step time median "
-          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3 "
-          f"launches per step {k1[-1]}/{k3[-1]} (K3 expected {expected})", flush=True)
+          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3/K2 "
+          f"launches per step {k1[-1]}/{k3[-1]}/{k2[-1]} (K3 expected {expected}, K2 "
+          f"{expected_k2})", flush=True)
     if final != TRAIN_STEPS or len(metrics) != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
         raise AssertionError(f"the trainer ran {final} steps, logged {len(metrics)}")
     for m, s in zip(metrics, steps):
         if not (m["loss"] == m["loss"] and abs(m["loss"]) < float("inf")
                 and m["grad_norm"] > 0 and s["ip"] > 0 and s["harmony"] > 0):
             raise AssertionError(f"step {m['step']}: non-finite loss or a zero gradient")
-    if any(c != expected for c in k3) or min(k1) <= 0:
-        raise AssertionError(f"K3 launches per step {k3}, expected {expected}; K1 {k1}")
-    return sum(k1), sum(k3)
+    if any(c != expected for c in k3) or min(k1) <= 0 or any(x != expected_k2 for x in k2):
+        raise AssertionError(f"K3 launches per step {k3}, expected {expected}; K2 {k2}, "
+                             f"expected {expected_k2}; K1 {k1}")
+    return sum(k1), sum(k3), sum(k2)
 
 
 def narrow_sd15_configs(comp, proj_kind="image_proj"):
@@ -556,7 +714,7 @@ def phase_sd15_narrow(fa, comp, HarmonyPipeline):
             raise AssertionError(f"the {kind} pipeline on the card gave a bad output")
 
 
-def phase_sd15_full(fa, HarmonyPipeline):
+def phase_sd15_full(fa, ca, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full_sd15(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -571,24 +729,26 @@ def phase_sd15_full(fa, HarmonyPipeline):
     walls = []
     for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
         timings = {}
-        fa.launches = fa.bhsd_launches = 0
+        fa.launches = fa.bhsd_launches = ca.cross_launches = ca.cross_ip_launches = 0
         t0 = time.perf_counter()
         out = pipe.generate(img, num_inference_steps=FULL_STEPS, timings=timings, **kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0, timings))
-    k1, k4 = fa.launches, fa.bhsd_launches
+    k1, k4, k2 = fa.launches, fa.bhsd_launches, (ca.cross_launches, ca.cross_ip_launches)
     finite = bool(torch.isfinite(out).all())
     for name, (wall, tm) in zip(("first", "second"), walls):
         print(f"phase 9 SD1.5 generate 512² {FULL_STEPS} steps, {name} call: total {wall:.3f} s, "
               f"conditioning {tm['conditioning_s']:.3f} s, denoise {tm['denoise_s']:.3f} s, "
               f"decode {tm['decode_s']:.3f} s", flush=True)
     print(f"phase 9 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K4 launches "
-          f"{k4}, K1 launches {k1}, shape {tuple(out.shape)}, finite {finite}", flush=True)
+          f"{k4}, K1 launches {k1}, K2 launches {k2[0]} ({k2[1]} with the IP branch), shape "
+          f"{tuple(out.shape)}, finite {finite}", flush=True)
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
-    expected = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS
-    if (k4, k1) != (expected, 0):
-        raise AssertionError(f"K4 launched {k4} times, expected {expected}; K1 {k1}, expected 0")
+    expected = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS  # as many cross as self, IP on all
+    if (k4, k1, k2) != (expected, 0, (expected, expected)):
+        raise AssertionError(f"K4 launched {k4} times, expected {expected}; K1 {k1}, expected 0; "
+                             f"K2 {k2}, expected {expected} with the IP branch")
     # where a call's time goes: a short generate() under the profiler
     n = SD15_PROFILED_STEPS
     _, wall_ms, kernels = profiling.profiled(
@@ -596,7 +756,72 @@ def phase_sd15_full(fa, HarmonyPipeline):
     prof = profiling.summarize(kernels, 1, wall_ms)
     print(f"phase 9 profile of a {n}-step generate(): "
           + json.dumps({k.replace("_per_step", ""): v for k, v in prof.items()}), flush=True)
-    return k4
+    return k4, k2[0]
+
+
+def _unet_ip_grads(unet, inputs, dev):
+    """sum(out^2)'s gradient with respect to the UNet's IP projections (the
+    only parameters that need one), flat fp32 on the CPU."""
+    unet.requires_grad_(False)
+    ip = [p for n, p in unet.named_parameters() if "_ip." in n]
+    for p in ip:
+        p.requires_grad_(True)
+    sample, ts, ctx, tokens = (x.to(dev) for x in inputs)
+    dt = next(unet.parameters()).dtype
+    out = unet(sample.to(dt), ts, ctx.to(dt), ip_tokens=tokens.to(dt))
+    out.float().square().sum().backward()
+    return torch.cat([p.grad.float().cpu().flatten() for p in ip]), len(ip)
+
+
+def phase_sd15_grad(fa, ca, comp, punet):
+    """The full-width SD1.5 UNet's gradient to its IP projections on the
+    card, with the launch counts, then the narrow one's against the CPU."""
+    cfg = comp.sd15_configs().unet
+    unet = punet.UNet2DConditionModel(cfg, device="cuda", dtype=torch.bfloat16)
+    comp.init_weights_(unet, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn((1, 4, 64, 64), generator=gen), torch.tensor([500.0]),
+              torch.randn((1, TEXT_KEYS, cfg.cross_attention_dim), generator=gen),
+              torch.randn((1, 4, cfg.cross_attention_dim), generator=gen))
+    expected = (SD15_SELF_ATTN_PER_UNET_CALL, SD15_SELF_ATTN_PER_UNET_CALL,
+                expected_k3_per_step(cfg), 0)
+    walls = []
+    for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
+        unet.zero_grad(set_to_none=True)
+        fa.launches = fa.bhsd_launches = fa.bwd_launches = ca.cross_launches = 0
+        t0 = time.perf_counter()
+        grads, n_ip = _unet_ip_grads(unet, inputs, "cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches, fa.launches)
+    finite = bool(torch.isfinite(grads).all())
+    print(f"phase 10 SD1.5 UNet 512² batch 1 forward + backward to its {n_ip} IP projections: "
+          f"{walls[0]:.3f} s first, {walls[1]:.3f} s second, max |grad| "
+          f"{float(grads.abs().max()):.3e}, finite {finite}, K4/K2/K3/K1 launches {counts} "
+          f"(expected {expected})", flush=True)
+    if not finite or float(grads.abs().max()) <= 0 or counts != expected:
+        raise AssertionError(f"the SD1.5 UNet's IP gradient on the card: finite {finite}, "
+                             f"launches {counts}, expected {expected}")
+    full = counts
+
+    narrow = narrow_sd15_configs(comp).unet
+    cpu = comp.init_weights_(punet.UNet2DConditionModel(narrow), torch.Generator().manual_seed(2))
+    card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    inputs = (torch.randn((1, 4, 32, 32), generator=gen), torch.tensor([500.0]),
+              torch.randn((1, TEXT_KEYS, narrow.cross_attention_dim), generator=gen),
+              torch.randn((1, 4, narrow.cross_attention_dim), generator=gen))
+    ref, _ = _unet_ip_grads(cpu, inputs, "cpu")
+    fa.bhsd_launches = fa.bwd_launches = ca.cross_launches = 0
+    got, _ = _unet_ip_grads(card, inputs, "cuda")
+    torch.cuda.synchronize()
+    cos = _cosine(got, ref)
+    narrow_counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches)
+    print(f"phase 10 narrow SD1.5 UNet IP gradients card bf16 vs cpu fp32: cosine={cos:.6f}, "
+          f"K4/K2/K3 launches {narrow_counts}", flush=True)
+    if not (cos >= TRAIN_MIN_GRAD_COSINE and min(narrow_counts) > 0):
+        raise AssertionError("the narrow SD1.5 UNet's IP gradients on the card disagree with "
+                             "the CPU")
+    return full[:3]
 
 
 def _line_times(t, bound):
@@ -615,25 +840,32 @@ def _line_times(t, bound):
 
 def main():
     from imagharmony_tpu_torch.kernels import build
+    from imagharmony_tpu_torch.kernels import cross_attention as ca
     from imagharmony_tpu_torch.kernels import flash_attention as fa
+    from imagharmony_tpu_torch.models import unet as punet
+    from imagharmony_tpu_torch.nn.attention import split_heads
     from imagharmony_tpu_torch.pipelines import components as comp
     from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
     from imagharmony_tpu_torch.train import step as step_lib
     from imagharmony_tpu_torch.train import trainer
 
     phase_device()
-    phase_build(fa, build)
+    phase_build(fa, ca, build)
     max_err, main_ms = phase_k1(fa)
     k3_err, k3_times = phase_k3(fa)
     k4_err, k4_times = phase_k4(fa)
+    k2_err, k2_times = phase_k2(ca)
+    k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
     phase_tiny(fa, HarmonyPipeline)
-    launches = phase_full(fa, HarmonyPipeline)
+    launches, k2_launches = phase_full(fa, ca, HarmonyPipeline)
     phase_train_tiny(fa, comp, step_lib)
-    k1_train, k3_train = phase_train_full(fa, comp, step_lib, trainer)
+    k1_train, k3_train, k2_train = phase_train_full(fa, ca, comp, step_lib, trainer)
     phase_sd15_narrow(fa, comp, HarmonyPipeline)
-    k4_launches = phase_sd15_full(fa, HarmonyPipeline)
+    k4_launches, k2_sd15 = phase_sd15_full(fa, ca, HarmonyPipeline)
+    k4_grad, k2_grad, k3_grad = phase_sd15_grad(fa, ca, comp, punet)
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
+    k2 = k2_times[K2_SHAPES[0][:5]]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
         "route": "cuda",
@@ -650,22 +882,38 @@ def main():
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd_bwd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:220",
         "launches": k3_train,
-        "launches_by_path": {"train": k3_train},
-        "max_abs_err": k3_err,
+        "launches_by_path": {"train": k3_train, "sd15_unet_grad": k3_grad},
+        "max_abs_err": max(k3_err, k3b_err),
         "shape": list(K3_SHAPES[0]),
         **_line_times(k3, k3["bound"]),
+        "by_shape": [{"shape": list(shape), "layout": layout, **_line_times(t, t["bound"])}
+                     for layout, times in (("packed", k3_times), ("head-split", k3b_times))
+                     for shape, t in times.items()],
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:95",
         "launches": k4_launches,
-        "launches_by_path": {"generate_sd15": k4_launches},
+        "launches_by_path": {"generate_sd15": k4_launches, "sd15_unet_grad": k4_grad},
         "max_abs_err": k4_err,
         "shape": list(K4_SHAPES[0]),
         **_line_times(k4, k4["bound"]),
         "by_shape": [{"shape": list(shape), **_line_times(t, t["bound"])}
                      for shape, t in k4_times.items()],
+    }, {
+        "name": "flash_cross_nhd",
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/cross_attn_nhd.cu",
+        "replaces": "imagharmony_tpu/kernels/flash_attention.py:630",
+        "launches": k2_launches,
+        "launches_by_path": {"generate": k2_launches, "train": k2_train,
+                             "generate_sd15": k2_sd15, "sd15_unet_grad": k2_grad},
+        "max_abs_err": k2_err,
+        "shape": list(K2_SHAPES[0][:5]),
+        **_line_times(k2, k2["bound"]),
+        "by_shape": [{"shape": list(shape), **_line_times(t, t["bound"])}
+                     for shape, t in k2_times.items()],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. It
-is compiled with ``nvcc`` into a shared library under ``_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the cached library. Only the
-sources in this directory are compiled; nothing is downloaded.
+Each kernel is one ``csrc/<name>.cu`` file with plain C entry points; the
+sources share the helpers of ``csrc/attn_tiles.cuh``. It is compiled with
+``nvcc`` into a shared library under ``_build/`` (listed in ``.gitignore``),
+named by a hash of the source, the headers and the flags, so an edited
+source or header rebuilds and an unchanged one loads the cached library.
+Only the sources in this directory are compiled; nothing is downloaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines with no ``nvcc`` and no card.
@@ -44,10 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built. The
+    name hashes the flags, the source and every header of ``csrc/`` (the
+    sources include ``attn_tiles.cuh``), so an edited header rebuilds too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)

@@ -39,108 +39,34 @@
 //     slices of one packed to_qkv output (row stride 3*H*D, head stride D)
 //     with no copy. The output takes the same three strides; both wrappers
 //     hand it a contiguous (B, Sq, H*D) buffer.
-//   * optionally (lse != nullptr) the row log-sum-exp in the scaled-log2
-//     domain, lse = m + log2(l) with m the row max of s = q.k*scale*log2(e)
-//     and l = sum exp2(s - m), fp32 (B, H, Sq): what the backward (K3,
-//     flash_attn_nhd_bwd.cu) needs to recompute P = exp2(s - lse). A null
-//     pointer writes nothing, so inference pays nothing for it.
+//   * optionally (lse != nullptr, under either entry point) the row
+//     log-sum-exp in the scaled-log2 domain, lse = m + log2(l) with m the row
+//     max of s = q.k*scale*log2(e) and l = sum exp2(s - m), fp32 (B, H, Sq):
+//     what the backward (K3, flash_attn_nhd_bwd.cu) needs to recompute
+//     P = exp2(s - lse). A null pointer writes nothing, so inference pays
+//     nothing for it.
+//   * the tile loads and the mma helpers are attn_tiles.cuh's, shared with
+//     K2 and K3.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per CTA
-constexpr int kBlockN = 64;   // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The QK^T contraction takes 16 columns a step: D rounded up to 16 (40 -> 48).
-template <int D>
-constexpr int kContraction = (D + 15) / 16 * 16;
-
-// Copy a (64, D) tile of rows [row0, row0+64) of one head into shared memory
-// (row pitch kContraction<D> + kPad), zero-filling rows >= n_rows and
-// the columns from D up to the contraction width: zero, never garbage, since
-// the contraction reads them. 16-byte loads.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0, int n_rows) {
-  constexpr int kDK = kContraction<D>;
-  constexpr int kChunks = kDK / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (kDK + kPad) + c) = val;
-  }
-}
-
-// Same as load_tile, but stores the tile transposed: dst[d][row], pitch
-// kBlockN + kPad. Rows >= n_rows are zero, never garbage: a zero P times a
-// NaN would still poison the output.
-template <int D>
-__device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            int64_t row_stride, int row0, int n_rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
-    }
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (kBlockN + kPad) + r] = e[j];
-  }
-}
-
-// Element strides of one operand: between batches, heads and rows.
-struct Strides {
-  int64_t batch, head, row;
-};
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o,
+flash_attn_kernel(const bf16* __restrict__ q,
+                  const bf16* __restrict__ k,
+                  const bf16* __restrict__ v,
+                  bf16* __restrict__ o,
                   float* __restrict__ lse,
                   int sq, int sk, int heads,
                   Strides qs, Strides ks, Strides vs, Strides os,
                   float scale_log2) {
   constexpr int kDK = kContraction<D>;
-  constexpr int kPitch = kDK + kPad;
   // sK holds Q first (same shape), then each K tile. 44.5 KB together at
   // D=160, under the 48 KB a kernel may declare statically.
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * (kBlockN + kPad)];
+  __shared__ __align__(16) bf16 sK[kBlockN * kPitch<D>];
+  __shared__ __align__(16) bf16 sVt[D * (kBlockN + kPad)];
 
   const int m0 = blockIdx.x * kBlockM;
   const int h = blockIdx.y;
@@ -150,29 +76,17 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane / 4;   // mma group: row within the 8-row slab
   const int t = lane % 4;   // thread in group: column pair
 
-  const __nv_bfloat16* qh = q + b * qs.batch + h * qs.head;
-  const __nv_bfloat16* kh = k + b * ks.batch + h * ks.head;
-  const __nv_bfloat16* vh = v + b * vs.batch + h * vs.head;
+  const bf16* qh = q + b * qs.batch + h * qs.head;
+  const bf16* kh = k + b * ks.batch + h * ks.head;
+  const bf16* vh = v + b * vs.batch + h * vs.head;
 
   // ---- Q fragments (A operand), pre-scaled by scale*log2(e) ----
-  load_tile<D>(sK, qh, qs.row, m0, sq);
+  load_tile<D>(sK, qh, qs.row, m0, sq, scale_log2);
   __syncthreads();
   uint32_t qf[kDK / 16][4];
-  {
-    const int r0 = warp * 16 + g;
 #pragma unroll
-    for (int kk = 0; kk < kDK / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      const __nv_bfloat16* p0 = sK + r0 * kPitch;
-      const __nv_bfloat16* p1 = sK + (r0 + 8) * kPitch;
-      const __nv_bfloat16* src[4] = {p0 + c0, p1 + c0, p0 + c0 + 8, p1 + c0 + 8};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x0 = __bfloat162float(src[i][0]) * scale_log2;
-        const float x1 = __bfloat162float(src[i][1]) * scale_log2;
-        qf[kk][i] = pack_bf16(x0, x1);
-      }
-    }
+  for (int kk = 0; kk < kDK / 16; ++kk) {
+    load_a_frag<D>(qf[kk], sK + warp * 16 * kPitch<D>, kk, g, t);
   }
   __syncthreads();
 
@@ -196,7 +110,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < kBlockN / 8; ++nb) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
-      const __nv_bfloat16* krow = sK + (nb * 8 + g) * kPitch;
+      const bf16* krow = sK + (nb * 8 + g) * kPitch<D>;
 #pragma unroll
       for (int kk = 0; kk < kDK / 16; ++kk) {
         const uint32_t b0 = ld32(krow + kk * 16 + 2 * t);
@@ -263,7 +177,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* vrow = sVt + (nd * 8 + g) * (kBlockN + kPad) + kk * 16;
+        const bf16* vrow = sVt + (nd * 8 + g) * (kBlockN + kPad) + kk * 16;
         const uint32_t b0 = ld32(vrow + 2 * t);
         const uint32_t b1 = ld32(vrow + 8 + 2 * t);
         mma_bf16_16816(acc[nd], pf, b0, b1);
@@ -281,7 +195,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       lse[((int64_t)b * heads + h) * sq + row] = row_max[r] + log2f(row_sum[r]);
     }
     const float inv = row_sum[r] > 0.f ? 1.f / row_sum[r] : 0.f;
-    __nv_bfloat16* orow = o + b * os.batch + h * os.head + row * os.row;
+    bf16* orow = o + b * os.batch + h * os.head + row * os.row;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
       const uint32_t val = pack_bf16(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
@@ -304,8 +218,8 @@ template <int D>
 void launch(const Args& a) {
   dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.heads, a.batch);
   flash_attn_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.sq,
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.sq,
       a.sk, a.heads, a.qs, a.ks, a.vs, a.os, a.scale_log2);
 }
 
@@ -352,15 +266,16 @@ extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, 
 }
 
 // K4: head-split (B, H, S, D) q, k, v and o, each with a batch, a head and a
-// row stride (unit stride along D). head_dim 32, 40, 64, 80, 128 or 160.
+// row stride (unit stride along D); lse as for K1. head_dim 32, 40, 64, 80,
+// 128 or 160.
 extern "C" int flash_attn_bhsd_bf16(const void* q, const void* k, const void* v, void* o,
-                                    int batch, int sq, int sk, int heads, int head_dim,
+                                    float* lse, int batch, int sq, int sk, int heads, int head_dim,
                                     long long q_batch, long long q_head, long long q_row,
                                     long long k_batch, long long k_head, long long k_row,
                                     long long v_batch, long long v_head, long long v_row,
                                     long long o_batch, long long o_head, long long o_row,
                                     float scale_log2, void* stream) {
-  const Args a{q, k, v, o, nullptr, batch, sq, sk, heads,
+  const Args a{q, k, v, o, lse, batch, sq, sk, heads,
                {q_batch, q_head, q_row}, {k_batch, k_head, k_row},
                {v_batch, v_head, v_row}, {o_batch, o_head, o_row},
                scale_log2, static_cast<cudaStream_t>(stream)};

@@ -30,8 +30,11 @@ launches the second entry point of ``csrc/flash_attn_nhd.cu``: the device
 kernel is K1's, handed other strides, and it rounds the QK^T contraction up
 to 16 columns in shared memory only, where the TPU kernel pads d to a
 multiple of 64 in device memory. At d=40 and S=4096 (B=2, H=8) it is
-compute-bound like K1: 43 GFLOP against 21 MB. K4 has no CUDA backward yet:
-a gradient request on CUDA tensors raises.
+compute-bound like K1: 43 GFLOP against 21 MB. When a gradient is needed the
+call goes through ``FlashAttn``, whose backward replaces the same TPU kernel
+K1's does (``_attn_bwd_kernel`` :220, here reached from ``_flash_bwd`` :350):
+on CUDA tensors K3's head-split entry point, fed by the lse K4 then writes;
+on CPU tensors ``flash_attention_bwd_plain``.
 
 The TPU kernels' dispatch rules (Sk >= 512, heads packed into 128 lanes, the
 no-max clamped exp2, sequences padded to 256, the measured gate on head dim
@@ -50,12 +53,12 @@ from imagharmony_tpu_torch.kernels import build
 
 # Kernel launches since the last reset; only the CUDA launches add to them.
 launches = 0       # K1
-bwd_launches = 0   # K3 (one per backward call: its three kernels together)
+bwd_launches = 0   # K3, either layout (one per backward call: its three kernels)
 bhsd_launches = 0  # K4
 
 HEAD_DIMS = (32, 64, 128)
-BWD_HEAD_DIMS = (32, 64)
 BHSD_HEAD_DIMS = (32, 40, 64, 80, 128, 160)
+BWD_HEAD_DIMS = BHSD_HEAD_DIMS
 _LOG2E = 1.4426950408889634
 
 
@@ -86,20 +89,25 @@ def lse_plain(q, k, *, scale, head_dim):
     return torch.logsumexp(logits, dim=-1) * _LOG2E
 
 
-def flash_attention_nhd_bwd_plain(q, k, v, dout, *, scale, head_dim):
-    """Reference backward in explicit fp32 formulas (the counterpart of the
-    JAX package's ``_bwd_xla``): P = softmax(q k^T scale), dV = P^T dO,
-    dP = dO V^T, dS = P o (dP - rowsum(dP o P)), dQ = scale dS K,
-    dK = scale dS^T Q. Returns (dq, dk, dv) in the inputs' dtypes, packed
-    (B, S, H*D)."""
-    qh, kh, vh, gh = (_split(x, head_dim) for x in (q, k, v, dout))
+def _bwd_formulas(qh, kh, vh, gh, scale):
+    """The attention backward in explicit fp32 formulas on (B, H, S, D)
+    tensors (the counterpart of the JAX package's ``_bwd_xla``):
+    P = softmax(q k^T scale), dV = P^T dO, dP = dO V^T,
+    dS = P o (dP - rowsum(dP o P)), dQ = scale dS K, dK = scale dS^T Q."""
+    qh, kh, vh, gh = (x.float() for x in (qh, kh, vh, gh))
     probs = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
     dv = torch.matmul(probs.transpose(-1, -2), gh)
     dp = torch.matmul(gh, vh.transpose(-1, -2))
     ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * scale
-    dq = torch.matmul(ds, kh)
-    dk = torch.matmul(ds.transpose(-1, -2), qh)
-    return _merge(dq).to(q.dtype), _merge(dk).to(k.dtype), _merge(dv).to(v.dtype)
+    return torch.matmul(ds, kh), torch.matmul(ds.transpose(-1, -2), qh), dv
+
+
+def flash_attention_nhd_bwd_plain(q, k, v, dout, *, scale, head_dim):
+    """K3's reference on K1's layout: ``_bwd_formulas`` on packed
+    (B, S, H*D) tensors. Returns (dq, dk, dv) in the inputs' dtypes, packed
+    (B, S, H*D)."""
+    grads = _bwd_formulas(*(_split(x, head_dim) for x in (q, k, v, dout)), scale)
+    return tuple(_merge(g).to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,9 +141,30 @@ def _bhsd_entry():
 
     fn = build.load("flash_attn_nhd").flash_attn_bhsd_bf16
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bhsd_bwd_entry():
+    import ctypes
+
+    fn = build.load("flash_attn_nhd_bwd").flash_attn_bhsd_bwd_bf16
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 24 + [f32, f32, ptr]
+    fn.restype = i32
+    return fn
+
+
+def bwd_smem_bytes(head_dim):
+    """The dynamic shared memory K3's launches ask for at ``head_dim``:
+    {"dkdv_kernel": bytes, "dq_kernel": bytes}, read from the built library."""
+    import ctypes
+
+    fn = build.load("flash_attn_nhd_bwd").flash_attn_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return {"dkdv_kernel": fn(head_dim, 0), "dq_kernel": fn(head_dim, 1)}
 
 
 def _check_operand(name, x, batch, hd):
@@ -277,8 +306,7 @@ class FlashAttnNHD(torch.autograd.Function):
         if _on_cpu(q, k, v):
             grads = flash_attention_nhd_bwd_plain(q, k, v, dout, **kw)
         else:
-            # autograd may hand an expanded (zero-stride) gradient
-            grads = flash_attention_nhd_bwd(q, k, v, out, lse, dout.contiguous(), **kw)
+            grads = flash_attention_nhd_bwd(q, k, v, out, lse, _aligned(dout), **kw)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad[:3])) + (None, None)
 
@@ -291,10 +319,9 @@ def flash_attention_nhd(q, k, v, *, scale, head_dim):
     taken as they are). Returns a contiguous (B, Sq, H*D) tensor.
 
     CPU tensors go to ``flash_attention_nhd_plain``. CUDA tensors must be
-    bf16 with head_dim in HEAD_DIMS (BWD_HEAD_DIMS when a gradient is
-    needed); anything else raises. With grad mode on and an input that
-    requires grad, the call goes through ``FlashAttnNHD`` so the result has
-    a ``grad_fn``.
+    bf16 with head_dim in HEAD_DIMS (all of which K3 takes too); anything
+    else raises. With grad mode on and an input that requires grad, the call
+    goes through ``FlashAttnNHD`` so the result has a ``grad_fn``.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if not _on_cpu(q, k, v):
@@ -312,6 +339,13 @@ def flash_attention_plain(q, k, v, *, scale):
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
 
 
+def flash_attention_bwd_plain(q, k, v, dout, *, scale):
+    """K3's reference on K4's layout: ``_bwd_formulas`` on (B, H, S, D)
+    tensors. Returns (dq, dk, dv) in the inputs' dtypes."""
+    grads = _bwd_formulas(q, k, v, dout, scale)
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+
+
 def _check_bhsd(q, k, v):
     """What K4 takes: one CUDA device and an operand layout
     ``_check_bhsd_layout`` accepts."""
@@ -321,6 +355,20 @@ def _check_bhsd(q, k, v):
             f"CPU, got {q.device}, {k.device}, {v.device}"
         )
     _check_bhsd_layout(q, k, v)
+
+
+def _check_bhsd_operand(name, x):
+    """Unit stride along D, every other stride and the address 16-byte
+    aligned."""
+    if x.stride(3) != 1:
+        raise ValueError(
+            f"flash_attention: {name} must have unit stride on its last axis, got {x.stride()}"
+        )
+    if any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(
+            f"flash_attention: {name}'s batches, heads and rows must be 16-byte "
+            f"aligned (strides {x.stride()}, address {x.data_ptr():#x})"
+        )
 
 
 def _check_bhsd_layout(q, k, v):
@@ -345,31 +393,31 @@ def _check_bhsd_layout(q, k, v):
     if k.shape[2] == 0:
         raise ValueError("flash_attention: k is empty")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(
-                f"flash_attention: {name} must have unit stride on its last axis, "
-                f"got {x.stride()}"
-            )
-        if any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention: {name}'s batches, heads and rows must be 16-byte "
-                f"aligned (strides {x.stride()}, address {x.data_ptr():#x})"
-            )
+        _check_bhsd_operand(name, x)
 
 
-def _launch_bhsd(q, k, v, *, scale):
-    """K4 on CUDA tensors -> (B, H, Sq, D) view of a contiguous (B, Sq, H*D)
-    buffer."""
+def _heads_last(b, h, s, d, device):
+    """An empty bf16 (B, H, S, D) view of a contiguous (B, S, H*D) buffer:
+    merging its heads is free."""
+    return torch.empty((b, s, h, d), dtype=torch.bfloat16, device=device).transpose(1, 2)
+
+
+def _launch_bhsd(q, k, v, *, scale, with_lse):
+    """K4 on CUDA tensors -> (out, lse or None); out a (B, H, Sq, D) view of a
+    contiguous (B, Sq, H*D) buffer, lse fp32 (B, H, Sq)."""
     global bhsd_launches
     _check_bhsd(q, k, v)
     b, h, sq, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    out = _heads_last(b, h, sq, d, q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or h == 0 or sq == 0:
-        return out
+        return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bhsd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             b, sq, k.shape[2], h, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale) * _LOG2E, stream,
@@ -377,7 +425,86 @@ def _launch_bhsd(q, k, v, *, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
     bhsd_launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, *, scale):
+    """K4's forward with what its backward needs: (out, lse). CPU tensors
+    take the plain version and no lse (None); CUDA tensors launch K4, which
+    writes lse as K1 does (see ``lse_plain``)."""
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale=scale), None
+    return _launch_bhsd(q, k, v, scale=scale, with_lse=True)
+
+
+def _aligned(x):
+    """x itself where K3 takes its layout, else a contiguous copy (autograd
+    may hand an expanded, zero-stride gradient)."""
+    aligned = not any(st % 8 for st in x.stride()[:-1]) and x.data_ptr() % 16 == 0
+    return x if x.stride(-1) == 1 and aligned else x.contiguous()
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale):
+    """K3 on K4's layout, CUDA tensors: (dq, dk, dv), each a bf16
+    (B, H, S, D) view of a contiguous (B, S, H*D) buffer.
+
+    q, k, v as for K4 (strided views allowed); out and lse from
+    ``flash_attention_fwd`` on the same inputs; dout the gradient of out, any
+    16-byte aligned strides. Raises on anything the kernel does not take."""
+    global bwd_launches
+    _check_bhsd(q, k, v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for name, x in (("out", out), ("dout", dout)):
+        if x.device != q.device or x.dtype != torch.bfloat16 or x.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} must be bf16 {tuple(q.shape)} on "
+                             f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        _check_bhsd_operand(name, x)
+    if (lse is None or lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be contiguous fp32 {(b, h, sq)} on "
+                         f"{q.device}")
+    dq, dk, dv = (_heads_last(b, h, n, d, q.device) for n in (sq, sk, sk))
+    if b == 0 or h == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bhsd_bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, h, d,
+            *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
+            float(scale), float(scale) * _LOG2E, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: K3 launch failed with CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttn(torch.autograd.Function):
+    """K4 with a gradient. Forward saves q, k, v, out and lse; backward runs
+    K3's head-split entry point on CUDA tensors and
+    ``flash_attention_bwd_plain`` on CPU tensors, and returns the gradients
+    of the inputs that need them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_fwd(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if _on_cpu(q, k, v):
+            grads = flash_attention_bwd_plain(q, k, v, dout, scale=ctx.scale)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, lse, _aligned(dout), scale=ctx.scale)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:3])) + (None,)
 
 
 def flash_attention(q, k, v, *, scale):
@@ -388,16 +515,16 @@ def flash_attention(q, k, v, *, scale):
     packed to_qkv output are taken as they are. Returns (B, H, Sq, D) as a
     view of a contiguous (B, Sq, H*D) buffer, so merging the heads is free.
 
-    CPU tensors go to ``flash_attention_plain``, which autograd
-    differentiates. CUDA tensors must be bf16 with D in BHSD_HEAD_DIMS;
-    anything else raises. K4 has no backward kernel yet: a call on CUDA
-    tensors that needs a gradient raises NotImplementedError.
+    CPU tensors go to ``flash_attention_plain``. CUDA tensors must be bf16
+    with D in BHSD_HEAD_DIMS (all of which K3 takes too); anything else
+    raises. With grad mode on and an input that requires grad, the call goes
+    through ``FlashAttn`` so the result has a ``grad_fn``; on CUDA tensors
+    its operands are checked before.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if not _on_cpu(q, k, v):
+            _check_bhsd(q, k, v)
+        return FlashAttn.apply(q, k, v, scale)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale=scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            f"flash_attention (K4): no backward kernel on CUDA tensors yet (head_dim "
-            f"{q.shape[-1]}); K3 at head dims 40/80/160 is ROADMAP queue B's next slice"
-        )
-    return _launch_bhsd(q, k, v, scale=scale)
+    return _launch_bhsd(q, k, v, scale=scale, with_lse=False)[0]

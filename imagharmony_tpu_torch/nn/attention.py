@@ -9,10 +9,16 @@
   (``pack_inference_params``) q, k and v are column views of one
   (B, S, 3*H*D) ``to_qkv`` output and go to either kernel without a copy.
   When the input needs a gradient (training, downstream of a trainable
-  layer) K1's call goes through its autograd Function, whose backward is K3.
-* The text cross-attention (77 keys) and the IP branch (4 keys) stay plain
-  fp32-softmax attention, as in the JAX package. The output is
-  text_attn + ip_scale * ip_attn.
+  layer) K1's call goes through its autograd Function, whose backward is K3;
+  K4's call likewise goes through its Function, whose backward is K3 at
+  K4's head dims.
+* Every cross-attention (77 text keys) goes through K2
+  (kernels/cross_attention.py), text-only or with the IP branch (4, 16 or
+  257 keys) fused in: text_attn + ip_scale * ip_attn in one pass over the
+  packed q, with k and v as column views of the packed ``to_kv`` output and
+  no head split or merge. The JAX package keeps these on XLA, where its K2
+  lost on a TPU; the port's plain chain was ~10-20 kernels per call. Its
+  gradient is K2's plain-formula backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 from torch import nn
 
 from imagharmony_tpu_torch import dtypes
-from imagharmony_tpu_torch.kernels import flash_attention
+from imagharmony_tpu_torch.kernels import cross_attention, flash_attention
 from imagharmony_tpu_torch.nn.layers import Linear
 
 
@@ -102,13 +108,13 @@ class Attention(nn.Module):
         if context is None and ip_context is None:
             return self.to_out[0](self_attention(q, k, v, self.heads))
 
-        qh = split_heads(q, self.heads)
-        out = sdpa(qh, split_heads(k, self.heads), split_heads(v, self.heads))
+        head_dim = q.shape[-1] // self.heads
+        k_ip = v_ip = None
         if ip_context is not None:
-            k_ip = split_heads(self.to_k_ip(ip_context), self.heads)
-            v_ip = split_heads(self.to_v_ip(ip_context), self.heads)
-            out = out + ip_scale * sdpa(qh, k_ip, v_ip)
-        return self.to_out[0](merge_heads(out))
+            k_ip, v_ip = self.to_k_ip(ip_context), self.to_v_ip(ip_context)
+        out = cross_attention.flash_cross_nhd(q, k, v, scale=head_dim**-0.5, head_dim=head_dim,
+                                              k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
+        return self.to_out[0](out)
 
     @torch.no_grad()
     def pack_(self):

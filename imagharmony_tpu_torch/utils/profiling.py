@@ -36,7 +36,8 @@ K3_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 # first match wins; names are lowercased
 KERNEL_CLASSES = (
     ("K1/K4", ("flash_attn_kernel",)),  # one device kernel under both entry points
-    ("K3", K3_KERNELS),
+    ("K2", ("cross_attn_kernel",)),
+    ("K3", K3_KERNELS),  # under both of its entry points
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "nchw", "cudnn")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer", ("multi_tensor", "adam")),

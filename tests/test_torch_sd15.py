@@ -7,7 +7,7 @@ vision tower's penultimate and CLIP-L's last state, and the slice as a whole
 heads, per-step latents and image against the JAX pipeline).
 
 On a card (tests marked ``cuda``, taking the ``cuda`` fixture): K4 against
-its plain version, and the gradient refusal. The machine with the card has
+its plain version, and what a gradient request takes. The machine with the card has
 no JAX, so this module imports JAX only inside the tests that compare with
 it; run the card's tests there with
 
@@ -163,15 +163,17 @@ def test_cuda_k4_matches_plain(cuda, b, s, h, d, packed):
 
 @pytest.mark.cuda
 def test_cuda_k4_gradient_request_raises(cuda):
-    """K4 has no backward kernel: a gradient request on CUDA tensors raises
-    and names the open ROADMAP item; it never returns a tensor without a
-    grad_fn and never runs the plain version."""
+    """A gradient request through K4 on CUDA tensors that K3 does not take
+    raises before anything launches, naming the head dim; it never returns
+    a tensor without a grad_fn and never runs the plain version. At K4's own
+    head dims it gets a grad_fn (K3 is its backward)."""
     x = torch.zeros((1, 8, 64, 40), device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(x, x, x, scale=40**-0.5)
+    assert fa.flash_attention(x, x, x, scale=40**-0.5).grad_fn is not None
+    before = fa.bhsd_launches
     with pytest.raises(ValueError, match="head_dim 48"):
-        y = torch.zeros((1, 8, 64, 48), device=cuda, dtype=torch.bfloat16)
+        y = torch.zeros((1, 8, 64, 48), device=cuda, dtype=torch.bfloat16, requires_grad=True)
         fa.flash_attention(y, y, y, scale=1.0)
+    assert fa.bhsd_launches == before
     with pytest.raises(TypeError, match="bf16"):
         fa.flash_attention(x.detach().float(), x.detach().float(), x.detach().float(), scale=1.0)
 
