@@ -8,20 +8,25 @@ Phases, each printed as it finishes; any failure raises and the exit code
 is non-zero:
 
 1. device and power limit (nvidia-smi); no CUDA -> fail;
-2. build K1 and K4 (the hand-written CUDA attention kernel under its packed
-   and its head-split entry point, one source), K3 (their backward, under
-   the same two layouts) and K2 (the fused text + IP cross-attention) from
-   the sources in the checkout, one nvcc per source, in parallel, with what
-   ptxas reports per kernel and the dynamic shared memory K3's launches ask
-   for;
+2. build K1 and K4 (one source: K1's wgmma kernel under the packed entry
+   point, PR 4's mma.sync kernel under the head-split one), K3 (their
+   backward, under the same two layouts) and K2 (the fused text + IP
+   cross-attention) from the sources in the checkout, one nvcc per source,
+   in parallel, with what ptxas reports per kernel (registers, shared
+   memory, spills) and the dynamic shared memory K3's launches ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
-   path's two shapes and two edge shapes, with timings of K1, the plain
-   version and, as a yardstick, F.scaled_dot_product_attention;
+   path's two shapes and two edge shapes (one of them B=2, S=1000: a
+   ragged last tile in each batch), with timings of K1, the plain version
+   and, as a yardstick, F.scaled_dot_product_attention; and PR 4's forward
+   kernel (K4's entry point on head-split views of the same tensors at
+   d=64) timed around K1 in one call (PR 4, K1, K1, PR 4): ``was_ms``;
 3b. K1's row log-sum-exp and K3 against their plain versions at the
-   training shapes (512² and 1024²) and two edge shapes, with timings of
-   K3 (in total and per kernel), the plain backward and, as a yardstick,
-   F.scaled_dot_product_attention's forward and backward;
+   training shapes (512² and 1024²) and two edge shapes, K3 twice on the
+   same inputs (bit-identical or fail), with timings of K1 with its lse
+   (training's forward), K3 (in total and per kernel), the plain backward
+   and, as a yardstick, F.scaled_dot_product_attention's forward and
+   backward;
 3c. K4 against its plain version at the four self-attention shapes of the
    SD1.5 UNet at 512² (head dims 40, 80, 160) and at an odd length, on
    contiguous (B, H, S, D) tensors and on strided views of one packed
@@ -32,8 +37,9 @@ is non-zero:
    plain version and, as a yardstick, SDPA on the text branch plus SDPA on
    the IP branch;
 3e. K4's lse and K3 at head dims 40/80/160 against their plain versions at
-   the SD1.5 training shapes, on views of a packed to_qkv tensor, with
-   timings of K3, the plain backward and SDPA's backward;
+   the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
+   on the same inputs (bit-identical or fail), with timings of K3, the
+   plain backward and SDPA's backward;
 4. the tiny pipeline on the card (bf16, K1) against the same weights on the
    CPU (fp32, plain attention);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
@@ -221,15 +227,20 @@ def phase_build(fa, ca, build):
         fa._bhsd_bwd_entry()  # K3 on K4's layout
         print(f"phase 2 build K1/K4, K3 and K2 (in parallel): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        spilled = []
         for name, f in zip(sources, usage):
             for kernel, u in sorted(f.result().items()):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
                       f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled",
                       flush=True)
+                if "wgmma" in kernel or "attn_bwd" in kernel:
+                    spilled += [kernel] if u["spill_bytes"] else []
     for d in fa.BWD_HEAD_DIMS:
         dyn = fa.bwd_smem_bytes(d)
-        print(f"phase 2 K3 d={d}: dynamic shared memory per launch dkdv_kernel "
-              f"{dyn['dkdv_kernel']} B, dq_kernel {dyn['dq_kernel']} B", flush=True)
+        print(f"phase 2 K3 d={d}: dynamic shared memory per launch "
+              + ", ".join(f"{k} {v} B" for k, v in dyn.items()), flush=True)
+    if spilled:
+        raise AssertionError(f"K1 or K3 spills registers: {spilled}")
 
 
 def _bound(flops, nbytes):
@@ -257,7 +268,7 @@ def k2_bound(b, sq, h, d, sk_ip):
 
 
 @torch.inference_mode()
-def phase_k1(fa):
+def phase_k1(fa, split_heads):
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err, main_ms = 0.0, {}
     for s, h, d in MAIN_SHAPES + EDGE_SHAPES:
@@ -278,15 +289,27 @@ def phase_k1(fa):
             # the yardstick: one PyTorch call for the same function on the
             # same tensors viewed (B, H, S, D); the port never calls it
             qh, kh, vh = (x.view(2, s, h, d).transpose(1, 2) for x in (q, k, v))
+
+            def k1():
+                return fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d)
+
+            def pr4():  # PR 4's forward kernel, now K4's alone, on the same tensors
+                return fa.flash_attention(*(split_heads(x, h) for x in (q, k, v)), scale=scale)
+
+            was = [_device_ms(pr4)["total"]]
             t = _timings({
-                "kernel": lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d),
+                "kernel": k1,
                 "plain": lambda: fa.flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=d),
                 "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
             })
+            again = _device_ms(k1)["total"]
+            was.append(_device_ms(pr4)["total"])
+            t["was"] = statistics.mean(was)
             main_ms[(s, h, d)] = t
             print(f"phase 3 time S={s} H={h} D={d}, device (CUDA event): K1 "
-                  f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}",
-                  flush=True)
+                  f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}; "
+                  f"device, in turn: PR 4's kernel {was[0]:.4f}, K1 {t['kernel'][0]:.4f}, K1 "
+                  f"{again:.4f}, PR 4's kernel {was[1]:.4f} ms", flush=True)
     return max_err, main_ms
 
 
@@ -294,7 +317,7 @@ def phase_k3(fa):
     """K1's lse and K3 against their plain versions, and their timings."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
-    max_err, times = 0.0, {}
+    max_err, times, fwd_times = 0.0, {}, {}
     for b, s, h, d in K3_SHAPES + K3_EDGES:
         qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
@@ -302,11 +325,13 @@ def phase_k3(fa):
         kw = dict(scale=d**-0.5, head_dim=d)
         out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
         grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+        again = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
         f32 = [x.float() for x in (q, k, v, dout)]
         lse_err = float((lse - fa.lse_plain(f32[0], f32[1], **kw)).abs().max())
-        msg = [f"lse max_abs={lse_err:.3e}"]
-        ok = lse_err <= LSE_MAX_ABS
+        msg = [f"lse max_abs={lse_err:.3e}", f"two calls bit-identical {same}"]
+        ok = lse_err <= LSE_MAX_ABS and same
         for name, g, r in zip(("dq", "dk", "dv"), grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
             err, cos, ref_max = float((g.float() - r).abs().max()), _cosine(g.float(), r), \
                 float(r.abs().max())
@@ -327,6 +352,15 @@ def phase_k3(fa):
         # tensors viewed (B, H, S, D); the port never calls it
         qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
         sdpa_fwd = _cuda_ms(lambda: sdpa(qh, kh, vh))
+        # K1 as training runs it: with its lse (the table's K1 training rows)
+        fwd = _timings({
+            "kernel": lambda: fa.flash_attention_nhd_fwd(q, k, v, **kw),
+            "plain": lambda: (fa.flash_attention_nhd_plain(q, k, v, **kw),
+                              fa.lse_plain(q, k, **kw)),
+            "library": lambda: sdpa(qh, kh, vh),
+        })
+        fb = fwd_bound(b, s, h, d)
+        fwd_times[(b, s, h, d)] = dict(fwd, bound=fb)
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
             o = sdpa(*leaves)
@@ -344,8 +378,10 @@ def phase_k3(fa):
               f"{_fmt(t['kernel'])} ({kern}), plain backward {_fmt(t['plain'])}, SDPA "
               f"backward {_fmt(t['library'])}; CUDA event: K1 {k1[0]:.4f} / with lse "
               f"{k1[1]:.4f} / {k1[2]:.4f} ms, SDPA forward {sdpa_fwd:.4f} ms; K3 bound "
-              f"{bound:.4f} ms ({by})", flush=True)
-    return max_err, times
+              f"{bound:.4f} ms ({by}); K1 with lse, device (CUDA event): "
+              f"{_fmt(fwd['kernel'])}, plain {_fmt(fwd['plain'])}, SDPA forward "
+              f"{_fmt(fwd['library'])}, bound {fb[0]:.4f} ms ({fb[1]})", flush=True)
+    return max_err, times, fwd_times
 
 
 @torch.inference_mode()
@@ -454,12 +490,15 @@ def phase_k3_bhsd(fa, split_heads):
         scale = d**-0.5
         out, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
         grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
         f32 = [x.float() for x in (q, k, v, dout)]
         logits = f32[0] @ f32[1].transpose(-1, -2) * scale
         ref_lse = torch.logsumexp(logits, dim=-1) * 1.4426950408889634  # log2 domain
         lse_err = float((lse - ref_lse).abs().max())
-        msg, ok = [f"lse max_abs={lse_err:.3e}"], lse_err <= LSE_MAX_ABS
+        msg = [f"lse max_abs={lse_err:.3e}", f"two calls bit-identical {same}"]
+        ok = lse_err <= LSE_MAX_ABS and same
         refs = fa.flash_attention_bwd_plain(*f32, scale=scale)
         for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
             err, cos, ref_max = float((g.float() - r).abs().max()), _cosine(g.float(), r), \
@@ -851,8 +890,8 @@ def main():
 
     phase_device()
     phase_build(fa, ca, build)
-    max_err, main_ms = phase_k1(fa)
-    k3_err, k3_times = phase_k3(fa)
+    max_err, main_ms = phase_k1(fa, split_heads)
+    k3_err, k3_times, k1_train_times = phase_k3(fa)
     k4_err, k4_times = phase_k4(fa)
     k2_err, k2_times = phase_k2(ca)
     k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
@@ -876,6 +915,11 @@ def main():
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
+        "was_ms": main_ms[MAIN_SHAPES[0]]["was"],
+        "by_shape": [{"shape": [2, *shape], "was_ms": t["was"],
+                      **_line_times(t, fwd_bound(2, *shape))} for shape, t in main_ms.items()]
+                    + [{"shape": list(shape), "with_lse": True, **_line_times(t, t["bound"])}
+                       for shape, t in k1_train_times.items()],
     }, {
         "name": "flash_attention_nhd_bwd",
         "route": "cuda",

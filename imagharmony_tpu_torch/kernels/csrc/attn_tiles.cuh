@@ -1,8 +1,9 @@
-// What the attention kernels of this directory share: the tile sizes, the
-// mma.sync bf16 product, and the loads of 64-row tiles of one head into
-// shared memory. Included by flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu
-// (K3) and cross_attn_nhd.cu (K2); build.library_path hashes it with each of
-// them, so an edit here rebuilds all three.
+// What the mma.sync attention kernels of this directory share: the tile
+// sizes, the mma.sync bf16 product, and the loads of 64-row tiles of one
+// head into shared memory. Included by flash_attn_nhd.cu (K4's kernel) and
+// cross_attn_nhd.cu (K2); the Hopper kernels (K1, K3) use sm90_tiles.cuh.
+// build.library_path hashes every header with each source, so an edit here
+// rebuilds them all.
 //
 // Layouts: every operand is addressed as base + b*batch + h*head + row*row
 // (element strides, `Strides`) with unit stride along the head dim, so
@@ -117,28 +118,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&f)[4], const bf16* rows, 
   f[1] = ld32(p1);
   f[2] = ld32(p0 + 8);
   f[3] = ld32(p1 + 8);
-}
-
-// acc[nb] (16 x 8 per n-block, 64 columns) = A . tile^T over the
-// contraction width, with A the 16 rows at `a_rows` of one row-major shared
-// tile and B the 64 rows of another.
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&acc)[kBlockN / 8][4], const bf16* a_rows,
-                                         const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < kBlockN / 8; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kContraction<D> / 16; ++kk) {
-    uint32_t a[4];
-    load_a_frag<D>(a, a_rows, kk, g, t);
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-      const bf16* row = tile + (nb * 8 + g) * kPitch<D> + kk * 16 + 2 * t;
-      mma_bf16_16816(acc[nb], a, ld32(row), ld32(row + 8));
-    }
-  }
 }
 
 // out[nd] (16 x D) += X . tile_t^T over the 64-wide axis, with X (16 x 64)

@@ -1,6 +1,6 @@
 // K3: backward of K1 and K4 (fused self-attention), bf16 in and out, fp32
-// accumulation. Two entry points that differ only in the strides they hand
-// the same kernels:
+// accumulation, written for Hopper (sm_90a). Two entry points that differ
+// only in the strides they hand the same kernels:
 //
 //   * `flash_attn_nhd_bwd_bf16`: K1's packed (B, S, H*D) layout, head h at
 //     column h*D; dq, dk, dv contiguous (B, S, H*D).
@@ -29,289 +29,556 @@
 // 400 flop/byte, above the ~295 flop/byte ridge: tensor-core bound. So, as in
 // K1, the (Sq, Sk) probabilities never reach device memory.
 //
-// Design (simple and correct first; wgmma/TMA are later work). Three kernels,
-// no atomics, so the gradients are deterministic:
-//   1. delta_kernel: Delta = rowsum(dO o O) in fp32, one thread per (row, head).
-//   2. dkdv_kernel: one CTA of 4 warps per (64-key tile, head, batch). The
-//      tile's K and V stay in shared memory; each warp owns 16 keys and their
-//      dK/dV rows in fp32 registers, and loops over 64-row query tiles:
-//      S^T = K Qs^T, P^T = exp2(S^T - lse), dP^T = V dO^T,
-//      dS^T = P^T o (dP^T - Delta), dV += P^T dO, dK += dS^T Q.
-//      Above D=80 the dV and dK accumulators would not fit the registers
-//      together (2*16*D/32 = 160 a thread at D=160), so the loop runs twice:
-//      dV alone, then dK alone, one accumulator each; S^T is recomputed.
-//   3. dq_kernel: one CTA per (64-row query tile, head, batch), its Qs and dO
-//      in shared memory, each warp 16 query rows; it loops over 64-key tiles:
-//      S = Qs K^T, P, dP = dO V^T, dS, dQ += dS K.
-// Qs = bf16(q * scale*log2(e)), rounded exactly as the forward rounds it, so
-// P here is the P of the forward. Products are mma.sync.m16n8k16 bf16 with
-// fp32 accumulation; A operands are read from shared memory, P and dS stay
-// in registers (the accumulator layout of one product is the A-operand
-// layout of the next) and are rounded to bf16 as operands; B operands that a
-// product needs with the other axis contiguous are staged transposed.
-// Products over the head dim run over D rounded up to 16, the extra columns
-// zero in shared memory only (D=40 -> 48), as in K4.
-// Shared memory is dynamic: at D=160 a dK/dV CTA needs 130 KB and a dQ CTA
-// 107 KB, above the 48 KB a kernel may declare statically; each launch asks
-// for its bytes with cudaFuncSetAttribute first.
-// Ragged edges are masked here: keys past Sk get P = 0, query rows past Sq
-// get lse = +inf (so P = 0) and Delta = 0, and nothing past either edge is
-// stored.
+// Design: three kernels, no atomics, so two calls on the same inputs give
+// bit-identical gradients.
+//   1. attn_bwd_prep_kernel, 4-32 lanes per (row, head): Delta in fp32;
+//      Qs = bf16(q * scale*log2(e)), rounded exactly as the forward rounds
+//      it, so P here is the forward's P; and lse and Delta padded to a
+//      multiple of 64 rows (+inf and 0 past Sq, so P = 0 and dS = 0 there).
+//      All three go to the caller's scratch (see the entry points).
+//   2. attn_bwd_dkdv_kernel, one CTA per (64-key tile, head, batch): its K
+//      and V come in once by TMA and stay in shared memory; Qs, Q, dO (TMA)
+//      and the tile's lse and Delta (bulk copies) of every 64-row query tile
+//      stream through a ring of kStages stages, so the next query tiles'
+//      copies overlap this one's math. Per query tile, by wgmma:
+//      S^T = K Qs^T and dP^T = V dO^T with every operand K-major in shared
+//      memory; P^T = exp2(S^T - lse) and dS^T = P^T o (dP^T - Delta) in
+//      registers; dV += P^T dO and dK += dS^T Q with P^T and dS^T from
+//      registers and dO and Q read MN-major from the same tiles, so nothing
+//      is staged transposed. Up to D=64 one warpgroup holds dV and dK
+//      (4 x 32 accumulator registers a thread); above, two warpgroups share
+//      the key tile, one holding dV and one dK (up to 96 registers each at
+//      D=160), each computing the S^T it needs in the same pass over the
+//      query tiles: no second pass. There is no producer warp: thread 0
+//      issues the copies, the first kStages tiles up front and each later
+//      one as soon as every consumer has released its stage. A separate
+//      producer would make a third, partial warpgroup, and ptxas then caps a
+//      thread at 168 registers (65536 / 384), below what the dK warpgroup
+//      holds at D=160 (setmaxnreg did not lift the cap); 256 threads get up
+//      to 255, so nothing spills.
+//   3. attn_bwd_dq_kernel, one CTA per (64-row query tile, head, batch): Qs
+//      and dO once, K and V of every key tile through the ring; S = Qs K^T,
+//      dP = dO V^T, dS, dQ += dS K (K read MN-major). It recomputes S and dP:
+//      7 products of (Sq, Sk, D) in all, where one kernel with an ordered
+//      reduction of dQ across key tiles would need 5.
+// Results leave through shared memory and TMA stores, which leave out the
+// rows past S and the columns past D. A head of D columns is D/64 panels of
+// 64 (sm90_tiles.cuh): products over D take ceil(D/16) steps of 16 and the
+// zero columns TMA fills in past D are never read; products whose N is D run
+// over whole panels (at D = 40, 80 and 160 that is 64, 128 and 192 columns,
+// the columns past D zero and never stored).
+// Keys past Sk come in as zero rows: their dK and dV rows are not stored and
+// their contribution to dQ is dS * 0 = 0, so nothing is masked.
 
-#include "attn_tiles.cuh"
+#include <math.h>
+
+#include "sm90_tiles.cuh"
 
 namespace {
 
-template <int D>
-__global__ void delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                             float* __restrict__ delta, int sq, int heads, Strides os,
-                             Strides dos, int64_t total) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int h = (int)(i % heads);
-  const int64_t rest = i / heads;
-  const int row = (int)(rest % sq);
-  const int b = (int)(rest / sq);
-  const bf16* op = o + b * os.batch + h * os.head + row * os.row;
-  const bf16* dp = dout + b * dos.batch + h * dos.head + row * dos.row;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 8) {
-    uint4 a = *reinterpret_cast<const uint4*>(op + c);
-    uint4 d = *reinterpret_cast<const uint4*>(dp + c);
-    const bf16* ea = reinterpret_cast<const bf16*>(&a);
-    const bf16* ed = reinterpret_cast<const bf16*>(&d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc += __bfloat162float(ea[j]) * __bfloat162float(ed[j]);
-  }
-  delta[((int64_t)b * heads + h) * sq + row] = acc;
-}
+using sm90::kPanelCols;
+using sm90::kRowBytes;
 
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const float* lse;    // (B, H, Sq)
-  const float* delta;  // (B, H, Sq)
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int sq, sk, heads;
-  Strides qs, ks, vs, dos, dqs, dks, dvs;
-  float scale, scale_log2;
+constexpr int kRows = 64;   // rows of every tile: keys or queries
+constexpr int kStages = 2;  // ring depth of both loops
+
+// Element strides of one operand: between batches, heads and rows.
+struct Strides {
+  int64_t batch, head, row;
 };
 
-// Elements of a row-major 64-row tile and of a transposed one.
+// Rows of the padded lse and Delta: Sq rounded up to the tile.
+inline int padded(int sq) { return (sq + kRows - 1) / kRows * kRows; }
+
+// ---- 1. prep ---------------------------------------------------------------------
+
+struct PrepArgs {
+  const sm90::bf16* q;
+  const sm90::bf16* o;
+  const sm90::bf16* dout;
+  const float* lse;  // (B, H, Sq)
+  float* lse_pad;    // (B, H, Sq_pad)
+  float* delta_pad;  // (B, H, Sq_pad)
+  sm90::bf16* qs;    // (B, Sq, H, D)
+  int sq, sq_pad, heads;
+  Strides qst, ost, dost;
+  float scale_log2;
+  int64_t total;  // B * Sq_pad * H (row, head) pairs, kPrepLanes<D> lanes each
+};
+
+// Lanes a (row, head) pair takes in the prep kernel: its D/8 16-byte
+// chunks rounded up to a power of two, so a warp serves 32/G pairs and
+// every load of a row goes out at once.
 template <int D>
-constexpr int kRowTile = kBlockN * kPitch<D>;
-template <int D>
-constexpr int kColTile = D * (kBlockN + kPad);
+constexpr int kPrepLanes = D <= 32 ? 4 : D <= 64 ? 8 : D <= 128 ? 16 : 32;
 
 template <int D>
-constexpr size_t kDkdvSmem = (4 * kRowTile<D> + 2 * kColTile<D>) * sizeof(bf16) +
-                             2 * kBlockM * sizeof(float);
-template <int D>
-constexpr size_t kDqSmem = (4 * kRowTile<D> + kColTile<D>) * sizeof(bf16);
+__global__ void __launch_bounds__(256) attn_bwd_prep_kernel(const PrepArgs a) {
+  constexpr int kChunks = D / 8;
+  constexpr int G = kPrepLanes<D>;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
+  // no thread returns before the shuffles below: they take the whole warp
+  const bool live = i < a.total;
+  const int h = (int)(i % a.heads);
+  const int64_t rest = i / a.heads;
+  const int row = (int)(rest % a.sq_pad);
+  const int b = (int)(rest / a.sq_pad);
+  const bool in_seq = live && row < a.sq;
+  float acc = 0.f;
+  if (in_seq && lane < kChunks) {
+    const int c = lane * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        a.o + b * a.ost.batch + h * a.ost.head + row * a.ost.row + c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        a.dout + b * a.dost.batch + h * a.dost.head + row * a.dost.row + c);
+    uint4 qv = *reinterpret_cast<const uint4*>(
+        a.q + b * a.qst.batch + h * a.qst.head + row * a.qst.row + c);
+    const sm90::bf16* eo = reinterpret_cast<const sm90::bf16*>(&ov);
+    const sm90::bf16* ed = reinterpret_cast<const sm90::bf16*>(&dv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc += __bfloat162float(eo[j]) * __bfloat162float(ed[j]);
+    uint32_t* w = reinterpret_cast<uint32_t*>(&qv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+      w[e] = sm90::pack_bf16x2(__low2float(x) * a.scale_log2, __high2float(x) * a.scale_log2);
+    }
+    *reinterpret_cast<uint4*>(a.qs + (((int64_t)b * a.sq + row) * a.heads + h) * D + c) = qv;
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && lane == 0) {
+    const int64_t stat = ((int64_t)b * a.heads + h) * a.sq_pad + row;
+    a.lse_pad[stat] = in_seq ? a.lse[((int64_t)b * a.heads + h) * a.sq + row] : INFINITY;
+    a.delta_pad[stat] = acc;  // 0 past Sq
+  }
+}
 
-// One loop over the query tiles for the dK/dV CTA whose K and V are in sK
-// and sV: accumulates dV if kDV and dK if kDK, then stores them.
+// ---- 2. and 3.: the wgmma kernels ----------------------------------------------
+
+struct BwdMaps {
+  sm90::Map qs, q, k, v, dout, dq, dk, dv;  // boxes of 64 rows
+};
+
+struct BwdArgs {
+  const float* lse_pad;    // (B, H, Sq_pad)
+  const float* delta_pad;  // (B, H, Sq_pad)
+  int sq, sk, sq_pad, heads;
+  float scale;
+};
+
+// Bytes of a 64-row tile of one head, and of a panel of it.
+template <int D>
+constexpr int kTile = sm90::kPanels<D> * kRows * kRowBytes;
+constexpr int kPanel = kRows * kRowBytes;
+
+// Warpgroups of a dK/dV CTA: one up to D=64, one for dV and one for dK above.
+template <int D>
+constexpr int kDkdvGroups = D <= 64 ? 1 : 2;
+
+
+// The dK/dV CTA's shared memory from a 1024-aligned base: K, V, then
+// kStages stages of [Qs, Q, dO, lse (64 floats), Delta (64 floats), padding
+// to 1024], then the barriers.
+template <int D>
+struct DkdvSmem {
+  static constexpr int kStats = 3 * kTile<D>;
+  static constexpr int kStage = 3 * kTile<D> + 1024;
+  static constexpr int kBars = 2 * kTile<D> + kStages * kStage;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + sm90::kSmemAlign;
+};
+
+// The dQ CTA's: Qs, dO, then kStages stages of [K, V], then the barriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kStage = 2 * kTile<D>;
+  static constexpr int kBars = 2 * kTile<D> + kStages * kStage;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + sm90::kSmemAlign;
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + (sm90::kSmemAlign - sm90::smem_u32(raw) % sm90::kSmemAlign) % sm90::kSmemAlign;
+}
+
+// acc (64 x 64) = A . B^T over D columns, A and B two 64-row tiles of one
+// head, both K-major.
+template <int D>
+__device__ __forceinline__ void product_kk(float (&acc)[32], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int k = 0; k < sm90::kSteps<D>; ++k) {
+    const int off = (k / 4) * kPanel + (k % 4) * 32;
+    sm90::wgmma_ss(acc, sm90::desc_k(a + off), sm90::desc_k(b + off), k > 0);
+  }
+}
+
+// acc[p] (64 x 64 columns of panel p) += X . B over 64 rows, X (64 x 64) in
+// registers as four A fragments, B a 64-row tile read MN-major.
+template <int D>
+__device__ __forceinline__ void product_rm(float (&acc)[sm90::kPanels<D>][32],
+                                           const uint32_t (&x)[4][4], const uint8_t* b) {
+#pragma unroll
+  for (int p = 0; p < sm90::kPanels<D>; ++p)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sm90::wgmma_rs(acc[p], x[k], sm90::desc_mn(b + p * kPanel + k * 16 * kRowBytes));
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][32]) {
+#pragma unroll
+  for (int p = 0; p < N; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+}
+
+// The copies of query tile j into its stage of a dK/dV CTA: Qs, Q and dO
+// by TMA, the tile's lse and Delta by bulk copies, all completing on the
+// stage's full barrier. One thread runs it.
+template <int D>
+__device__ __forceinline__ void load_query_tile(const BwdMaps& maps, const BwdArgs& a,
+                                                uint8_t* stages, uint64_t* full, int j, int h,
+                                                int b) {
+  using L = DkdvSmem<D>;
+  const int s = j % kStages;
+  uint8_t* st = stages + s * L::kStage;
+  const int64_t stat = ((int64_t)b * a.heads + h) * a.sq_pad + j * kRows;
+  sm90::mbar_expect_tx(&full[s], 3 * kTile<D> + 2 * kRows * 4);
+  for (int p = 0; p < sm90::kPanels<D>; ++p) {
+    const int col = p * kPanelCols;
+    sm90::tma_load(st + p * kPanel, maps.qs, &full[s], col, h, j * kRows, b);
+    sm90::tma_load(st + kTile<D> + p * kPanel, maps.q, &full[s], col, h, j * kRows, b);
+    sm90::tma_load(st + 2 * kTile<D> + p * kPanel, maps.dout, &full[s], col, h, j * kRows, b);
+  }
+  sm90::bulk_load(st + L::kStats, a.lse_pad + stat, kRows * 4, &full[s]);
+  sm90::bulk_load(st + L::kStats + kRows * 4, a.delta_pad + stat, kRows * 4, &full[s]);
+}
+
+// One consumer warpgroup of a dK/dV CTA over every query tile: dV if kDV,
+// dK if kDK. With two warpgroups both read the stage, so the empty barrier
+// counts both. Thread 0 refills each stage once every consumer has
+// released it.
 template <int D, bool kDV, bool kDK>
-__device__ __forceinline__ void dkdv_pass(const Args& a, const bf16* sK, const bf16* sV,
-                                          bf16* sQs, bf16* sdO, bf16* sQt, bf16* sdOt,
-                                          float* sLse, float* sDelta, int n0, int h, int b) {
+__device__ __forceinline__ void dkdv_consumer(const BwdMaps& maps, const BwdArgs& a,
+                                              uint8_t* sK, uint8_t* sV, uint8_t* stages,
+                                              uint64_t* full, uint64_t* empty, int n0, int h,
+                                              int b, int n_tiles, int wg) {
+  using L = DkdvSmem<D>;
+  constexpr int kP = sm90::kPanels<D>;
+  constexpr int kGroups = kDkdvGroups<D>;
+  const int t = threadIdx.x % 4;
+  float dv[kDV ? kP : 1][32], dk[kDK ? kP : 1][32];
+  zero(dv);
+  zero(dk);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* sQs = stages + s * L::kStage;
+    const uint8_t* sQ = sQs + kTile<D>;
+    const uint8_t* sdO = sQ + kTile<D>;
+    const float* s_lse = reinterpret_cast<const float*>(sQs + L::kStats);
+    const float* s_delta = s_lse + kRows;
+
+    // S^T (keys x queries, log2 domain) and dP^T
+    float st[32], dpt[kDK ? 32 : 1];
+    sm90::wgmma_fence();
+    product_kk<D>(st, sK, sQs);
+    if constexpr (kDK) product_kk<D>(dpt, sV, sdO);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(st);
+    if constexpr (kDK) sm90::fence_regs(dpt);
+
+    // P^T = exp2(S^T - lse), dS^T = P^T o (dP^T - Delta); column = query
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e / 4) + 2 * t + (e & 1);
+      const float p = exp2f(st[e] - s_lse[col]);
+      st[e] = p;
+      if constexpr (kDK) dpt[e] = p * (dpt[e] - s_delta[col]);
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (kDV) sm90::pack_a(pa[k], st, k);
+      if constexpr (kDK) sm90::pack_a(da[k], dpt, k);
+    }
+    sm90::wgmma_fence();
+    if constexpr (kDV) product_rm<D>(dv, pa, sdO);  // dV += P^T dO
+    if constexpr (kDK) product_rm<D>(dk, da, sQ);   // dK += dS^T Q
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if constexpr (kDV) sm90::fence_regs(dv[p]);
+      if constexpr (kDK) sm90::fence_regs(dk[p]);
+    }
+    sm90::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && j + kStages < n_tiles) {
+      sm90::mbar_wait(&empty[s], (j / kStages) & 1);
+      load_query_tile<D>(maps, a, stages, full, j + kStages, h, b);
+    }
+  }
+
+  // every warp of every warpgroup is done with K and V: they take dK and dV
+  sm90::named_bar(1, kGroups * 128);
+  const float one[2] = {1.f, 1.f};
+  const float scale[2] = {a.scale, a.scale};
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if constexpr (kDV) sm90::store_acc(sV + p * kPanel, dv[p], 0, one);
+    if constexpr (kDK) sm90::store_acc(sK + p * kPanel, dk[p], 0, scale);
+  }
+  sm90::fence_async_shared();
+  sm90::named_bar(2 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int p = 0; p < kP; ++p) {
+      if constexpr (kDV) sm90::tma_store(maps.dv, sV + p * kPanel, p * kPanelCols, h, n0, b);
+      if constexpr (kDK) sm90::tma_store(maps.dk, sK + p * kPanel, p * kPanelCols, h, n0, b);
+    }
+    sm90::tma_store_wait();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkdvGroups<D> * 128, 1)
+attn_bwd_dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using L = DkdvSmem<D>;
+  constexpr int kP = sm90::kPanels<D>;
+  constexpr int kGroups = kDkdvGroups<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = aligned_smem(smem_raw);
+  uint8_t* sV = sK + kTile<D>;
+  uint8_t* stages = sV + kTile<D>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sK + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int n0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (a.sq + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kGroups * 128);
+    }
+    sm90::mbar_init(kvbar, 1);
+    sm90::fence_barrier_init();
+    // K and V once, then the first query tiles; the rest follow in the loop
+    sm90::mbar_expect_tx(kvbar, 2 * kTile<D>);
+    for (int p = 0; p < kP; ++p) {
+      sm90::tma_load(sK + p * kPanel, maps.k, kvbar, p * kPanelCols, h, n0, b);
+      sm90::tma_load(sV + p * kPanel, maps.v, kvbar, p * kPanelCols, h, n0, b);
+    }
+    for (int j = 0; j < kStages && j < n_tiles; ++j) {
+      load_query_tile<D>(maps, a, stages, full, j, h, b);
+    }
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  sm90::mbar_wait(kvbar, 0);
+  if constexpr (kGroups == 1) {
+    dkdv_consumer<D, true, true>(maps, a, sK, sV, stages, full, empty, n0, h, b, n_tiles, wg);
+  } else if (wg == 0) {
+    dkdv_consumer<D, true, false>(maps, a, sK, sV, stages, full, empty, n0, h, b, n_tiles, wg);
+  } else {
+    dkdv_consumer<D, false, true>(maps, a, sK, sV, stages, full, empty, n0, h, b, n_tiles, wg);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128 + 32, 1)
+attn_bwd_dq_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using L = DqSmem<D>;
+  constexpr int kP = sm90::kPanels<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQs = aligned_smem(smem_raw);
+  uint8_t* sdO = sQs + kTile<D>;
+  uint8_t* stages = sdO + kTile<D>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sQs + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int m0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (a.sk + kRows - 1) / kRows;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const bf16* qh = a.q + b * a.qs.batch + h * a.qs.head;
-  const bf16* doh = a.dout + b * a.dos.batch + h * a.dos.head;
-  const int64_t stat0 = ((int64_t)b * a.heads + h) * a.sq;
-  const bf16* k_rows = sK + warp * 16 * kPitch<D>;
-  const bf16* v_rows = sV + warp * 16 * kPitch<D>;
 
-  float dv_acc[kDV ? D / 8 : 1][4], dk_acc[kDK ? D / 8 : 1][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (kDV) dv_acc[nd][i] = 0.f;
-      if constexpr (kDK) dk_acc[nd][i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
     }
-  const int key0 = n0 + warp * 16 + g;  // keys of rows g and g + 8
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int m0 = 0; m0 < a.sq; m0 += kBlockM) {
-    load_tile<D>(sQs, qh, a.qs.row, m0, a.sq, a.scale_log2);
-    if constexpr (kDK) {
-      load_tile_t<D>(sQt, qh, a.qs.row, m0, a.sq);
-      load_tile<D>(sdO, doh, a.dos.row, m0, a.sq);
-    }
-    if constexpr (kDV) load_tile_t<D>(sdOt, doh, a.dos.row, m0, a.sq);
-    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
-      const bool valid = m0 + i < a.sq;
-      sLse[i] = valid ? a.lse[stat0 + m0 + i] : INFINITY;
-      sDelta[i] = valid ? a.delta[stat0 + m0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kBlockN / 8][4], dp[kDK ? kBlockN / 8 : 1][4];
-    mma_rows<D>(s, k_rows, sQs, g, t);                 // S^T (keys x queries), log2 domain
-    if constexpr (kDK) mma_rows<D>(dp, v_rows, sdO, g, t);  // dP^T
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nb * 8 + 2 * t + (i & 1);
-        const int key = key0 + 8 * (i >> 1);
-        const float p = key < a.sk ? exp2f(s[nb][i] - sLse[col]) : 0.f;
-        s[nb][i] = p;
-        if constexpr (kDK) dp[nb][i] = p * (dp[nb][i] - sDelta[col]);
+  if (warp == 4) {
+    // ---- producer: Qs and dO once, then every key tile's K and V ----
+    if (threadIdx.x % 32 == 0) {
+      sm90::mbar_expect_tx(qbar, 2 * kTile<D>);
+      for (int p = 0; p < kP; ++p) {
+        sm90::tma_load(sQs + p * kPanel, maps.qs, qbar, p * kPanelCols, h, m0, b);
+        sm90::tma_load(sdO + p * kPanel, maps.dout, qbar, p * kPanelCols, h, m0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) sm90::mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        uint8_t* st = stages + s * L::kStage;
+        sm90::mbar_expect_tx(&full[s], 2 * kTile<D>);
+        for (int p = 0; p < kP; ++p) {
+          const int col = p * kPanelCols;
+          sm90::tma_load(st + p * kPanel, maps.k, &full[s], col, h, j * kRows, b);
+          sm90::tma_load(st + kTile<D> + p * kPanel, maps.v, &full[s], col, h, j * kRows, b);
+        }
       }
     }
-    if constexpr (kDV) mma_cols<D>(dv_acc, s, sdOt, g, t);  // dV += P^T dO
-    if constexpr (kDK) mma_cols<D>(dk_acc, dp, sQt, g, t);  // dK += dS^T Q
-    __syncthreads();  // before the next tile overwrites shared memory
+    return;
   }
 
-  if constexpr (kDK) {
-    const float mul[2] = {a.scale, a.scale};
-    store_rows<D>(a.dk, a.dks, dk_acc, mul, b, h, a.sk, n0 + warp * 16, g, t);
-  }
-  if constexpr (kDV) {
-    const float one[2] = {1.f, 1.f};
-    store_rows<D>(a.dv, a.dvs, dv_acc, one, b, h, a.sk, n0 + warp * 16, g, t);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kRowTile<D>;
-  bf16* sQs = sV + kRowTile<D>;
-  bf16* sdO = sQs + kRowTile<D>;
-  bf16* sQt = sdO + kRowTile<D>;
-  bf16* sdOt = sQt + kColTile<D>;
-  float* sLse = reinterpret_cast<float*>(sdOt + kColTile<D>);
-  float* sDelta = sLse + kBlockM;
-
-  const int n0 = blockIdx.x * kBlockN;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  load_tile<D>(sK, a.k + b * a.ks.batch + h * a.ks.head, a.ks.row, n0, a.sk);
-  load_tile<D>(sV, a.v + b * a.vs.batch + h * a.vs.head, a.vs.row, n0, a.sk);
-  // the first query tile's __syncthreads publishes them
-  if constexpr (D > 80) {
-    dkdv_pass<D, true, false>(a, sK, sV, sQs, sdO, sQt, sdOt, sLse, sDelta, n0, h, b);
-    dkdv_pass<D, false, true>(a, sK, sV, sQs, sdO, sQt, sdOt, sLse, sDelta, n0, h, b);
-  } else {
-    dkdv_pass<D, true, true>(a, sK, sV, sQs, sdO, sQt, sdOt, sLse, sDelta, n0, h, b);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQs = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQs + kRowTile<D>;
-  bf16* sK = sdO + kRowTile<D>;
-  bf16* sV = sK + kRowTile<D>;
-  bf16* sKt = sV + kRowTile<D>;
-
-  const int m0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
+  // ---- consumer warpgroup: query rows m0 .. m0 + 63 ----
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const bf16* kh = a.k + b * a.ks.batch + h * a.ks.head;
-  const bf16* vh = a.v + b * a.vs.batch + h * a.vs.head;
-  const int64_t stat0 = ((int64_t)b * a.heads + h) * a.sq;
-
-  load_tile<D>(sQs, a.q + b * a.qs.batch + h * a.qs.head, a.qs.row, m0, a.sq, a.scale_log2);
-  load_tile<D>(sdO, a.dout + b * a.dos.batch + h * a.dos.head, a.dos.row, m0, a.sq);
-  const bf16* q_rows = sQs + warp * 16 * kPitch<D>;
-  const bf16* do_rows = sdO + warp * 16 * kPitch<D>;
-
+  const int64_t stat0 = ((int64_t)b * a.heads + h) * a.sq_pad;
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    lse_r[r] = row < a.sq ? a.lse[stat0 + row] : INFINITY;
-    delta_r[r] = row < a.sq ? a.delta[stat0 + row] : 0.f;
+    const int row = m0 + 16 * warp + lane / 4 + 8 * r;  // < Sq_pad
+    lse_r[r] = a.lse_pad[stat0 + row];
+    delta_r[r] = a.delta_pad[stat0 + row];
   }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq_acc[nd][i] = 0.f;
+  float dq[kP][32];
+  zero(dq);
+  sm90::mbar_wait(qbar, 0);
 
-  for (int n0 = 0; n0 < a.sk; n0 += kBlockN) {
-    load_tile<D>(sK, kh, a.ks.row, n0, a.sk);
-    load_tile<D>(sV, vh, a.vs.row, n0, a.sk);
-    load_tile_t<D>(sKt, kh, a.ks.row, n0, a.sk);
-    __syncthreads();  // also publishes sQs / sdO on the first tile
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* sK = stages + s * L::kStage;
+    const uint8_t* sV = sK + kTile<D>;
 
-    float s[kBlockN / 8][4], dp[kBlockN / 8][4];
-    mma_rows<D>(s, q_rows, sK, g, t);    // S (queries x keys), log2 domain
-    mma_rows<D>(dp, do_rows, sV, g, t);  // dP
+    float sc[32], dp[32];
+    sm90::wgmma_fence();
+    product_kk<D>(sc, sQs, sK);  // S, log2 domain
+    product_kk<D>(dp, sdO, sV);  // dP
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
 #pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nb * 8 + 2 * t + (i & 1);
-        const int r = i >> 1;
-        const float p = col < a.sk ? exp2f(s[nb][i] - lse_r[r]) : 0.f;
-        s[nb][i] = p * (dp[nb][i] - delta_r[r]);  // dS
-      }
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = exp2f(sc[e] - lse_r[r]) * (dp[e] - delta_r[r]);  // dS
     }
-    mma_cols<D>(dq_acc, s, sKt, g, t);  // dQ += dS K
-    __syncthreads();
+    uint32_t da[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sm90::pack_a(da[k], sc, k);
+    sm90::wgmma_fence();
+    product_rm<D>(dq, da, sK);  // dQ += dS K
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int p = 0; p < kP; ++p) sm90::fence_regs(dq[p]);
+    sm90::mbar_arrive(&empty[s]);
   }
 
-  const float mul[2] = {a.scale, a.scale};
-  store_rows<D>(a.dq, a.dqs, dq_acc, mul, b, h, a.sq, m0 + warp * 16, g, t);
+  sm90::named_bar(1, 128);  // every warp's last product has read Qs
+  const float scale[2] = {a.scale, a.scale};
+#pragma unroll
+  for (int p = 0; p < kP; ++p) sm90::store_acc(sQs + p * kPanel, dq[p], 0, scale);
+  sm90::fence_async_shared();
+  sm90::named_bar(1, 128);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < kP; ++p) {
+      sm90::tma_store(maps.dq, sQs + p * kPanel, p * kPanelCols, h, m0, b);
+    }
+    sm90::tma_store_wait();
+  }
+}
+
+// Everything a launch needs beyond the operands: the layouts of q, k, v, o,
+// dout and the outputs.
+struct Layout {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* scratch;
+  void *dq, *dk, *dv;
+  int batch, sq, sk, heads;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  float scale, scale_log2;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  *done = err == cudaSuccess;
+  return err;
 }
 
 template <int D>
-int launch(const Args& a, const bf16* o, Strides os, float* delta, int batch,
-           cudaStream_t stream) {
-  const int64_t total = (int64_t)batch * a.sq * a.heads;
-  const int threads = 256;
-  delta_kernel<D><<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
-      o, a.dout, delta, a.sq, a.heads, os, a.dos, total);
+int launch(const Layout& l) {
+  const int sq_pad = padded(l.sq);
+  float* lse_pad = l.scratch;
+  float* delta_pad = lse_pad + (int64_t)l.batch * l.heads * sq_pad;
+  sm90::bf16* qs = reinterpret_cast<sm90::bf16*>(delta_pad + (int64_t)l.batch * l.heads * sq_pad);
+  const Strides qs_st{(int64_t)l.sq * l.heads * D, D, (int64_t)l.heads * D};
+
+  BwdMaps maps;
+  auto map = [&](sm90::Map* m, const void* base, int seq, const Strides& st) {
+    return sm90::make_map(m, base, D, l.heads, seq, l.batch, st.batch, st.head, st.row, kRows);
+  };
+  if (!map(&maps.qs, qs, l.sq, qs_st) || !map(&maps.q, l.q, l.sq, l.qs) ||
+      !map(&maps.k, l.k, l.sk, l.ks) || !map(&maps.v, l.v, l.sk, l.vs) ||
+      !map(&maps.dout, l.dout, l.sq, l.dos) || !map(&maps.dq, l.dq, l.sq, l.dqs) ||
+      !map(&maps.dk, l.dk, l.sk, l.dks) || !map(&maps.dv, l.dv, l.sk, l.dvs)) {
+    return (int)cudaErrorInvalidPitchValue;
+  }
+
+  const PrepArgs pa{static_cast<const sm90::bf16*>(l.q), static_cast<const sm90::bf16*>(l.o),
+                    static_cast<const sm90::bf16*>(l.dout), l.lse, lse_pad, delta_pad, qs,
+                    l.sq, sq_pad, l.heads, l.qs, l.os, l.dos, l.scale_log2,
+                    (int64_t)l.batch * sq_pad * l.heads};
+  const int pairs = 256 / kPrepLanes<D>;  // a block of 256 threads
+  attn_bwd_prep_kernel<D><<<(unsigned)((pa.total + pairs - 1) / pairs), 256, 0, l.stream>>>(pa);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkdvSmem<D>);
+
+  const BwdArgs a{lse_pad, delta_pad, l.sq, l.sk, sq_pad, l.heads, l.scale};
+  static bool dkdv_set = false, dq_set = false;
+  err = set_smem(attn_bwd_dkdv_kernel<D>, DkdvSmem<D>::kBytes, &dkdv_set);
   if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<D><<<dim3((a.sk + kBlockN - 1) / kBlockN, a.heads, batch), kThreads,
-                   kDkdvSmem<D>, stream>>>(a);
+  attn_bwd_dkdv_kernel<D><<<dim3((l.sk + kRows - 1) / kRows, l.heads, l.batch),
+                            kDkdvGroups<D> * 128, DkdvSmem<D>::kBytes, l.stream>>>(maps, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDqSmem<D>);
+  err = set_smem(attn_bwd_dq_kernel<D>, DqSmem<D>::kBytes, &dq_set);
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<D><<<dim3((a.sq + kBlockM - 1) / kBlockM, a.heads, batch), kThreads, kDqSmem<D>,
-                 stream>>>(a);
+  attn_bwd_dq_kernel<D><<<dim3((l.sq + kRows - 1) / kRows, l.heads, l.batch), 128 + 32,
+                          DqSmem<D>::kBytes, l.stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const Args& a, const bf16* o, Strides os, float* delta, int batch, int head_dim,
-             cudaStream_t stream) {
-  if (batch <= 0 || a.sq <= 0 || a.sk <= 0 || a.heads <= 0 || a.heads > 65535 ||
-      batch > 65535) {
+int dispatch(const Layout& l, int head_dim) {
+  if (l.batch <= 0 || l.sq <= 0 || l.sk <= 0 || l.heads <= 0 || l.heads > 65535 ||
+      l.batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   switch (head_dim) {
-    case 32: return launch<32>(a, o, os, delta, batch, stream);
-    case 40: return launch<40>(a, o, os, delta, batch, stream);
-    case 64: return launch<64>(a, o, os, delta, batch, stream);
-    case 80: return launch<80>(a, o, os, delta, batch, stream);
-    case 128: return launch<128>(a, o, os, delta, batch, stream);
-    case 160: return launch<160>(a, o, os, delta, batch, stream);
+    case 32: return launch<32>(l);
+    case 40: return launch<40>(l);
+    case 64: return launch<64>(l);
+    case 80: return launch<80>(l);
+    case 128: return launch<128>(l);
+    case 160: return launch<160>(l);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -319,10 +586,14 @@ int dispatch(const Args& a, const bf16* o, Strides os, float* delta, int batch, 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Strides are in elements; `delta`
-// is fp32 scratch of B*H*Sq elements that the caller allocates, `lse` the
-// forward's contiguous fp32 (B, H, Sq). Each returns the first CUDA error of
-// its launches (0 on success); an unsupported head_dim or an empty shape
-// returns cudaErrorInvalidValue without launching.
+// is the caller's scratch, 16-byte aligned: lse_pad and Delta_pad, fp32
+// (B, H, Sq_pad) each with Sq_pad = Sq rounded up to 64, then Qs, bf16
+// (B, Sq, H, D); `lse` the forward's contiguous fp32 (B, H, Sq). Every base address
+// and stride must be a multiple of 16 bytes (the TMA's rule). Each returns
+// the first CUDA error of its launches (0 on success); an operand the
+// driver refuses a tensor map for returns cudaErrorInvalidPitchValue, an
+// unsupported head_dim or an empty shape cudaErrorInvalidValue, both
+// without launching.
 
 // K1's layout: q, k, v, o, dout with a row and a batch stride each (head h at
 // column h*D); dq, dk, dv contiguous (B, S, H*D).
@@ -333,16 +604,13 @@ extern "C" int flash_attn_nhd_bwd_bf16(
     long long do_row, long long q_batch, long long k_batch, long long v_batch, long long o_batch,
     long long do_batch, float scale, float scale_log2, void* stream) {
   const int64_t hd = (int64_t)heads * head_dim;
-  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-               static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-               sq, sk, heads,
-               {q_batch, head_dim, q_row}, {k_batch, head_dim, k_row},
-               {v_batch, head_dim, v_row}, {do_batch, head_dim, do_row},
-               {sq * hd, head_dim, hd}, {sk * hd, head_dim, hd}, {sk * hd, head_dim, hd},
-               scale, scale_log2};
-  return dispatch(a, static_cast<const bf16*>(o), {o_batch, head_dim, o_row}, delta, batch,
-                  head_dim, static_cast<cudaStream_t>(stream));
+  const Layout l{q, k, v, o, dout, lse, delta, dq, dk, dv, batch, sq, sk, heads,
+                 {q_batch, head_dim, q_row}, {k_batch, head_dim, k_row},
+                 {v_batch, head_dim, v_row}, {o_batch, head_dim, o_row},
+                 {do_batch, head_dim, do_row},
+                 {sq * hd, head_dim, hd}, {sk * hd, head_dim, hd}, {sk * hd, head_dim, hd},
+                 scale, scale_log2, static_cast<cudaStream_t>(stream)};
+  return dispatch(l, head_dim);
 }
 
 // K4's layout: every operand and output (B, H, S, D) with a batch, a head
@@ -360,28 +628,26 @@ extern "C" int flash_attn_bhsd_bwd_bf16(
     long long dk_batch, long long dk_head, long long dk_row,
     long long dv_batch, long long dv_head, long long dv_row,
     float scale, float scale_log2, void* stream) {
-  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-               static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-               sq, sk, heads,
-               {q_batch, q_head, q_row}, {k_batch, k_head, k_row}, {v_batch, v_head, v_row},
-               {do_batch, do_head, do_row}, {dq_batch, dq_head, dq_row},
-               {dk_batch, dk_head, dk_row}, {dv_batch, dv_head, dv_row},
-               scale, scale_log2};
-  return dispatch(a, static_cast<const bf16*>(o), {o_batch, o_head, o_row}, delta, batch,
-                  head_dim, static_cast<cudaStream_t>(stream));
+  const Layout l{q, k, v, o, dout, lse, delta, dq, dk, dv, batch, sq, sk, heads,
+                 {q_batch, q_head, q_row}, {k_batch, k_head, k_row}, {v_batch, v_head, v_row},
+                 {o_batch, o_head, o_row}, {do_batch, do_head, do_row},
+                 {dq_batch, dq_head, dq_row}, {dk_batch, dk_head, dk_row},
+                 {dv_batch, dv_head, dv_row},
+                 scale, scale_log2, static_cast<cudaStream_t>(stream)};
+  return dispatch(l, head_dim);
 }
 
 // The dynamic shared memory each launch at head_dim asks for, in bytes:
-// which = 0 for dkdv_kernel, 1 for dq_kernel; -1 for an unsupported head_dim.
+// which = 0 for attn_bwd_dkdv_kernel, 1 for attn_bwd_dq_kernel; -1 for an
+// unsupported head_dim.
 extern "C" long long flash_attn_bwd_smem_bytes(int head_dim, int which) {
   switch (head_dim) {
-    case 32: return which ? kDqSmem<32> : kDkdvSmem<32>;
-    case 40: return which ? kDqSmem<40> : kDkdvSmem<40>;
-    case 64: return which ? kDqSmem<64> : kDkdvSmem<64>;
-    case 80: return which ? kDqSmem<80> : kDkdvSmem<80>;
-    case 128: return which ? kDqSmem<128> : kDkdvSmem<128>;
-    case 160: return which ? kDqSmem<160> : kDkdvSmem<160>;
+    case 32: return which ? DqSmem<32>::kBytes : DkdvSmem<32>::kBytes;
+    case 40: return which ? DqSmem<40>::kBytes : DkdvSmem<40>::kBytes;
+    case 64: return which ? DqSmem<64>::kBytes : DkdvSmem<64>::kBytes;
+    case 80: return which ? DqSmem<80>::kBytes : DkdvSmem<80>::kBytes;
+    case 128: return which ? DqSmem<128>::kBytes : DkdvSmem<128>::kBytes;
+    case 160: return which ? DqSmem<160>::kBytes : DkdvSmem<160>::kBytes;
     default: return -1;
   }
 }

@@ -4,37 +4,43 @@ backward; K4: the same forward on the head-split (B, H, S, D) layout.
 ``flash_attention_nhd`` replaces the TPU kernel ``_attn_nhd_kernel``
 (imagharmony_tpu/kernels/flash_attention.py:415, entry
 ``flash_attention_nhd`` :576). On a CUDA tensor it launches the hand-written
-sm_90a kernel in ``csrc/flash_attn_nhd.cu``; on a CPU tensor it runs
-``flash_attention_nhd_plain``. There is no fallback between the two: a CUDA
-tensor the kernel does not take raises.
+sm_90a kernel ``attn_fwd_wgmma_kernel`` in ``csrc/flash_attn_nhd.cu``
+(wgmma products, TMA copies through a two-stage ring; see the source); on a
+CPU tensor it runs ``flash_attention_nhd_plain``. There is no fallback
+between the two: a CUDA tensor the kernel does not take raises.
 
 When a gradient is needed (grad mode on and an input requires grad) the
 call goes through ``FlashAttnNHD``, whose backward replaces the TPU kernel
 ``_attn_bwd_kernel`` (:220, reached from ``_flash_nhd_bwd`` :540): on CUDA
-tensors K3 (``csrc/flash_attn_nhd_bwd.cu``), fed by the row log-sum-exp K1
+tensors K3 (``csrc/flash_attn_nhd_bwd.cu``: a prep kernel, then the dK/dV
+and the dQ kernels, wgmma and TMA as K1), fed by the row log-sum-exp K1
 writes in that case; on CPU tensors ``flash_attention_nhd_bwd_plain``.
 
 What bounds K1 on an H100: at head_dim 64 it is compute-bound. S=4096 with
 10 heads and B=2 is 4*B*H*S*S*D = 86 GFLOP per call against ~42 MB of q, k,
 v and output, about 2000 flop/byte, far above the ~295 flop/byte at which
 the tensor cores become the limit. The kernel therefore keeps the (Sq, Sk)
-logits in registers (online softmax over 64-key tiles) and never writes
-them to device memory, which the plain version does in fp32. K3 does
+logits in registers (online softmax over key tiles) and never writes them
+to device memory, which the plain version does in fp32. K3 does
 10*B*H*S*S*D flops with the same property and the same design.
+
+Both read their operands with TMA, which takes a base address and strides
+that are multiples of 16 bytes; the wrappers check that before any launch
+and raise otherwise.
 
 ``flash_attention`` (K4) replaces the TPU kernel ``_attn_kernel`` (:95, entry
 ``flash_attention`` :369 through ``_flash_fwd_impl`` :138): the same forward
 on (B, H, S, D) tensors with a batch, a head and a row stride each, at head
 dims 40, 80 and 160 (the SD1.5 family) besides K1's. On CUDA tensors it
-launches the second entry point of ``csrc/flash_attn_nhd.cu``: the device
-kernel is K1's, handed other strides, and it rounds the QK^T contraction up
-to 16 columns in shared memory only, where the TPU kernel pads d to a
-multiple of 64 in device memory. At d=40 and S=4096 (B=2, H=8) it is
-compute-bound like K1: 43 GFLOP against 21 MB. When a gradient is needed the
-call goes through ``FlashAttn``, whose backward replaces the same TPU kernel
-K1's does (``_attn_bwd_kernel`` :220, here reached from ``_flash_bwd`` :350):
-on CUDA tensors K3's head-split entry point, fed by the lse K4 then writes;
-on CPU tensors ``flash_attention_bwd_plain``.
+launches the second entry point of ``csrc/flash_attn_nhd.cu``, whose device
+kernel is the mma.sync one K1 ran before it got its own; it rounds the QK^T
+contraction up to 16 columns in shared memory only, where the TPU kernel
+pads d to a multiple of 64 in device memory. At d=40 and S=4096 (B=2, H=8)
+it is compute-bound like K1: 43 GFLOP against 21 MB. When a gradient is
+needed the call goes through ``FlashAttn``, whose backward replaces the same
+TPU kernel K1's does (``_attn_bwd_kernel`` :220, here reached from
+``_flash_bwd`` :350): on CUDA tensors K3's head-split entry point, fed by the
+lse K4 then writes; on CPU tensors ``flash_attention_bwd_plain``.
 
 The TPU kernels' dispatch rules (Sk >= 512, heads packed into 128 lanes, the
 no-max clamped exp2, sequences padded to 256, the measured gate on head dim
@@ -159,15 +165,28 @@ def _bhsd_bwd_entry():
 
 def bwd_smem_bytes(head_dim):
     """The dynamic shared memory K3's launches ask for at ``head_dim``:
-    {"dkdv_kernel": bytes, "dq_kernel": bytes}, read from the built library."""
+    {"attn_bwd_dkdv_kernel": bytes, "attn_bwd_dq_kernel": bytes}, read from
+    the built library."""
     import ctypes
 
     fn = build.load("flash_attn_nhd_bwd").flash_attn_bwd_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
-    return {"dkdv_kernel": fn(head_dim, 0), "dq_kernel": fn(head_dim, 1)}
+    return {"attn_bwd_dkdv_kernel": fn(head_dim, 0), "attn_bwd_dq_kernel": fn(head_dim, 1)}
+
+
+def _bwd_scratch(b, sq, heads, head_dim, device):
+    """The scratch K3 takes as its ``delta`` argument: the lse and Delta,
+    fp32 (B, H, Sq rounded up to 64) each, then q times scale*log2(e) as
+    bf16 (B, Sq, H, D), the layout ``flash_attn_nhd_bwd.cu`` documents."""
+    sq_pad = -(-sq // 64) * 64
+    n = 8 * b * heads * sq_pad + 2 * b * sq * heads * head_dim
+    return torch.empty((-(-n // 4),), dtype=torch.float32, device=device)
 
 
 def _check_operand(name, x, batch, hd):
+    """A packed (batch, S, hd) operand with unit stride on its last axis and
+    its address and row and batch strides multiples of 16 bytes (the TMA's
+    rule), checked before any library is loaded."""
     if x.dim() != 3 or x.shape[0] != batch or x.shape[2] != hd:
         raise ValueError(f"{name} must be ({batch}, S, {hd}), got {tuple(x.shape)}")
     if x.stride(2) != 1:
@@ -180,13 +199,19 @@ def _check_operand(name, x, batch, hd):
 
 
 def _check_cuda(q, k, v, head_dim, head_dims):
-    """The checks K1 and K3 share: one CUDA device, bf16, a supported head
-    dim, packed shapes with 16-byte aligned rows, a nonempty k."""
+    """The checks K1 and K3 share: one CUDA device, then ``_check_layout``."""
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(
             f"flash_attention_nhd: q, k, v must all be on one CUDA device or all "
             f"on the CPU, got {q.device}, {k.device}, {v.device}"
         )
+    _check_layout(q, k, v, head_dim, head_dims)
+
+
+def _check_layout(q, k, v, head_dim, head_dims):
+    """K1's and K3's operands whatever their device: bf16, a supported head
+    dim, packed shapes with 16-byte aligned rows (``_check_operand``), a
+    nonempty k."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(
             f"flash_attention_nhd: the CUDA kernel takes bf16, got "
@@ -203,6 +228,17 @@ def _check_cuda(q, k, v, head_dim, head_dims):
         raise ValueError(f"k and v lengths differ: {k.shape[1]} vs {v.shape[1]}")
     if k.shape[1] == 0:
         raise ValueError("flash_attention_nhd: k is empty")
+
+
+_TMA_REFUSED = 12  # cudaErrorInvalidPitchValue: the libraries' code for a refused tensor map
+
+
+def _check_rc(name, rc):
+    if rc == _TMA_REFUSED:
+        raise RuntimeError(f"{name}: the driver refused a TMA tensor map for an operand "
+                           f"(CUDA error {rc}); no kernel was launched")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
 def _on_cpu(*xs):
@@ -229,8 +265,7 @@ def _launch_fwd(q, k, v, *, scale, head_dim, with_lse):
             q.stride(0), k.stride(0), v.stride(0),
             float(scale) * _LOG2E, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_nhd: kernel launch failed with CUDA error {rc}")
+    _check_rc("flash_attention_nhd", rc)
     launches += 1
     return out, lse
 
@@ -270,19 +305,18 @@ def flash_attention_nhd_bwd(q, k, v, out, lse, dout, *, scale, head_dim):
     dv = torch.empty((b, sk, hd), dtype=torch.bfloat16, device=q.device)
     if b == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, heads, sq), dtype=torch.float32, device=q.device)
+    scratch = _bwd_scratch(b, sq, heads, head_dim, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, heads, head_dim,
             q.stride(1), k.stride(1), v.stride(1), out.stride(1), dout.stride(1),
             q.stride(0), k.stride(0), v.stride(0), out.stride(0), dout.stride(0),
             float(scale), float(scale) * _LOG2E, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_nhd_bwd: kernel launch failed with CUDA error {rc}")
+    _check_rc("flash_attention_nhd_bwd", rc)
     bwd_launches += 1
     return dq, dk, dv
 
@@ -467,18 +501,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale):
     dq, dk, dv = (_heads_last(b, h, n, d, q.device) for n in (sq, sk, sk))
     if b == 0 or h == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = _bwd_scratch(b, sq, h, d, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bhsd_bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, h, d,
             *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
             float(scale), float(scale) * _LOG2E, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: K3 launch failed with CUDA error {rc}")
+    _check_rc("flash_attention: K3", rc)
     bwd_launches += 1
     return dq, dk, dv
 

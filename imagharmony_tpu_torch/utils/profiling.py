@@ -31,11 +31,12 @@ WARMUP_STEPS = 3
 PROFILED_STEPS = 2
 
 # the kernels of flash_attn_nhd_bwd.cu, in launch order
-K3_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+K3_KERNELS = ("attn_bwd_prep_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel")
 
 # first match wins; names are lowercased
 KERNEL_CLASSES = (
-    ("K1/K4", ("flash_attn_kernel",)),  # one device kernel under both entry points
+    ("K1", ("attn_fwd_wgmma_kernel",)),
+    ("K4", ("flash_attn_kernel",)),
     ("K2", ("cross_attn_kernel",)),
     ("K3", K3_KERNELS),  # under both of its entry points
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "nchw", "cudnn")),

@@ -383,7 +383,7 @@ def test_cuda_k2_gradient(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,heads,d", [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 256, 8, 160),
                                          (1, 64, 8, 160), (2, 1000, 2, 40), (1, 5, 3, 80),
-                                         (2, 100, 2, 128)])
+                                         (2, 100, 2, 128), (2, 300, 2, 32), (1, 256, 4, 64)])
 def test_cuda_k4_gradient_goes_through_k3(cuda, monkeypatch, b, s, heads, d):
     """K4 on ``split_heads`` views of a packed to_qkv tensor that needs a
     gradient: a grad_fn, one K4 launch, and a backward that launches K3's

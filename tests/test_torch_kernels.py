@@ -174,24 +174,73 @@ ptxas info    : Used 32 registers, used 0 barriers
         build.resource_usage("flash_attn_nhd")
 
 
+def test_misaligned_operands_raise_before_any_library(monkeypatch):
+    """K1, K3 and K4 read their operands with TMA, which takes base addresses
+    and strides that are multiples of 16 bytes: the layout checks raise on
+    a base or a row stride that is not, before any library is built or
+    loaded (the checks do not look at the device, so CPU tensors show it)."""
+    import imagharmony_tpu_torch.nn.attention as pattn
+
+    def refuse(name):
+        raise AssertionError(f"a library was loaded: {name}")
+
+    monkeypatch.setattr(build, "load", refuse)
+    ok = torch.zeros((1, 8, 3 * 64), dtype=torch.bfloat16)
+    fa._check_layout(*ok.chunk(3, dim=-1), 64, fa.HEAD_DIMS)
+    shifted = torch.zeros((1, 8, 3 * 64 + 8), dtype=torch.bfloat16)[:, :, 1:1 + 3 * 64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_layout(*shifted.chunk(3, dim=-1), 64, fa.HEAD_DIMS)
+    odd_rows = torch.zeros((1, 8, 3 * 64 + 2), dtype=torch.bfloat16)[:, :, :3 * 64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_layout(*odd_rows.chunk(3, dim=-1), 64, fa.BWD_HEAD_DIMS)
+    views = [pattn.split_heads(x, 2) for x in shifted.chunk(3, dim=-1)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_bhsd_layout(*views)
+    views = [pattn.split_heads(x, 2) for x in odd_rows.chunk(3, dim=-1)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_bhsd_layout(*views)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda):
     """bf16 kernel vs the fp32 plain version on the same bf16 inputs, passed
-    as strided slices of one packed tensor, at each (S, H, D) below (one
-    launch each). Tolerance: bf16 rounding of P and of the output."""
-    for s, heads, d in [(1024, 20, 64), (1000, 2, 64), (64, 4, 32), (5, 3, 128)]:
+    as strided slices of one packed tensor, at each (S, H, D) below, batch 2
+    (S=1000: ragged last tiles in both batches; S=256 with 20 heads: one
+    warpgroup a CTA, S=4096: two). Tolerance: bf16 rounding of P and of the
+    output. The call with the lse output gives the same output bit for bit
+    and the plain lse within 2e-2 log2 units. Then 200 queries against 333
+    keys, forward and K3 (tolerances as in the tests below)."""
+    for s, heads, d in [(1024, 20, 64), (1000, 2, 64), (64, 4, 32), (5, 3, 128), (256, 20, 64),
+                        (300, 2, 128), (4096, 10, 64), (200, 3, 32)]:
         gen = torch.Generator(device=cuda).manual_seed(0)
         qkv = torch.randn((2, s, 3 * heads * d), generator=gen, device=cuda).to(torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
+        kw = dict(scale=d**-0.5, head_dim=d)
         before = fa.launches
-        out = fa.flash_attention_nhd(q, k, v, scale=d**-0.5, head_dim=d)
+        out = fa.flash_attention_nhd(q, k, v, **kw)
+        out_lse, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert fa.launches == before + 1
-        ref = fa.flash_attention_nhd_plain(q.float(), k.float(), v.float(), scale=d**-0.5,
-                                           head_dim=d)
+        assert fa.launches == before + 2
+        ref = fa.flash_attention_nhd_plain(q.float(), k.float(), v.float(), **kw)
         err = float((out.float() - ref).abs().max())
         cos = torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0)
         assert err <= 2e-2 and float(cos) >= 0.9999, ((s, heads, d), err, float(cos))
+        assert torch.equal(out, out_lse)
+        assert float((lse - fa.lse_plain(q.float(), k.float(), **kw)).abs().max()) <= 2e-2
+    # queries and keys of different lengths (the wrappers take them): K1 and K3
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 200, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = torch.randn((2, 333, 256), generator=gen, device=cuda).to(torch.bfloat16).chunk(2, -1)
+    dout = torch.randn((2, 200, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(scale=0.125, head_dim=64)
+    out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+    grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v, dout)]
+    ref = fa.flash_attention_nhd_plain(*f32[:3], **kw)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+    for g, r in zip(grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
+        _agree(g, r)
 
 
 def _bf16_case(cuda, b, s, heads, d, seed=0):
@@ -210,24 +259,32 @@ def _agree(out, ref, *, max_rel=2e-2, min_cos=0.9995):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,heads,d", [(1, 1024, 10, 64), (2, 1000, 2, 64), (2, 64, 4, 32),
-                                         (1, 5, 3, 32)])
+                                         (1, 5, 3, 32), (1, 256, 20, 64), (2, 77, 3, 40),
+                                         (1, 300, 2, 80), (2, 200, 2, 128), (1, 130, 2, 160)])
 def test_cuda_bwd_kernel_matches_plain(cuda, b, s, heads, d):
-    """K3 (fed by K1's lse) against the fp32 plain backward on the same bf16
-    inputs, q/k/v as strided slices: each of dq, dk, dv within 2e-2 of the
-    reference's max-abs and at cosine >= 0.9995 (bf16 rounding of P, dS and
-    the outputs). K1's lse against the plain one at 2e-2 log2 units: K1
-    rounds q*scale*log2(e) to bf16 (relative 2^-9), so a logit s of size
-    ~5 carries ~1e-2 of error, in the forward as in this lse."""
+    """K3 on K1's layout, at every head dim it takes (fed by K1's lse where K1
+    takes the head dim, else by the plain forward's), against the fp32 plain
+    backward on the same bf16 inputs, q/k/v as strided slices: each of dq,
+    dk, dv within 2e-2 of the reference's max-abs and at cosine >= 0.9995
+    (bf16 rounding of P, dS and the outputs); a second call on the same
+    inputs gives the same bits. K1's lse against the plain one at 2e-2 log2
+    units: K1 rounds q*scale*log2(e) to bf16 (relative 2^-9), so a logit s
+    of size ~5 carries ~1e-2 of error, in the forward as in this lse."""
     q, k, v, dout = _bf16_case(cuda, b, s, heads, d)
     kw = dict(scale=d**-0.5, head_dim=d)
-    out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
-    before = fa.bwd_launches
-    grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
-    torch.cuda.synchronize()
-    assert fa.bwd_launches == before + 1
     f32 = [x.float() for x in (q, k, v, dout)]
     ref_lse = fa.lse_plain(f32[0], f32[1], **kw)
-    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    if d in fa.HEAD_DIMS:
+        out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+        assert float((lse - ref_lse).abs().max()) <= 2e-2
+    else:
+        out, lse = fa.flash_attention_nhd_plain(q, k, v, **kw), ref_lse
+    before = fa.bwd_launches
+    grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    assert all(torch.equal(g, h) for g, h in zip(grads, again))
     for g, r in zip(grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
         _agree(g, r)
 
