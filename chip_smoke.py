@@ -8,19 +8,20 @@ Phases, each printed as it finishes; any failure raises and the exit code
 is non-zero:
 
 1. device and power limit (nvidia-smi); no CUDA -> fail;
-2. build K1 and K4 (one source: K1's wgmma kernel under the packed entry
-   point, PR 4's mma.sync kernel under the head-split one), K3 (their
-   backward, under the same two layouts) and K2 (the fused text + IP
-   cross-attention) from the sources in the checkout, one nvcc per source,
-   in parallel, with what ptxas reports per kernel (registers, shared
-   memory, spills) and the dynamic shared memory K3's launches ask for;
+2. build K1 and K4 (one source, one device kernel, attn_fwd_wgmma_kernel,
+   under the packed and the head-split entry point), K3 (their backward,
+   under the same two layouts) and K2 (the fused text + IP
+   cross-attention, cross_attn_wgmma_kernel) from the sources in the
+   checkout, one nvcc per source, in parallel, with what ptxas reports per
+   kernel instance (registers, shared memory, spills; any spill fails) and
+   the dynamic shared memory K3's launches ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes (one of them B=2, S=1000: a
    ragged last tile in each batch), with timings of K1, the plain version
-   and, as a yardstick, F.scaled_dot_product_attention; and PR 4's forward
-   kernel (K4's entry point on head-split views of the same tensors at
-   d=64) timed around K1 in one call (PR 4, K1, K1, PR 4): ``was_ms``;
+   and, as a yardstick, F.scaled_dot_product_attention; and K4's entry
+   point on head-split views of the same tensors timed around K1 in one
+   call (K4, K1, K1, K4): both must run attn_fwd_wgmma_kernel alone;
 3b. K1's row log-sum-exp and K3 against their plain versions at the
    training shapes (512² and 1024²) and two edge shapes, K3 twice on the
    same inputs (bit-identical or fail), with timings of K1 with its lse
@@ -30,16 +31,21 @@ is non-zero:
 3c. K4 against its plain version at the four self-attention shapes of the
    SD1.5 UNet at 512² (head dims 40, 80, 160) and at an odd length, on
    contiguous (B, H, S, D) tensors and on strided views of one packed
-   to_qkv tensor, with timings of K4, the plain version and SDPA;
+   to_qkv tensor, with timings of K4, the plain version and SDPA, and K4 at
+   d=64 on the first shape's sequence (what d=40's narrower head saves);
 3d. K2 against its plain version at every cross-attention shape of both
    UNets (77 text keys; 4, 16 and 257 IP keys; ip_scale 0; an odd length),
    k and v as views of one packed to_kv tensor, with timings of K2, the
    plain version and, as a yardstick, SDPA on the text branch plus SDPA on
-   the IP branch;
+   the IP branch; at every IP shape of the UNets, K2 with ip_scale 0 gives
+   the text-only call's output bit for bit;
 3e. K4's lse and K3 at head dims 40/80/160 against their plain versions at
    the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
    on the same inputs (bit-identical or fail), with timings of K3, the
    plain backward and SDPA's backward;
+3f. with two cards or more: K1 (with its lse), K3, K4 and K2 launched on
+   cuda:1 after cuda:0, each against its plain version (the libraries keep
+   their state per device); with one card, one line that says so;
 4. the tiny pipeline on the card (bf16, K1) against the same weights on the
    CPU (fp32, plain attention);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
@@ -115,6 +121,9 @@ EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
 # on the batch axis (5, 5, 5 and 1 per UNet call), then an odd length
 K4_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8, 160)]
 K4_EDGES = [(2, 1000, 8, 40)]
+# timed beside the first shape: the same S and H at d=64, whose PV runs over
+# the same one 64-column panel and whose exp2 count is the same
+K4_WIDER = (2, 4096, 8, 64)
 
 # K2, (B, Sq, H, D, Sk_ip, ip_scale), 77 text keys: the main paths' shapes
 # (timed) -- SDXL at 1024² with the CFG pair on the batch axis (10 calls at
@@ -148,6 +157,9 @@ K3_BHSD_EDGES = [(2, 1000, 2, 40)]
 TRAIN_MAX_LOSS_REL = 2e-2
 TRAIN_MIN_GRAD_COSINE = 0.99
 TRAIN_STEPS = 4
+
+# the device kernel behind K1's and K4's entry points
+FWD_KERNEL = "attn_fwd_wgmma_kernel"
 
 # one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
 PEAK_FLOPS = 989e12
@@ -233,14 +245,13 @@ def phase_build(fa, ca, build):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
                       f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled",
                       flush=True)
-                if "wgmma" in kernel or "attn_bwd" in kernel:
-                    spilled += [kernel] if u["spill_bytes"] else []
+                spilled += [kernel] if u["spill_bytes"] else []
     for d in fa.BWD_HEAD_DIMS:
         dyn = fa.bwd_smem_bytes(d)
         print(f"phase 2 K3 d={d}: dynamic shared memory per launch "
               + ", ".join(f"{k} {v} B" for k, v in dyn.items()), flush=True)
     if spilled:
-        raise AssertionError(f"K1 or K3 spills registers: {spilled}")
+        raise AssertionError(f"a kernel spills registers: {spilled}")
 
 
 def _bound(flops, nbytes):
@@ -293,23 +304,30 @@ def phase_k1(fa, split_heads):
             def k1():
                 return fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d)
 
-            def pr4():  # PR 4's forward kernel, now K4's alone, on the same tensors
+            def k4():  # K4's entry point on head-split views of the same tensors
                 return fa.flash_attention(*(split_heads(x, h) for x in (q, k, v)), scale=scale)
 
-            was = [_device_ms(pr4)["total"]]
+            def wgmma_only(fn):  # device ms of fn, which must all be K1's device kernel
+                ms = _device_ms(fn, (FWD_KERNEL,))
+                if ms[FWD_KERNEL] is None or ms[FWD_KERNEL] != ms["total"]:
+                    raise AssertionError(f"not {FWD_KERNEL} alone: {ms}")
+                return ms["total"]
+
+            via_k4 = [wgmma_only(k4)]
             t = _timings({
                 "kernel": k1,
                 "plain": lambda: fa.flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=d),
                 "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
             })
-            again = _device_ms(k1)["total"]
-            was.append(_device_ms(pr4)["total"])
-            t["was"] = statistics.mean(was)
+            again = wgmma_only(k1)
+            via_k4.append(wgmma_only(k4))
+            t["via_k4"] = statistics.mean(via_k4)
             main_ms[(s, h, d)] = t
             print(f"phase 3 time S={s} H={h} D={d}, device (CUDA event): K1 "
                   f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}; "
-                  f"device, in turn: PR 4's kernel {was[0]:.4f}, K1 {t['kernel'][0]:.4f}, K1 "
-                  f"{again:.4f}, PR 4's kernel {was[1]:.4f} ms", flush=True)
+                  f"device, in turn, {FWD_KERNEL} alone: K4 on head-split views {via_k4[0]:.4f}, "
+                  f"K1 {t['kernel'][0]:.4f}, K1 {again:.4f}, K4 on head-split views "
+                  f"{via_k4[1]:.4f} ms", flush=True)
     return max_err, main_ms
 
 
@@ -421,6 +439,15 @@ def phase_k4(fa):
         print(f"phase 3c time B={b} S={s} H={h} D={d}, device (CUDA event): K4 "
               f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, SDPA {_fmt(t['library'])}; "
               f"bound {bound:.5f} ms ({by})", flush=True)
+    b, s, h, d = K4_WIDER
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    narrow = [x[..., :K4_SHAPES[0][3]].contiguous() for x in (q, k, v)]
+    ms = [_device_ms(lambda: fa.flash_attention(*narrow, scale=d**-0.5))["total"],
+          _device_ms(lambda: fa.flash_attention(q, k, v, scale=d**-0.5))["total"],
+          _device_ms(lambda: fa.flash_attention(*narrow, scale=d**-0.5))["total"]]
+    print(f"phase 3c time B={b} S={s} H={h}, contiguous, device, in turn: D={K4_SHAPES[0][3]} "
+          f"{ms[0]:.4f}, D={d} {ms[1]:.4f}, D={K4_SHAPES[0][3]} {ms[2]:.4f} ms", flush=True)
     return max_err, times
 
 
@@ -447,8 +474,16 @@ def phase_k2(ca):
                                        v_ip=f32[4], ip_scale=ip_scale)
         err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
         label = f"B={b} Sq={sq} H={h} D={d} IP keys={sk_ip} ip_scale={ip_scale}"
-        print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f}", flush=True)
-        if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE):
+        same = "-"
+        if sk_ip and (b, sq, h, d, sk_ip, ip_scale) in K2_SHAPES:
+            # ip_scale 0 adds exactly 0: the text-only call's output, bit for bit
+            zero = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=0.0))
+            text = ca.flash_cross_nhd(q, k, v, **dict(kw, k_ip=None, v_ip=None))
+            torch.cuda.synchronize()
+            same = torch.equal(zero, text)
+        print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f}, ip_scale 0 bit-identical "
+              f"to text only {same}", flush=True)
+        if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE and same is not False):
             raise AssertionError(f"K2 disagrees with its plain version at {label}")
         max_err = max(max_err, err)
         if (b, sq, h, d, sk_ip, ip_scale) not in K2_SHAPES:
@@ -528,6 +563,50 @@ def phase_k3_bhsd(fa, split_heads):
               f"{_fmt(t['kernel'])} ({kern}), plain backward {_fmt(t['plain'])}, SDPA "
               f"backward {_fmt(t['library'])}; bound {bound:.5f} ms ({by})", flush=True)
     return max_err, times
+
+
+def phase_second_device(fa, ca, split_heads):
+    """Each kernel on cuda:0 and then on cuda:1 in this process, against its
+    plain version: the libraries' shared-memory attributes, SM counts and
+    thread contexts are kept per device."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 3f second device: skipped, {n} card", flush=True)
+        return
+    errs = {}
+    for dev in ("cuda:0", "cuda:1"):
+        gen = torch.Generator(device=dev).manual_seed(6)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q, k, v = rnd(1, 1024, 3 * 640).chunk(3, dim=-1)
+        dout = rnd(1, 1024, 640)
+        kw = dict(scale=0.125, head_dim=64)
+        out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+        grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+        views = [split_heads(x, 8) for x in rnd(2, 1000, 3 * 320).chunk(3, dim=-1)]
+        k4 = fa.flash_attention(*views, scale=40**-0.5)
+        ckw = dict(scale=40**-0.5, head_dim=40, ip_scale=0.6)
+        cq, (ck, cv), kip, vip = rnd(2, 300, 320), rnd(2, 77, 640).chunk(2, dim=-1), \
+            rnd(2, 4, 320), rnd(2, 4, 320)
+        k2 = ca.flash_cross_nhd(cq, ck, cv, k_ip=kip, v_ip=vip, **ckw)
+        torch.cuda.synchronize(dev)
+        f32 = [x.float() for x in (q, k, v, dout)]
+        e = {"K1": float((out.float() - fa.flash_attention_nhd_plain(*f32[:3], **kw)).abs().max()),
+             "K4": float((k4.float() - fa.flash_attention_plain(
+                 *(x.float() for x in views), scale=40**-0.5)).abs().max()),
+             "K2": float((k2.float() - ca.flash_cross_nhd_plain(
+                 cq.float(), ck.float(), cv.float(), k_ip=kip.float(), v_ip=vip.float(),
+                 **ckw)).abs().max())}
+        refs = fa.flash_attention_nhd_bwd_plain(*f32, **kw)
+        e["K3"] = max(float((g.float() - r).abs().max()) / float(r.abs().max())
+                      for g, r in zip(grads, refs))
+        errs[dev] = e
+        print(f"phase 3f {dev}: max_abs K1 {e['K1']:.3e}, K4 {e['K4']:.3e}, K2 {e['K2']:.3e}, "
+              f"K3 max_abs / ref max {e['K3']:.3e}", flush=True)
+        if max(e["K1"], e["K4"], e["K2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL:
+            raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
 
 
 def phase_tiny(fa, HarmonyPipeline):
@@ -895,6 +974,7 @@ def main():
     k4_err, k4_times = phase_k4(fa)
     k2_err, k2_times = phase_k2(ca)
     k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
+    phase_second_device(fa, ca, split_heads)
     phase_tiny(fa, HarmonyPipeline)
     launches, k2_launches = phase_full(fa, ca, HarmonyPipeline)
     phase_train_tiny(fa, comp, step_lib)
@@ -915,8 +995,7 @@ def main():
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
-        "was_ms": main_ms[MAIN_SHAPES[0]]["was"],
-        "by_shape": [{"shape": [2, *shape], "was_ms": t["was"],
+        "by_shape": [{"shape": [2, *shape], "head_split_entry_ms": t["via_k4"],
                       **_line_times(t, fwd_bound(2, *shape))} for shape, t in main_ms.items()]
                     + [{"shape": list(shape), "with_lse": True, **_line_times(t, t["bound"])}
                        for shape, t in k1_train_times.items()],

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each kernel is one ``csrc/<name>.cu`` file with plain C entry points; the
-sources share the helpers of ``csrc/attn_tiles.cuh``. It is compiled with
+sources share the Hopper helpers of ``csrc/sm90_tiles.cuh`` (TMA, mbarriers,
+wgmma, the state kept per device). It is compiled with
 ``nvcc`` into a shared library under ``_build/`` (listed in ``.gitignore``),
 named by a hash of the source, the headers and the flags, so an edited
 source or header rebuilds and an unchanged one loads the cached library.
@@ -25,8 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# sm_90a (not sm_90): the Hopper-only instructions later kernels will use
-# (wgmma, setmaxnreg) exist only for the "a" target.
+# sm_90a (not sm_90): the Hopper-only instructions the kernels use (wgmma)
+# exist only for the "a" target.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -47,7 +48,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` is (or will be) built. The
     name hashes the flags, the source and every header of ``csrc/`` (the
-    sources include ``attn_tiles.cuh``), so an edited header rebuilds too."""
+    sources include ``sm90_tiles.cuh``), so an edited header rebuilds too."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode() + path.read_bytes())

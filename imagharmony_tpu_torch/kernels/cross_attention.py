@@ -6,8 +6,9 @@ the packed (B, S, H*D) layout:
 ``flash_cross_nhd`` replaces the TPU kernel ``_cross_ip_nhd_kernel``
 (imagharmony_tpu/kernels/flash_attention.py:630, entry ``flash_cross_nhd``
 :795 through ``_cross_nhd_impl`` :670). On a CUDA tensor it launches the
-hand-written sm_90a kernel in ``csrc/cross_attn_nhd.cu``; on a CPU tensor it
-runs ``flash_cross_nhd_plain``. There is no fallback between the two: a CUDA
+hand-written sm_90a kernel ``cross_attn_wgmma_kernel`` in
+``csrc/cross_attn_nhd.cu``; on a CPU tensor it runs
+``flash_cross_nhd_plain``. There is no fallback between the two: a CUDA
 tensor the kernel does not take raises.
 
 The JAX model keeps these cross-attentions on XLA (its K2 lost to XLA on a
@@ -24,7 +25,13 @@ counterpart of ``_cross_xla_bwd`` (:739) and ``_flash_cross_ip_bwd`` (:785),
 which are XLA in the JAX package, not Pallas.
 
 What bounds K2 on an H100: bytes. At SDXL's (2, 4096, 10, 64) with 77 + 4
-keys it does 1.7 GFLOP against ~21 MB of q, output and K/V.
+keys it does 1.7 GFLOP against ~21 MB of q, output and K/V. So the kernel
+keeps a head's few keys in shared memory for a whole run of query tiles and
+streams q in and the output out by TMA (wgmma products, an mbarrier ring;
+see the source). Like K1, it reads its operands with TMA, which takes base
+addresses and strides that are multiples of 16 bytes (checked here before
+any launch); an operand expanded over the batch (batch stride 0) is read
+as one batch.
 """
 
 from __future__ import annotations
@@ -164,8 +171,7 @@ def _launch(q, k, v, k_ip, v_ip, *, scale, head_dim, ip_scale):
             head_dim, *(st for x in (q, k, v, k_ip, v_ip, out) for st in strides(x)),
             float(scale) * _LOG2E, float(ip_scale), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"flash_cross_nhd: kernel launch failed with CUDA error {rc}")
+    fa._check_rc("flash_cross_nhd", rc)
     cross_launches += 1
     cross_ip_launches += k_ip is not None
     return out

@@ -1,17 +1,16 @@
-// K1 and K4: fused self-attention, bf16 in and out, two device kernels.
+// K1 and K4: fused self-attention, bf16 in and out, one device kernel
+// (`attn_fwd_wgmma_kernel`, written for Hopper, sm_90a) under two entry
+// points that differ only in the strides they hand it:
 //
 //   * K1, `flash_attn_nhd_bf16`: the packed (B, S, H*D) layout, head h at
 //     column h*D, q/k/v as column views of one to_qkv output. Replaces the
 //     TPU kernel `_attn_nhd_kernel` (imagharmony_tpu/kernels/
 //     flash_attention.py:415), reached through `flash_attention_nhd` (:576).
-//     Head dims 32, 64, 128. Device kernel: `attn_fwd_wgmma_kernel` below,
-//     written for Hopper (sm_90a).
+//     Head dims 32, 64, 128.
 //   * K4, `flash_attn_bhsd_bf16`: the head-split (B, H, S, D) layout with a
 //     batch, head and row stride for q, k, v and the output. Replaces the TPU
 //     kernel `_attn_kernel` (:95), reached through `flash_attention` (:369) ->
-//     `_flash_fwd_impl` (:138). Head dims 32, 40, 64, 80, 128, 160. Device
-//     kernel: `flash_attn_kernel`, the mma.sync kernel K1 also ran until it
-//     got its own; K4 keeps it until its own redesign.
+//     `_flash_fwd_impl` (:138). Head dims 32, 40, 64, 80, 128, 160.
 //
 // Both compute the exact softmax, unlike the Pallas kernels: a running row
 // max and sum (online softmax), no clamp on the exp2 argument, and no padding
@@ -26,240 +25,40 @@
 // What bounds them on an H100: at head_dim 64 the work is 4*B*H*Sq*Sk*D
 // flops against (3+1)*B*S*H*D*2 bytes, e.g. S=4096, H=10, B=2: 86 GFLOP
 // against 42 MB, about 2000 flop/byte, far above the card's ~295 flop/byte
-// ridge. So they are bound by the tensor cores, and both keep the (Sq, Sk)
-// logits out of device memory: they live in registers, one key tile at a
-// time.
+// ridge; K4 at d=40, S=4096, H=8, B=2: 43 GFLOP against 21 MB. So they are
+// bound by the tensor cores, and the kernel keeps the (Sq, Sk) logits out of
+// device memory: they live in registers, one key tile at a time.
 //
-// K1's design (attn_fwd_wgmma_kernel), for the tensor cores' wgmma rate:
+// The design, for the tensor cores' wgmma rate:
 //   * one CTA per 64 * NWG query rows of one head: NWG consumer warpgroups
 //     of 64 rows each and one producer warp. NWG = 2 where that still gives
-//     a full wave of CTAs (SDXL's 1024² shapes), else 1 (training's batch 1:
-//     (1, 256, 20, 64) is 80 CTAs of 64 rows, 40 of 128).
+//     a full wave of CTAs (SDXL's 1024² shapes, SD1.5's (2, 4096, 8, 40)),
+//     else 1 (training's batch 1: (1, 256, 20, 64) is 80 CTAs of 64 rows,
+//     40 of 128), and always 1 at D = 160, where the third O panel would
+//     not fit in the 168 registers a 288-thread block allows.
 //   * the producer warp brings Q once and then every K and V tile with TMA
 //     (sm90_tiles.cuh) into a ring of kFwdStages stages, each with a "full"
 //     mbarrier (the copies' bytes) and an "empty" one (every consumer thread
 //     arrives when its products are done with the stage), so the next
 //     tiles' copies overlap this tile's math. The tensor maps are 4-D over
-//     (d, h, s, b) with the operands' own strides: column views of to_qkv go
-//     in as they are, and rows past S come in as zeros (keys past Sk are
-//     then masked to -inf here: a zero key would score 0, not -inf).
+//     (d, h, s, b) or (d, s, h, b), ordered by stride, with each operand's
+//     own strides: column views of to_qkv and head-split views go in as they
+//     are, and rows past S come in as zeros (keys past Sk are then masked to
+//     -inf here: a zero key would score 0, not -inf).
 //   * each consumer warpgroup scales its 64 Q rows in shared memory once,
 //     then per key tile: S = Q K^T by wgmma (both K-major from shared
 //     memory), the online-softmax update in registers, and O += P V by wgmma
 //     with P from registers (the accumulator layout is the A-fragment
 //     layout) and V read MN-major from the same tile: no transposed copy.
-//   * BN keys per tile: 128 at D <= 64, 64 at D = 128 (registers: the S
-//     accumulator is BN/2 a thread, O D/2).
+//   * BN keys per tile: 128 at D <= 64, 64 above (registers: the S
+//     accumulator is BN/2 a thread, O 32 per 64-column panel).
+//   * a head of D columns is ceil(D/64) panels of 64: QK^T stops at
+//     ceil(D/16) steps of 16, but PV runs over whole panels, so at D = 40
+//     and 80 a third of PV's columns are the zeros TMA fills in past D.
 //   * the output goes back through the Q tile in shared memory and TMA
 //     stores, which leave out the rows past Sq and the columns past D.
-//
-// K4's kernel (flash_attn_kernel), simple and correct first: grid
-// (ceil(Sq/64), H, B), one CTA of 4 warps per 64 query rows, each warp 16
-// rows; K and V tiles of 64 rows staged in shared memory (V transposed) by
-// all threads; QK^T and PV by mma.sync.m16n8k16 with fp32 accumulation. The
-// QK^T contraction runs over D rounded up to 16 with the extra columns zero
-// in shared memory only (40 -> 48), where the Pallas kernel pads D to a
-// multiple of 64 and Sk to 256 on the host.
 
-#include "attn_tiles.cuh"
 #include "sm90_tiles.cuh"
-
-namespace {
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const bf16* __restrict__ q,
-                  const bf16* __restrict__ k,
-                  const bf16* __restrict__ v,
-                  bf16* __restrict__ o,
-                  float* __restrict__ lse,
-                  int sq, int sk, int heads,
-                  Strides qs, Strides ks, Strides vs, Strides os,
-                  float scale_log2) {
-  constexpr int kDK = kContraction<D>;
-  // sK holds Q first (same shape), then each K tile. 44.5 KB together at
-  // D=160, under the 48 KB a kernel may declare statically.
-  __shared__ __align__(16) bf16 sK[kBlockN * kPitch<D>];
-  __shared__ __align__(16) bf16 sVt[D * (kBlockN + kPad)];
-
-  const int m0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // mma group: row within the 8-row slab
-  const int t = lane % 4;   // thread in group: column pair
-
-  const bf16* qh = q + b * qs.batch + h * qs.head;
-  const bf16* kh = k + b * ks.batch + h * ks.head;
-  const bf16* vh = v + b * vs.batch + h * vs.head;
-
-  // ---- Q fragments (A operand), pre-scaled by scale*log2(e) ----
-  load_tile<D>(sK, qh, qs.row, m0, sq, scale_log2);
-  __syncthreads();
-  uint32_t qf[kDK / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDK / 16; ++kk) {
-    load_a_frag<D>(qf[kk], sK + warp * 16 * kPitch<D>, kk, g, t);
-  }
-  __syncthreads();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
-  // rows g and g+8 of this warp's 16
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < sk; n0 += kBlockN) {
-    load_tile<D>(sK, kh, ks.row, n0, sk);
-    load_tile_t<D>(sVt, vh, vs.row, n0, sk);
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's 16 rows x 64 keys (log2 domain) ----
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
-      const bf16* krow = sK + (nb * 8 + g) * kPitch<D>;
-#pragma unroll
-      for (int kk = 0; kk < kDK / 16; ++kk) {
-        const uint32_t b0 = ld32(krow + kk * 16 + 2 * t);
-        const uint32_t b1 = ld32(krow + kk * 16 + 8 + 2 * t);
-        mma_bf16_16816(s[nb], qf[kk], b0, b1);
-      }
-    }
-
-    // ---- mask the ragged key edge, then the online-softmax update ----
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nb * 8 + 2 * t + (i & 1);
-        if (col >= sk) s[nb][i] = -INFINITY;
-        tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nb][i]);
-      }
-    }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // the 4 threads of a group hold the same row
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float m_new = fmaxf(row_max[r], tile_max[r]);
-      // a row with no valid key yet keeps max -inf: use 0 as the base so
-      // exp2(-inf - 0) = 0 and no inf - inf NaN appears
-      m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[r] = exp2f(row_max[r] - m_use[r]);
-      row_max[r] = m_new;
-    }
-    float tile_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(s[nb][i] - m_use[i >> 1]);
-        s[nb][i] = p;
-        tile_sum[i >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
-      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
-      row_sum[r] = row_sum[r] * alpha[r] + tile_sum[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-
-    // ---- O += P V: the S accumulator layout is the A-operand layout ----
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const bf16* vrow = sVt + (nd * 8 + g) * (kBlockN + kPad) + kk * 16;
-        const uint32_t b0 = ld32(vrow + 2 * t);
-        const uint32_t b1 = ld32(vrow + 8 + 2 * t);
-        mma_bf16_16816(acc[nd], pf, b0, b1);
-      }
-    }
-    __syncthreads();  // before the next tile overwrites sK / sVt
-  }
-
-  // ---- normalise and store rows < sq (and their lse, if asked) ----
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    if (lse != nullptr && t == 0) {
-      lse[((int64_t)b * heads + h) * sq + row] = row_max[r] + log2f(row_sum[r]);
-    }
-    const float inv = row_sum[r] > 0.f ? 1.f / row_sum[r] : 0.f;
-    bf16* orow = o + b * os.batch + h * os.head + row * os.row;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const uint32_t val = pack_bf16(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t) = val;
-    }
-  }
-}
-
-struct Args {
-  const void *q, *k, *v;
-  void* o;
-  float* lse;
-  int batch, sq, sk, heads;
-  Strides qs, ks, vs, os;
-  float scale_log2;
-  cudaStream_t stream;
-};
-
-template <int D>
-void launch(const Args& a) {
-  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.heads, a.batch);
-  flash_attn_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.sq,
-      a.sk, a.heads, a.qs, a.ks, a.vs, a.os, a.scale_log2);
-}
-
-// K4's launch at head_dim. Returns cudaGetLastError() after the launch (0
-// on success); an unsupported head_dim or an empty shape returns
-// cudaErrorInvalidValue without launching.
-int dispatch(const Args& a, int head_dim) {
-  if (a.batch <= 0 || a.sq <= 0 || a.sk <= 0 || a.heads <= 0 || a.heads > 65535 ||
-      a.batch > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (head_dim) {
-    case 32: launch<32>(a); break;
-    case 40: launch<40>(a); break;
-    case 64: launch<64>(a); break;
-    case 80: launch<80>(a); break;
-    case 128: launch<128>(a); break;
-    case 160: launch<160>(a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// ---- K1: attn_fwd_wgmma_kernel ------------------------------------------------
 
 namespace {
 
@@ -492,49 +291,40 @@ attn_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
   }
 }
 
+// Element strides of one operand: between batches, heads and rows.
+struct Strides {
+  long long batch, head, row;
+};
+
 template <int D, int NWG>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, const FwdArgs& a,
-               int batch, long long q_row, long long k_row, long long v_row, long long q_batch,
-               long long k_batch, long long v_batch, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o, const Strides& qs,
+               const Strides& ks, const Strides& vs, const Strides& os, const FwdArgs& a,
+               int batch, cudaStream_t stream) {
   using L = FwdSmem<D, NWG>;
-  const long long hd = (long long)a.heads * D;
   FwdMaps maps;
-  if (!sm90::make_map(&maps.q, q, D, a.heads, a.sq, batch, q_batch, D, q_row, NWG * 64) ||
-      !sm90::make_map(&maps.k, k, D, a.heads, a.sk, batch, k_batch, D, k_row, kFwdKeys<D>) ||
-      !sm90::make_map(&maps.v, v, D, a.heads, a.sk, batch, v_batch, D, v_row, kFwdKeys<D>) ||
-      !sm90::make_map(&maps.o, o, D, a.heads, a.sq, batch, a.sq * hd, D, hd, 64)) {
+  if (!sm90::make_map(&maps.q, q, D, a.heads, a.sq, batch, qs.batch, qs.head, qs.row, NWG * 64) ||
+      !sm90::make_map(&maps.k, k, D, a.heads, a.sk, batch, ks.batch, ks.head, ks.row,
+                      kFwdKeys<D>) ||
+      !sm90::make_map(&maps.v, v, D, a.heads, a.sk, batch, vs.batch, vs.head, vs.row,
+                      kFwdKeys<D>) ||
+      !sm90::make_map(&maps.o, o, D, a.heads, a.sq, batch, os.batch, os.head, os.row, 64)) {
     return (int)cudaErrorInvalidPitchValue;
   }
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_wgmma_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  static sm90::PerDevice smem_set;
+  const cudaError_t err = sm90::allow_smem(
+      reinterpret_cast<const void*>(attn_fwd_wgmma_kernel<D, NWG>), L::kBytes, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.sq + NWG * 64 - 1) / (NWG * 64), a.heads, batch);
   attn_fwd_wgmma_kernel<D, NWG><<<grid, NWG * 128 + 32, L::kBytes, stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry points (loaded with ctypes). Strides are in elements.
-
-// K1: packed (B, S, H*D) q, k, v with a row and a batch stride each (head h
-// at column h*D); o is a contiguous (B, Sq, H*D) buffer; lse is null or a
-// contiguous fp32 (B, H, Sq) buffer. head_dim 32, 64 or 128. Every base
-// address and stride must be a multiple of 16 bytes (the TMA's rule): an
-// operand the driver refuses a tensor map for returns
-// cudaErrorInvalidPitchValue, an unsupported head_dim or an empty shape
-// cudaErrorInvalidValue, both without launching. Else the launch's
-// cudaGetLastError() (0 on success).
-extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, void* o,
-                                   float* lse,
-                                   int batch, int sq, int sk, int heads, int head_dim,
-                                   long long q_row, long long k_row, long long v_row,
-                                   long long q_batch, long long k_batch,
-                                   long long v_batch, float scale_log2, void* stream) {
+// The launch both entry points share: NWG by the grid the shape gives, the
+// head dim checked against what the entry point takes (K1's three or K4's
+// six).
+int fwd(const void* q, const void* k, const void* v, void* o, const Strides& qs,
+        const Strides& ks, const Strides& vs, const Strides& os, float* lse, int batch, int sq,
+        int sk, int heads, int head_dim, bool bhsd_dims, float scale_log2, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -542,18 +332,46 @@ extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, 
   // two warpgroups a CTA where that still fills the card with CTAs
   const bool wide = (long long)((sq + 127) / 128) * heads * batch >= sm90::sm_count();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_LAUNCH(D)                                                                          \
-  return wide ? launch_fwd<D, 2>(q, k, v, o, a, batch, q_row, k_row, v_row, q_batch, k_batch, \
-                                 v_batch, st)                                                 \
-              : launch_fwd<D, 1>(q, k, v, o, a, batch, q_row, k_row, v_row, q_batch, k_batch, \
-                                 v_batch, st)
+#define FWD_LAUNCH(D)                                                                      \
+  return wide ? launch_fwd<D, 2>(q, k, v, o, qs, ks, vs, os, a, batch, st)                 \
+              : launch_fwd<D, 1>(q, k, v, o, qs, ks, vs, os, a, batch, st)
   switch (head_dim) {
-    case 32: K1_LAUNCH(32);
-    case 64: K1_LAUNCH(64);
-    case 128: K1_LAUNCH(128);
-    default: return (int)cudaErrorInvalidValue;
+    case 32: FWD_LAUNCH(32);
+    case 64: FWD_LAUNCH(64);
+    case 128: FWD_LAUNCH(128);
+    case 40: if (bhsd_dims) FWD_LAUNCH(40); break;
+    case 80: if (bhsd_dims) FWD_LAUNCH(80); break;
+    case 160:
+      if (bhsd_dims) return launch_fwd<160, 1>(q, k, v, o, qs, ks, vs, os, a, batch, st);
+      break;
+    default: break;
   }
-#undef K1_LAUNCH
+#undef FWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Strides are in elements. Every
+// base address and stride must be a multiple of 16 bytes (the TMA's rule):
+// an operand whose tensor map cuTensorMapEncodeTiled refuses returns
+// cudaErrorInvalidPitchValue, an unsupported head_dim or an empty shape
+// cudaErrorInvalidValue, both without launching. Else the launch's
+// cudaGetLastError() (0 on success).
+
+// K1: packed (B, S, H*D) q, k, v with a row and a batch stride each (head h
+// at column h*D); o is a contiguous (B, Sq, H*D) buffer; lse is null or a
+// contiguous fp32 (B, H, Sq) buffer. head_dim 32, 64 or 128.
+extern "C" int flash_attn_nhd_bf16(const void* q, const void* k, const void* v, void* o,
+                                   float* lse,
+                                   int batch, int sq, int sk, int heads, int head_dim,
+                                   long long q_row, long long k_row, long long v_row,
+                                   long long q_batch, long long k_batch,
+                                   long long v_batch, float scale_log2, void* stream) {
+  const long long hd = (long long)heads * head_dim;
+  return fwd(q, k, v, o, {q_batch, head_dim, q_row}, {k_batch, head_dim, k_row},
+             {v_batch, head_dim, v_row}, {sq * hd, head_dim, hd}, lse, batch, sq, sk, heads,
+             head_dim, false, scale_log2, stream);
 }
 
 // K4: head-split (B, H, S, D) q, k, v and o, each with a batch, a head and a
@@ -566,9 +384,7 @@ extern "C" int flash_attn_bhsd_bf16(const void* q, const void* k, const void* v,
                                     long long v_batch, long long v_head, long long v_row,
                                     long long o_batch, long long o_head, long long o_row,
                                     float scale_log2, void* stream) {
-  const Args a{q, k, v, o, lse, batch, sq, sk, heads,
-               {q_batch, q_head, q_row}, {k_batch, k_head, k_row},
-               {v_batch, v_head, v_row}, {o_batch, o_head, o_row},
-               scale_log2, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim);
+  return fwd(q, k, v, o, {q_batch, q_head, q_row}, {k_batch, k_head, k_row},
+             {v_batch, v_head, v_row}, {o_batch, o_head, o_row}, lse, batch, sq, sk, heads,
+             head_dim, true, scale_log2, stream);
 }

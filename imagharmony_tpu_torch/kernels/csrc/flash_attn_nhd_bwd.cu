@@ -1,6 +1,7 @@
 // K3: backward of K1 and K4 (fused self-attention), bf16 in and out, fp32
-// accumulation, written for Hopper (sm_90a). Two entry points that differ
-// only in the strides they hand the same kernels:
+// accumulation, written for Hopper (sm_90a) on the helpers of sm90_tiles.cuh.
+// Two entry points that differ only in the strides they hand the same
+// kernels:
 //
 //   * `flash_attn_nhd_bwd_bf16`: K1's packed (B, S, H*D) layout, head h at
 //     column h*D; dq, dk, dv contiguous (B, S, H*D).
@@ -515,15 +516,6 @@ struct Layout {
   cudaStream_t stream;
 };
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  *done = err == cudaSuccess;
-  return err;
-}
-
 template <int D>
 int launch(const Layout& l) {
   const int sq_pad = padded(l.sq);
@@ -553,14 +545,16 @@ int launch(const Layout& l) {
   if (err != cudaSuccess) return (int)err;
 
   const BwdArgs a{lse_pad, delta_pad, l.sq, l.sk, sq_pad, l.heads, l.scale};
-  static bool dkdv_set = false, dq_set = false;
-  err = set_smem(attn_bwd_dkdv_kernel<D>, DkdvSmem<D>::kBytes, &dkdv_set);
+  static sm90::PerDevice dkdv_set, dq_set;  // the attribute, per device
+  err = sm90::allow_smem(reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<D>),
+                         DkdvSmem<D>::kBytes, dkdv_set);
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkdv_kernel<D><<<dim3((l.sk + kRows - 1) / kRows, l.heads, l.batch),
                             kDkdvGroups<D> * 128, DkdvSmem<D>::kBytes, l.stream>>>(maps, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = set_smem(attn_bwd_dq_kernel<D>, DqSmem<D>::kBytes, &dq_set);
+  err = sm90::allow_smem(reinterpret_cast<const void*>(attn_bwd_dq_kernel<D>), DqSmem<D>::kBytes,
+                         dq_set);
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dq_kernel<D><<<dim3((l.sq + kRows - 1) / kRows, l.heads, l.batch), 128 + 32,
                           DqSmem<D>::kBytes, l.stream>>>(maps, a);

@@ -1,8 +1,9 @@
 // What the Hopper (sm_90a) attention kernels of this directory share: TMA
-// tensor maps and copies, mbarriers, and the wgmma bf16 product with its
-// shared-memory descriptors. Included by flash_attn_nhd.cu (K1) and
-// flash_attn_nhd_bwd.cu (K3); build.library_path hashes it with every
-// source, so an edit here rebuilds them.
+// tensor maps and copies, mbarriers, the wgmma bf16 product with its
+// shared-memory descriptors, and the host state kept per device. Included by
+// flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3) and
+// cross_attn_nhd.cu (K2); build.library_path hashes it with every source, so
+// an edit here rebuilds them.
 //
 // Tiles in shared memory are "panels": up to 256 rows of 64 bf16 columns,
 // 128 bytes a row, laid out as TMA writes them under
@@ -26,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace sm90 {
 
@@ -112,16 +115,19 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
 // A 4-D tensor map of one operand and where its sequence axis is: the map
 // runs over (d, heads, seq, batch), or over (d, seq, heads, batch) when the
 // head stride is the larger one (see make_map), so that every stride grows.
+// An operand with a batch stride of 0 (expanded over the batch) is mapped as
+// one batch, which every batch reads.
 struct Map {
   CUtensorMap map;
-  int seq_axis;  // 1 or 2
+  int seq_axis;   // 1 or 2
+  int one_batch;  // 1: read batch 0 for every b
 };
 
 __device__ __forceinline__ void coords(const Map& m, int col, int h, int row, int b, int (&c)[4]) {
   c[0] = col;
   c[1] = m.seq_axis == 1 ? row : h;
   c[2] = m.seq_axis == 1 ? h : row;
-  c[3] = b;
+  c[3] = m.one_batch ? 0 : b;
 }
 
 // TMA load of the box at (col, h, row, b) into shared memory; completes on bar.
@@ -150,10 +156,22 @@ __device__ __forceinline__ void tma_store(const Map& m, const void* src, int col
       : "memory");
 }
 
+// Close the group of this thread's TMA stores issued since the last commit.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed store groups have not yet
+// read their shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
 // Wait until this thread's TMA stores have read their shared memory.
 __device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  tma_store_commit();
+  tma_store_wait_read<0>();
 }
 
 // Plain bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
@@ -222,7 +240,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 //
 // Accumulator layout: thread t of the warpgroup holds, for each n in 0..7,
 // d[4n + i] = element (16 (t / 32) + (t % 32) / 4 + 8 (i / 2),
-// 8 n + 2 (t % 4) + i % 2), the mma.sync m16n8 layout per warp.
+// 8 n + 2 (t % 4) + i % 2): each warp holds 16 rows, each quad of threads
+// two of them.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
@@ -235,9 +254,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same product with 16 columns of B (N = 16: d[4n + i] for n in 0..1),
+// for the short tail of a few keys.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64 fp32) += A . B over 16 rows of B, A (64 x 16 bf16) from
-// registers in the mma.sync m16n8k16 A-fragment layout per warp (what the
-// accumulator layout packs to, see pack_a), B MN-major in shared memory.
+// registers in the warpgroup's A-fragment layout (what the accumulator
+// layout packs to, see pack_a), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n"
@@ -259,8 +293,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // The A fragment of contraction step k (16 columns: 8-column blocks 2k and
-// 2k + 1 of a 64-column accumulator), rounded to bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[32], int k) {
+// 2k + 1 of an accumulator of 2M columns), rounded to bf16.
+template <int M>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[M], int k) {
   a[0] = pack_bf16x2(x[8 * k + 0], x[8 * k + 1]);
   a[1] = pack_bf16x2(x[8 * k + 2], x[8 * k + 3]);
   a[2] = pack_bf16x2(x[8 * k + 4], x[8 * k + 5]);
@@ -284,6 +319,57 @@ __device__ __forceinline__ void store_acc(uint8_t* panel, const float (&x)[32], 
     }
 }
 
+// ---- host: state kept per device ------------------------------------------------
+//
+// A kernel's shared-memory attribute lives in a device's context and a
+// multiprocessor count is a device's: both are kept per device, indexed by
+// cudaGetDevice (the wrappers make the operands' device current), never once
+// per process, so a second card starts from its own state.
+
+constexpr int kMaxDevices = 64;  // devices past this keep no state: every call asks
+
+// One int per device, 0 until stored.
+struct PerDevice {
+  std::atomic<int> value[kMaxDevices] = {};
+  // the device's value; 0 also for a device past kMaxDevices
+  int get(int dev) const { return dev >= 0 && dev < kMaxDevices ? value[dev].load() : 0; }
+  void put(int dev, int v) {
+    if (dev >= 0 && dev < kMaxDevices) value[dev].store(v);
+  }
+};
+
+inline int current_device() {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device: cudaFuncSetAttribute the first time on each device (`done`, one
+// per kernel and size, holds 1 for the devices done).
+inline cudaError_t allow_smem(const void* kernel, int bytes, PerDevice& done) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (done.get(dev)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.put(dev, 1);
+  return err;
+}
+
+// Multiprocessors of the current device (for the grid choices).
+inline int sm_count() {
+  static PerDevice counts;
+  const int dev = current_device();
+  int n = counts.get(dev);
+  if (n == 0) {
+    if (dev < 0 || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return 132;
+    }
+    counts.put(dev, n);
+  }
+  return n;
+}
+
 // ---- host: tensor maps --------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -292,11 +378,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// libraries link against nothing but the runtime.
+// libraries link against nothing but the runtime. One entry point serves
+// every device.
 inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
+  static std::atomic<void*> fn{nullptr};
+  void* p = fn.load();
+  if (p == nullptr) {
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
     const cudaError_t err =
@@ -307,15 +394,16 @@ inline EncodeTiled encode_fn() {
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
 #endif
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
+    fn.store(p);
   }
-  return fn;
+  return reinterpret_cast<EncodeTiled>(p);
 }
 
 // The map of one bf16 operand of d columns per head, `heads` heads, `seq`
 // rows and `batch` batches at `base`, element strides (batch, head, row),
-// unit stride along d; boxes of 64 columns by `box_rows` rows of one head.
-// False where the driver refuses it (a base or stride that is not a
+// unit stride along d; boxes of 64 columns by `box_rows` rows of one head. A
+// batch stride of 0 maps one batch (Map::one_batch). False where
+// cuTensorMapEncodeTiled refuses it (a base or stride that is not a
 // multiple of 16 bytes, a stride of 2^40 bytes or more).
 inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int batch,
                      long long batch_stride, long long head_stride, long long row_stride,
@@ -323,18 +411,28 @@ inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int ba
   // The encoder needs a current context on this thread, and a thread that
   // has only used PyTorch's allocator (autograd's backward thread) may have
   // none yet: a runtime call makes the current device's primary context
-  // current (the device PyTorch set, or device 0 where it set none).
-  static thread_local bool bound = false;
-  if (!bound) bound = cudaFree(nullptr) == cudaSuccess;
+  // current, once per thread and device.
+  static thread_local uint64_t bound = 0;  // bit per device
+  const int dev = current_device();
+  if (dev < 0) return false;
+  const uint64_t bit = dev < kMaxDevices ? 1ull << dev : 0;
+  if (!(bound & bit)) {
+    if (cudaFree(nullptr) != cudaSuccess) return false;
+    bound |= bit;
+  }
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
+  m->one_batch = batch_stride == 0;
+  if (m->one_batch) batch = 1;
   const bool seq_inner = row_stride < head_stride;
   m->seq_axis = seq_inner ? 1 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(seq_inner ? seq : heads),
                               (cuuint64_t)(seq_inner ? heads : seq), (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {
-      (cuuint64_t)(2 * (seq_inner ? row_stride : head_stride)),
-      (cuuint64_t)(2 * (seq_inner ? head_stride : row_stride)), (cuuint64_t)(2 * batch_stride)};
+  const cuuint64_t inner = 2 * (seq_inner ? row_stride : head_stride);
+  const cuuint64_t outer = 2 * (seq_inner ? head_stride : row_stride);
+  // one batch: its stride is never stepped, so any valid one will do
+  const cuuint64_t strides[3] = {inner, outer,
+                                 m->one_batch ? outer * dims[2] : 2 * batch_stride};
   const cuuint32_t box[4] = {(cuuint32_t)kPanelCols, (cuuint32_t)(seq_inner ? box_rows : 1),
                              (cuuint32_t)(seq_inner ? 1 : box_rows), 1u};
   const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
@@ -342,19 +440,6 @@ inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int ba
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Multiprocessors of the current device (for the grid choices).
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      n = 132;
-    }
-  }
-  return n;
 }
 
 }  // namespace sm90

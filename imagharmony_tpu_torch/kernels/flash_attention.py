@@ -24,23 +24,24 @@ logits in registers (online softmax over key tiles) and never writes them
 to device memory, which the plain version does in fp32. K3 does
 10*B*H*S*S*D flops with the same property and the same design.
 
-Both read their operands with TMA, which takes a base address and strides
-that are multiples of 16 bytes; the wrappers check that before any launch
-and raise otherwise.
+All of them read their operands with TMA, which takes a base address and
+strides that are multiples of 16 bytes; the wrappers check that before any
+launch and raise otherwise.
 
 ``flash_attention`` (K4) replaces the TPU kernel ``_attn_kernel`` (:95, entry
 ``flash_attention`` :369 through ``_flash_fwd_impl`` :138): the same forward
 on (B, H, S, D) tensors with a batch, a head and a row stride each, at head
 dims 40, 80 and 160 (the SD1.5 family) besides K1's. On CUDA tensors it
-launches the second entry point of ``csrc/flash_attn_nhd.cu``, whose device
-kernel is the mma.sync one K1 ran before it got its own; it rounds the QK^T
-contraction up to 16 columns in shared memory only, where the TPU kernel
-pads d to a multiple of 64 in device memory. At d=40 and S=4096 (B=2, H=8)
-it is compute-bound like K1: 43 GFLOP against 21 MB. When a gradient is
-needed the call goes through ``FlashAttn``, whose backward replaces the same
-TPU kernel K1's does (``_attn_bwd_kernel`` :220, here reached from
-``_flash_bwd`` :350): on CUDA tensors K3's head-split entry point, fed by the
-lse K4 then writes; on CPU tensors ``flash_attention_bwd_plain``.
+launches the second entry point of ``csrc/flash_attn_nhd.cu``, which runs
+K1's device kernel on K4's strides: a head of d columns is ceil(d/64)
+panels of 64, the columns past d zero-filled by TMA in shared memory only,
+where the TPU kernel pads d to a multiple of 64 in device memory. At d=40
+and S=4096 (B=2, H=8) it is compute-bound like K1: 43 GFLOP against 21 MB.
+When a gradient is needed the call goes through ``FlashAttn``, whose
+backward replaces the same TPU kernel K1's does (``_attn_bwd_kernel`` :220,
+here reached from ``_flash_bwd`` :350): on CUDA tensors K3's head-split
+entry point, fed by the lse K4 then writes; on CPU tensors
+``flash_attention_bwd_plain``.
 
 The TPU kernels' dispatch rules (Sk >= 512, heads packed into 128 lanes, the
 no-max clamped exp2, sequences padded to 256, the measured gate on head dim
@@ -456,8 +457,7 @@ def _launch_bhsd(q, k, v, *, scale, with_lse):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale) * _LOG2E, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
+    _check_rc("flash_attention", rc)
     bhsd_launches += 1
     return out, lse
 

@@ -35,9 +35,8 @@ K3_KERNELS = ("attn_bwd_prep_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kerne
 
 # first match wins; names are lowercased
 KERNEL_CLASSES = (
-    ("K1", ("attn_fwd_wgmma_kernel",)),
-    ("K4", ("flash_attn_kernel",)),
-    ("K2", ("cross_attn_kernel",)),
+    ("K1/K4", ("attn_fwd_wgmma_kernel",)),  # one device kernel under both entry points
+    ("K2", ("cross_attn_wgmma_kernel",)),
     ("K3", K3_KERNELS),  # under both of its entry points
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "nchw", "cudnn")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),

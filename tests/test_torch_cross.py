@@ -11,8 +11,10 @@ backward against ``jax.vjp`` of the interpret-mode ``flash_attention``, and
 the narrow SD1.5 UNet's gradient with respect to the IP projections.
 
 On a card (tests marked ``cuda``, taking the ``cuda`` fixture): K2 against
-its plain version at the UNets' cross shapes, its gradient, K4's gradient
-through K3 at head dims 40/80/160, and the launch counters. The machine with
+its plain version at the UNets' cross shapes, at branches longer than 80
+keys and on operands expanded over the batch, ip_scale 0 against the text
+branch alone, its gradient, K4's gradient through K3 at head dims
+40/80/160, and the launch counters. The machine with
 the card has no JAX, so this module imports JAX only inside the tests that
 compare with it; run the card's tests there with
 
@@ -343,12 +345,18 @@ K2_CARD_SHAPES = [(2, 4096, 10, 64, 0, 1.0), (2, 1024, 20, 64, 4, 1.0), (2, 1024
 
 @pytest.mark.cuda
 def test_cuda_k2_matches_plain(cuda):
-    """bf16 K2 vs the fp32 plain version on the same bf16 inputs, k and v as
-    views of one packed to_kv tensor, at every shape of ``K2_CARD_SHAPES``
-    (one launch each). Tolerance: bf16 rounding of P and of the output (max
-    abs 2e-2, cosine >= 0.9999)."""
-    for b, sq, heads, d, sk_ip, ip_scale in K2_CARD_SHAPES:
-        q, k, v, k_ip, v_ip = _card_cross(cuda, b, sq, heads, d, sk_ip)
+    """bf16 K2 vs the fp32 plain version on the same bf16 inputs (max abs
+    2e-2, cosine >= 0.9999: bf16 rounding of P and of the output), one launch
+    each: at every shape of ``K2_CARD_SHAPES`` with k and v as views of one
+    packed to_kv tensor; at branches of more than 80 keys, which the kernel
+    walks in 64-key chunks (MLPProj's 257 IP keys at every head-dim class, a
+    200-key text branch, a 130-key IP branch); and with the text and IP keys
+    expanded over the batch (batch stride 0, the prompt and image of both
+    halves of the CFG pair), which also gives the bits of contiguous copies.
+    Then, at the UNets' IP shapes, ip_scale 0 with the IP keys gives the
+    text-only call's output bit for bit."""
+    def check(q, k, v, k_ip, v_ip, ip_scale, what):
+        d = what[3]
         kw = dict(scale=d**-0.5, head_dim=d, k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
         before = ca.cross_launches
         out = ca.flash_cross_nhd(q, k, v, **kw)
@@ -358,7 +366,38 @@ def test_cuda_k2_matches_plain(cuda):
         f32 = [None if x is None else x.float() for x in (q, k, v, k_ip, v_ip)]
         ref = ca.flash_cross_nhd_plain(f32[0], f32[1], f32[2], scale=d**-0.5, head_dim=d,
                                        k_ip=f32[3], v_ip=f32[4], ip_scale=ip_scale)
-        _agree(out, ref, what=(b, sq, heads, d, sk_ip, ip_scale))
+        _agree(out, ref, what=what)
+        return out
+
+    for b, sq, heads, d, sk_ip, ip_scale in K2_CARD_SHAPES:
+        check(*_card_cross(cuda, b, sq, heads, d, sk_ip), ip_scale, (b, sq, heads, d, sk_ip))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    for b, sq, heads, d, sk, sk_ip in [(2, 256, 8, 160, 77, 257), (2, 300, 4, 64, 77, 257),
+                                       (1, 128, 2, 40, 77, 257), (2, 100, 2, 80, 200, 4),
+                                       (1, 200, 3, 32, 200, 130)]:
+        k, v = rnd(b, sk, 2 * heads * d).chunk(2, dim=-1)
+        check(rnd(b, sq, heads * d), k, v, rnd(b, sk_ip, heads * d), rnd(b, sk_ip, heads * d),
+              0.7, (b, sq, heads, d, sk, sk_ip))
+    q = torch.cat([_card_cross(cuda, 1, 1000, 8, 80, 0, seed=6)[0] for _ in range(2)])
+    wide = [x.expand(2, -1, -1) for x in _card_cross(cuda, 1, 1000, 8, 80, 4, seed=5)[1:]]
+    assert all(x.stride(0) == 0 for x in wide)
+    out = check(q, *wide, 0.5, (2, 1000, 8, 80, "expanded"))
+    copies = ca.flash_cross_nhd(q, *(x.contiguous() for x in wide[:2]), scale=80**-0.5,
+                                head_dim=80, k_ip=wide[2].contiguous(),
+                                v_ip=wide[3].contiguous(), ip_scale=0.5)
+    assert torch.equal(out, copies)
+    for b, sq, heads, d, sk_ip in [(2, 1024, 20, 64, 4), (2, 4096, 8, 40, 4), (2, 256, 8, 160, 4),
+                                   (2, 1024, 8, 80, 16), (2, 256, 8, 160, 257)]:
+        q, k, v, k_ip, v_ip = _card_cross(cuda, b, sq, heads, d, sk_ip, seed=4)
+        kw = dict(scale=d**-0.5, head_dim=d)
+        text = ca.flash_cross_nhd(q, k, v, **kw)
+        zero = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=0.0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(zero, text), (b, sq, heads, d, sk_ip)
 
 
 @pytest.mark.cuda

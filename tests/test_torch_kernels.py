@@ -131,14 +131,14 @@ def test_library_path_is_keyed_by_source():
 
 
 def test_library_path_hashes_the_headers(monkeypatch, tmp_path):
-    """The sources include ``attn_tiles.cuh``: editing a header changes the
+    """The sources include ``sm90_tiles.cuh``: editing a header changes the
     name of every library, so none loads stale."""
     for src in build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     names = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd")
     before = [build.library_path(n) for n in names]
-    header = tmp_path / "attn_tiles.cuh"
+    header = tmp_path / "sm90_tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = [build.library_path(n) for n in names]
     assert all(a != b for a, b in zip(before, after))
@@ -150,13 +150,13 @@ def test_resource_usage_reads_ptxas_report(monkeypatch, tmp_path):
     kernel, keyed by the kernel's name (demangled where c++filt exists)."""
     report = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN3abc17flash_attn_kernelILi160EEEvPKfi' for 'sm_90a'
-ptxas info    : Function properties for _ZN3abc17flash_attn_kernelILi160EEEvPKfi
+ptxas info    : Compiling entry function '_ZN3abc21attn_fwd_wgmma_kernelILi160ELi1EEEvPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc21attn_fwd_wgmma_kernelILi160ELi1EEEvPKfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 218 registers, used 1 barriers, 44544 bytes smem
 ptxas info    : Compile time = 266.200 ms
-ptxas info    : Compiling entry function '_ZN3abc12delta_kernelEvPKfi' for 'sm_90a'
-ptxas info    : Function properties for _ZN3abc12delta_kernelEvPKfi
+ptxas info    : Compiling entry function '_ZN3abc20attn_bwd_prep_kernelEvPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc20attn_bwd_prep_kernelEvPKfi
     16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 32 registers, used 0 barriers
 """
@@ -166,7 +166,7 @@ ptxas info    : Used 32 registers, used 0 barriers
     fake.chmod(0o755)
     monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
     usage = build.resource_usage("flash_attn_nhd")
-    by_suffix = {("160" in k, "delta" in k): v for k, v in usage.items()}
+    by_suffix = {("160" in k, "prep" in k): v for k, v in usage.items()}
     assert by_suffix[(True, False)] == {"registers": 218, "smem_bytes": 44544, "spill_bytes": 0}
     assert by_suffix[(False, True)] == {"registers": 32, "smem_bytes": 0, "spill_bytes": 20}
     fake.write_text("#!/bin/sh\necho boom >&2\nexit 3\n")
@@ -209,7 +209,12 @@ def test_cuda_kernel_matches_plain(cuda):
     warpgroup a CTA, S=4096: two). Tolerance: bf16 rounding of P and of the
     output. The call with the lse output gives the same output bit for bit
     and the plain lse within 2e-2 log2 units. Then 200 queries against 333
-    keys, forward and K3 (tolerances as in the tests below)."""
+    keys, forward and K3 (tolerances as in the tests below). Then, where the
+    machine has two cards, every kernel (K1 with its lse, K3, K4, K2 with
+    the IP branch) on cuda:0 and then on cuda:1, each against its plain
+    version: the libraries keep their state (shared-memory attribute, SM
+    count, the thread's context) per device, so the second card's first
+    launches work too."""
     for s, heads, d in [(1024, 20, 64), (1000, 2, 64), (64, 4, 32), (5, 3, 128), (256, 20, 64),
                         (300, 2, 128), (4096, 10, 64), (200, 3, 32)]:
         gen = torch.Generator(device=cuda).manual_seed(0)
@@ -241,6 +246,38 @@ def test_cuda_kernel_matches_plain(cuda):
     assert float((out.float() - ref).abs().max()) <= 2e-2
     for g, r in zip(grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
         _agree(g, r)
+    if torch.cuda.device_count() >= 2:
+        for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+            _every_kernel_on(dev)
+
+
+def _every_kernel_on(dev):
+    """K1 with its lse, K3, K4 and K2 with the IP branch on ``dev``, each
+    against its plain version on the same inputs."""
+    from imagharmony_tpu_torch.kernels import cross_attention as ca
+    from imagharmony_tpu_torch.nn.attention import split_heads
+
+    q, k, v, dout = _bf16_case(dev, 1, 1024, 10, 64)
+    kw = dict(scale=0.125, head_dim=64)
+    out, lse = fa.flash_attention_nhd_fwd(q, k, v, **kw)
+    grads = fa.flash_attention_nhd_bwd(q, k, v, out, lse, dout, **kw)
+    qh, kh, vh = (split_heads(x, 8) for x in _bf16_case(dev, 2, 1000, 8, 40)[:3])
+    k4 = fa.flash_attention(qh, kh, vh, scale=40**-0.5)
+    q2, kt, vt, _ = _bf16_case(dev, 2, 300, 8, 40)
+    kip, vip = (x[:, :4] for x in _bf16_case(dev, 2, 77, 8, 40)[:2])
+    ckw = dict(scale=40**-0.5, head_dim=40, ip_scale=0.6)
+    k2 = ca.flash_cross_nhd(q2, kt[:, :77], vt[:, :77], k_ip=kip, v_ip=vip, **ckw)
+    torch.cuda.synchronize(dev)
+    f32 = [x.float() for x in (q, k, v, dout)]
+    assert float((out.float() - fa.flash_attention_nhd_plain(*f32[:3], **kw)).abs().max()) \
+        <= 2e-2, dev
+    for g, r in zip(grads, fa.flash_attention_nhd_bwd_plain(*f32, **kw)):
+        _agree(g, r)
+    ref4 = fa.flash_attention_plain(qh.float(), kh.float(), vh.float(), scale=40**-0.5)
+    assert float((k4.float() - ref4).abs().max()) <= 2e-2, dev
+    ref2 = ca.flash_cross_nhd_plain(q2.float(), kt[:, :77].float(), vt[:, :77].float(),
+                                    k_ip=kip.float(), v_ip=vip.float(), **ckw)
+    assert float((k2.float() - ref2).abs().max()) <= 2e-2, dev
 
 
 def _bf16_case(cuda, b, s, heads, d, seed=0):
@@ -328,3 +365,4 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     x16 = torch.zeros((1, 64, 128), device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_nhd(x16, x16, x16, scale=0.25, head_dim=16)
+

@@ -7,7 +7,7 @@ vision tower's penultimate and CLIP-L's last state, and the slice as a whole
 heads, per-step latents and image against the JAX pipeline).
 
 On a card (tests marked ``cuda``, taking the ``cuda`` fixture): K4 against
-its plain version, and what a gradient request takes. The machine with the card has
+its plain version, with its lse, and what a gradient request takes. The machine with the card has
 no JAX, so this module imports JAX only inside the tests that compare with
 it; run the card's tests there with
 
@@ -141,24 +141,31 @@ def test_k4_checks_name_k4_and_its_head_dims():
 @pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed_views"])
 def test_cuda_k4_matches_plain(cuda, b, s, h, d, packed):
     """bf16 K4 vs the fp32 plain version on the same bf16 inputs, contiguous
-    (B, H, S, D) or strided views of one packed to_qkv tensor. Tolerance:
-    bf16 rounding of P and of the output."""
+    (B, H, S, D) or strided views of one packed to_qkv tensor (one- and
+    two-warpgroup grids). Tolerance: bf16 rounding of P and of the output.
+    With its lse output (what its gradient saves) it gives the same output
+    bit for bit and the plain lse (``lse_plain`` on the packed tensors)
+    within 2e-2 log2 units: K4 rounds q*scale*log2(e) to bf16 (relative
+    2^-9)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    if packed:
-        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=cuda).to(torch.bfloat16)
-        q, k, v = (pattn.split_heads(x, h) for x in qkv.chunk(3, dim=-1))
-    else:
-        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda).to(torch.bfloat16)
-                   for _ in range(3))
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = (pattn.split_heads(x, h) for x in qkv.chunk(3, dim=-1))
+    if not packed:
+        q, k, v = (x.contiguous() for x in (q, k, v))
     before = fa.bhsd_launches
     out = fa.flash_attention(q, k, v, scale=d**-0.5)
+    out_lse, lse = fa.flash_attention_fwd(q, k, v, scale=d**-0.5)
     torch.cuda.synchronize()
-    assert fa.bhsd_launches == before + 1
+    assert fa.bhsd_launches == before + 2
     assert out.shape == (b, h, s, d) and out.transpose(1, 2).is_contiguous()
     ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale=d**-0.5)
     assert float((out.float() - ref).abs().max()) <= 2e-2
     cos = torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0)
     assert float(cos) >= 0.9999
+    assert torch.equal(out, out_lse) and lse.shape == (b, h, s)
+    ref_lse = fa.lse_plain(*(x.float() for x in qkv.chunk(3, dim=-1)[:2]), scale=d**-0.5,
+                           head_dim=d)
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda

@@ -376,8 +376,10 @@ def test_profile_summary_classes_and_idle_share(tmp_path):
                                  "BwdArgs)", "ts": 0, "dur": 400},
         {"cat": "kernel", "name": "void (anonymous namespace)::attn_fwd_wgmma_kernel<64, 2>("
                                  "FwdMaps, FwdArgs)", "ts": 1400, "dur": 50},
-        {"cat": "kernel", "name": "void (anonymous namespace)::flash_attn_kernel<40>(...)",
-         "ts": 1500, "dur": 30},
+        {"cat": "kernel", "name": "void (anonymous namespace)::attn_fwd_wgmma_kernel<40, 1>("
+                                 "FwdMaps, FwdArgs)", "ts": 1500, "dur": 30},
+        {"cat": "kernel", "name": "void (anonymous namespace)::cross_attn_wgmma_kernel<40>("
+                                 "CrossMaps, CrossArgs)", "ts": 1600, "dur": 20},
         {"cat": "kernel", "name": "nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NNT", "ts": 300,
          "dur": 200},
         {"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_bf16", "ts": 1000, "dur": 100},
@@ -389,10 +391,10 @@ def test_profile_summary_classes_and_idle_share(tmp_path):
     path.write_text(json.dumps({"traceEvents": events}))
     out = profiling.summarize(profiling.kernel_events(path), n_steps=1, wall_ms=2.0)
     assert out["class_ms_per_step"] == {"K3": 0.4, "gemm": 0.2, "conv": 0.1, "elementwise": 0.1,
-                                        "K1": 0.05, "K4": 0.03}
-    assert out["device_busy_ms_per_step"] == pytest.approx(0.78)
-    assert out["idle_share"] == pytest.approx(0.61)
-    assert out["kernels_per_step"] == 6
+                                        "K1/K4": 0.08, "K2": 0.02}
+    assert out["device_busy_ms_per_step"] == pytest.approx(0.8)
+    assert out["idle_share"] == pytest.approx(0.6)
+    assert out["kernels_per_step"] == 7
 
 
 def test_kernel_ms_takes_only_traces_that_agree(monkeypatch):
