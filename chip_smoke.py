@@ -7,14 +7,17 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printed as it finishes; any failure raises and the exit code
 is non-zero:
 
-1. device and power limit (nvidia-smi); no CUDA -> fail;
+1. device and power limit (nvidia-smi), and whether ``import triton``
+   works; no CUDA -> fail;
 2. build K1 and K4 (one source, one device kernel, attn_fwd_wgmma_kernel,
    under the packed and the head-split entry point), K3 (their backward,
-   under the same two layouts) and K2 (the fused text + IP
-   cross-attention, cross_attn_wgmma_kernel) from the sources in the
-   checkout, one nvcc per source, in parallel, with what ptxas reports per
-   kernel instance (registers, shared memory, spills; any spill fails) and
-   the dynamic shared memory K3's launches ask for;
+   under the same two layouts), K2 (the fused text + IP cross-attention,
+   cross_attn_wgmma_kernel) and K5 (the fused GEGLU projection,
+   geglu_wgmma_kernel) from the sources in the checkout, one nvcc per
+   source, in parallel, with what ptxas reports per kernel instance
+   (registers, shared memory, spills, and whether it serialized the wgmma
+   products; a spill or a serialization fails) and the dynamic shared
+   memory K3's launches ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes (one of them B=2, S=1000: a
@@ -43,30 +46,39 @@ is non-zero:
    the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
    on the same inputs (bit-identical or fail), with timings of K3, the
    plain backward and SDPA's backward;
-3f. with two cards or more: K1 (with its lse), K3, K4 and K2 launched on
-   cuda:1 after cuda:0, each against its plain version (the libraries keep
-   their state per device); with one card, one line that says so;
-4. the tiny pipeline on the card (bf16, K1) against the same weights on the
-   CPU (fp32, plain attention);
+3f. with two cards or more: K1 (with its lse), K3, K4, K2 and K5 launched
+   on cuda:1 after cuda:0, each against its plain version (the libraries
+   keep their state per device); with one card, one line that says so;
+3g. K5 against its plain version computed in fp32 from the same bf16
+   inputs, with each gelu (tanh, erf, none), at the UNet feed-forward
+   shapes of both families and of training (with the bias) and at a ragged
+   M, K and inner, with timings of K5, the plain version (cuBLAS GEMM,
+   gelu, multiply), F.linear alone (the GEMM it replaces, the yardstick)
+   and K5 with no gelu (what the epilogue costs) at the six inference
+   shapes;
+4. the tiny pipeline on the card (bf16, K1, K5) against the same weights
+   on the CPU (fp32, plain versions);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
-   random weights from a seed, with the K1 and K2 launch counts checked;
-6. one tiny training step on the card (bf16, K1 and K3) against the same
-   weights and draws on the CPU (fp32, plain versions);
+   random weights from a seed, with the K1, K2 and K5 launch counts checked
+   (2100 each);
+6. one tiny training step on the card (bf16, K1, K3 and K5) against the
+   same weights and draws on the CPU (fp32, plain versions);
 7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
    batch 1, bf16, gradient checkpointing) for 4 steps on synthetic data,
    with the K3 launches per step checked against the count the UNet config
-   gives, and the K2 launches per step (forward and recompute);
-8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4)
-   against the same weights on the CPU (fp32, plain attention), and a short
-   run of it with the ``resampler`` and with the ``mlp_proj`` head;
+   gives, and the K2 and K5 launches per step (forward and recompute: 140
+   each);
+8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4,
+   K5) against the same weights on the CPU (fp32, plain versions), and a
+   short run of it with the ``resampler`` and with the ``mlp_proj`` head;
 9. the full-width SD1.5 ``generate()`` at 512², 30 Euler steps, random
-   weights from a seed, with the K4 and K2 launch counts checked (480
+   weights from a seed, with the K4, K2 and K5 launch counts checked (480
    each, and no K1 launch), then a 10-step call under the profiler for the
    device time by kernel class and the idle share;
 10. the full-width SD1.5 UNet at 512², batch 1, bf16, forward and backward
-   to the IP projections: 16 K4, 16 K2 and the K3 launches the config gives
-   (15), then the narrow SD1.5 UNet's IP gradients on the card (bf16)
-   against the CPU (fp32).
+   to the IP projections: 16 K4, 16 K2, 16 K5 and the K3 launches the
+   config gives (15), then the narrow SD1.5 UNet's IP gradients on the card
+   (bf16) against the CPU (fp32).
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -74,10 +86,10 @@ the median CUDA-event time of the call, which also holds the host's launch
 work (for SDPA's backward, the autograd call). The line before the last is
 a JSON object describing each kernel of the paths: its ``ms``, ``plain_ms``
 and ``library_ms`` (SDPA; for K2 SDPA on the text branch plus SDPA on the
-IP branch) are device times, all taken the same way, and ``event_ms`` holds
-the three CUDA-event times. A shape's ``shape`` is (B, S, H, D), for K2
-(B, Sq, H, D, IP keys) with 77 text keys. The last line is
-{"ok": true, "device": {...}}.
+IP branch; for K5 F.linear alone) are device times, all taken the same
+way, and ``event_ms`` holds the three CUDA-event times. A shape's ``shape``
+is (B, S, H, D), for K2 (B, Sq, H, D, IP keys) with 77 text keys, for K5
+(M, K, inner). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -161,6 +173,20 @@ TRAIN_STEPS = 4
 # the device kernel behind K1's and K4's entry points
 FWD_KERNEL = "attn_fwd_wgmma_kernel"
 
+# K5, (M, K, inner): the GEGLU projection of every UNet feed-forward (one
+# per transformer block, as many as self-attentions), rows M = B*S. Timed:
+# SDXL at 1024² with the CFG pair (10 at 64², 60 at 32² per UNet call), then
+# SD1.5 at 512² (5, 5, 5 and 1 per UNet call); checked also: training at
+# 512², batch 1 (10 and 60 per forward), and a ragged M, K and inner
+K5_SHAPES = [(8192, 640, 2560), (2048, 1280, 5120), (8192, 320, 1280), (2048, 640, 2560),
+             (512, 1280, 5120), (128, 1280, 5120)]
+K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456)]
+# K5 against the fp32 plain version on the same bf16 inputs: the bf16
+# rounding of the output (2^-9 of its magnitude) and K5's tanh.approx
+K5_MAX_REL = 1e-2  # of the reference's max-abs
+K5_MIN_COSINE = 0.9999
+GEGLU_KERNEL = "geglu_wgmma_kernel"
+
 # one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -220,38 +246,49 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    try:
+        import triton
+
+        has_triton = f"imports (version {triton.__version__})"
+    except ImportError as exc:
+        has_triton = f"does not import ({exc})"
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda}; triton {has_triton}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build(fa, ca, build):
+def phase_build(fa, ca, kg, build):
     """Builds the kernels and, beside them, asks ptxas what each uses."""
-    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd")
+    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd", "geglu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
-        builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry), pool.submit(ca._entry)]
+    with ThreadPoolExecutor(8) as pool:
+        builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry), pool.submit(ca._entry),
+                  pool.submit(kg._entry)]
         usage = [pool.submit(build.resource_usage, name) for name in sources]
         for f in builds:
             f.result()
         fa._bhsd_entry()  # K4: the second entry point of K1's library
         fa._bhsd_bwd_entry()  # K3 on K4's layout
-        print(f"phase 2 build K1/K4, K3 and K2 (in parallel): {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        spilled = []
+        print(f"phase 2 build K1/K4, K3, K2 and K5 (in parallel): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        spilled, serialized = [], []
         for name, f in zip(sources, usage):
             for kernel, u in sorted(f.result().items()):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
-                      f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled",
-                      flush=True)
+                      f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled, wgmma "
+                      f"serialized {u['wgmma_serialized']}", flush=True)
                 spilled += [kernel] if u["spill_bytes"] else []
+                serialized += [kernel] if u["wgmma_serialized"] else []
     for d in fa.BWD_HEAD_DIMS:
         dyn = fa.bwd_smem_bytes(d)
         print(f"phase 2 K3 d={d}: dynamic shared memory per launch "
               + ", ".join(f"{k} {v} B" for k, v in dyn.items()), flush=True)
     if spilled:
         raise AssertionError(f"a kernel spills registers: {spilled}")
+    if serialized:
+        # ptxas made the products wait for each other (C7515): right, but slow
+        raise AssertionError(f"ptxas serialized the wgmma products of: {serialized}")
 
 
 def _bound(flops, nbytes):
@@ -269,6 +306,12 @@ def k3_bound(b, s, h, d):
     # q, k, v, out, dout and the fp32 lse read once, dq, dk, dv written
     # once; S, dP, dV, dQ, dK
     return _bound(10 * b * h * s * s * d, 2 * 8 * b * s * h * d + 4 * b * h * s)
+
+
+def geglu_bound(m, k, inner):
+    # x, W and the bias read once and the output written once, bf16; the
+    # products of x with the 2*inner rows of W
+    return _bound(2 * m * k * 2 * inner, 2 * (m * k + 2 * inner * (k + 1) + m * inner))
 
 
 def k2_bound(b, sq, h, d, sk_ip):
@@ -565,7 +608,54 @@ def phase_k3_bhsd(fa, split_heads):
     return max_err, times
 
 
-def phase_second_device(fa, ca, split_heads):
+@torch.inference_mode()
+def phase_k5(kg):
+    """K5 against its plain version with each gelu, and its timings at the
+    inference shapes; each timed K5 call must be geglu_wgmma_kernel alone."""
+    linear = torch.nn.functional.linear
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    max_err, times = 0.0, {}
+    for m, k, inner in K5_SHAPES + K5_EDGES:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+        x, w, b = rnd(m, k), rnd(2 * inner, k, scale=k**-0.5), rnd(2 * inner)
+        msg, ok = [], True
+        for gelu in kg.GELUS:
+            out = kg.geglu(x, w, b, gelu=gelu)
+            torch.cuda.synchronize()
+            ref = kg.geglu_plain(x.float(), w.float(), b.float(), gelu=gelu)
+            err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+            ref_max = float(ref.abs().max())
+            msg.append(f"{gelu} max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f}")
+            ok = ok and err <= K5_MAX_REL * ref_max and cos >= K5_MIN_COSINE
+            max_err = max(max_err, err)
+        print(f"phase 3g K5 M={m} K={k} inner={inner}: " + ", ".join(msg), flush=True)
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain version at M={m} K={k} "
+                                 f"inner={inner}")
+        if (m, k, inner) not in K5_SHAPES:
+            continue
+        t = _timings({
+            "kernel": lambda: kg.geglu(x, w, b, gelu="tanh"),
+            "plain": lambda: kg.geglu_plain(x, w, b, gelu="tanh"),
+            # the yardstick: the GEMM K5 replaces, alone; the port never calls it
+            "library": lambda: linear(x, w, b),
+            "no_gelu": lambda: kg.geglu(x, w, b, gelu="none"),
+        }, (GEGLU_KERNEL,))
+        if t["per_kernel"][GEGLU_KERNEL] != t["kernel"][0]:
+            raise AssertionError(f"K5's call is not {GEGLU_KERNEL} alone: {t['per_kernel']}, "
+                                 f"{t['kernel']}")
+        bound, by = geglu_bound(m, k, inner)
+        times[(m, k, inner)] = dict(t, bound=(bound, by))
+        print(f"phase 3g time M={m} K={k} inner={inner}, device (CUDA event): K5 "
+              f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, F.linear alone "
+              f"{_fmt(t['library'])}, K5 with no gelu {_fmt(t['no_gelu'])}; bound "
+              f"{bound:.5f} ms ({by}), {bound / t['kernel'][0]:.1%} of it", flush=True)
+    return max_err, times
+
+
+def phase_second_device(fa, ca, kg, split_heads):
     """Each kernel on cuda:0 and then on cuda:1 in this process, against its
     plain version: the libraries' shared-memory attributes, SM counts and
     thread contexts are kept per device."""
@@ -591,6 +681,8 @@ def phase_second_device(fa, ca, split_heads):
         cq, (ck, cv), kip, vip = rnd(2, 300, 320), rnd(2, 77, 640).chunk(2, dim=-1), \
             rnd(2, 4, 320), rnd(2, 4, 320)
         k2 = ca.flash_cross_nhd(cq, ck, cv, k_ip=kip, v_ip=vip, **ckw)
+        gx, gw, gb = rnd(300, 320), rnd(2 * 1280, 320), rnd(2 * 1280)
+        k5 = kg.geglu(gx, gw, gb, gelu="tanh")
         torch.cuda.synchronize(dev)
         f32 = [x.float() for x in (q, k, v, dout)]
         e = {"K1": float((out.float() - fa.flash_attention_nhd_plain(*f32[:3], **kw)).abs().max()),
@@ -602,14 +694,18 @@ def phase_second_device(fa, ca, split_heads):
         refs = fa.flash_attention_nhd_bwd_plain(*f32, **kw)
         e["K3"] = max(float((g.float() - r).abs().max()) / float(r.abs().max())
                       for g, r in zip(grads, refs))
+        k5_ref = kg.geglu_plain(gx.float(), gw.float(), gb.float(), gelu="tanh")
+        e["K5"] = float((k5.float() - k5_ref).abs().max()) / float(k5_ref.abs().max())
         errs[dev] = e
         print(f"phase 3f {dev}: max_abs K1 {e['K1']:.3e}, K4 {e['K4']:.3e}, K2 {e['K2']:.3e}, "
-              f"K3 max_abs / ref max {e['K3']:.3e}", flush=True)
-        if max(e["K1"], e["K4"], e["K2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL:
+              f"K3 max_abs / ref max {e['K3']:.3e}, K5 max_abs / ref max {e['K5']:.3e}",
+              flush=True)
+        if (max(e["K1"], e["K4"], e["K2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL
+                or e["K5"] > K5_MAX_REL):
             raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
 
 
-def phase_tiny(fa, HarmonyPipeline):
+def phase_tiny(fa, kg, HarmonyPipeline):
     cpu = HarmonyPipeline.random_tiny(seed=0, device="cpu")
     card = HarmonyPipeline(
         copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
@@ -619,17 +715,18 @@ def phase_tiny(fa, HarmonyPipeline):
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=3,
               height=64, width=64, noise=noise, output_type="raw")
     ref = cpu.generate(img, **kw)
-    fa.launches = 0
+    fa.launches = kg.geglu_launches = 0
     out = card.generate(img, **kw)
     torch.cuda.synchronize()
     cos = _cosine(out.float().cpu(), ref)
     print(f"phase 4 tiny pipeline card bf16 vs cpu fp32: image cosine={cos:.6f}, "
-          f"K1 launches={fa.launches}", flush=True)
-    if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE and fa.launches > 0):
+          f"K1 launches={fa.launches}, K5 launches={kg.geglu_launches}", flush=True)
+    if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE and fa.launches > 0
+            and kg.geglu_launches > 0):
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
 
 
-def phase_full(fa, ca, HarmonyPipeline):
+def phase_full(fa, ca, kg, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -639,29 +736,29 @@ def phase_full(fa, ca, HarmonyPipeline):
     img = np.random.default_rng(0).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
     torch.cuda.reset_peak_memory_stats()
     timings = {}
-    fa.launches = ca.cross_launches = ca.cross_ip_launches = 0
+    fa.launches = ca.cross_launches = ca.cross_ip_launches = kg.geglu_launches = 0
     t0 = time.perf_counter()
     out = pipe.generate(img, prompt="a photo of six sheep on a meadow", extra_text="six sheep",
                         num_samples=1, seed=0, num_inference_steps=FULL_STEPS,
                         guidance_scale=5.0, output_type="raw", timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, k2 = fa.launches, (ca.cross_launches, ca.cross_ip_launches)
+    launches, k2, k5 = fa.launches, (ca.cross_launches, ca.cross_ip_launches), kg.geglu_launches
     finite = bool(torch.isfinite(out).all())
     print(f"phase 5 generate 1024² {FULL_STEPS} steps: total {wall:.3f} s, "
           f"conditioning {timings['conditioning_s']:.3f} s, denoise {timings['denoise_s']:.3f} s, "
           f"decode {timings['decode_s']:.3f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 launches {launches}, "
-          f"K2 launches {k2[0]} ({k2[1]} with the IP branch), shape {tuple(out.shape)}, "
-          f"finite {finite}", flush=True)
-    expected = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+          f"K2 launches {k2[0]} ({k2[1]} with the IP branch), K5 launches {k5}, shape "
+          f"{tuple(out.shape)}, finite {finite}", flush=True)
+    expected = SELF_ATTN_PER_UNET_CALL * FULL_STEPS  # one feed-forward per self-attention
     expected_k2 = (SDXL_CROSS_PER_UNET_CALL * FULL_STEPS, SDXL_IP_CROSS_PER_UNET_CALL * FULL_STEPS)
     if tuple(out.shape) != (1, 1024, 1024, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
-    if launches != expected or k2 != expected_k2:
+    if launches != expected or k2 != expected_k2 or k5 != expected:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}; K2 {k2}, "
-                             f"expected {expected_k2}")
-    return launches, k2[0]
+                             f"expected {expected_k2}; K5 {k5}, expected {expected}")
+    return launches, k2[0], k5
 
 
 def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
@@ -674,7 +771,7 @@ def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
     return float(loss.detach()), flat
 
 
-def phase_train_tiny(fa, comp, step_lib):
+def phase_train_tiny(fa, kg, comp, step_lib):
     cfgs = comp.tiny_configs()
     cpu = comp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
     card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
@@ -682,15 +779,17 @@ def phase_train_tiny(fa, comp, step_lib):
     batch = step_lib.dummy_batch(cfgs, 2, 32)
     draws = step_lib.draw(torch.Generator().manual_seed(1), cfgs, tcfg, 2, 32)
     loss_cpu, g_cpu = _loss_and_grads(cpu, tcfg, batch, draws, "cpu", step_lib)
-    fa.launches = fa.bwd_launches = 0
+    fa.launches = fa.bwd_launches = kg.geglu_launches = 0
     loss_card, g_card = _loss_and_grads(card, tcfg, batch, draws, "cuda", step_lib)
     torch.cuda.synchronize()
     cos = _cosine(g_card, g_cpu)
     rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     print(f"phase 6 tiny train step card bf16 vs cpu fp32: loss {loss_card:.6f} vs "
           f"{loss_cpu:.6f} (rel {rel:.3e}), gradient cosine={cos:.6f}, K1 launches "
-          f"{fa.launches}, K3 launches {fa.bwd_launches}", flush=True)
-    if not (rel <= TRAIN_MAX_LOSS_REL and cos >= TRAIN_MIN_GRAD_COSINE and fa.bwd_launches > 0):
+          f"{fa.launches}, K3 launches {fa.bwd_launches}, K5 launches {kg.geglu_launches}",
+          flush=True)
+    if not (rel <= TRAIN_MAX_LOSS_REL and cos >= TRAIN_MIN_GRAD_COSINE and fa.bwd_launches > 0
+            and kg.geglu_launches > 0):
         raise AssertionError("the tiny train step on the card disagrees with the CPU")
 
 
@@ -718,7 +817,7 @@ def expected_k3_per_step(ucfg):
     return count
 
 
-def phase_train_full(fa, ca, comp, step_lib, trainer):
+def phase_train_full(fa, ca, kg, comp, step_lib, trainer):
     """trainer.main at full width; a wrapper around the step's update
     records the launch counts and the gradients of each step."""
     expected = expected_k3_per_step(comp.sdxl_configs().unet)
@@ -734,6 +833,7 @@ def phase_train_full(fa, ca, comp, step_lib, trainer):
 
         steps.append({
             "k1": fa.launches, "k3": fa.bwd_launches, "k2": ca.cross_launches,
+            "k5": kg.geglu_launches,
             "ip": max_grad(lambda n: "down_blocks.2.attentions.1." in n and "_ip." in n),
             "harmony": max_grad(lambda n: n.startswith("harmony.")),
         })
@@ -743,7 +843,7 @@ def phase_train_full(fa, ca, comp, step_lib, trainer):
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.bwd_launches = ca.cross_launches = 0
+        fa.launches = fa.bwd_launches = ca.cross_launches = kg.geglu_launches = 0
         t0 = time.perf_counter()
         final = trainer.main(["--full_random", "--synthetic_data", str(TRAIN_STEPS),
                               "--max_steps", str(TRAIN_STEPS), "--log_every", "1",
@@ -756,29 +856,31 @@ def phase_train_full(fa, ca, comp, step_lib, trainer):
         step_lib.apply_update = update
         shutil.rmtree(out_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    k1, k2, k3 = ([s[key] - (steps[i - 1][key] if i else 0) for i, s in enumerate(steps)]
-                  for key in ("k1", "k2", "k3"))
+    k1, k2, k3, k5 = ([s[key] - (steps[i - 1][key] if i else 0) for i, s in enumerate(steps)]
+                      for key in ("k1", "k2", "k3", "k5"))
     step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
-    for m, s, a, c, x in zip(metrics, steps, k1, k3, k2):
+    for m, s, a, c, x, g in zip(metrics, steps, k1, k3, k2, k5):
         print(f"phase 7 step {m['step']}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6e}, "
               f"step {m['step_time_s']:.4f} s, max |grad| live IP {s['ip']:.3e}, harmony "
-              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}, K2 launches {x}",
-              flush=True)
+              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}, K2 launches {x}, "
+              f"K5 launches {g}", flush=True)
     expected_k2 = 2 * SDXL_CROSS_PER_UNET_CALL  # forward and checkpoint recompute
+    expected_k5 = 2 * SELF_ATTN_PER_UNET_CALL  # one feed-forward a block, twice
     print(f"phase 7 full-width training {final} steps: total {wall:.3f} s, step time median "
-          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3/K2 "
-          f"launches per step {k1[-1]}/{k3[-1]}/{k2[-1]} (K3 expected {expected}, K2 "
-          f"{expected_k2})", flush=True)
+          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3/K2/K5 "
+          f"launches per step {k1[-1]}/{k3[-1]}/{k2[-1]}/{k5[-1]} (K3 expected {expected}, K2 "
+          f"{expected_k2}, K5 {expected_k5})", flush=True)
     if final != TRAIN_STEPS or len(metrics) != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
         raise AssertionError(f"the trainer ran {final} steps, logged {len(metrics)}")
     for m, s in zip(metrics, steps):
         if not (m["loss"] == m["loss"] and abs(m["loss"]) < float("inf")
                 and m["grad_norm"] > 0 and s["ip"] > 0 and s["harmony"] > 0):
             raise AssertionError(f"step {m['step']}: non-finite loss or a zero gradient")
-    if any(c != expected for c in k3) or min(k1) <= 0 or any(x != expected_k2 for x in k2):
+    if (any(c != expected for c in k3) or min(k1) <= 0 or any(x != expected_k2 for x in k2)
+            or any(g != expected_k5 for g in k5)):
         raise AssertionError(f"K3 launches per step {k3}, expected {expected}; K2 {k2}, "
-                             f"expected {expected_k2}; K1 {k1}")
-    return sum(k1), sum(k3), sum(k2)
+                             f"expected {expected_k2}; K5 {k5}, expected {expected_k5}; K1 {k1}")
+    return sum(k1), sum(k3), sum(k2), sum(k5)
 
 
 def narrow_sd15_configs(comp, proj_kind="image_proj"):
@@ -797,7 +899,7 @@ def narrow_sd15_configs(comp, proj_kind="image_proj"):
     return dataclasses.replace(cfgs, unet=u, proj_kind=proj_kind, resampler=rs)
 
 
-def phase_sd15_narrow(fa, comp, HarmonyPipeline):
+def phase_sd15_narrow(fa, kg, comp, HarmonyPipeline):
     img = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
     noise = np.random.default_rng(1).standard_normal((1, 32, 32, 4)).astype(np.float32)
     kw = dict(prompt="a dog", height=64, width=64, noise=noise, output_type="raw")
@@ -806,19 +908,19 @@ def phase_sd15_narrow(fa, comp, HarmonyPipeline):
         copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
     )
     ref = cpu.generate(img, num_inference_steps=3, **kw)
-    fa.launches = fa.bhsd_launches = 0
+    fa.launches = fa.bhsd_launches = kg.geglu_launches = 0
     out = card.generate(img, num_inference_steps=3, **kw)
     torch.cuda.synchronize()
     cos = _cosine(out.float().cpu(), ref)
-    expected = 3 * SD15_SELF_ATTN_PER_UNET_CALL
+    expected = 3 * SD15_SELF_ATTN_PER_UNET_CALL  # as many feed-forwards
     print(f"phase 8 narrow SD1.5 pipeline card bf16 vs cpu fp32: image cosine={cos:.6f}, "
-          f"K4 launches={fa.bhsd_launches} (expected {expected}), K1 launches={fa.launches}",
-          flush=True)
+          f"K4 launches={fa.bhsd_launches}, K5 launches={kg.geglu_launches} (expected "
+          f"{expected} each), K1 launches={fa.launches}", flush=True)
     if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE):
         raise AssertionError("the narrow SD1.5 pipeline on the card disagrees with the CPU")
-    if (fa.bhsd_launches, fa.launches) != (expected, 0):
-        raise AssertionError(f"K4 launched {fa.bhsd_launches} times, expected {expected}; "
-                             f"K1 {fa.launches}, expected 0")
+    if (fa.bhsd_launches, kg.geglu_launches, fa.launches) != (expected, expected, 0):
+        raise AssertionError(f"K4 launched {fa.bhsd_launches} times, K5 {kg.geglu_launches}, "
+                             f"expected {expected}; K1 {fa.launches}, expected 0")
     for kind in ("resampler", "mlp_proj"):
         pipe = HarmonyPipeline.random(narrow_sd15_configs(comp, kind), seed=0, device="cuda",
                                       dtype=torch.bfloat16)
@@ -832,7 +934,7 @@ def phase_sd15_narrow(fa, comp, HarmonyPipeline):
             raise AssertionError(f"the {kind} pipeline on the card gave a bad output")
 
 
-def phase_sd15_full(fa, ca, HarmonyPipeline):
+def phase_sd15_full(fa, ca, kg, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full_sd15(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -848,25 +950,29 @@ def phase_sd15_full(fa, ca, HarmonyPipeline):
     for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
         timings = {}
         fa.launches = fa.bhsd_launches = ca.cross_launches = ca.cross_ip_launches = 0
+        kg.geglu_launches = 0
         t0 = time.perf_counter()
         out = pipe.generate(img, num_inference_steps=FULL_STEPS, timings=timings, **kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0, timings))
     k1, k4, k2 = fa.launches, fa.bhsd_launches, (ca.cross_launches, ca.cross_ip_launches)
+    k5 = kg.geglu_launches
     finite = bool(torch.isfinite(out).all())
     for name, (wall, tm) in zip(("first", "second"), walls):
         print(f"phase 9 SD1.5 generate 512² {FULL_STEPS} steps, {name} call: total {wall:.3f} s, "
               f"conditioning {tm['conditioning_s']:.3f} s, denoise {tm['denoise_s']:.3f} s, "
               f"decode {tm['decode_s']:.3f} s", flush=True)
     print(f"phase 9 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K4 launches "
-          f"{k4}, K1 launches {k1}, K2 launches {k2[0]} ({k2[1]} with the IP branch), shape "
-          f"{tuple(out.shape)}, finite {finite}", flush=True)
+          f"{k4}, K1 launches {k1}, K2 launches {k2[0]} ({k2[1]} with the IP branch), K5 "
+          f"launches {k5}, shape {tuple(out.shape)}, finite {finite}", flush=True)
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
-    expected = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS  # as many cross as self, IP on all
-    if (k4, k1, k2) != (expected, 0, (expected, expected)):
+    # as many cross-attentions (IP on all) and feed-forwards as self-attentions
+    expected = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    if (k4, k1, k2, k5) != (expected, 0, (expected, expected), expected):
         raise AssertionError(f"K4 launched {k4} times, expected {expected}; K1 {k1}, expected 0; "
-                             f"K2 {k2}, expected {expected} with the IP branch")
+                             f"K2 {k2}, expected {expected} with the IP branch; K5 {k5}, "
+                             f"expected {expected}")
     # where a call's time goes: a short generate() under the profiler
     n = SD15_PROFILED_STEPS
     _, wall_ms, kernels = profiling.profiled(
@@ -874,7 +980,7 @@ def phase_sd15_full(fa, ca, HarmonyPipeline):
     prof = profiling.summarize(kernels, 1, wall_ms)
     print(f"phase 9 profile of a {n}-step generate(): "
           + json.dumps({k.replace("_per_step", ""): v for k, v in prof.items()}), flush=True)
-    return k4, k2[0]
+    return k4, k2[0], k5
 
 
 def _unet_ip_grads(unet, inputs, dev):
@@ -891,7 +997,7 @@ def _unet_ip_grads(unet, inputs, dev):
     return torch.cat([p.grad.float().cpu().flatten() for p in ip]), len(ip)
 
 
-def phase_sd15_grad(fa, ca, comp, punet):
+def phase_sd15_grad(fa, ca, kg, comp, punet):
     """The full-width SD1.5 UNet's gradient to its IP projections on the
     card, with the launch counts, then the narrow one's against the CPU."""
     cfg = comp.sd15_configs().unet
@@ -902,20 +1008,22 @@ def phase_sd15_grad(fa, ca, comp, punet):
               torch.randn((1, TEXT_KEYS, cfg.cross_attention_dim), generator=gen),
               torch.randn((1, 4, cfg.cross_attention_dim), generator=gen))
     expected = (SD15_SELF_ATTN_PER_UNET_CALL, SD15_SELF_ATTN_PER_UNET_CALL,
-                expected_k3_per_step(cfg), 0)
+                expected_k3_per_step(cfg), SD15_SELF_ATTN_PER_UNET_CALL, 0)
     walls = []
     for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
         unet.zero_grad(set_to_none=True)
         fa.launches = fa.bhsd_launches = fa.bwd_launches = ca.cross_launches = 0
+        kg.geglu_launches = 0
         t0 = time.perf_counter()
         grads, n_ip = _unet_ip_grads(unet, inputs, "cuda")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches, fa.launches)
+        counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches, kg.geglu_launches,
+                  fa.launches)
     finite = bool(torch.isfinite(grads).all())
     print(f"phase 10 SD1.5 UNet 512² batch 1 forward + backward to its {n_ip} IP projections: "
           f"{walls[0]:.3f} s first, {walls[1]:.3f} s second, max |grad| "
-          f"{float(grads.abs().max()):.3e}, finite {finite}, K4/K2/K3/K1 launches {counts} "
+          f"{float(grads.abs().max()):.3e}, finite {finite}, K4/K2/K3/K5/K1 launches {counts} "
           f"(expected {expected})", flush=True)
     if not finite or float(grads.abs().max()) <= 0 or counts != expected:
         raise AssertionError(f"the SD1.5 UNet's IP gradient on the card: finite {finite}, "
@@ -929,17 +1037,17 @@ def phase_sd15_grad(fa, ca, comp, punet):
               torch.randn((1, TEXT_KEYS, narrow.cross_attention_dim), generator=gen),
               torch.randn((1, 4, narrow.cross_attention_dim), generator=gen))
     ref, _ = _unet_ip_grads(cpu, inputs, "cpu")
-    fa.bhsd_launches = fa.bwd_launches = ca.cross_launches = 0
+    fa.bhsd_launches = fa.bwd_launches = ca.cross_launches = kg.geglu_launches = 0
     got, _ = _unet_ip_grads(card, inputs, "cuda")
     torch.cuda.synchronize()
     cos = _cosine(got, ref)
-    narrow_counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches)
+    narrow_counts = (fa.bhsd_launches, ca.cross_launches, fa.bwd_launches, kg.geglu_launches)
     print(f"phase 10 narrow SD1.5 UNet IP gradients card bf16 vs cpu fp32: cosine={cos:.6f}, "
-          f"K4/K2/K3 launches {narrow_counts}", flush=True)
+          f"K4/K2/K3/K5 launches {narrow_counts}", flush=True)
     if not (cos >= TRAIN_MIN_GRAD_COSINE and min(narrow_counts) > 0):
         raise AssertionError("the narrow SD1.5 UNet's IP gradients on the card disagree with "
                              "the CPU")
-    return full[:3]
+    return full[:4]
 
 
 def _line_times(t, bound):
@@ -960,6 +1068,7 @@ def main():
     from imagharmony_tpu_torch.kernels import build
     from imagharmony_tpu_torch.kernels import cross_attention as ca
     from imagharmony_tpu_torch.kernels import flash_attention as fa
+    from imagharmony_tpu_torch.kernels import geglu as kg
     from imagharmony_tpu_torch.models import unet as punet
     from imagharmony_tpu_torch.nn.attention import split_heads
     from imagharmony_tpu_torch.pipelines import components as comp
@@ -968,23 +1077,25 @@ def main():
     from imagharmony_tpu_torch.train import trainer
 
     phase_device()
-    phase_build(fa, ca, build)
+    phase_build(fa, ca, kg, build)
     max_err, main_ms = phase_k1(fa, split_heads)
     k3_err, k3_times, k1_train_times = phase_k3(fa)
     k4_err, k4_times = phase_k4(fa)
     k2_err, k2_times = phase_k2(ca)
     k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
-    phase_second_device(fa, ca, split_heads)
-    phase_tiny(fa, HarmonyPipeline)
-    launches, k2_launches = phase_full(fa, ca, HarmonyPipeline)
-    phase_train_tiny(fa, comp, step_lib)
-    k1_train, k3_train, k2_train = phase_train_full(fa, ca, comp, step_lib, trainer)
-    phase_sd15_narrow(fa, comp, HarmonyPipeline)
-    k4_launches, k2_sd15 = phase_sd15_full(fa, ca, HarmonyPipeline)
-    k4_grad, k2_grad, k3_grad = phase_sd15_grad(fa, ca, comp, punet)
+    k5_err, k5_times = phase_k5(kg)
+    phase_second_device(fa, ca, kg, split_heads)
+    phase_tiny(fa, kg, HarmonyPipeline)
+    launches, k2_launches, k5_launches = phase_full(fa, ca, kg, HarmonyPipeline)
+    phase_train_tiny(fa, kg, comp, step_lib)
+    k1_train, k3_train, k2_train, k5_train = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
+    phase_sd15_narrow(fa, kg, comp, HarmonyPipeline)
+    k4_launches, k2_sd15, k5_sd15 = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
+    k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
+    k5 = k5_times[K5_SHAPES[0]]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
         "route": "cuda",
@@ -1037,6 +1148,21 @@ def main():
         **_line_times(k2, k2["bound"]),
         "by_shape": [{"shape": list(shape), **_line_times(t, t["bound"])}
                      for shape, t in k2_times.items()],
+    }, {
+        "name": "geglu",
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/geglu.cu",
+        "replaces": "tools/probe_geglu_v2.py:36 (also tools/probe_geglu_epilogue.py:64, "
+                    "tools/probe_geglu_tune.py:37, tools/probe_pallas_matmul.py:60)",
+        "launches": k5_launches,
+        "launches_by_path": {"generate": k5_launches, "train": k5_train,
+                             "generate_sd15": k5_sd15, "sd15_unet_grad": k5_grad},
+        "max_abs_err": k5_err,
+        "shape": list(K5_SHAPES[0]),
+        **_line_times(k5, k5["bound"]),
+        "no_gelu_ms": k5["no_gelu"][0],
+        "by_shape": [{"shape": list(shape), "no_gelu_ms": t["no_gelu"][0],
+                      **_line_times(t, t["bound"])} for shape, t in k5_times.items()],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -81,7 +81,10 @@ def resource_usage(name: str) -> dict:
     """What ptxas reports for each kernel of ``csrc/<name>.cu``, from a
     compile with ``-Xptxas -v`` whose object file is thrown away:
     {kernel name with its template arguments: {"registers", "smem_bytes",
-    "spill_bytes"}}."""
+    "spill_bytes", "wgmma_serialized"}}. The last is ptxas's C7515 notice:
+    it made the kernel's wgmma products wait for each other (for instance
+    because other instructions write their accumulator inside the
+    pipeline), which costs speed, not correctness."""
     flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "out.o"),
@@ -93,13 +96,20 @@ def resource_usage(name: str) -> dict:
         text = proc.stderr
         if filt:
             text = subprocess.run([filt], input=text, capture_output=True, text=True).stdout
+
+    def short(fn):  # demangled: name<args>(
+        found = re.search(r"\w+(?:<[^>]*>)?(?=\()", fn)
+        return found[0] if found else fn.strip()
+
+    serialized = {short(m[1]) for m in re.finditer(r"\(C7515\)[^\n]*function '([^']+)'", text)}
     usage = {}
     pattern = re.compile(
         r"Function properties for (?P<fn>.+)\n.*?(?P<store>\d+) bytes spill stores, "
         r"(?P<load>\d+) bytes spill loads\n.*?Used (?P<regs>\d+) registers"
         r"(?:.*?(?P<smem>\d+) bytes smem)?")
     for m in pattern.finditer(text):
-        short = re.search(r"\w+(?:<[^>]*>)?(?=\()", m["fn"])  # demangled: name<args>(
-        usage[short[0] if short else m["fn"].strip()] = {"registers": int(m["regs"]), "smem_bytes": int(m["smem"] or 0),
-                     "spill_bytes": int(m["store"]) + int(m["load"])}
+        name = short(m["fn"])
+        usage[name] = {"registers": int(m["regs"]), "smem_bytes": int(m["smem"] or 0),
+                       "spill_bytes": int(m["store"]) + int(m["load"]),
+                       "wgmma_serialized": name in serialized}
     return usage

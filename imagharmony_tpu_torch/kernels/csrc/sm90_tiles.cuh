@@ -1,9 +1,9 @@
-// What the Hopper (sm_90a) attention kernels of this directory share: TMA
-// tensor maps and copies, mbarriers, the wgmma bf16 product with its
-// shared-memory descriptors, and the host state kept per device. Included by
-// flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3) and
-// cross_attn_nhd.cu (K2); build.library_path hashes it with every source, so
-// an edit here rebuilds them.
+// What the Hopper (sm_90a) kernels of this directory share: TMA tensor maps
+// and copies, mbarriers, the wgmma bf16 product with its shared-memory
+// descriptors, and the host state kept per device. Included by
+// flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3), cross_attn_nhd.cu
+// (K2) and geglu.cu (K5); build.library_path hashes it with every source,
+// so an edit here rebuilds them.
 //
 // Tiles in shared memory are "panels": up to 256 rows of 64 bf16 columns,
 // 128 bytes a row, laid out as TMA writes them under
@@ -269,6 +269,57 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define SM90_D64_LIST                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define SM90_D128_LIST                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "         \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "         \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "         \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "   \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
+  "%125, %126, %127}"
+
+// The same product with 128 and with 256 columns of B (N = 128, 256; the
+// layout above with n in 0..15, 0..31), K-major panels of N rows: the GEGLU
+// kernel's [h | g] tile in one instruction.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_D32(d), SM90_D32((d + 32))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_D128_LIST
+      ", %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_D32(d), SM90_D32((d + 32)), SM90_D32((d + 64)), SM90_D32((d + 96))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Wait until at most N of the warpgroup's committed product groups are
+// still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
 // d (64 x 64 fp32) += A . B over 16 rows of B, A (64 x 16 bf16) from
 // registers in the warpgroup's A-fragment layout (what the accumulator
 // layout packs to, see pack_a), B MN-major in shared memory.
@@ -286,6 +337,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 #undef SM90_D32
 #undef SM90_D32_LIST
+#undef SM90_D64_LIST
+#undef SM90_D128_LIST
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

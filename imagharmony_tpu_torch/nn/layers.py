@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagharmony_tpu_torch import dtypes
+from imagharmony_tpu_torch.kernels import geglu as kgeglu
 
 
 class Linear(nn.Linear):
@@ -141,10 +142,12 @@ class GEGLU(nn.Module):
 
 
 def geglu(proj: Linear, x):
-    """GEGLU over a packed (dim -> 2*inner) projection."""
-    h, gate = proj(x).chunk(2, dim=-1)
-    approximate = "tanh" if h.dtype == torch.bfloat16 else "none"
-    return h * F.gelu(gate, approximate=approximate)
+    """GEGLU over a packed (dim -> 2*inner) projection, through K5
+    (kernels/geglu.py): its plain version on the CPU, the fused kernel on
+    the card."""
+    w = proj.weight
+    gelu = "tanh" if w.dtype == torch.bfloat16 else "erf"
+    return kgeglu.geglu(x.to(w.dtype), w, proj.bias, gelu=gelu)
 
 
 # ---------------------------------------------------------------------------

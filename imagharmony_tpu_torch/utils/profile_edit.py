@@ -8,8 +8,11 @@ SDXL at 1024², SD1.5 at 512²; CFG 5.0, one sample), runs one warm-up
 under torch.profiler. The difference of the two, over N, is one denoise
 step: one CFG-pair UNet call and its Euler update. It prints one JSON line:
 kernels, kernel ms, device-busy ms and wall ms per step (wall with the
-profiler on), the idle share 1 - busy / wall, and kernel ms per class of
-``utils/profiling.KERNEL_CLASSES``.
+profiler on), the idle share 1 - busy / wall, kernel ms per class of
+``utils/profiling.KERNEL_CLASSES``, and the elementwise class split by the
+operation each kernel runs (``elementwise_op``: PyTorch's functor or kernel
+function in the kernel's name, e.g. ``GeluCUDAKernelImpl``, ``MulFunctor``),
+so the GEGLU epilogue's gelu and multiply show apart.
 
 It calls only ``HarmonyPipeline.random_full`` / ``random_full_sd15``,
 ``generate()`` and ``utils/profiling``, which every slice of the port has,
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import numpy as np
 import torch
@@ -30,11 +34,35 @@ from imagharmony_tpu_torch.utils import profiling
 
 BASE_STEPS = 2
 
+# template and wrapper names of PyTorch's elementwise kernels that say
+# nothing of the operation
+_WRAPPERS = {"vectorized_elementwise_kernel", "unrolled_elementwise_kernel", "elementwise_kernel",
+             "elementwise_kernel_with_index", "BinaryFunctor", "AUnaryFunctor", "BUnaryFunctor",
+             "gpu_kernel_impl", "gpu_kernel_impl_nocast", "launch_legacy_kernel"}
+_OP = re.compile(r"(Functor\w*|Impl|_kernel\w*|_cuda)$")
+
+
+def elementwise_op(name: str) -> str:
+    """The operation of a PyTorch elementwise kernel, from its name: the first
+    functor or kernel function in it that is not a generic wrapper; else the
+    name up to its argument list."""
+    for token in re.findall(r"[A-Za-z_]\w*", name):
+        if token not in _WRAPPERS and _OP.search(token):
+            return token
+    return name.split("(")[0][:80]
+
 
 def _profile(pipe, img, kw, steps):
     _, wall_ms, kernels = profiling.profiled(
         lambda: pipe.generate(img, num_inference_steps=steps, **kw))
-    return profiling.summarize(kernels, 1, wall_ms)
+    out = profiling.summarize(kernels, 1, wall_ms)
+    ops = {}
+    for e in kernels:
+        if profiling.kernel_class(e["name"]) == "elementwise":
+            op = elementwise_op(e["name"])
+            ops[op] = ops.get(op, 0.0) + e["dur"] / 1000.0
+    out["elementwise_ms"] = ops
+    return out
 
 
 def main(argv=None):
@@ -64,6 +92,9 @@ def main(argv=None):
     classes = set(a["class_ms_per_step"]) | set(b["class_ms_per_step"])
     by_class = {c: (b["class_ms_per_step"].get(c, 0.0) - a["class_ms_per_step"].get(c, 0.0))
                 / args.steps for c in classes}
+    ops = set(a["elementwise_ms"]) | set(b["elementwise_ms"])
+    by_op = {op: (b["elementwise_ms"].get(op, 0.0) - a["elementwise_ms"].get(op, 0.0))
+             / args.steps for op in ops}
     out = {
         "family": args.family,
         "package": profiling.__file__,
@@ -72,6 +103,7 @@ def main(argv=None):
         **{f"{key}_per_unet_call": v for key, v in per.items()},
         "idle_share": 1.0 - per["device_busy_ms"] / per["wall_ms"],
         "class_ms_per_unet_call": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "elementwise_ms_per_unet_call": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
     }
     print(json.dumps(out), flush=True)
     return out

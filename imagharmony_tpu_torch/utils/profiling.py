@@ -38,6 +38,7 @@ KERNEL_CLASSES = (
     ("K1/K4", ("attn_fwd_wgmma_kernel",)),  # one device kernel under both entry points
     ("K2", ("cross_attn_wgmma_kernel",)),
     ("K3", K3_KERNELS),  # under both of its entry points
+    ("K5", ("geglu_wgmma_kernel",)),  # ahead of "gemm": the GEGLU projection and its epilogue
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "nchw", "cudnn")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer", ("multi_tensor", "adam")),

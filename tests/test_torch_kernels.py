@@ -146,7 +146,8 @@ def test_library_path_hashes_the_headers(monkeypatch, tmp_path):
 
 def test_resource_usage_reads_ptxas_report(monkeypatch, tmp_path):
     """``build.resource_usage`` on a stand-in compiler that prints what
-    ``nvcc -Xptxas -v`` prints: registers, shared memory and spills per
+    ``nvcc -Xptxas -v`` prints: registers, shared memory, spills and
+    whether ptxas serialized the wgmma products (its C7515 notice) per
     kernel, keyed by the kernel's name (demangled where c++filt exists)."""
     report = """\
 ptxas info    : 0 bytes gmem
@@ -159,6 +160,9 @@ ptxas info    : Compiling entry function '_ZN3abc20attn_bwd_prep_kernelEvPKfi' f
 ptxas info    : Function properties for _ZN3abc20attn_bwd_prep_kernelEvPKfi
     16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized \
+due to non wgmma instructions defining accumulator registers of a wgmma between start and end of \
+the pipeline stage in the function '_ZN3abc20attn_bwd_prep_kernelEvPKfi'
 """
     (tmp_path / "report.txt").write_text(report)
     fake = tmp_path / "nvcc"
@@ -167,8 +171,10 @@ ptxas info    : Used 32 registers, used 0 barriers
     monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
     usage = build.resource_usage("flash_attn_nhd")
     by_suffix = {("160" in k, "prep" in k): v for k, v in usage.items()}
-    assert by_suffix[(True, False)] == {"registers": 218, "smem_bytes": 44544, "spill_bytes": 0}
-    assert by_suffix[(False, True)] == {"registers": 32, "smem_bytes": 0, "spill_bytes": 20}
+    assert by_suffix[(True, False)] == {"registers": 218, "smem_bytes": 44544, "spill_bytes": 0,
+                                        "wgmma_serialized": False}
+    assert by_suffix[(False, True)] == {"registers": 32, "smem_bytes": 0, "spill_bytes": 20,
+                                        "wgmma_serialized": True}
     fake.write_text("#!/bin/sh\necho boom >&2\nexit 3\n")
     with pytest.raises(RuntimeError, match="boom"):
         build.resource_usage("flash_attn_nhd")

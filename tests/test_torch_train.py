@@ -380,6 +380,8 @@ def test_profile_summary_classes_and_idle_share(tmp_path):
                                  "FwdMaps, FwdArgs)", "ts": 1500, "dur": 30},
         {"cat": "kernel", "name": "void (anonymous namespace)::cross_attn_wgmma_kernel<40>("
                                  "CrossMaps, CrossArgs)", "ts": 1600, "dur": 20},
+        {"cat": "kernel", "name": "void (anonymous namespace)::geglu_wgmma_kernel<128, 1>("
+                                 "GegluMaps, GegluArgs)", "ts": 1700, "dur": 10},
         {"cat": "kernel", "name": "nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NNT", "ts": 300,
          "dur": 200},
         {"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_bf16", "ts": 1000, "dur": 100},
@@ -391,10 +393,10 @@ def test_profile_summary_classes_and_idle_share(tmp_path):
     path.write_text(json.dumps({"traceEvents": events}))
     out = profiling.summarize(profiling.kernel_events(path), n_steps=1, wall_ms=2.0)
     assert out["class_ms_per_step"] == {"K3": 0.4, "gemm": 0.2, "conv": 0.1, "elementwise": 0.1,
-                                        "K1/K4": 0.08, "K2": 0.02}
-    assert out["device_busy_ms_per_step"] == pytest.approx(0.8)
-    assert out["idle_share"] == pytest.approx(0.6)
-    assert out["kernels_per_step"] == 7
+                                        "K1/K4": 0.08, "K2": 0.02, "K5": 0.01}
+    assert out["device_busy_ms_per_step"] == pytest.approx(0.81)
+    assert out["idle_share"] == pytest.approx(0.595)
+    assert out["kernels_per_step"] == 8
 
 
 def test_kernel_ms_takes_only_traces_that_agree(monkeypatch):
