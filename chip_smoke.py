@@ -12,8 +12,10 @@ is non-zero:
 2. build K1 and K4 (one source, one device kernel, attn_fwd_wgmma_kernel,
    under the packed and the head-split entry point), K3 (their backward,
    under the same two layouts), K2 (the fused text + IP cross-attention,
-   cross_attn_wgmma_kernel) and K5 (the fused GEGLU projection,
-   geglu_wgmma_kernel) from the sources in the checkout, one nvcc per
+   cross_attn_wgmma_kernel), K5 (the fused GEGLU projection,
+   geglu_wgmma_kernel), P1 (the matmul probe's product, mm_wgmma_kernel)
+   and P2-P4 (the attention probes' no-max attention,
+   attn_nomax_wgmma_kernel) from the sources in the checkout, one nvcc per
    source, in parallel, with what ptxas reports per kernel instance
    (registers, shared memory, spills, and whether it serialized the wgmma
    products; a spill or a serialization fails) and the dynamic shared
@@ -46,9 +48,10 @@ is non-zero:
    the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
    on the same inputs (bit-identical or fail), with timings of K3, the
    plain backward and SDPA's backward;
-3f. with two cards or more: K1 (with its lse), K3, K4, K2 and K5 launched
-   on cuda:1 after cuda:0, each against its plain version (the libraries
-   keep their state per device); with one card, one line that says so;
+3f. with two cards or more: K1 (with its lse), K3, K4, K2, K5, P1 (both
+   pairs) and P2 launched on cuda:1 after cuda:0, each against its plain
+   version (the libraries keep their state per device); with one card, one
+   line that says so;
 3g. K5 against its plain version computed in fp32 from the same bf16
    inputs, with each gelu (tanh, erf, none), at the UNet feed-forward
    shapes of both families and of training (with the bias) and at a ragged
@@ -56,6 +59,20 @@ is non-zero:
    gelu, multiply), F.linear alone (the GEMM it replaces, the yardstick)
    and K5 with no gelu (what the epilogue costs) at the six inference
    shapes;
+3h. P1 against its plain version at the matmul probe's four SDXL shapes
+   and a ragged M, K and N, bf16 (cosine >= 0.9999, max abs <= 1e-2 of the
+   reference's max) and int8 (bit-exact), timed against torch.matmul and
+   torch._int_mm; then the port's matmul probe
+   (``probes/probe_pallas_matmul.py``, P1's path) once, its P1 launches
+   counted;
+3i. P2-P4 against their plain version (max abs <= 2e-2, cosine >= 0.9999)
+   at SDXL's two self-attention shapes, every (bq, kb) tile, a ragged S,
+   kv_len < S and head dims 32 and 128; P3 and P4 (every g) bit-identical
+   to P2 at the same tiles; saturated logits keep the TPU kernel's clamp
+   and overflow; timed against the plain version, SDPA and K1 (the current
+   kernel, online softmax); then the two attention probes
+   (``probes/probe_attn_kblock.py``, ``probe_attn_lanegroup.py``) once,
+   their launches counted;
 4. the tiny pipeline on the card (bf16, K1, K5) against the same weights
    on the CPU (fp32, plain versions);
 5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
@@ -86,10 +103,15 @@ the median CUDA-event time of the call, which also holds the host's launch
 work (for SDPA's backward, the autograd call). The line before the last is
 a JSON object describing each kernel of the paths: its ``ms``, ``plain_ms``
 and ``library_ms`` (SDPA; for K2 SDPA on the text branch plus SDPA on the
-IP branch; for K5 F.linear alone) are device times, all taken the same
-way, and ``event_ms`` holds the three CUDA-event times. A shape's ``shape``
-is (B, S, H, D), for K2 (B, Sq, H, D, IP keys) with 77 text keys, for K5
-(M, K, inner). The last line is {"ok": true, "device": {...}}.
+IP branch; for K5 F.linear alone; for P1 torch.matmul or torch._int_mm;
+for P2-P4 SDPA) are device times, all taken the same way, and
+``event_ms`` holds the three CUDA-event times; P2-P4 also carry
+``current_ms``, K1's time on the same inputs. A shape's ``shape`` is
+(B, S, H, D), for K2 (B, Sq, H, D, IP keys) with 77 text keys, for K5
+(M, K, inner), for P1 (M, K, N). The probes' launches are those of the
+probe tools' run (``launches_by_path`` "probes"), where K1 (the attention
+tools' current kernel) and K5 (the matmul tool's GEGLU half) are counted
+too; no pipeline launches P1-P4. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,25 +209,33 @@ K5_MAX_REL = 1e-2  # of the reference's max-abs
 K5_MIN_COSINE = 0.9999
 GEGLU_KERNEL = "geglu_wgmma_kernel"
 
-# one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
+# P1, (M, K, N): the matmul probe's SDXL feed-forward products (timed, in
+# both pairs), then a ragged M, K and N for each pair (int8 rows are whole
+# 16-byte units, so its N is a multiple of 16)
+P1_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (8192, 2560, 640), (2048, 5120, 1280)]
+P1_EDGES = {"bf16": (300, 144, 200), "int8": (300, 144, 208)}
+# P1 bf16 against the fp32 product of the same bf16 inputs: the bf16
+# rounding of the output; int8 is exact
+P1_MAX_REL = 1e-2  # of the reference's max-abs
+P1_MIN_COSINE = 0.9999
+MM_KERNEL = "mm_wgmma_kernel"
+
+# P2-P4, (B, S, H, D, kv_len or None): SDXL's two self-attention shapes at
+# 1024² (timed), a ragged S, kv_len < S, and head dims 32 and 128
+P2_SHAPES = [(2, 4096, 10, 64, None), (2, 1024, 20, 64, None)]
+P2_EDGES = [(2, 333, 4, 64, None), (2, 1024, 20, 64, 777), (1, 300, 2, 32, 211),
+            (2, 200, 2, 128, 129)]
+# against the fp32 plain version on the same bf16 inputs: the bf16
+# rounding of qs, of e before PV and of the output, as for K1
+P2_MAX_ABS = 2e-2
+P2_MIN_COSINE = 0.9999
+NOMAX_KERNEL = "attn_nomax_wgmma_kernel"
+
+# one H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core rates,
+# HBM rate
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
-
-
-def _cuda_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of ``fn`` in milliseconds."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def _device_ms(fn, names=()):
@@ -223,7 +253,7 @@ def _timings(fns, names=()):
     out = {}
     for key, fn in fns.items():
         dev = _device_ms(fn, names if key == "kernel" else ())
-        out[key] = (dev.pop("total"), _cuda_ms(fn))
+        out[key] = (dev.pop("total"), profiling.event_ms(fn))
         if key == "kernel":
             out["per_kernel"] = dev
     return out
@@ -258,19 +288,20 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build(fa, ca, kg, build):
+def phase_build(fa, ca, kg, pm, pa, build):
     """Builds the kernels and, beside them, asks ptxas what each uses."""
-    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd", "geglu")
+    sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd", "geglu", "probe_mm",
+               "probe_attn")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(12) as pool:
         builds = [pool.submit(fa._entry), pool.submit(fa._bwd_entry), pool.submit(ca._entry),
-                  pool.submit(kg._entry)]
+                  pool.submit(kg._entry), pool.submit(pm._entry), pool.submit(pa._entry)]
         usage = [pool.submit(build.resource_usage, name) for name in sources]
         for f in builds:
             f.result()
         fa._bhsd_entry()  # K4: the second entry point of K1's library
         fa._bhsd_bwd_entry()  # K3 on K4's layout
-        print(f"phase 2 build K1/K4, K3, K2 and K5 (in parallel): "
+        print(f"phase 2 build K1/K4, K3, K2, K5, P1 and P2-P4 (in parallel): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         spilled, serialized = [], []
         for name, f in zip(sources, usage):
@@ -291,10 +322,18 @@ def phase_build(fa, ca, kg, build):
         raise AssertionError(f"ptxas serialized the wgmma products of: {serialized}")
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak_ops=PEAK_FLOPS):
     """(least ms, "operations" or "bytes") at the card's peak rates."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mm_bound(m, k, n, pair):
+    # x and W read once and the output written once; 2 m k n operations at
+    # the pair's tensor-core rate (bf16 out, or int32 out from int8 in)
+    if pair == "bf16":
+        return _bound(2 * m * k * n, 2 * (m * k + k * n + m * n))
+    return _bound(2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8_OPS)
 
 
 def fwd_bound(b, s, h, d):
@@ -406,13 +445,13 @@ def phase_k3(fa):
         if (b, s, h, d) not in K3_SHAPES:
             continue
         # K1 with and without its lse output, same inputs, alternated
-        k1 = [_cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw)),
-              _cuda_ms(lambda: fa.flash_attention_nhd_fwd(q, k, v, **kw)),
-              _cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw))]
+        k1 = [profiling.event_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw)),
+              profiling.event_ms(lambda: fa.flash_attention_nhd_fwd(q, k, v, **kw)),
+              profiling.event_ms(lambda: fa.flash_attention_nhd(q, k, v, **kw))]
         # the yardstick: one PyTorch call for the same function on the same
         # tensors viewed (B, H, S, D); the port never calls it
         qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
-        sdpa_fwd = _cuda_ms(lambda: sdpa(qh, kh, vh))
+        sdpa_fwd = profiling.event_ms(lambda: sdpa(qh, kh, vh))
         # K1 as training runs it: with its lse (the table's K1 training rows)
         fwd = _timings({
             "kernel": lambda: fa.flash_attention_nhd_fwd(q, k, v, **kw),
@@ -608,6 +647,12 @@ def phase_k3_bhsd(fa, split_heads):
     return max_err, times
 
 
+def _alone(t, name):
+    """Fails unless the timed kernel call launched ``name`` alone."""
+    if t["per_kernel"][name] != t["kernel"][0]:
+        raise AssertionError(f"the call is not {name} alone: {t['per_kernel']}, {t['kernel']}")
+
+
 @torch.inference_mode()
 def phase_k5(kg):
     """K5 against its plain version with each gelu, and its timings at the
@@ -643,9 +688,7 @@ def phase_k5(kg):
             "library": lambda: linear(x, w, b),
             "no_gelu": lambda: kg.geglu(x, w, b, gelu="none"),
         }, (GEGLU_KERNEL,))
-        if t["per_kernel"][GEGLU_KERNEL] != t["kernel"][0]:
-            raise AssertionError(f"K5's call is not {GEGLU_KERNEL} alone: {t['per_kernel']}, "
-                                 f"{t['kernel']}")
+        _alone(t, GEGLU_KERNEL)
         bound, by = geglu_bound(m, k, inner)
         times[(m, k, inner)] = dict(t, bound=(bound, by))
         print(f"phase 3g time M={m} K={k} inner={inner}, device (CUDA event): K5 "
@@ -655,10 +698,163 @@ def phase_k5(kg):
     return max_err, times
 
 
-def phase_second_device(fa, ca, kg, split_heads):
-    """Each kernel on cuda:0 and then on cuda:1 in this process, against its
-    plain version: the libraries' shared-memory attributes, SM counts and
-    thread contexts are kept per device."""
+@torch.inference_mode()
+def phase_p1(pm):
+    """P1 against its plain version in both pairs (bf16 within tolerance,
+    int8 bit for bit), its timings at the probe's four shapes against
+    torch.matmul and torch._int_mm, each timed call mm_wgmma_kernel alone."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    max_err, times = 0.0, {}
+    cases = [(pair, shape) for shape in P1_SHAPES for pair in ("bf16", "int8")]
+    for pair, shape in cases + list(P1_EDGES.items()):
+        m, k, n = shape
+        if pair == "bf16":
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            w = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+            out_dtype, library = torch.bfloat16, torch.matmul
+            out = pm.probe_mm(x, w, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            ref = pm.probe_mm_plain(x, w, out_dtype=torch.float32)
+            err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+            ref_max = float(ref.abs().max())
+            ok = err <= P1_MAX_REL * ref_max and cos >= P1_MIN_COSINE
+            msg = f"max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f}"
+            max_err = max(max_err, err)
+        else:
+            x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+            out_dtype, library = torch.int32, torch._int_mm
+            out = pm.probe_mm(x, w, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            ok = torch.equal(out, pm.probe_mm_plain(x, w, out_dtype=out_dtype))
+            msg = f"bit-exact {ok}"
+        print(f"phase 3h P1 {pair} M={m} K={k} N={n}: {msg}", flush=True)
+        if not ok:
+            raise AssertionError(f"P1 {pair} disagrees with its plain version at {shape}")
+        if shape not in P1_SHAPES:
+            continue
+        t = _timings({
+            "kernel": lambda: pm.probe_mm(x, w, out_dtype=out_dtype),
+            "plain": lambda: pm.probe_mm_plain(x, w, out_dtype=out_dtype),
+            # the yardstick; the port never calls it
+            "library": lambda: library(x, w),
+        }, (MM_KERNEL,))
+        _alone(t, MM_KERNEL)
+        bound, by = mm_bound(m, k, n, pair)
+        times[(pair, shape)] = dict(t, bound=(bound, by))
+        lib = "torch.matmul" if pair == "bf16" else "torch._int_mm"
+        print(f"phase 3h time {pair} M={m} K={k} N={n}, device (CUDA event): P1 "
+              f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, {lib} {_fmt(t['library'])}; "
+              f"bound {bound:.5f} ms ({by}), {bound / t['kernel'][0]:.1%} of it", flush=True)
+    return max_err, times
+
+
+def _probe_main(name, fa, kg, pm, pa):
+    """Runs the port's probe tool ``name`` once on the card (its main path)
+    with every count it can reach set to 0 just before; returns the
+    launches it made: P1's, P2-P4's by entry point, and K1's and K5's (the
+    attention tools' "current" kernel, the matmul tool's GEGLU half)."""
+    import importlib
+
+    tool = importlib.import_module(f"imagharmony_tpu_torch.probes.{name}")
+    fa.launches = kg.geglu_launches = pm.launches = 0
+    pa.launches.update(dict.fromkeys(pa.launches, 0))
+    t0 = time.perf_counter()
+    tool.main([])
+    torch.cuda.synchronize()
+    launched = {"probe_mm": pm.launches, **pa.launches, "flash_attention_nhd": fa.launches,
+                "geglu": kg.geglu_launches}
+    print(f"phase 3h/3i probe {name}: {time.perf_counter() - t0:.1f} s, launches {launched}",
+          flush=True)
+    return launched
+
+
+@torch.inference_mode()
+def phase_p2(pa, fa):
+    """P2-P4 against their plain version, P3 and P4 bit for bit against P2
+    at the same tiles, the clamp's overflow kept, and their timings at the
+    SDXL shapes against K1 (the current kernel), the plain version and
+    SDPA, each timed call attn_nomax_wgmma_kernel alone."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    max_err, times = 0.0, {}
+    for b, s, h, d, kv_len in P2_SHAPES + P2_EDGES:
+        q, k, v = torch.randn((b, s, 3 * h * d), generator=gen,
+                              device="cuda").to(torch.bfloat16).chunk(3, dim=-1)
+        scale, kb0 = d**-0.5, pa.default_kb(d)
+        label = f"B={b} S={s} H={h} D={d} kv_len={kv_len or s}"
+        if kv_len is None:
+            runs = {f"P2 bq={bq} kb={kb}": (kb, lambda bq=bq, kb=kb: pa.kblock_attn(
+                q, k, v, scale, d, bq, kb)) for bq in pa.BQS for kb in pa.kbs(d)}
+        else:
+            runs = {f"P4 g={d}": (kb0, lambda: pa.nhd_with_g(q, k, v, scale, d, kv_len, d))}
+        msg = []
+        for tag, (kb, fn) in runs.items():
+            out = fn()
+            torch.cuda.synchronize()
+            ref = pa.nomax_attn_plain(q.float(), k.float(), v.float(), scale, d, kv_len=kv_len,
+                                      kb=kb)
+            err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+            msg.append(f"{tag} max_abs={err:.3e} cosine={cos:.7f}")
+            if not (err <= P2_MAX_ABS and cos >= P2_MIN_COSINE):
+                raise AssertionError(f"{tag} disagrees with its plain version at {label}")
+            max_err = max(max_err, err)
+        if kv_len is None:
+            # one function under three schedules: the same bits at the same tiles
+            p2 = pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0)
+            same = [torch.equal(pa.batchpack_attn(q, k, v, scale, d), p2)] + [
+                torch.equal(pa.nhd_with_g(q, k, v, scale, d, s, g), p2)
+                for g in range(d, h * d + 1, d) if (h * d) % g == 0]
+            msg.append(f"P3 and P4 (every g) bit-identical to P2 {all(same)}")
+            if not all(same):
+                raise AssertionError(f"P3 or P4 differs from P2 at {label}: {same}")
+        print(f"phase 3i {label}: " + ", ".join(msg), flush=True)
+        if (b, s, h, d, kv_len) not in P2_SHAPES:
+            continue
+        qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
+        t = {}
+        for entry, fn in (
+                ("kblock_attn", lambda: pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0)),
+                ("batchpack_attn", lambda: pa.batchpack_attn(q, k, v, scale, d)),
+                ("nhd_with_g", lambda: pa.nhd_with_g(q, k, v, scale, d, s, 2 * d))):
+            t[entry] = _timings({
+                "kernel": fn,
+                "plain": lambda: pa.nomax_attn_plain(q, k, v, scale, d, kb=kb0),
+                # the yardstick; the port never calls it
+                "library": lambda: sdpa(qh, kh, vh),
+            } if entry == "kblock_attn" else {"kernel": fn}, (NOMAX_KERNEL,))
+            _alone(t[entry], NOMAX_KERNEL)
+        t["tiles"] = {(bq, kb): _timings({"kernel": lambda bq=bq, kb=kb: pa.kblock_attn(
+            q, k, v, scale, d, bq, kb)})["kernel"] for bq in pa.BQS for kb in pa.kbs(d)}
+        t["current"] = _timings(
+            {"kernel": lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d)})["kernel"]
+        bound, by = fwd_bound(b, s, h, d)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        tiles = ", ".join(f"bq={bq} kb={kb} {_fmt(x)}" for (bq, kb), x in t["tiles"].items())
+        print(f"phase 3i time {label}, device (CUDA event): P2 {_fmt(t['kblock_attn']['kernel'])}"
+              f", P3 {_fmt(t['batchpack_attn']['kernel'])}, P4 (g={2 * d}) "
+              f"{_fmt(t['nhd_with_g']['kernel'])}, plain {_fmt(t['kblock_attn']['plain'])}, SDPA "
+              f"{_fmt(t['kblock_attn']['library'])}, K1 (current, online softmax) "
+              f"{_fmt(t['current'])}; P2 by tile: {tiles}; bound {bound:.5f} ms ({by})",
+              flush=True)
+
+    # the clamp saturates and nothing guards the sums: 4096 keys at the clamp
+    # sum to 2^127, so v = 1 gives 1 and v = 2 overflows to inf
+    qc = torch.full((1, 4096, 64), 4.0, device="cuda", dtype=torch.bfloat16)
+    ones = torch.ones_like(qc)
+    one = torch.equal(pa.kblock_attn(qc, qc, ones, 0.125, 64, 128, 128), ones)
+    inf = bool(torch.isinf(pa.kblock_attn(qc, qc, 2 * ones, 0.125, 64, 128, 128)).all())
+    print(f"phase 3i saturated logits (1, 4096, 64): v=1 gives exactly 1 {one}, v=2 overflows to "
+          f"inf {inf}", flush=True)
+    if not (one and inf):
+        raise AssertionError("P2 does not keep the TPU kernel's clamp and overflow")
+    return max_err, times
+
+
+def phase_second_device(fa, ca, kg, pm, pa, split_heads):
+    """Each kernel (P1 in both pairs, and P2) on cuda:0 and then on cuda:1 in
+    this process, against its plain version: the libraries' shared-memory
+    attributes, SM counts and thread contexts are kept per device."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"phase 3f second device: skipped, {n} card", flush=True)
@@ -683,6 +879,12 @@ def phase_second_device(fa, ca, kg, split_heads):
         k2 = ca.flash_cross_nhd(cq, ck, cv, k_ip=kip, v_ip=vip, **ckw)
         gx, gw, gb = rnd(300, 320), rnd(2 * 1280, 320), rnd(2 * 1280)
         k5 = kg.geglu(gx, gw, gb, gelu="tanh")
+        mx, mw = rnd(300, 144), rnd(144, 200)
+        p1 = pm.probe_mm(mx, mw, out_dtype=torch.bfloat16)
+        xq, wq = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                  for shape in ((300, 144), (144, 208)))
+        p1q = pm.probe_mm(xq, wq, out_dtype=torch.int32)
+        p2 = pa.kblock_attn(q, k, v, 0.125, 64, 128, 128)
         torch.cuda.synchronize(dev)
         f32 = [x.float() for x in (q, k, v, dout)]
         e = {"K1": float((out.float() - fa.flash_attention_nhd_plain(*f32[:3], **kw)).abs().max()),
@@ -696,12 +898,21 @@ def phase_second_device(fa, ca, kg, split_heads):
                       for g, r in zip(grads, refs))
         k5_ref = kg.geglu_plain(gx.float(), gw.float(), gb.float(), gelu="tanh")
         e["K5"] = float((k5.float() - k5_ref).abs().max()) / float(k5_ref.abs().max())
+        p1_ref = pm.probe_mm_plain(mx, mw, out_dtype=torch.float32)
+        e["P1"] = float((p1.float() - p1_ref).abs().max()) / float(p1_ref.abs().max())
+        p1q_exact = torch.equal(p1q, pm.probe_mm_plain(xq, wq, out_dtype=torch.int32))
+        p2_ref = pa.nomax_attn_plain(*f32[:3], 0.125, 64, kb=128)
+        e["P2"] = float((p2.float() - p2_ref).abs().max())
+        p2_cos = float(torch.nn.functional.cosine_similarity(
+            p2.double().flatten(), p2_ref.double().flatten(), dim=0))
         errs[dev] = e
         print(f"phase 3f {dev}: max_abs K1 {e['K1']:.3e}, K4 {e['K4']:.3e}, K2 {e['K2']:.3e}, "
-              f"K3 max_abs / ref max {e['K3']:.3e}, K5 max_abs / ref max {e['K5']:.3e}",
-              flush=True)
-        if (max(e["K1"], e["K4"], e["K2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL
-                or e["K5"] > K5_MAX_REL):
+              f"K3 max_abs / ref max {e['K3']:.3e}, K5 max_abs / ref max {e['K5']:.3e}, "
+              f"P1 bf16 max_abs / ref max {e['P1']:.3e}, P1 int8 bit-exact {p1q_exact}, "
+              f"P2 max_abs {e['P2']:.3e} cosine {p2_cos:.6f}", flush=True)
+        if (max(e["K1"], e["K4"], e["K2"], e["P2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL
+                or e["K5"] > K5_MAX_REL or e["P1"] > P1_MAX_REL or not p1q_exact
+                or not p2_cos >= K1_MIN_COSINE):
             raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
 
 
@@ -1069,6 +1280,8 @@ def main():
     from imagharmony_tpu_torch.kernels import cross_attention as ca
     from imagharmony_tpu_torch.kernels import flash_attention as fa
     from imagharmony_tpu_torch.kernels import geglu as kg
+    from imagharmony_tpu_torch.kernels import probe_attention as pa
+    from imagharmony_tpu_torch.kernels import probe_matmul as pm
     from imagharmony_tpu_torch.models import unet as punet
     from imagharmony_tpu_torch.nn.attention import split_heads
     from imagharmony_tpu_torch.pipelines import components as comp
@@ -1077,14 +1290,25 @@ def main():
     from imagharmony_tpu_torch.train import trainer
 
     phase_device()
-    phase_build(fa, ca, kg, build)
+    phase_build(fa, ca, kg, pm, pa, build)
     max_err, main_ms = phase_k1(fa, split_heads)
     k3_err, k3_times, k1_train_times = phase_k3(fa)
     k4_err, k4_times = phase_k4(fa)
     k2_err, k2_times = phase_k2(ca)
     k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
     k5_err, k5_times = phase_k5(kg)
-    phase_second_device(fa, ca, kg, split_heads)
+    p1_err, p1_times = phase_p1(pm)
+    probes = _probe_main("probe_pallas_matmul", fa, kg, pm, pa)
+    p2_err, p2_times = phase_p2(pa, fa)
+    for tool in ("probe_attn_kblock", "probe_attn_lanegroup"):
+        got = _probe_main(tool, fa, kg, pm, pa)
+        probes = {k: probes[k] + got[k] for k in probes}
+    missing = [k for k, n in probes.items() if not n]
+    if missing:
+        raise AssertionError(f"a kernel was not launched on the probes' path: {missing} "
+                             f"of {probes}")
+    p1_launches = probes["probe_mm"]
+    phase_second_device(fa, ca, kg, pm, pa, split_heads)
     phase_tiny(fa, kg, HarmonyPipeline)
     launches, k2_launches, k5_launches = phase_full(fa, ca, kg, HarmonyPipeline)
     phase_train_tiny(fa, kg, comp, step_lib)
@@ -1096,13 +1320,21 @@ def main():
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
     k5 = k5_times[K5_SHAPES[0]]
+    p1 = p1_times[("bf16", P1_SHAPES[0])]
+    p2 = p2_times[P2_SHAPES[0][:4]]
+
+    def nomax_times(entry, t):  # P3 and P4 share P2's plain version and SDPA
+        merged = dict(t["kblock_attn"], kernel=t[entry]["kernel"])
+        return {"current_ms": t["current"][0], **_line_times(merged, t["bound"])}
+
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:415",
         "launches": launches,
-        "launches_by_path": {"generate": launches, "train": k1_train},
+        "launches_by_path": {"generate": launches, "train": k1_train,
+                             "probes": probes["flash_attention_nhd"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
@@ -1156,14 +1388,47 @@ def main():
                     "tools/probe_geglu_tune.py:37, tools/probe_pallas_matmul.py:60)",
         "launches": k5_launches,
         "launches_by_path": {"generate": k5_launches, "train": k5_train,
-                             "generate_sd15": k5_sd15, "sd15_unet_grad": k5_grad},
+                             "generate_sd15": k5_sd15, "sd15_unet_grad": k5_grad,
+                             "probes": probes["geglu"]},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),
         **_line_times(k5, k5["bound"]),
         "no_gelu_ms": k5["no_gelu"][0],
         "by_shape": [{"shape": list(shape), "no_gelu_ms": t["no_gelu"][0],
                       **_line_times(t, t["bound"])} for shape, t in k5_times.items()],
-    }]}), flush=True)
+    }, {
+        "name": "probe_mm",
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/probe_mm.cu",
+        "replaces": "tools/probe_pallas_matmul.py:34",
+        "launches": p1_launches,
+        "launches_by_path": {"probes": p1_launches},
+        "max_abs_err": p1_err,
+        "shape": list(P1_SHAPES[0]),
+        "dtype": "bf16",
+        **_line_times(p1, p1["bound"]),
+        "by_shape": [{"shape": list(shape), "dtype": pair, **_line_times(t, t["bound"])}
+                     for (pair, shape), t in p1_times.items()],
+    }] + [{
+        "name": entry,
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/probe_attn.cu",
+        "replaces": replaces,
+        "launches": probes[entry],
+        "launches_by_path": {"probes": probes[entry]},
+        "max_abs_err": p2_err,
+        "shape": list(P2_SHAPES[0][:4]),
+        **nomax_times(entry, p2),
+        "by_shape": [{"shape": list(shape), **nomax_times(entry, t)}
+                     for shape, t in p2_times.items()]
+                    + ([{"shape": list(shape), "bq": bq, "kb": kb, "ms": x[0], "event_ms": x[1]}
+                        for shape, t in p2_times.items() for (bq, kb), x in t["tiles"].items()]
+                       if entry == "kblock_attn" else []),
+    } for entry, replaces in (
+        ("kblock_attn", "tools/probe_attn_kblock.py:33"),
+        ("batchpack_attn", "tools/probe_attn_kblock.py:89"),
+        ("nhd_with_g", "tools/probe_attn_lanegroup.py:34 (its pallas_call of "
+                       "imagharmony_tpu/kernels/flash_attention.py:415)"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -228,7 +228,8 @@ geglu_wgmma_kernel(const __grid_constant__ GegluMaps maps, const GegluArgs a) {
 // The map of a row-major bf16 matrix of `rows` x `cols` with row stride ld
 // (elements), in boxes of 64 columns by box_rows rows.
 bool map2d(sm90::Map* m, const void* base, int cols, int rows, long long ld, int box_rows) {
-  return sm90::make_map(m, base, cols, 1, rows, 1, 0, (long long)(rows + 1) * ld, ld, box_rows);
+  return sm90::make_map_rows(m, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, cols, rows, ld,
+                             box_rows);
 }
 
 // Output columns a CTA takes: the fewer waves of CTAs on the card, each

@@ -1,8 +1,9 @@
 // What the Hopper (sm_90a) kernels of this directory share: TMA tensor maps
-// and copies, mbarriers, the wgmma bf16 product with its shared-memory
-// descriptors, and the host state kept per device. Included by
-// flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3), cross_attn_nhd.cu
-// (K2) and geglu.cu (K5); build.library_path hashes it with every source,
+// and copies, mbarriers, the wgmma bf16 and int8 products with their
+// shared-memory descriptors, and the host state kept per device. Included
+// by flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3),
+// cross_attn_nhd.cu (K2), geglu.cu (K5), probe_mm.cu (P1) and
+// probe_attn.cu (P2-P4); build.library_path hashes it with every source,
 // so an edit here rebuilds them.
 //
 // Tiles in shared memory are "panels": up to 256 rows of 64 bf16 columns,
@@ -202,6 +203,14 @@ __device__ __forceinline__ uint64_t desc_k(const void* p) { return desc(p, 16, 1
 // with N = 64 the operand is one swizzle atom wide.
 __device__ __forceinline__ uint64_t desc_mn(const void* p) { return desc(p, 1024, 1024); }
 
+// MN-major operand wider than one panel: N = 64 * n columns from n panels
+// `panel_bytes` apart, 16 rows from p (p = first panel + 2048 * step). The
+// leading offset steps from one 64-column swizzle atom to the next, the
+// stride offset from one 8-row group to the next.
+__device__ __forceinline__ uint64_t desc_mn_panels(const void* p, uint32_t panel_bytes) {
+  return desc(p, panel_bytes, 1024);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -220,6 +229,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define SM90_D32(d)                                                                            \
@@ -312,6 +327,74 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
       : SM90_D32(d), SM90_D32((d + 32)), SM90_D32((d + 64)), SM90_D32((d + 96))
       : "l"(a), "l"(b), "r"(accumulate));
 }
+
+// The m64n128k16 and m64n256k16 products with B MN-major (the transpose
+// bit of B set): B is 128 or 256 columns of bf16 in 64-column panels, read
+// through desc_mn_panels. A K-major.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64_LIST
+      ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_D32(d), SM90_D32((d + 32))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[128], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_D128_LIST
+      ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_D32(d), SM90_D32((d + 32)), SM90_D32((d + 64)), SM90_D32((d + 96))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#define SM90_R32(d)                                                                            \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),          \
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),  \
+      "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),            \
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),            \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+
+// d (64 x N int32, the accumulator layout above) (+)= A . B over 32 columns
+// of int8, A and B both K-major in shared memory (the only layout the int8
+// product reads: it has no transpose bit), N = 128 or 256; 32 int8 columns
+// are 32 bytes, so the descriptors step as bf16's 16 columns do.
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64_LIST
+      ", %64, %65, p;\n"
+      "}\n"
+      : SM90_R32(d), SM90_R32((d + 32))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[128], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " SM90_D128_LIST
+      ", %128, %129, p;\n"
+      "}\n"
+      : SM90_R32(d), SM90_R32((d + 32)), SM90_R32((d + 64)), SM90_R32((d + 96))
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef SM90_R32
 
 // Wait until at most N of the warpgroup's committed product groups are
 // still running.
@@ -458,13 +541,14 @@ inline EncodeTiled encode_fn() {
 // batch stride of 0 maps one batch (Map::one_batch). False where
 // cuTensorMapEncodeTiled refuses it (a base or stride that is not a
 // multiple of 16 bytes, a stride of 2^40 bytes or more).
-inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int batch,
-                     long long batch_stride, long long head_stride, long long row_stride,
-                     int box_rows) {
-  // The encoder needs a current context on this thread, and a thread that
-  // has only used PyTorch's allocator (autograd's backward thread) may have
-  // none yet: a runtime call makes the current device's primary context
-  // current, once per thread and device.
+// cuTensorMapEncodeTiled of a 4-D, 128-byte swizzled map (strides in
+// bytes, of dims 1-3). The encoder needs a current context on this thread,
+// and a thread that has only used PyTorch's allocator (autograd's backward
+// thread) may have none yet: a runtime call makes the current device's
+// primary context current, once per thread and device.
+inline bool encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                      const cuuint32_t (&box)[4]) {
   static thread_local uint64_t bound = 0;  // bit per device
   const int dev = current_device();
   if (dev < 0) return false;
@@ -475,6 +559,16 @@ inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int ba
   }
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int batch,
+                     long long batch_stride, long long head_stride, long long row_stride,
+                     int box_rows) {
   m->one_batch = batch_stride == 0;
   if (m->one_batch) batch = 1;
   const bool seq_inner = row_stride < head_stride;
@@ -488,11 +582,23 @@ inline bool make_map(Map* m, const void* base, int d, int heads, int seq, int ba
                                  m->one_batch ? outer * dims[2] : 2 * batch_stride};
   const cuuint32_t box[4] = {(cuuint32_t)kPanelCols, (cuuint32_t)(seq_inner ? box_rows : 1),
                              (cuuint32_t)(seq_inner ? 1 : box_rows), 1u};
-  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
-  return encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_4d(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+// The map of a row-major matrix of `rows` x `cols` elements of `type`,
+// `elem_bytes` each, with a row stride of ld elements (a multiple of 16
+// bytes), in boxes of one 128-byte panel row (128 / elem_bytes columns) by
+// box_rows rows; load and store it at (col, 0, row, 0). False where the
+// encoder refuses it.
+inline bool make_map_rows(Map* m, const void* base, CUtensorMapDataType type, int elem_bytes,
+                          long long cols, long long rows, long long ld, int box_rows) {
+  m->seq_axis = 1;
+  m->one_batch = 0;
+  const cuuint64_t row_bytes = (cuuint64_t)ld * elem_bytes;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * rows, row_bytes * rows};
+  const cuuint32_t box[4] = {(cuuint32_t)(kRowBytes / elem_bytes), (cuuint32_t)box_rows, 1u, 1u};
+  return encode_4d(&m->map, type, base, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -209,26 +209,26 @@ def _check_cuda(q, k, v, head_dim, head_dims):
     _check_layout(q, k, v, head_dim, head_dims)
 
 
-def _check_layout(q, k, v, head_dim, head_dims):
-    """K1's and K3's operands whatever their device: bf16, a supported head
-    dim, packed shapes with 16-byte aligned rows (``_check_operand``), a
-    nonempty k."""
+def _check_layout(q, k, v, head_dim, head_dims, entry="flash_attention_nhd"):
+    """The packed attention kernels' operands whatever their device (K1's
+    and K3's, and the no-max probes', whose ``entry`` names them in the
+    errors): bf16, a supported head dim, packed shapes with 16-byte aligned
+    rows (``_check_operand``), a nonempty k."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(
-            f"flash_attention_nhd: the CUDA kernel takes bf16, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
+            f"{entry}: the CUDA kernel takes bf16, got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     if head_dim not in head_dims:
-        raise ValueError(f"flash_attention_nhd: head_dim {head_dim} not in {head_dims}")
+        raise ValueError(f"{entry}: head_dim {head_dim} not in {head_dims}")
     b, _, hd = q.shape
     if hd % head_dim:
-        raise ValueError(f"flash_attention_nhd: width {hd} is not a multiple of {head_dim}")
+        raise ValueError(f"{entry}: width {hd} is not a multiple of {head_dim}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, b, hd)
+        _check_operand(f"{entry}: {name}", x, b, hd)
     if v.shape[1] != k.shape[1]:
-        raise ValueError(f"k and v lengths differ: {k.shape[1]} vs {v.shape[1]}")
+        raise ValueError(f"{entry}: k and v lengths differ: {k.shape[1]} vs {v.shape[1]}")
     if k.shape[1] == 0:
-        raise ValueError("flash_attention_nhd: k is empty")
+        raise ValueError(f"{entry}: k is empty")
 
 
 _TMA_REFUSED = 12  # cudaErrorInvalidPitchValue: the libraries' code for a refused tensor map

@@ -13,15 +13,17 @@ the kernel ms per step of each class in ``KERNEL_CLASSES``. The kernel
 times come from the profiler's chrome trace (events of category
 ``kernel``). Needs a CUDA card; fails without one.
 
-``kernel_ms`` times any callable the same way; ``chip_smoke.py`` uses it
-to hold a kernel, its plain version and the library call against each
-other in device time.
+``kernel_ms`` times any callable the same way, and ``event_ms`` by its
+CUDA-event median; ``chip_smoke.py`` and the probe tools (``probes/``) use
+them to hold a kernel, its plain version and the library call against
+each other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import tempfile
 import time
 
@@ -89,6 +91,23 @@ def profiled(fn):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         return out, wall_ms, kernel_events(path)
+
+
+def event_ms(fn, reps=20, warmup=3):
+    """Median CUDA-event time of ``fn`` in milliseconds, after ``warmup``
+    calls; unlike ``kernel_ms`` it holds the host's launch work."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
 
 
 def kernel_ms(fn, names=(), reps=5, tries=6):
