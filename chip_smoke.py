@@ -14,8 +14,9 @@ is non-zero:
    under the same two layouts), K2 (the fused text + IP cross-attention,
    cross_attn_wgmma_kernel), K5 (the fused GEGLU projection,
    geglu_wgmma_kernel), P1 (the matmul probe's product, mm_wgmma_kernel)
-   and P2-P4 (the attention probes' no-max attention,
-   attn_nomax_wgmma_kernel) from the sources in the checkout, one nvcc per
+   and P2-P6 (the attention probes' no-max attention and the softmax
+   probes' recipes, attn_nomax_wgmma_kernel) from the sources in the
+   checkout, one nvcc per
    source, in parallel, with what ptxas reports per kernel instance
    (registers, shared memory, spills, and whether it serialized the wgmma
    products; a spill or a serialization fails) and the dynamic shared
@@ -49,7 +50,7 @@ is non-zero:
    on the same inputs (bit-identical or fail), with timings of K3, the
    plain backward and SDPA's backward;
 3f. with two cards or more: K1 (with its lse), K3, K4, K2, K5, P1 (both
-   pairs) and P2 launched on cuda:1 after cuda:0, each against its plain
+   pairs), P2 and P6 v0 launched on cuda:1 after cuda:0, each against its plain
    version (the libraries keep their state per device); with one card, one
    line that says so;
 3g. K5 against its plain version computed in fp32 from the same bf16
@@ -72,6 +73,18 @@ is non-zero:
    and overflow; timed against the plain version, SDPA and K1 (the current
    kernel, online softmax); then the two attention probes
    (``probes/probe_attn_kblock.py``, ``probe_attn_lanegroup.py``) once,
+   their launches counted;
+3j. P5-P6, every softmax recipe through its entry point (``softmax_nomax``'s
+   six (no_max, mxu_sum), ``softmax_tricks``' three variants) against its
+   plain version (max abs <= 2e-2, cosine >= 0.9999: P2's gate, which every
+   recipe meets against the TPU recipe with the row's max although the
+   kernel subtracts a running one) at SDXL's two self-attention shapes, a
+   ragged S and head dims 32 and 128; P6 v2 bit-identical to P5's base,
+   P5's fp32 clamp recipe at P2's clamp (115) bit-identical to P2; the
+   clamp recipes keep the TPU kernel's saturation and overflow at P5's clamp
+   and the max-subtract ones give v; each recipe timed against its plain
+   version, SDPA, K1 and P2 at the same tile; then the two softmax probes
+   (``probes/probe_softmax_nomax.py``, ``probe_softmax_tricks.py``) once,
    their launches counted;
 4. the tiny pipeline on the card (bf16, K1, K5) against the same weights
    on the CPU (fp32, plain versions);
@@ -104,14 +117,15 @@ work (for SDPA's backward, the autograd call). The line before the last is
 a JSON object describing each kernel of the paths: its ``ms``, ``plain_ms``
 and ``library_ms`` (SDPA; for K2 SDPA on the text branch plus SDPA on the
 IP branch; for K5 F.linear alone; for P1 torch.matmul or torch._int_mm;
-for P2-P4 SDPA) are device times, all taken the same way, and
-``event_ms`` holds the three CUDA-event times; P2-P4 also carry
-``current_ms``, K1's time on the same inputs. A shape's ``shape`` is
+for P2-P6 SDPA) are device times, all taken the same way, and
+``event_ms`` holds the three CUDA-event times; P2-P6 also carry
+``current_ms``, K1's time on the same inputs, and P5-P6 ``p2_ms``, P2's
+at the same tile, with one ``by_shape`` row per setting of the entry. A shape's ``shape`` is
 (B, S, H, D), for K2 (B, Sq, H, D, IP keys) with 77 text keys, for K5
 (M, K, inner), for P1 (M, K, N). The probes' launches are those of the
 probe tools' run (``launches_by_path`` "probes"), where K1 (the attention
 tools' current kernel) and K5 (the matmul tool's GEGLU half) are counted
-too; no pipeline launches P1-P4. The last line is {"ok": true, "device": {...}}.
+too; no pipeline launches P1-P6. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -231,6 +245,14 @@ P2_MAX_ABS = 2e-2
 P2_MIN_COSINE = 0.9999
 NOMAX_KERNEL = "attn_nomax_wgmma_kernel"
 
+# P5-P6, (B, S, H, D): SDXL's two self-attention shapes at 1024² (timed), a
+# ragged S, and head dims 32 and 128; each recipe against its plain version
+# under P2's gate (the plain version is the TPU recipe with the row's max,
+# the kernel streams the keys with a running max: its bf16 argument differs
+# from the plain one by a rounding, inside the gate)
+P5_SHAPES = [shape[:4] for shape in P2_SHAPES]
+P5_EDGES = [(2, 333, 4, 64), (1, 300, 2, 32), (2, 200, 2, 128)]
+
 # one H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core rates,
 # HBM rate
 PEAK_FLOPS = 989e12
@@ -301,7 +323,7 @@ def phase_build(fa, ca, kg, pm, pa, build):
             f.result()
         fa._bhsd_entry()  # K4: the second entry point of K1's library
         fa._bhsd_bwd_entry()  # K3 on K4's layout
-        print(f"phase 2 build K1/K4, K3, K2, K5, P1 and P2-P4 (in parallel): "
+        print(f"phase 2 build K1/K4, K3, K2, K5, P1 and P2-P6 (in parallel): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         spilled, serialized = [], []
         for name, f in zip(sources, usage):
@@ -749,22 +771,23 @@ def phase_p1(pm):
     return max_err, times
 
 
-def _probe_main(name, fa, kg, pm, pa):
+def _probe_main(name, fa, kg, pm, pa, ps):
     """Runs the port's probe tool ``name`` once on the card (its main path)
     with every count it can reach set to 0 just before; returns the
-    launches it made: P1's, P2-P4's by entry point, and K1's and K5's (the
+    launches it made: P1's, P2-P6's by entry point, and K1's and K5's (the
     attention tools' "current" kernel, the matmul tool's GEGLU half)."""
     import importlib
 
     tool = importlib.import_module(f"imagharmony_tpu_torch.probes.{name}")
     fa.launches = kg.geglu_launches = pm.launches = 0
-    pa.launches.update(dict.fromkeys(pa.launches, 0))
+    for counts in (pa.launches, ps.launches):
+        counts.update(dict.fromkeys(counts, 0))
     t0 = time.perf_counter()
     tool.main([])
     torch.cuda.synchronize()
-    launched = {"probe_mm": pm.launches, **pa.launches, "flash_attention_nhd": fa.launches,
-                "geglu": kg.geglu_launches}
-    print(f"phase 3h/3i probe {name}: {time.perf_counter() - t0:.1f} s, launches {launched}",
+    launched = {"probe_mm": pm.launches, **pa.launches, **ps.launches,
+                "flash_attention_nhd": fa.launches, "geglu": kg.geglu_launches}
+    print(f"phase 3h-3j probe {name}: {time.perf_counter() - t0:.1f} s, launches {launched}",
           flush=True)
     return launched
 
@@ -851,10 +874,105 @@ def phase_p2(pa, fa):
     return max_err, times
 
 
-def phase_second_device(fa, ca, kg, pm, pa, split_heads):
-    """Each kernel (P1 in both pairs, and P2) on cuda:0 and then on cuda:1 in
-    this process, against its plain version: the libraries' shared-memory
-    attributes, SM counts and thread contexts are kept per device."""
+def _recipe_calls(ps):
+    """P5's and P6's recipes as their entry points run them: {recipe:
+    (entry, its setting, call(q, k, v, scale, head_dim))}; P6 v2 is P5's
+    base recipe, listed once."""
+    calls = {recipe: ("softmax_nomax", f"no_max={no_max} mxu_sum={int(mxu_sum)}",
+                      lambda q, k, v, s, d, n=no_max, m=mxu_sum: ps.softmax_nomax(
+                          q, k, v, s, d, no_max=n, mxu_sum=m))
+             for (no_max, mxu_sum), recipe in ps.NOMAX.items()}
+    for variant, recipe in ps.TRICKS.items():
+        calls.setdefault(recipe, ("softmax_tricks", f"v{variant}", lambda q, k, v, s, d,
+                                  n=variant: ps.softmax_tricks(q, k, v, s, d, n)))
+    return calls
+
+
+@torch.inference_mode()
+def phase_p5(ps, pa, fa):
+    """P5-P6: each recipe against its plain version, P6 v2 bit for bit P5's
+    base, P5's fp32 clamp recipe at P2's clamp bit for bit P2, the clamp's
+    saturation and overflow kept, and each recipe's timings at the SDXL
+    shapes against its plain version, SDPA, K1 (the current kernel) and P2
+    at the same tile, each timed recipe attn_nomax_wgmma_kernel alone."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = _recipe_calls(ps)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    errs, times = dict.fromkeys(calls, 0.0), {}
+    for b, s, h, d in P5_SHAPES + P5_EDGES:
+        q, k, v = torch.randn((b, s, 3 * h * d), generator=gen,
+                              device="cuda").to(torch.bfloat16).chunk(3, dim=-1)
+        scale, label = d**-0.5, f"B={b} S={s} H={h} D={d}"
+        msg = []
+        for recipe, (_, setting, call) in calls.items():
+            out = call(q, k, v, scale, d)
+            torch.cuda.synchronize()
+            ref = ps.softmax_recipe_plain(q.float(), k.float(), v.float(), scale, d,
+                                          recipe=recipe)
+            err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+            msg.append(f"{recipe} ({setting}) max_abs={err:.3e} cosine={cos:.7f}")
+            if not (err <= P2_MAX_ABS and cos >= P2_MIN_COSINE):
+                raise AssertionError(f"{recipe} disagrees with its plain version at {label}")
+            errs[recipe] = max(errs[recipe], err)
+        base = ps.softmax_nomax(q, k, v, scale, d, no_max=False, mxu_sum=False)
+        v2_same = torch.equal(ps.softmax_tricks(q, k, v, scale, d, 2), base)
+        p2 = pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, pa.default_kb(d))
+        clamp, ps.CLAMP = ps.CLAMP, pa.CLAMP
+        try:
+            p2_same = torch.equal(ps.softmax_nomax(q, k, v, scale, d, no_max="fp32",
+                                                   mxu_sum=False), p2)
+        finally:
+            ps.CLAMP = clamp
+        msg.append(f"P6 v2 bit-identical to P5's base {v2_same}, no_max=fp32 at P2's clamp "
+                   f"bit-identical to P2 {p2_same}")
+        print(f"phase 3j {label}: " + ", ".join(msg), flush=True)
+        if not (v2_same and p2_same):
+            raise AssertionError(f"a recipe is not the function it shares at {label}")
+        if (b, s, h, d) not in P5_SHAPES:
+            continue
+        qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
+        t = {"library": _timings({"kernel": lambda: sdpa(qh, kh, vh)})["kernel"],
+             "current": _timings({"kernel": lambda: fa.flash_attention_nhd(
+                 q, k, v, scale=scale, head_dim=d)})["kernel"],
+             "p2": _timings({"kernel": lambda: pa.kblock_attn(
+                 q, k, v, scale, d, pa.DEFAULT_BQ, pa.default_kb(d))})["kernel"]}
+        for recipe, (_, _, call) in calls.items():
+            t[recipe] = _timings({
+                "kernel": lambda: call(q, k, v, scale, d),
+                "plain": lambda: ps.softmax_recipe_plain(q, k, v, scale, d, recipe=recipe),
+            }, (NOMAX_KERNEL,))
+            _alone(t[recipe], NOMAX_KERNEL)
+        bound, by = fwd_bound(b, s, h, d)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        recipes = ", ".join(f"{recipe} {_fmt(t[recipe]['kernel'])} (plain "
+                            f"{_fmt(t[recipe]['plain'])})" for recipe in calls)
+        print(f"phase 3j time {label}, device (CUDA event): {recipes}; SDPA "
+              f"{_fmt(t['library'])}, K1 (current, online softmax) {_fmt(t['current'])}, P2 at "
+              f"the same tile {_fmt(t['p2'])}; bound {bound:.5f} ms ({by})", flush=True)
+
+    # P5's clamp saturates as P2's: 4096 keys at it sum to 2^127.4 or
+    # 2^127.5 (finite), so v = 1 gives 1 and v = 2 overflows to inf; the
+    # max-subtract recipes give 2
+    qc = torch.full((1, 4096, 64), 4.0, device="cuda", dtype=torch.bfloat16)
+    ones = torch.ones_like(qc)
+    kept = {}
+    for recipe, (_, _, call) in calls.items():
+        two = call(qc, qc, 2 * ones, 0.125, 64)
+        kept[recipe] = (torch.equal(call(qc, qc, ones, 0.125, 64), ones)
+                        and bool(torch.isinf(two).all())) if recipe.startswith("clamp") \
+            else torch.equal(two, 2 * ones)
+    print(f"phase 3j saturated logits (1, 4096, 64), the clamp recipes v=1 gives exactly 1 and "
+          f"v=2 inf, the others v=2 gives 2: {kept}", flush=True)
+    if not all(kept.values()):
+        raise AssertionError(f"a recipe does not keep the TPU kernel's saturation: {kept}")
+    return errs, times
+
+
+def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
+    """Each kernel (P1 in both pairs, P2, and P6 v0 of the P5-P6 recipes) on
+    cuda:0 and then on cuda:1 in this process, against its plain version:
+    the libraries' shared-memory attributes, SM counts and thread contexts
+    are kept per device."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"phase 3f second device: skipped, {n} card", flush=True)
@@ -885,6 +1003,7 @@ def phase_second_device(fa, ca, kg, pm, pa, split_heads):
                   for shape in ((300, 144), (144, 208)))
         p1q = pm.probe_mm(xq, wq, out_dtype=torch.int32)
         p2 = pa.kblock_attn(q, k, v, 0.125, 64, 128, 128)
+        p6 = ps.softmax_tricks(q, k, v, 0.125, 64, 0)
         torch.cuda.synchronize(dev)
         f32 = [x.float() for x in (q, k, v, dout)]
         e = {"K1": float((out.float() - fa.flash_attention_nhd_plain(*f32[:3], **kw)).abs().max()),
@@ -905,14 +1024,18 @@ def phase_second_device(fa, ca, kg, pm, pa, split_heads):
         e["P2"] = float((p2.float() - p2_ref).abs().max())
         p2_cos = float(torch.nn.functional.cosine_similarity(
             p2.double().flatten(), p2_ref.double().flatten(), dim=0))
+        p6_ref = ps.softmax_recipe_plain(*f32[:3], 0.125, 64, recipe="norm_first")
+        e["P6"] = float((p6.float() - p6_ref).abs().max())
+        p6_cos = _cosine(p6.float(), p6_ref)
         errs[dev] = e
         print(f"phase 3f {dev}: max_abs K1 {e['K1']:.3e}, K4 {e['K4']:.3e}, K2 {e['K2']:.3e}, "
               f"K3 max_abs / ref max {e['K3']:.3e}, K5 max_abs / ref max {e['K5']:.3e}, "
               f"P1 bf16 max_abs / ref max {e['P1']:.3e}, P1 int8 bit-exact {p1q_exact}, "
-              f"P2 max_abs {e['P2']:.3e} cosine {p2_cos:.6f}", flush=True)
-        if (max(e["K1"], e["K4"], e["K2"], e["P2"]) > K1_MAX_ABS or e["K3"] > K3_MAX_REL
-                or e["K5"] > K5_MAX_REL or e["P1"] > P1_MAX_REL or not p1q_exact
-                or not p2_cos >= K1_MIN_COSINE):
+              f"P2 max_abs {e['P2']:.3e} cosine {p2_cos:.6f}, P6 v0 max_abs {e['P6']:.3e} "
+              f"cosine {p6_cos:.6f}", flush=True)
+        if (max(e["K1"], e["K4"], e["K2"], e["P2"], e["P6"]) > K1_MAX_ABS
+                or e["K3"] > K3_MAX_REL or e["K5"] > K5_MAX_REL or e["P1"] > P1_MAX_REL
+                or not p1q_exact or not min(p2_cos, p6_cos) >= K1_MIN_COSINE):
             raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
 
 
@@ -1282,6 +1405,7 @@ def main():
     from imagharmony_tpu_torch.kernels import geglu as kg
     from imagharmony_tpu_torch.kernels import probe_attention as pa
     from imagharmony_tpu_torch.kernels import probe_matmul as pm
+    from imagharmony_tpu_torch.kernels import probe_softmax as ps
     from imagharmony_tpu_torch.models import unet as punet
     from imagharmony_tpu_torch.nn.attention import split_heads
     from imagharmony_tpu_torch.pipelines import components as comp
@@ -1298,17 +1422,19 @@ def main():
     k3b_err, k3b_times = phase_k3_bhsd(fa, split_heads)
     k5_err, k5_times = phase_k5(kg)
     p1_err, p1_times = phase_p1(pm)
-    probes = _probe_main("probe_pallas_matmul", fa, kg, pm, pa)
+    probes = _probe_main("probe_pallas_matmul", fa, kg, pm, pa, ps)
     p2_err, p2_times = phase_p2(pa, fa)
-    for tool in ("probe_attn_kblock", "probe_attn_lanegroup"):
-        got = _probe_main(tool, fa, kg, pm, pa)
+    p5_errs, p5_times = phase_p5(ps, pa, fa)
+    for tool in ("probe_attn_kblock", "probe_attn_lanegroup", "probe_softmax_nomax",
+                 "probe_softmax_tricks"):
+        got = _probe_main(tool, fa, kg, pm, pa, ps)
         probes = {k: probes[k] + got[k] for k in probes}
     missing = [k for k, n in probes.items() if not n]
     if missing:
         raise AssertionError(f"a kernel was not launched on the probes' path: {missing} "
                              f"of {probes}")
     p1_launches = probes["probe_mm"]
-    phase_second_device(fa, ca, kg, pm, pa, split_heads)
+    phase_second_device(fa, ca, kg, pm, pa, ps, split_heads)
     phase_tiny(fa, kg, HarmonyPipeline)
     launches, k2_launches, k5_launches = phase_full(fa, ca, kg, HarmonyPipeline)
     phase_train_tiny(fa, kg, comp, step_lib)
@@ -1326,6 +1452,16 @@ def main():
     def nomax_times(entry, t):  # P3 and P4 share P2's plain version and SDPA
         merged = dict(t["kblock_attn"], kernel=t[entry]["kernel"])
         return {"current_ms": t["current"][0], **_line_times(merged, t["bound"])}
+
+    def recipe_times(recipe, t):  # a P5-P6 recipe with SDPA, K1 and P2 on its inputs
+        merged = dict(t[recipe], library=t["library"])
+        return {"current_ms": t["current"][0], "p2_ms": t["p2"][0],
+                **_line_times(merged, t["bound"])}
+
+    # each entry's settings -> recipe; the first is the entry's headline
+    settings = {"softmax_nomax": {f"no_max={n} mxu_sum={int(m)}": recipe
+                                  for (n, m), recipe in ps.NOMAX.items()},
+                "softmax_tricks": {f"v{v}": recipe for v, recipe in ps.TRICKS.items()}}
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_nhd",
@@ -1428,7 +1564,24 @@ def main():
         ("kblock_attn", "tools/probe_attn_kblock.py:33"),
         ("batchpack_attn", "tools/probe_attn_kblock.py:89"),
         ("nhd_with_g", "tools/probe_attn_lanegroup.py:34 (its pallas_call of "
-                       "imagharmony_tpu/kernels/flash_attention.py:415)"))]}), flush=True)
+                       "imagharmony_tpu/kernels/flash_attention.py:415)"))] + [{
+        "name": entry,
+        "route": "cuda",
+        "source": "imagharmony_tpu_torch/kernels/csrc/probe_attn.cu",
+        "replaces": replaces,
+        "launches": probes[entry],
+        "launches_by_path": {"probes": probes[entry]},
+        "max_abs_err": max(p5_errs[recipe] for recipe in settings[entry].values()),
+        "shape": list(P5_SHAPES[0]),
+        "setting": next(iter(settings[entry])),
+        **recipe_times(next(iter(settings[entry].values())), p5_times[P5_SHAPES[0]]),
+        "by_shape": [{"shape": list(shape), "setting": setting, "recipe": recipe,
+                      **recipe_times(recipe, t)}
+                     for shape, t in p5_times.items()
+                     for setting, recipe in settings[entry].items()],
+    } for entry, replaces in (("softmax_nomax", "tools/probe_softmax_nomax.py:32"),
+                              ("softmax_tricks", "tools/probe_softmax_tricks.py:41"))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 // shared-memory descriptors, and the host state kept per device. Included
 // by flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3),
 // cross_attn_nhd.cu (K2), geglu.cu (K5), probe_mm.cu (P1) and
-// probe_attn.cu (P2-P4); build.library_path hashes it with every source,
+// probe_attn.cu (P2-P6); build.library_path hashes it with every source,
 // so an edit here rebuilds them.
 //
 // Tiles in shared memory are "panels": up to 256 rows of 64 bf16 columns,
@@ -415,6 +415,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : SM90_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 8 fp32: d[i] = element (16 (t / 32) + (t % 32) / 4 + 8 (i / 2),
+// 2 (t % 4) + i % 2)) += A . B over 16 rows of B, A from registers as for
+// wgmma_rs, B K-major in shared memory (desc_k over 8 rows): the attention
+// probe's ones column, whose product with the probabilities is the row sum.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -106,7 +106,7 @@ def _entry():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr] * 4 + [i32] * 10 + [i64] * 6 + [ctypes.c_float, ptr]
+    fn.argtypes = [ptr] * 4 + [i32] * 10 + [i64] * 6 + [i32] + [ctypes.c_float] * 3 + [ptr]
     fn.restype = i32
     return fn
 
@@ -137,6 +137,20 @@ def _run(name, q, k, v, scale, head_dim, *, bq, kb, kv_len=None, g=None, batch_r
     _check_tiles(name, q, head_dim, bq, kb, head_dim if g is None else g, kv_len, sk)
     if fa._on_cpu(q, k, v):
         return nomax_attn_plain(q, k, v, scale, head_dim, kv_len=kv_len, kb=kb)
+    return launch(name, launches, q, k, v, head_dim, bq=bq, kb=kb, kv_len=kv_len,
+                  heads_per_cta=1 if g is None else g // head_dim, batch_rows=batch_rows,
+                  scale_q=float(scale) * fa._LOG2E)
+
+
+def launch(name, counts, q, k, v, head_dim, *, bq, kb, kv_len, scale_q, heads_per_cta=1,
+           batch_rows=1, recipe=0, scale_s=0.0, clamp=CLAMP):
+    """One launch of ``attn_nomax_wgmma_kernel`` on CUDA tensors, the tiles
+    checked already: the operands' device and layout checked, the output
+    allocated, ``counts[name]`` raised by one once the kernel is launched.
+    ``recipe``: the kernel's softmax recipe (0, P2-P4's, by default;
+    ``probe_softmax.RECIPES`` names the others), with ``scale_q`` multiplying
+    q, ``scale_s`` the logits and ``clamp`` bounding the exp2 argument where
+    the recipe reads them."""
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v must all be on one CUDA device or all on the CPU, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -149,13 +163,13 @@ def _run(name, q, k, v, scale, head_dim, *, bq, kb, kv_len=None, g=None, batch_r
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, kv_len, hd // head_dim, head_dim, bq // 64, kb,
-            1 if g is None else g // head_dim, b if batch_rows is None else batch_rows,
+            b, sq, k.shape[1], kv_len, hd // head_dim, head_dim, bq // 64, kb,
+            heads_per_cta, b if batch_rows is None else batch_rows,
             q.stride(1), k.stride(1), v.stride(1), q.stride(0), k.stride(0), v.stride(0),
-            float(scale) * fa._LOG2E, stream,
+            recipe, scale_q, scale_s, clamp, stream,
         )
     fa._check_rc(name, rc)
-    launches[name] += 1
+    counts[name] += 1
     return out
 
 

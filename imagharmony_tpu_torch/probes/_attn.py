@@ -1,5 +1,5 @@
-"""What the two attention probes share: the shapes, the inputs, the
-current kernel's line and one timed line of a probe kernel."""
+"""What the attention and softmax probes share: the shapes, the inputs,
+the current kernel's line and one timed line of a probe kernel."""
 
 from __future__ import annotations
 
@@ -49,13 +49,15 @@ def current(q, k, v, label, dev):
     return out
 
 
-def run(tag, fn, base, dev, first=None):
+def run(tag, fn, base, dev, first=None, diff_name="maxdiff"):
     """Runs ``fn`` once, then times it; prints its line with the largest
-    difference from ``base`` (K1's output) and, given, from ``first``."""
+    difference from ``base`` (K1's output, or what the probe names
+    ``diff_name``) and, given, from ``first``."""
     out = fn()
     diff = float((out.float() - base.float()).abs().max())
     extra = "" if first is None else \
         f" maxdiff vs first={float((out.float() - first.float()).abs().max()):.1e}"
     t = _bench.timed(fn, dev)
-    print(f"  {tag}: {_bench.fmt(t, _flops(base), 'FLOP')} maxdiff={diff:.1e}{extra}", flush=True)
+    print(f"  {tag}: {_bench.fmt(t, _flops(base), 'FLOP')} {diff_name}={diff:.2e}{extra}",
+          flush=True)
     return {"tag": tag, "shape": tuple(base.shape), "time": t, "maxdiff": diff, "out": out}
