@@ -13,14 +13,15 @@ is non-zero:
    under the packed and the head-split entry point), K3 (their backward,
    under the same two layouts), K2 (the fused text + IP cross-attention,
    cross_attn_wgmma_kernel), K5 (the fused GEGLU projection,
-   geglu_wgmma_kernel), P1 (the matmul probe's product, mm_wgmma_kernel)
-   and P2-P6 (the attention probes' no-max attention and the softmax
-   probes' recipes, attn_nomax_wgmma_kernel) from the sources in the
-   checkout, one nvcc per
+   geglu_wgmma_kernel), P1 (the matmul probe's product, mm_wgmma_kernel;
+   K5 and P1 on the GEMM mainloop of csrc/sm90_gemm.cuh) and P2-P6 (the
+   attention probes' no-max attention and the softmax probes' recipes,
+   attn_nomax_wgmma_kernel) from the sources in the checkout, one nvcc per
    source, in parallel, with what ptxas reports per kernel instance
-   (registers, shared memory, spills, and whether it serialized the wgmma
-   products; a spill or a serialization fails) and the dynamic shared
-   memory K3's launches ask for;
+   (registers, shared memory, spills, whether it serialized the wgmma
+   products, whether it ignored setmaxnreg; a spill, a serialization or an
+   ignored setmaxnreg fails) and the dynamic shared memory K3's launches
+   ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes (one of them B=2, S=1000: a
@@ -50,20 +51,26 @@ is non-zero:
    on the same inputs (bit-identical or fail), with timings of K3, the
    plain backward and SDPA's backward;
 3f. with two cards or more: K1 (with its lse), K3, K4, K2, K5, P1 (both
-   pairs), P2 and P6 v0 launched on cuda:1 after cuda:0, each against its plain
+   pairs, and bf16 with tiles split along K), P2 and P6 v0 launched on
+   cuda:1 after cuda:0, each against its plain
    version (the libraries keep their state per device); with one card, one
    line that says so;
 3g. K5 against its plain version computed in fp32 from the same bf16
    inputs, with each gelu (tanh, erf, none), at the UNet feed-forward
-   shapes of both families and of training (with the bias) and at a ragged
-   M, K and inner, with timings of K5, the plain version (cuBLAS GEMM,
-   gelu, multiply), F.linear alone (the GEMM it replaces, the yardstick)
-   and K5 with no gelu (what the epilogue costs) at the six inference
-   shapes;
+   shapes of both families and of training (with the bias), at ragged
+   M, K and inner (one with more tiles than SMs, so a CTA walks several)
+   and at a long K whose tiles are split along K,
+   two calls on the same inputs bit-identical, with each timed shape's
+   schedule (work units, CTAs, the K split) and timings of K5, the plain
+   version (cuBLAS GEMM, gelu, multiply), F.linear alone (the GEMM it
+   replaces, the yardstick) and K5 with no gelu (what the epilogue costs)
+   at the six inference shapes;
 3h. P1 against its plain version at the matmul probe's four SDXL shapes
-   and a ragged M, K and N, bf16 (cosine >= 0.9999, max abs <= 1e-2 of the
-   reference's max) and int8 (bit-exact), timed against torch.matmul and
-   torch._int_mm; then the port's matmul probe
+   and ragged M, K and N (one with more tiles than SMs), bf16 (cosine >=
+   0.9999, max abs <= 1e-2 of the reference's max) and int8 (bit-exact),
+   two calls on the same inputs bit-identical, with each timed shape's
+   schedule, timed against torch.matmul and torch._int_mm; then the port's
+   matmul probe
    (``probes/probe_pallas_matmul.py``, P1's path) once, its P1 launches
    counted;
 3i. P2-P4 against their plain version (max abs <= 2e-2, cosine >= 0.9999)
@@ -146,6 +153,7 @@ import numpy as np
 import torch
 
 from imagharmony_tpu_torch.utils import profiling
+from imagharmony_tpu_torch.utils.gemm_ab import K5_SHAPES, P1_SHAPES
 
 # K1 against its plain version: bf16 kernel vs fp32 reference on the same
 # bf16 inputs. Tolerances: one bf16 rounding of P and of the output, well
@@ -209,25 +217,28 @@ TRAIN_STEPS = 4
 # the device kernel behind K1's and K4's entry points
 FWD_KERNEL = "attn_fwd_wgmma_kernel"
 
-# K5, (M, K, inner): the GEGLU projection of every UNet feed-forward (one
-# per transformer block, as many as self-attentions), rows M = B*S. Timed:
-# SDXL at 1024² with the CFG pair (10 at 64², 60 at 32² per UNet call), then
-# SD1.5 at 512² (5, 5, 5 and 1 per UNet call); checked also: training at
-# 512², batch 1 (10 and 60 per forward), and a ragged M, K and inner
-K5_SHAPES = [(8192, 640, 2560), (2048, 1280, 5120), (8192, 320, 1280), (2048, 640, 2560),
-             (512, 1280, 5120), (128, 1280, 5120)]
-K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456)]
+# K5, (M, K, inner): timed at gemm_ab.K5_SHAPES, the SDXL and SD1.5
+# inference shapes; checked also: training at 512², batch 1 (10 and 60 per
+# forward), ragged M, K and inner (the second with more tiles than SMs), and
+# K5_SPLIT, a long K whose tiles the tanh and no-gelu forms split along K
+# (the erf form keeps 64-column tiles whole there)
+K5_SPLIT = (2048, 5120, 1280)
+K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456), (4000, 200, 4104),
+            K5_SPLIT]
 # K5 against the fp32 plain version on the same bf16 inputs: the bf16
 # rounding of the output (2^-9 of its magnitude) and K5's tanh.approx
 K5_MAX_REL = 1e-2  # of the reference's max-abs
 K5_MIN_COSINE = 0.9999
 GEGLU_KERNEL = "geglu_wgmma_kernel"
 
-# P1, (M, K, N): the matmul probe's SDXL feed-forward products (timed, in
-# both pairs), then a ragged M, K and N for each pair (int8 rows are whole
-# 16-byte units, so its N is a multiple of 16)
-P1_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (8192, 2560, 640), (2048, 5120, 1280)]
-P1_EDGES = {"bf16": (300, 144, 200), "int8": (300, 144, 208)}
+# P1, (M, K, N): timed at gemm_ab.P1_SHAPES, the matmul probe's SDXL
+# feed-forward products, in both pairs, of which P1_SPLIT's tiles are split
+# along K; then ragged M, K and N for each pair (int8 rows are whole 16-byte
+# units, so its K and N are multiples of 16), the last with more tiles than
+# SMs
+P1_SPLIT = (2048, 5120, 1280)
+P1_EDGES = [("bf16", (300, 144, 200)), ("int8", (300, 144, 208)), ("bf16", (4000, 208, 4112)),
+            ("int8", (4000, 208, 4112))]
 # P1 bf16 against the fp32 product of the same bf16 inputs: the bf16
 # rounding of the output; int8 is exact
 P1_MAX_REL = 1e-2  # of the reference's max-abs
@@ -325,14 +336,16 @@ def phase_build(fa, ca, kg, pm, pa, build):
         fa._bhsd_bwd_entry()  # K3 on K4's layout
         print(f"phase 2 build K1/K4, K3, K2, K5, P1 and P2-P6 (in parallel): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        spilled, serialized = [], []
+        spilled, serialized, ignored = [], [], []
         for name, f in zip(sources, usage):
             for kernel, u in sorted(f.result().items()):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
                       f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled, wgmma "
-                      f"serialized {u['wgmma_serialized']}", flush=True)
+                      f"serialized {u['wgmma_serialized']}, setmaxnreg ignored "
+                      f"{u.get('setmaxnreg_ignored', False)}", flush=True)
                 spilled += [kernel] if u["spill_bytes"] else []
                 serialized += [kernel] if u["wgmma_serialized"] else []
+                ignored += [kernel] if u.get("setmaxnreg_ignored") else []
     for d in fa.BWD_HEAD_DIMS:
         dyn = fa.bwd_smem_bytes(d)
         print(f"phase 2 K3 d={d}: dynamic shared memory per launch "
@@ -342,6 +355,10 @@ def phase_build(fa, ca, kg, pm, pa, build):
     if serialized:
         # ptxas made the products wait for each other (C7515): right, but slow
         raise AssertionError(f"ptxas serialized the wgmma products of: {serialized}")
+    if ignored:
+        # the producer keeps its registers and the consumers get none more:
+        # right, but the accumulators spill or the design's point is lost
+        raise AssertionError(f"ptxas ignored setmaxnreg in: {ignored}")
 
 
 def _bound(flops, nbytes, peak_ops=PEAK_FLOPS):
@@ -669,6 +686,16 @@ def phase_k3_bhsd(fa, split_heads):
     return max_err, times
 
 
+def _sched(s):
+    """A K5 or P1 schedule (``gemm.describe``) in one phrase."""
+    split = (f"{s['split_tiles']} split into {s['chunks']} K chunks "
+             f"({s['workspace_bytes'] / 2**20:.1f} MiB of partials)"
+             if s["split_tiles"] else "none split")
+    return (f"schedule: {s['units']} work units on {s['grid']} CTAs, tiles 128x{s['bn']} "
+            f"({s['tiles_m']}x{s['tiles_n']}, {s['k_panels']} K panels), {s['whole_tiles']} "
+            f"whole, {split}")
+
+
 def _alone(t, name):
     """Fails unless the timed kernel call launched ``name`` alone."""
     if t["per_kernel"][name] != t["kernel"][0]:
@@ -690,14 +717,21 @@ def phase_k5(kg):
         msg, ok = [], True
         for gelu in kg.GELUS:
             out = kg.geglu(x, w, b, gelu=gelu)
+            again = kg.geglu(x, w, b, gelu=gelu)
             torch.cuda.synchronize()
             ref = kg.geglu_plain(x.float(), w.float(), b.float(), gelu=gelu)
             err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
             ref_max = float(ref.abs().max())
-            msg.append(f"{gelu} max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f}")
-            ok = ok and err <= K5_MAX_REL * ref_max and cos >= K5_MIN_COSINE
+            same = torch.equal(out, again)
+            msg.append(f"{gelu} max_abs={err:.3e} (ref max {ref_max:.3e}) cosine={cos:.7f} "
+                       f"bit-identical {same}")
+            ok = ok and err <= K5_MAX_REL * ref_max and cos >= K5_MIN_COSINE and same
             max_err = max(max_err, err)
-        print(f"phase 3g K5 M={m} K={k} inner={inner}: " + ", ".join(msg), flush=True)
+        sched = kg.plan(x, w, gelu="tanh")
+        print(f"phase 3g K5 M={m} K={k} inner={inner}: " + ", ".join(msg) + "; " + _sched(sched),
+              flush=True)
+        if (m, k, inner) == K5_SPLIT and not sched["split_tiles"]:
+            raise AssertionError(f"K5 split no tile along K at {K5_SPLIT}: {sched}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at M={m} K={k} "
                                  f"inner={inner}")
@@ -712,7 +746,7 @@ def phase_k5(kg):
         }, (GEGLU_KERNEL,))
         _alone(t, GEGLU_KERNEL)
         bound, by = geglu_bound(m, k, inner)
-        times[(m, k, inner)] = dict(t, bound=(bound, by))
+        times[(m, k, inner)] = dict(t, bound=(bound, by), schedule=sched)
         print(f"phase 3g time M={m} K={k} inner={inner}, device (CUDA event): K5 "
               f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, F.linear alone "
               f"{_fmt(t['library'])}, K5 with no gelu {_fmt(t['no_gelu'])}; bound "
@@ -728,7 +762,7 @@ def phase_p1(pm):
     gen = torch.Generator(device="cuda").manual_seed(8)
     max_err, times = 0.0, {}
     cases = [(pair, shape) for shape in P1_SHAPES for pair in ("bf16", "int8")]
-    for pair, shape in cases + list(P1_EDGES.items()):
+    for pair, shape in cases + P1_EDGES:
         m, k, n = shape
         if pair == "bf16":
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
@@ -750,7 +784,13 @@ def phase_p1(pm):
             torch.cuda.synchronize()
             ok = torch.equal(out, pm.probe_mm_plain(x, w, out_dtype=out_dtype))
             msg = f"bit-exact {ok}"
-        print(f"phase 3h P1 {pair} M={m} K={k} N={n}: {msg}", flush=True)
+        same = torch.equal(out, pm.probe_mm(x, w, out_dtype=out_dtype))
+        ok = ok and same
+        sched = pm.plan(x, w, out_dtype=out_dtype)
+        print(f"phase 3h P1 {pair} M={m} K={k} N={n}: {msg}, bit-identical {same}; "
+              f"{_sched(sched)}", flush=True)
+        if shape == P1_SPLIT and not sched["split_tiles"]:
+            raise AssertionError(f"P1 {pair} split no tile along K at {P1_SPLIT}: {sched}")
         if not ok:
             raise AssertionError(f"P1 {pair} disagrees with its plain version at {shape}")
         if shape not in P1_SHAPES:
@@ -763,7 +803,7 @@ def phase_p1(pm):
         }, (MM_KERNEL,))
         _alone(t, MM_KERNEL)
         bound, by = mm_bound(m, k, n, pair)
-        times[(pair, shape)] = dict(t, bound=(bound, by))
+        times[(pair, shape)] = dict(t, bound=(bound, by), schedule=sched)
         lib = "torch.matmul" if pair == "bf16" else "torch._int_mm"
         print(f"phase 3h time {pair} M={m} K={k} N={n}, device (CUDA event): P1 "
               f"{_fmt(t['kernel'])}, plain {_fmt(t['plain'])}, {lib} {_fmt(t['library'])}; "
@@ -969,10 +1009,10 @@ def phase_p5(ps, pa, fa):
 
 
 def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
-    """Each kernel (P1 in both pairs, P2, and P6 v0 of the P5-P6 recipes) on
-    cuda:0 and then on cuda:1 in this process, against its plain version:
-    the libraries' shared-memory attributes, SM counts and thread contexts
-    are kept per device."""
+    """Each kernel (P1 in both pairs and split along K, P2, and P6 v0 of the
+    P5-P6 recipes) on cuda:0 and then on cuda:1 in this process, against
+    its plain version: the libraries' shared-memory attributes, SM counts,
+    thread contexts and K5's and P1's tile counters are kept per device."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"phase 3f second device: skipped, {n} card", flush=True)
@@ -999,6 +1039,10 @@ def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
         k5 = kg.geglu(gx, gw, gb, gelu="tanh")
         mx, mw = rnd(300, 144), rnd(144, 200)
         p1 = pm.probe_mm(mx, mw, out_dtype=torch.bfloat16)
+        sx, sw = rnd(*P1_SPLIT[:2]), rnd(*P1_SPLIT[1:])  # split along K: per-device counters
+        if not pm.plan(sx, sw, out_dtype=torch.bfloat16)["split_tiles"]:
+            raise AssertionError(f"P1 split no tile along K at {P1_SPLIT} on {dev}")
+        p1s = pm.probe_mm(sx, sw, out_dtype=torch.bfloat16)
         xq, wq = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
                   for shape in ((300, 144), (144, 208)))
         p1q = pm.probe_mm(xq, wq, out_dtype=torch.int32)
@@ -1019,6 +1063,8 @@ def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
         e["K5"] = float((k5.float() - k5_ref).abs().max()) / float(k5_ref.abs().max())
         p1_ref = pm.probe_mm_plain(mx, mw, out_dtype=torch.float32)
         e["P1"] = float((p1.float() - p1_ref).abs().max()) / float(p1_ref.abs().max())
+        p1s_ref = pm.probe_mm_plain(sx, sw, out_dtype=torch.float32)
+        e["P1 split"] = float((p1s.float() - p1s_ref).abs().max()) / float(p1s_ref.abs().max())
         p1q_exact = torch.equal(p1q, pm.probe_mm_plain(xq, wq, out_dtype=torch.int32))
         p2_ref = pa.nomax_attn_plain(*f32[:3], 0.125, 64, kb=128)
         e["P2"] = float((p2.float() - p2_ref).abs().max())
@@ -1030,11 +1076,13 @@ def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
         errs[dev] = e
         print(f"phase 3f {dev}: max_abs K1 {e['K1']:.3e}, K4 {e['K4']:.3e}, K2 {e['K2']:.3e}, "
               f"K3 max_abs / ref max {e['K3']:.3e}, K5 max_abs / ref max {e['K5']:.3e}, "
-              f"P1 bf16 max_abs / ref max {e['P1']:.3e}, P1 int8 bit-exact {p1q_exact}, "
+              f"P1 bf16 max_abs / ref max {e['P1']:.3e} (split along K {e['P1 split']:.3e}), "
+              f"P1 int8 bit-exact {p1q_exact}, "
               f"P2 max_abs {e['P2']:.3e} cosine {p2_cos:.6f}, P6 v0 max_abs {e['P6']:.3e} "
               f"cosine {p6_cos:.6f}", flush=True)
         if (max(e["K1"], e["K4"], e["K2"], e["P2"], e["P6"]) > K1_MAX_ABS
-                or e["K3"] > K3_MAX_REL or e["K5"] > K5_MAX_REL or e["P1"] > P1_MAX_REL
+                or e["K3"] > K3_MAX_REL or e["K5"] > K5_MAX_REL
+                or max(e["P1"], e["P1 split"]) > P1_MAX_REL
                 or not p1q_exact or not min(p2_cos, p6_cos) >= K1_MIN_COSINE):
             raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
 
@@ -1531,7 +1579,8 @@ def main():
         **_line_times(k5, k5["bound"]),
         "no_gelu_ms": k5["no_gelu"][0],
         "by_shape": [{"shape": list(shape), "no_gelu_ms": t["no_gelu"][0],
-                      **_line_times(t, t["bound"])} for shape, t in k5_times.items()],
+                      "schedule": t["schedule"], **_line_times(t, t["bound"])}
+                     for shape, t in k5_times.items()],
     }, {
         "name": "probe_mm",
         "route": "cuda",
@@ -1543,8 +1592,8 @@ def main():
         "shape": list(P1_SHAPES[0]),
         "dtype": "bf16",
         **_line_times(p1, p1["bound"]),
-        "by_shape": [{"shape": list(shape), "dtype": pair, **_line_times(t, t["bound"])}
-                     for (pair, shape), t in p1_times.items()],
+        "by_shape": [{"shape": list(shape), "dtype": pair, "schedule": t["schedule"],
+                      **_line_times(t, t["bound"])} for (pair, shape), t in p1_times.items()],
     }] + [{
         "name": entry,
         "route": "cuda",

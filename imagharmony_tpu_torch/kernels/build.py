@@ -81,10 +81,14 @@ def resource_usage(name: str) -> dict:
     """What ptxas reports for each kernel of ``csrc/<name>.cu``, from a
     compile with ``-Xptxas -v`` whose object file is thrown away:
     {kernel name with its template arguments: {"registers", "smem_bytes",
-    "spill_bytes", "wgmma_serialized"}}. The last is ptxas's C7515 notice:
-    it made the kernel's wgmma products wait for each other (for instance
-    because other instructions write their accumulator inside the
-    pipeline), which costs speed, not correctness."""
+    "spill_bytes", "wgmma_serialized"}}, and "setmaxnreg_ignored": True for
+    a kernel whose setmaxnreg ptxas dropped. "wgmma_serialized" is ptxas's
+    C7515 notice: it made the kernel's wgmma products wait for each other
+    (for instance because other instructions write their accumulator
+    inside the pipeline). "setmaxnreg_ignored" is its warning that it
+    could not tell a warpgroup's register count (a warning that names no
+    function counts against every kernel of the source). Both cost speed,
+    not correctness."""
     flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "out.o"),
@@ -102,6 +106,10 @@ def resource_usage(name: str) -> dict:
         return found[0] if found else fn.strip()
 
     serialized = {short(m[1]) for m in re.finditer(r"\(C7515\)[^\n]*function '([^']+)'", text)}
+    ignored = [line for line in text.splitlines()
+               if "setmaxnreg" in line and "ignored" in line]
+    ignored_fns = {short(m[1]) for line in ignored for m in re.finditer(r"'([^']+)'", line)}
+    ignored_all = bool(ignored) and not ignored_fns  # a warning that names no function
     usage = {}
     pattern = re.compile(
         r"Function properties for (?P<fn>.+)\n.*?(?P<store>\d+) bytes spill stores, "
@@ -112,4 +120,6 @@ def resource_usage(name: str) -> dict:
         usage[name] = {"registers": int(m["regs"]), "smem_bytes": int(m["smem"] or 0),
                        "spill_bytes": int(m["store"]) + int(m["load"]),
                        "wgmma_serialized": name in serialized}
+        if ignored_all or name in ignored_fns:
+            usage[name]["setmaxnreg_ignored"] = True
     return usage

@@ -1,10 +1,12 @@
 // What the Hopper (sm_90a) kernels of this directory share: TMA tensor maps
 // and copies, mbarriers, the wgmma bf16 and int8 products with their
-// shared-memory descriptors, and the host state kept per device. Included
-// by flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3),
-// cross_attn_nhd.cu (K2), geglu.cu (K5), probe_mm.cu (P1) and
-// probe_attn.cu (P2-P6); build.library_path hashes it with every source,
-// so an edit here rebuilds them.
+// shared-memory descriptors, register moves between warpgroups
+// (setmaxnreg), and the host state kept per device. Included by
+// flash_attn_nhd.cu (K1, K4), flash_attn_nhd_bwd.cu (K3),
+// cross_attn_nhd.cu (K2), probe_attn.cu (P2-P6) and, through the GEMM
+// mainloop of sm90_gemm.cuh, geglu.cu (K5) and probe_mm.cu (P1);
+// build.library_path hashes it with every source, so an edit here rebuilds
+// them.
 //
 // Tiles in shared memory are "panels": up to 256 rows of 64 bf16 columns,
 // 128 bytes a row, laid out as TMA writes them under
@@ -109,6 +111,25 @@ __device__ __forceinline__ void fence_async_shared() {
 // A barrier among `threads` threads only (id 0 is __syncthreads').
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- registers per warpgroup -----------------------------------------------
+//
+// A warp-specialized block moves registers from its producer warpgroup to
+// its consumers: every warp of a warpgroup runs the same one of these
+// (.sync.aligned), N a multiple of 8 in [24, 256]. ptxas honours them only
+// where it knows the count at entry (the block's __launch_bounds__) and the
+// roles' paths never meet again; otherwise it ignores them with a warning
+// ("setmaxnreg ignored"), which build.resource_usage reports.
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // ---- TMA ---------------------------------------------------------------------

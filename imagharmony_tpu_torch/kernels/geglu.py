@@ -27,9 +27,20 @@ backward is plain on either device: the counterpart of JAX's autodiff of
 
 What bounds K5 on an H100: operations (at SDXL's (8192, 640, 2560) 53.7
 GFLOP, 0.054 ms at 989 TFLOP/s, against 59 MB of x, W and the output,
-0.018 ms at 3.35 TB/s). Like the attention kernels it reads its operands
-with TMA, which takes base addresses and row strides that are multiples of
-16 bytes: checked here before any launch.
+0.018 ms at 3.35 TB/s). The kernel runs the GEMM mainloop it shares with
+P1 (``csrc/sm90_gemm.cuh``): persistent CTAs with a producer warp, and the
+K loop split across CTAs where whole tiles would leave the card's last
+wave part empty and K is long enough to pay for the split; a split tile's
+[h | g] partials are summed in fp32 before the epilogue. No shape of the
+pipelines is cut so: their K is 320-1280 (5-20 panels), too short to pay
+for a split's partial stores and sum, and the small-M shapes (SD1.5's
+(512, 1280, 5120), the mid block's (128, 1280, 5120)) take 64-column
+whole tiles instead. The split runs where K is long, as at (2048, 5120,
+1280) with the tanh or no gelu. A split launch takes its partials' workspace from torch's
+allocator here and the tile counters of ``kernels/gemm.py``; ``plan`` says
+how a shape is cut. Like the attention kernels it reads its operands with
+TMA, which takes base addresses and row strides that are multiples of 16
+bytes: checked here before any launch.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch.nn.functional as F
 
 from imagharmony_tpu_torch.kernels import build
 from imagharmony_tpu_torch.kernels import flash_attention as fa
+from imagharmony_tpu_torch.kernels import gemm
 
 # K5 launches since the last reset; only the CUDA launches add to it.
 geglu_launches = 0
@@ -84,9 +96,34 @@ def _entry():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32, ptr]
+    fn.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32] + [ptr] * 3
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index, m, k, inner, gelu):
+    """(workspace bytes, the schedule's fields) of K5 at this shape and
+    gelu on that device (its SM count sets the grid)."""
+    import ctypes
+
+    fn = build.load("geglu").geglu_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_longlong
+    info = (ctypes.c_longlong * len(gemm.FIELDS))()
+    with torch.cuda.device(device_index):
+        nbytes = fn(m, k, inner, GELUS[gelu], info)
+    if nbytes < 0:
+        raise ValueError(f"geglu: no schedule at ({m}, {k}, {inner}) with gelu {gelu!r}")
+    return nbytes, tuple(info)
+
+
+def plan(x, weight, *, gelu):
+    """How K5 cuts the projection of these CUDA tensors with this gelu:
+    ``gemm.describe``'s dict (tile columns, tiles, K panels, CTAs, whole and
+    split tiles, chunks a split tile, work units, the split's workspace)."""
+    k, inner = weight.shape[1], weight.shape[0] // 2
+    return gemm.describe(*_plan(x.device.index, x.numel() // k, k, inner, gelu))
 
 
 def _check_cuda(x, weight, bias, gelu):
@@ -140,11 +177,15 @@ def _launch(x, weight, bias, *, gelu):
     out = torch.empty((m, inner), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], inner)
+    nbytes, _ = _plan(x.device.index, m, k, inner, gelu)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
         rc = _entry()(
             rows.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), m, k, inner, rows.stride(0), weight.stride(0), GELUS[gelu], stream,
+            out.data_ptr(), m, k, inner, rows.stride(0), weight.stride(0), GELUS[gelu],
+            workspace.data_ptr() if nbytes else None, gemm.counters(x.device, stream).data_ptr(),
+            stream,
         )
     fa._check_rc("geglu", rc)
     geglu_launches += 1

@@ -15,7 +15,14 @@ matmul probe, ``imagharmony_tpu_torch/probes/probe_pallas_matmul.py``.
 What bounds it on an H100: bf16 at (8192, 640, 5120), the operations (53.7
 GFLOP, 0.0543 ms at 989 TFLOP/s, against 101 MB, 0.030 ms at 3.35 TB/s);
 int8 at the same shape, the bytes (the int32 output alone is 168 MB, 0.050
-ms, against 0.0271 ms of operations at 1979 TOP/s). The int8 ``wgmma``
+ms, against 0.0271 ms of operations at 1979 TOP/s). The kernel is K5's
+GEMM mainloop (``csrc/sm90_gemm.cuh``): persistent CTAs with a producer
+warp, and the K loop split across CTAs where whole tiles would leave the
+card's last wave part empty and K is long enough to pay for it: of the
+probe's four shapes only (2048, 5120, 1280), whose 160 tiles of 128 x 128
+would run 1.2 waves on 132 SMs. A split launch takes its fp32 or int32 partials'
+workspace from torch's allocator here and the tile counters of
+``kernels/gemm.py``; ``plan`` says how a shape is cut. The int8 ``wgmma``
 reads W only K-major, so the kernel transposes each W tile in shared
 memory (see the source); the wrapper makes no copy of W.
 """
@@ -28,6 +35,7 @@ import torch
 
 from imagharmony_tpu_torch.kernels import build
 from imagharmony_tpu_torch.kernels import flash_attention as fa
+from imagharmony_tpu_torch.kernels import gemm
 
 # P1 launches since the last reset; only the CUDA launches add to it.
 launches = 0
@@ -54,9 +62,35 @@ def _entry():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr] * 3 + [i32] * 4 + [i64] * 2 + [ptr]
+    fn.argtypes = [ptr] * 3 + [i32] * 4 + [i64] * 2 + [ptr] * 3
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index, kind, m, k, n):
+    """(workspace bytes, the schedule's fields) of P1 at this shape on
+    that device (its SM count sets the grid)."""
+    import ctypes
+
+    fn = build.load("probe_mm").probe_mm_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_longlong
+    info = (ctypes.c_longlong * len(gemm.FIELDS))()
+    with torch.cuda.device(device_index):
+        nbytes = fn(kind, m, k, n, info)
+    if nbytes < 0:
+        raise ValueError(f"probe_mm: no schedule for kind {kind} at ({m}, {k}, {n})")
+    return nbytes, tuple(info)
+
+
+def plan(x, w, *, out_dtype):
+    """How P1 cuts the product of these CUDA tensors: ``gemm.describe``'s
+    dict (tile columns, tiles, K panels, CTAs, whole and split tiles, chunks
+    a split tile, work units, the split's workspace)."""
+    _check_layout(x, w, out_dtype)
+    (m, k), n = x.shape, w.shape[1]
+    return gemm.describe(*_plan(x.device.index, PAIRS[x.dtype][1], m, k, n))
 
 
 def _check_layout(x, w, out_dtype):
@@ -92,10 +126,14 @@ def _launch(x, w, out_dtype):
         return out
     if k == 0:
         return out.zero_()
+    kind = PAIRS[x.dtype][1]
+    nbytes, _ = _plan(x.device.index, kind, m, k, n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), PAIRS[x.dtype][1], m, k, n,
-                      x.stride(0), w.stride(0), stream)
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+        rc = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), kind, m, k, n, x.stride(0),
+                      w.stride(0), workspace.data_ptr() if nbytes else None,
+                      gemm.counters(x.device, stream).data_ptr(), stream)
     fa._check_rc("probe_mm", rc)
     launches += 1
     return out

@@ -270,17 +270,27 @@ def test_cuda_geglu_matches_plain(cuda):
     ragged M and inner (past a 128-row and a 128- and 64-column tile, K not
     a multiple of 64) with each gelu, with and without a bias, x as a
     (B, S, K) tensor. Gate: cosine >= 0.9999 and max abs <= 1e-2 of the
-    reference's max (bf16 rounding of the output). Then the launch counter,
+    reference's max (bf16 rounding of the output). ``plan`` must cut
+    (2048, 5120, 1280) along K ([h | g] summed before the gelu) and no other
+    case: not (128, 1280, 5120), the UNet's long-K shape (its split cost
+    more than it saved);
+    (300, 200, 456) and (4000, 200, 4104) are ragged, the latter with more
+    tiles than the card has SMs, so a persistent CTA walks several. Two
+    calls on the same inputs give the same bits. Then the launch counter,
     the checks that raise before any launch, and a gradient through K5
     (``GEGLUFn``: K5 forward, plain backward) against fp32 autograd of the
     plain version."""
     cases = [(8192, 640, 2560, "tanh", True), (300, 200, 200, "tanh", True),
              (300, 200, 200, "erf", False), (77, 136, 456, "none", True),
-             (128, 1280, 5120, "tanh", True)]
+             (128, 1280, 5120, "tanh", True), (300, 200, 456, "erf", True),
+             (4000, 200, 4104, "tanh", True), (2048, 5120, 1280, "tanh", True)]
     kg.geglu_launches = 0
     for m, k, inner, gelu, bias in cases:
         x, w, b = _card_case(cuda, m, k, inner, bias=bias)
+        split = kg.plan(x, w, gelu=gelu)["split_tiles"]
+        assert split > 0 if (m, k, inner) == (2048, 5120, 1280) else split == 0, (m, k, inner)
         out = kg.geglu(x.view(1, m, k), w, b, gelu=gelu)
+        assert torch.equal(out, kg.geglu(x.view(1, m, k), w, b, gelu=gelu)), (m, k, inner, gelu)
         torch.cuda.synchronize()
         ref = kg.geglu_plain(x.float(), w.float(), None if b is None else b.float(), gelu=gelu)
         assert out.shape == (1, m, inner) and out.dtype == torch.bfloat16
@@ -289,19 +299,19 @@ def test_cuda_geglu_matches_plain(cuda):
                                                     ref.double().flatten(), dim=0).item()
         assert diff <= 1e-2 * ref.abs().max().item() and cos >= 0.9999, (m, k, inner, gelu,
                                                                           diff, cos)
-    assert kg.geglu_launches == len(cases)
+    assert kg.geglu_launches == 2 * len(cases)
     x, w, b = _card_case(cuda, 64, 64, 64)
     with pytest.raises(TypeError):
         kg.geglu(x.float(), w.float(), None, gelu="tanh")
     with pytest.raises(ValueError):
         kg.geglu(x[:, :60], w[:, :60], b, gelu="tanh")
-    assert kg.geglu_launches == len(cases)
+    assert kg.geglu_launches == 2 * len(cases)
 
     x, w, b = _card_case(cuda, 1024, 640, 2560, seed=1)
     dout = torch.randn((1024, 2560), device=cuda).to(torch.bfloat16)
     leaves = [a.detach().requires_grad_() for a in (x, w, b)]
     kg.geglu(*leaves, gelu="tanh").backward(dout)
-    assert kg.geglu_launches == len(cases) + 1
+    assert kg.geglu_launches == 2 * len(cases) + 1
     refs = [a.float().detach().requires_grad_() for a in (x, w, b)]
     kg.geglu_plain(*refs, gelu="tanh").backward(dout.float())
     for got, ref in zip(leaves, refs):

@@ -170,14 +170,23 @@ def test_cuda_probe_mm_matches_plain(cuda):
     at ragged ones (M, N past a tile, K past a 64-column panel; gate cosine
     >= 0.9999 and max abs <= 1e-2 of the reference's max), int8 element
     for element at the same shapes (N a multiple of 16), the launch count,
-    and what the kernel does not take raising before any launch."""
+    and what the kernel does not take raising before any launch. ``plan``
+    must cut the long-K (2048, 5120, 1280) along K in both pairs;
+    (4000, 200, 4104) has more ragged tiles than the card has SMs, so a
+    persistent CTA walks several. Two calls on the same inputs give the
+    same bits."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    cases = [(8192, 640, 5120), (300, 144, 200), (77, 136, 456), (2048, 5120, 1280)]
+    split = (2048, 5120, 1280)
+    cases = [(8192, 640, 5120), (300, 144, 200), (77, 136, 456), split, (300, 200, 456),
+             (4000, 200, 4104)]
     pm.launches = 0
     for m, k, n in cases:
         x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device=cuda).to(torch.bfloat16)
+        if (m, k, n) == split:
+            assert pm.plan(x, w, out_dtype=torch.bfloat16)["split_tiles"] > 0
         out = pm.probe_mm(x, w, out_dtype=torch.bfloat16)
+        assert torch.equal(out, pm.probe_mm(x, w, out_dtype=torch.bfloat16)), (m, k, n)
         torch.cuda.synchronize()
         ref = pm.probe_mm_plain(x, w, out_dtype=torch.float32)
         diff = (out.float() - ref).abs().max().item()
@@ -189,12 +198,15 @@ def test_cuda_probe_mm_matches_plain(cuda):
                            dtype=torch.int8)
         wq = torch.randint(-128, 128, (xq.shape[1], n16), generator=gen, device=cuda,
                            dtype=torch.int8)
+        if (m, k, n) == split:
+            assert pm.plan(xq, wq, out_dtype=torch.int32)["split_tiles"] > 0
         got = pm.probe_mm(xq, wq, out_dtype=torch.int32)
+        assert torch.equal(got, pm.probe_mm(xq, wq, out_dtype=torch.int32)), (m, k, n)
         assert torch.equal(got, pm.probe_mm_plain(xq, wq, out_dtype=torch.int32)), (m, k, n)
-    assert pm.launches == 2 * len(cases)
+    assert pm.launches == 4 * len(cases)
     x = torch.zeros((64, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         pm.probe_mm(x.float(), x.float(), out_dtype=torch.float32)
     with pytest.raises(ValueError):
         pm.probe_mm(x[:, :60], x[:60], out_dtype=torch.bfloat16)
-    assert pm.launches == 2 * len(cases)
+    assert pm.launches == 4 * len(cases)
