@@ -20,8 +20,11 @@ is non-zero:
    source, in parallel, with what ptxas reports per kernel instance
    (registers, shared memory, spills, whether it serialized the wgmma
    products, whether it ignored setmaxnreg; a spill, a serialization or an
-   ignored setmaxnreg fails) and the dynamic shared memory K3's launches
-   ask for;
+   ignored setmaxnreg fails), for each instance of attn_nomax_wgmma_kernel
+   the registers its setmaxnreg asks for per role (the source's constants,
+   taken where ptxas does not report setmaxnreg ignored), its K/V ring and
+   its shared memory (from the library's plan), and the dynamic shared
+   memory K3's launches ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
    path's two shapes and two edge shapes (one of them B=2, S=1000: a
@@ -76,9 +79,11 @@ is non-zero:
 3i. P2-P4 against their plain version (max abs <= 2e-2, cosine >= 0.9999)
    at SDXL's two self-attention shapes, every (bq, kb) tile, a ragged S,
    kv_len < S and head dims 32 and 128; P3 and P4 (every g) bit-identical
-   to P2 at the same tiles; saturated logits keep the TPU kernel's clamp
-   and overflow; timed against the plain version, SDPA and K1 (the current
-   kernel, online softmax); then the two attention probes
+   to P2 at the same tiles, and two P2 calls on the same inputs (more work
+   items than SMs at the SDXL shapes); saturated logits keep the TPU
+   kernel's clamp and overflow; each timed shape's schedule (work items,
+   CTAs, rings) printed; timed against the plain version, SDPA and K1 (the
+   current kernel, online softmax); then the two attention probes
    (``probes/probe_attn_kblock.py``, ``probe_attn_lanegroup.py``) once,
    their launches counted;
 3j. P5-P6, every softmax recipe through its entry point (``softmax_nomax``'s
@@ -153,7 +158,7 @@ import numpy as np
 import torch
 
 from imagharmony_tpu_torch.utils import profiling
-from imagharmony_tpu_torch.utils.gemm_ab import K5_SHAPES, P1_SHAPES
+from imagharmony_tpu_torch.utils.kernel_ab import K5_SHAPES, P1_SHAPES
 
 # K1 against its plain version: bf16 kernel vs fp32 reference on the same
 # bf16 inputs. Tolerances: one bf16 rounding of P and of the output, well
@@ -217,7 +222,7 @@ TRAIN_STEPS = 4
 # the device kernel behind K1's and K4's entry points
 FWD_KERNEL = "attn_fwd_wgmma_kernel"
 
-# K5, (M, K, inner): timed at gemm_ab.K5_SHAPES, the SDXL and SD1.5
+# K5, (M, K, inner): timed at kernel_ab.K5_SHAPES, the SDXL and SD1.5
 # inference shapes; checked also: training at 512², batch 1 (10 and 60 per
 # forward), ragged M, K and inner (the second with more tiles than SMs), and
 # K5_SPLIT, a long K whose tiles the tanh and no-gelu forms split along K
@@ -231,7 +236,7 @@ K5_MAX_REL = 1e-2  # of the reference's max-abs
 K5_MIN_COSINE = 0.9999
 GEGLU_KERNEL = "geglu_wgmma_kernel"
 
-# P1, (M, K, N): timed at gemm_ab.P1_SHAPES, the matmul probe's SDXL
+# P1, (M, K, N): timed at kernel_ab.P1_SHAPES, the matmul probe's SDXL
 # feed-forward products, in both pairs, of which P1_SPLIT's tiles are split
 # along K; then ragged M, K and N for each pair (int8 rows are whole 16-byte
 # units, so its K and N are multiples of 16), the last with more tiles than
@@ -321,6 +326,28 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _nomax_roles(pa, kernel):
+    """For an instance of the no-max kernel (``NOMAX_KERNEL<D, NWG, BN, R>``
+    in ptxas's report), the registers its setmaxnreg asks for per role, its
+    ring and its shared memory, from the library's plan; "" for other
+    kernels."""
+    if not kernel.startswith(NOMAX_KERNEL + "<"):
+        return ""
+    d, nwg, bn, recipe = (int(x) for x in kernel[len(NOMAX_KERNEL) + 1:-1].split(","))
+    q = torch.empty((1, 64 * nwg, d), device="cuda", dtype=torch.bfloat16)
+    p = pa.plan(q, d, 64 * nwg, bn, recipe=recipe)
+    return (f"; {p['threads']} threads, setmaxnreg asks for {p['producer_regs']} registers a "
+            f"producer thread and {p['consumer_regs']} a consumer thread, {p['rings']} ring(s) "
+            f"of {p['stages']} K and V stages, {p['smem_bytes']} B dynamic shared memory")
+
+
+def _nomax_sched(p):
+    """A no-max schedule (``probe_attention.plan``) in one phrase."""
+    return (f"{p['items']} work items of {p['units_per_item']} unit(s) on {p['grid']} CTAs "
+            f"({p['rings']} ring(s) a CTA, {p['items'] / (p['grid'] * p['rings']):.2f} items a "
+            f"ring)")
+
+
 def phase_build(fa, ca, kg, pm, pa, build):
     """Builds the kernels and, beside them, asks ptxas what each uses."""
     sources = ("flash_attn_nhd", "flash_attn_nhd_bwd", "cross_attn_nhd", "geglu", "probe_mm",
@@ -342,7 +369,8 @@ def phase_build(fa, ca, kg, pm, pa, build):
                 print(f"phase 2 ptxas {name}.cu {kernel}: {u['registers']} registers, "
                       f"{u['smem_bytes']} B shared memory, {u['spill_bytes']} B spilled, wgmma "
                       f"serialized {u['wgmma_serialized']}, setmaxnreg ignored "
-                      f"{u.get('setmaxnreg_ignored', False)}", flush=True)
+                      f"{u.get('setmaxnreg_ignored', False)}{_nomax_roles(pa, kernel)}",
+                      flush=True)
                 spilled += [kernel] if u["spill_bytes"] else []
                 serialized += [kernel] if u["wgmma_serialized"] else []
                 ignored += [kernel] if u.get("setmaxnreg_ignored") else []
@@ -353,7 +381,7 @@ def phase_build(fa, ca, kg, pm, pa, build):
     if spilled:
         raise AssertionError(f"a kernel spills registers: {spilled}")
     if serialized:
-        # ptxas made the products wait for each other (C7515): right, but slow
+        # ptxas made the products wait for each other (C7515, C7511): right, but slow
         raise AssertionError(f"ptxas serialized the wgmma products of: {serialized}")
     if ignored:
         # the producer keeps its registers and the consumers get none more:
@@ -863,14 +891,20 @@ def phase_p2(pa, fa):
                 raise AssertionError(f"{tag} disagrees with its plain version at {label}")
             max_err = max(max_err, err)
         if kv_len is None:
-            # one function under three schedules: the same bits at the same tiles
+            # one function under three schedules: the same bits at the same
+            # tiles; and two calls on the same inputs (the persistent walk
+            # deals the items to the CTAs the same way each time)
             p2 = pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0)
             same = [torch.equal(pa.batchpack_attn(q, k, v, scale, d), p2)] + [
                 torch.equal(pa.nhd_with_g(q, k, v, scale, d, s, g), p2)
                 for g in range(d, h * d + 1, d) if (h * d) % g == 0]
-            msg.append(f"P3 and P4 (every g) bit-identical to P2 {all(same)}")
+            twice = torch.equal(pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0), p2)
+            msg.append(f"P3 and P4 (every g) bit-identical to P2 {all(same)}, two P2 calls "
+                       f"bit-identical {twice}")
             if not all(same):
                 raise AssertionError(f"P3 or P4 differs from P2 at {label}: {same}")
+            if not twice:
+                raise AssertionError(f"two P2 calls on the same inputs differ at {label}")
         print(f"phase 3i {label}: " + ", ".join(msg), flush=True)
         if (b, s, h, d, kv_len) not in P2_SHAPES:
             continue
@@ -892,7 +926,13 @@ def phase_p2(pa, fa):
         t["current"] = _timings(
             {"kernel": lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d)})["kernel"]
         bound, by = fwd_bound(b, s, h, d)
-        times[(b, s, h, d)] = dict(t, bound=(bound, by))
+        sched = {"P2": pa.plan(q, d, pa.DEFAULT_BQ, kb0),
+                 "P3": pa.plan(q, d, pa.DEFAULT_BQ, kb0, batch_rows=None),
+                 "P4": pa.plan(q, d, pa.DEFAULT_BQ, kb0, heads_per_cta=2)}
+        print(f"phase 3i schedule {label}: " + "; ".join(f"{entry} {_nomax_sched(p)}"
+                                                         for entry, p in sched.items()),
+              flush=True)
+        times[(b, s, h, d)] = dict(t, bound=(bound, by), schedule=sched)
         tiles = ", ".join(f"bq={bq} kb={kb} {_fmt(x)}" for (bq, kb), x in t["tiles"].items())
         print(f"phase 3i time {label}, device (CUDA event): P2 {_fmt(t['kblock_attn']['kernel'])}"
               f", P3 {_fmt(t['batchpack_attn']['kernel'])}, P4 (g={2 * d}) "
@@ -1604,16 +1644,16 @@ def main():
         "max_abs_err": p2_err,
         "shape": list(P2_SHAPES[0][:4]),
         **nomax_times(entry, p2),
-        "by_shape": [{"shape": list(shape), **nomax_times(entry, t)}
-                     for shape, t in p2_times.items()]
+        "by_shape": [{"shape": list(shape), "schedule": t["schedule"][probe],
+                      **nomax_times(entry, t)} for shape, t in p2_times.items()]
                     + ([{"shape": list(shape), "bq": bq, "kb": kb, "ms": x[0], "event_ms": x[1]}
                         for shape, t in p2_times.items() for (bq, kb), x in t["tiles"].items()]
                        if entry == "kblock_attn" else []),
-    } for entry, replaces in (
-        ("kblock_attn", "tools/probe_attn_kblock.py:33"),
-        ("batchpack_attn", "tools/probe_attn_kblock.py:89"),
-        ("nhd_with_g", "tools/probe_attn_lanegroup.py:34 (its pallas_call of "
-                       "imagharmony_tpu/kernels/flash_attention.py:415)"))] + [{
+    } for entry, probe, replaces in (
+        ("kblock_attn", "P2", "tools/probe_attn_kblock.py:33"),
+        ("batchpack_attn", "P3", "tools/probe_attn_kblock.py:89"),
+        ("nhd_with_g", "P4", "tools/probe_attn_lanegroup.py:34 (its pallas_call of "
+                             "imagharmony_tpu/kernels/flash_attention.py:415)"))] + [{
         "name": entry,
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/probe_attn.cu",

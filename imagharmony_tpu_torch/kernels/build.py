@@ -83,11 +83,12 @@ def resource_usage(name: str) -> dict:
     {kernel name with its template arguments: {"registers", "smem_bytes",
     "spill_bytes", "wgmma_serialized"}}, and "setmaxnreg_ignored": True for
     a kernel whose setmaxnreg ptxas dropped. "wgmma_serialized" is ptxas's
-    C7515 notice: it made the kernel's wgmma products wait for each other
-    (for instance because other instructions write their accumulator
-    inside the pipeline). "setmaxnreg_ignored" is its warning that it
-    could not tell a warpgroup's register count (a warning that names no
-    function counts against every kernel of the source). Both cost speed,
+    C7515 or C7511 notice: it made the kernel's wgmma products wait for
+    each other (C7515: other instructions write their accumulator inside
+    the pipeline; C7511: the registers the pipeline needs do not fit).
+    "setmaxnreg_ignored" is its warning that it could not tell a
+    warpgroup's register count (a warning that names no function counts
+    against every kernel of the source). Both cost speed,
     not correctness."""
     flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -105,7 +106,8 @@ def resource_usage(name: str) -> dict:
         found = re.search(r"\w+(?:<[^>]*>)?(?=\()", fn)
         return found[0] if found else fn.strip()
 
-    serialized = {short(m[1]) for m in re.finditer(r"\(C7515\)[^\n]*function '([^']+)'", text)}
+    serialized = {short(m[1])
+                  for m in re.finditer(r"\(C751[15]\)[^\n]*function '([^']+)'", text)}
     ignored = [line for line in text.splitlines()
                if "setmaxnreg" in line and "ignored" in line]
     ignored_fns = {short(m[1]) for line in ignored for m in re.finditer(r"'([^']+)'", line)}

@@ -20,16 +20,17 @@ schedules:
   (tools/probe_attn_kblock.py:33, entry ``kblock_attn`` :64): query blocks
   of ``bq`` rows, key blocks of ``kb`` keys;
 * ``batchpack_attn`` (P3) replaces ``_batchpack_kernel`` (:89, entry
-  ``batchpack_attn`` :116): a CTA walks every batch row of its head and
-  query block;
+  ``batchpack_attn`` :116): a work item walks every batch row of its head
+  and query block;
 * ``nhd_with_g`` (P4) replaces ``_attn_nhd_kernel``
   (imagharmony_tpu/kernels/flash_attention.py:415) as
-  ``tools/probe_attn_lanegroup.py`` ``nhd_with_g`` (:26) launches it: a CTA
-  walks ``g / head_dim`` heads, keys past ``kv_len`` masked.
+  ``tools/probe_attn_lanegroup.py`` ``nhd_with_g`` (:26) launches it: a
+  work item walks ``g / head_dim`` heads, keys past ``kv_len`` masked.
 
-The TPU's knobs become the card's: ``bq`` is the query rows of a CTA, 64
-per consumer warpgroup (64 or 128); ``kb`` the keys of a tile (64 or 128;
-64 at head dim 128); ``g`` the heads a CTA walks. A value the kernel is not
+The TPU's knobs become the card's: ``bq`` is the query rows of a work
+item (64 or 128: at 128 the CTA's two consumer warpgroups take 64 rows of
+one item each, at 64 each takes items of its own); ``kb`` the keys of a
+tile (64 or 128; 64 at head dim 128); ``g`` the heads an item walks. A value the kernel is not
 built for raises, on either device. ``batchpack_attn`` and ``nhd_with_g``
 run at ``DEFAULT_BQ`` and ``default_kb(head_dim)``, where they give
 ``kblock_attn``'s bits at the same tiles.
@@ -38,8 +39,20 @@ On CPU tensors each entry point runs ``nomax_attn_plain``; on CUDA tensors
 it launches the kernel or raises. No pipeline of the port calls them: their
 path is the port's attention probes (``imagharmony_tpu_torch/probes/``).
 
-What bounds them on an H100: the tensor cores, as K1 (86 GFLOP at
-(2, 4096, 10, 64), 0.087 ms at 989 TFLOP/s, against 42 MB).
+What bounds them on an H100: the tensor cores and the exponentials alike.
+At (2, 4096, 10, 64) the products are 86 GFLOP (0.087 ms at 989 TFLOP/s)
+and the 335.5 M exp2 take 0.087 ms too (an SM's MUFU unit gives 16 a
+clock, its tensor cores 16 scores a clock at head dim 64; at head dim 32
+the exp2 take twice the products' time, at 128 half), against 42 MB. So
+the kernel runs the exponentials under the products: 384-thread CTAs, a
+producer warpgroup that gives its registers to two consumer warpgroups
+(``setmaxnreg``), each consumer issuing tile j+1's QK^T with tile j's PV
+and running tile j+1's exp2 while PV runs; at ``bq`` 128 the two consumers
+share one ring and run unsynchronised, so one's exp2 also runs under the
+other's products (making them take turns, ping-pong, measured slower); at
+``bq`` 64 each walks its own query tiles through a ring of its own. K and
+V wait on barriers of their own, and the CTAs are persistent, at most one
+an SM (``plan`` reports an instance's roles and schedule).
 """
 
 from __future__ import annotations
@@ -111,6 +124,37 @@ def _entry():
     return fn
 
 
+# what ``plan`` reports, in the order attn_nomax_plan writes it
+PLAN_FIELDS = ("threads", "producer_regs", "consumer_regs", "stages", "rings", "smem_bytes",
+               "items", "units_per_item", "grid")
+
+
+def plan(q, head_dim, bq, kb, *, recipe=0, heads_per_cta=1, batch_rows=1):
+    """How the kernel runs on q's card (B, Sq, H*D) at these tiles, recipe
+    and schedule (``heads_per_cta`` heads and ``batch_rows`` batch rows an
+    item, None: all of them): {"threads", "producer_regs" and
+    "consumer_regs" (the registers a thread's setmaxnreg asks for: the
+    kernel's constants; ptxas's report says whether it took them),
+    "stages" (K and V stages a ring), "rings" (1 at bq 128, both consumer
+    warpgroups on one; 2 at bq 64), "smem_bytes", "items" (query tiles
+    times head and batch groups), "units_per_item", "grid" (CTAs, at most
+    one an SM)}."""
+    import ctypes
+
+    fn = build.load("probe_attn").attn_nomax_plan
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    b, sq, hd = q.shape
+    info = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    with torch.cuda.device(q.device):
+        rc = fn(head_dim, bq // 64, kb, recipe, b, sq, hd // head_dim, heads_per_cta,
+                b if batch_rows is None else batch_rows, info)
+    if rc:
+        raise ValueError(f"attn_nomax_plan: no instance or schedule for head_dim {head_dim}, "
+                         f"bq {bq}, kb {kb}, recipe {recipe} at {tuple(q.shape)}")
+    return dict(zip(PLAN_FIELDS, info))
+
+
 def _check_tiles(name, q, head_dim, bq, kb, g, kv_len, sk):
     """The schedule the kernel is built for, whatever the device."""
     if head_dim not in HEAD_DIMS:
@@ -129,7 +173,7 @@ def _check_tiles(name, q, head_dim, bq, kb, g, kv_len, sk):
 
 def _run(name, q, k, v, scale, head_dim, *, bq, kb, kv_len=None, g=None, batch_rows=1):
     """The three entry points' common body: the checks, then the plain
-    version on CPU tensors or the kernel on CUDA tensors, a CTA walking
+    version on CPU tensors or the kernel on CUDA tensors, a work item walking
     ``g / head_dim`` heads (None: one) of ``batch_rows`` batch rows (None:
     all of them)."""
     sk = k.shape[1]
@@ -182,13 +226,13 @@ def kblock_attn(q, k, v, scale, head_dim, bq, kb):
 
 def batchpack_attn(q, k, v, scale, head_dim):
     """P3: P2's function with every batch row of a (head, query block) in
-    one CTA, at ``DEFAULT_BQ`` and ``default_kb(head_dim)``."""
+    one work item, at ``DEFAULT_BQ`` and ``default_kb(head_dim)``."""
     return _run("batchpack_attn", q, k, v, scale, head_dim, bq=DEFAULT_BQ,
                 kb=default_kb(head_dim), batch_rows=None)
 
 
 def nhd_with_g(q, k, v, scale, head_dim, kv_len, g):
-    """P4: P2's function with ``g / head_dim`` heads a CTA and the keys at or
+    """P4: P2's function with ``g / head_dim`` heads an item and the keys at or
     past ``kv_len`` masked, at ``DEFAULT_BQ`` and ``default_kb(head_dim)``."""
     return _run("nhd_with_g", q, k, v, scale, head_dim, bq=DEFAULT_BQ,
                 kb=default_kb(head_dim), kv_len=kv_len, g=g)

@@ -46,8 +46,14 @@ max, not the row's (a rounding apart from the TPU function), and
 S is masked in the kernel. No pipeline of the port calls them: their path
 is the port's softmax probes (``imagharmony_tpu_torch/probes/``).
 
-What bounds them on an H100: the tensor cores, as K1 (86 GFLOP at
-(2, 4096, 10, 64), 0.087 ms at 989 TFLOP/s, against 42 MB).
+What bounds them on an H100: the tensor cores and the exponentials alike,
+as P2 (86 GFLOP and 335.5 M exp2 at (2, 4096, 10, 64), 0.087 ms each at
+989 TFLOP/s and 16 exp2 a clock an SM, against 42 MB); ``norm_first``'s
+statistics pass adds a third of the products and a second round of exp2.
+The kernel runs each recipe's exponentials under the products (see
+``probe_attention``): a tile's exp, roundings and sums run while the
+previous tile's PV and the other consumer warpgroup's products hold the
+tensor cores.
 """
 
 from __future__ import annotations

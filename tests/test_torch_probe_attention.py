@@ -344,11 +344,14 @@ def _softmax_tools_on_cpu(capsys):
 def test_cuda_nomax_attention_matches_plain(cuda):
     """The kernel against its plain version on the card (bf16 inputs, the
     plain version in fp32 from them; gate max abs <= 2e-2 and cosine >=
-    0.9999), at both SDXL shapes' short one, a ragged S and kv_len < S,
-    head dims 32 and 128; P3 and P4 bit for bit equal to P2 at the same
-    tiles; the clamp and the overflow kept (v = 1: exactly 1; v = 2: inf);
-    the launch counts; what the kernel does not take raising. Then P5's and
-    P6's recipes (``_cuda_softmax_recipes``, below)."""
+    0.9999), at both SDXL shapes' short one, a ragged S and kv_len < S (at
+    head dim 64 with the last key tile part masked, and at head dims 32 and
+    128); P3 and P4 bit for bit equal to P2 at the same tiles, and two P2
+    calls on the same inputs at a shape with more work items than SMs; the
+    clamp and the overflow kept (v = 1: exactly 1; v = 2: inf), and a row
+    whose every e lies below 2^-126 giving NaN, as the TPU kernel; the launch
+    counts; what the kernel does not take raising. Then P5's and P6's
+    recipes (``_cuda_softmax_recipes``, below)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def rnd(*shape):
@@ -365,7 +368,8 @@ def test_cuda_nomax_attention_matches_plain(cuda):
         assert diff <= 2e-2 and cos >= 0.9999, (where, diff, cos)
 
     for b, s, heads, d, kv_len in [(2, 1024, 20, 64, None), (2, 333, 4, 64, None),
-                                   (1, 300, 2, 32, 211), (2, 200, 2, 128, 129)]:
+                                   (2, 1024, 20, 64, 777), (1, 300, 2, 32, 211),
+                                   (2, 200, 2, 128, 129)]:
         q, k, v = rnd(b, s, 3 * heads * d).chunk(3, dim=-1)
         scale, kb0 = d**-0.5, pa.default_kb(d)
         if kv_len is not None:
@@ -377,6 +381,7 @@ def test_cuda_nomax_attention_matches_plain(cuda):
                 out = pa.kblock_attn(q, k, v, scale, d, bq, kb)
                 check(out, q, k, v, d, None, kb, (b, s, heads, d, bq, kb))
         p2 = pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0)
+        assert torch.equal(pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, kb0), p2)
         assert torch.equal(pa.batchpack_attn(q, k, v, scale, d), p2)
         for g in range(d, heads * d + 1, d):
             if (heads * d) % g == 0:
@@ -387,6 +392,9 @@ def test_cuda_nomax_attention_matches_plain(cuda):
     ones = torch.ones_like(q)
     assert torch.equal(pa.kblock_attn(q, q, ones, 0.125, 64, 128, 128), ones)
     assert torch.isinf(pa.kblock_attn(q, q, 2 * ones, 0.125, 64, 128, 128)).all()
+    qt, kt, vt = _subnormal_e(gen, cuda)
+    for bq in pa.BQS:
+        assert torch.isnan(pa.kblock_attn(qt, kt, vt, 0.125, 64, bq, 128)).all(), bq
 
     n = dict(pa.launches)
     with pytest.raises(TypeError):
@@ -398,13 +406,31 @@ def test_cuda_nomax_attention_matches_plain(cuda):
     _cuda_softmax_recipes(cuda)
 
 
+def _subnormal_e(gen, cuda):
+    """(q, k, v) at (1, 1024, 2 * 64) whose scaled logits all lie in (-129,
+    -127) (scale 0.125), so that every e of the clamp recipes lies below
+    2^-126. The kernel flushes such e to 0, as the TPU kernels' f32
+    arithmetic does: each row sums to 0, and its output is 0 / 0 = NaN, the
+    TPU kernel's result. (The plain versions keep subnormals and give
+    finite values here.)"""
+    q = torch.full((1, 1024, 128), 4.0, device=cuda, dtype=torch.bfloat16)
+    k = (-2.765625 + 0.03 * torch.randn((1, 1024, 128), generator=gen, device=cuda)).to(q.dtype)
+    v = torch.randn((1, 1024, 128), generator=gen, device=cuda).to(q.dtype)
+    qs = (q[0, 0, 0].float() * (0.125 * fa._LOG2E)).to(q.dtype).float()
+    logits = qs * k.float().view(1, 1024, 2, 64).sum(dim=-1)
+    assert (logits > -129).all() and (logits < -127).all()
+    return q, k, v
+
+
 def _cuda_softmax_recipes(cuda):
     """Each recipe's kernel, through P5's and P6's entry points, against its
     plain version on the card (bf16 inputs, the plain version in fp32 from
     them; P2's gate: max abs <= 2e-2 and cosine >= 0.9999), at the short
     SDXL shape, a ragged S and head dims 32 and 128; P5's base and P6 v2
     bit for bit; P5's fp32 clamp recipe at P2's clamp bit for bit P2; the
-    saturation and overflow kept; the launch counts."""
+    saturation and overflow kept, and the clamp recipes' NaN on rows whose
+    every e lies below 2^-126; two calls of P6 v0 (a statistics pass,
+    then PV) on the same inputs bit for bit; the launch counts."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     for name in ps.launches:
         ps.launches[name] = 0
@@ -426,12 +452,18 @@ def _cuda_softmax_recipes(cuda):
             assert diff <= 2e-2 and cos >= 0.9999, (recipe, b, s, heads, d, diff, cos)
         assert torch.equal(ps.softmax_nomax(q, k, v, scale, d, no_max=False, mxu_sum=False),
                            ps.softmax_tricks(q, k, v, scale, d, 2))
+        assert torch.equal(ps.softmax_tricks(q, k, v, scale, d, 0),
+                           ps.softmax_tricks(q, k, v, scale, d, 0))
         p2 = pa.kblock_attn(q, k, v, scale, d, pa.DEFAULT_BQ, pa.default_kb(d))
         with pytest.MonkeyPatch.context() as m:
             m.setattr(ps, "CLAMP", pa.CLAMP)
             assert torch.equal(ps.softmax_nomax(q, k, v, scale, d, no_max="fp32",
                                                 mxu_sum=False), p2)
     assert min(ps.launches.values()) > 0
+    qt, kt, vt = _subnormal_e(gen, cuda)
+    for recipe, call in calls.items():
+        if recipe.startswith("clamp"):
+            assert torch.isnan(call(qt, kt, vt, 0.125, 64)).all(), recipe
 
     qc = torch.full((1, 4096, 64), 4.0, device=cuda, dtype=torch.bfloat16)
     ones = torch.ones_like(qc)
