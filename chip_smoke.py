@@ -48,7 +48,10 @@ is non-zero:
    k and v as views of one packed to_kv tensor, with timings of K2, the
    plain version and, as a yardstick, SDPA on the text branch plus SDPA on
    the IP branch; at every IP shape of the UNets, K2 with ip_scale 0 gives
-   the text-only call's output bit for bit;
+   the text-only call's output bit for bit, and so does the weight given as
+   a 0-dim fp32 tensor on the card (the kernel reads it from device memory,
+   as a captured denoise step gives it), which at the shape's ip_scale
+   gives the float's output bit for bit;
 3e. K4's lse and K3 at head dims 40/80/160 against their plain versions at
    the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
    on the same inputs (bit-identical or fail), with timings of K3, the
@@ -56,8 +59,9 @@ is non-zero:
 3f. with two cards or more: K1 (with its lse), K3, K4, K2, K5, P1 (both
    pairs, and bf16 with tiles split along K), P2 and P6 v0 launched on
    cuda:1 after cuda:0, each against its plain
-   version (the libraries keep their state per device); with one card, one
-   line that says so;
+   version (the libraries keep their state per device), then on each the
+   tiny edit eagerly and through generate()'s captured programs, which are
+   kept per device (as in phase 4); with one card, one line that says so;
 3g. K5 against its plain version computed in fp32 from the same bf16
    inputs, with each gelu (tanh, erf, none), at the UNet feed-forward
    shapes of both families and of training (with the bias), at ragged
@@ -99,10 +103,25 @@ is non-zero:
    (``probes/probe_softmax_nomax.py``, ``probe_softmax_tricks.py``) once,
    their launches counted;
 4. the tiny pipeline on the card (bf16, K1, K5) against the same weights
-   on the CPU (fp32, plain versions);
-5. the full-size SDXL QL-Edit ``generate()`` at 1024², 30 Euler steps,
-   random weights from a seed, with the K1, K2 and K5 launch counts checked
-   (2100 each);
+   on the CPU (fp32, plain versions), run as phases 5, 8 and 9 run their
+   edits (``edit_modes``): twice eagerly through the module functions
+   (``harmony_edit.edit``: the launch counts, and the two runs bit for
+   bit), then three times through ``generate()``, whose first call
+   captures the key's CUDA graphs (``pipelines/programs.py``: conditioning,
+   one denoise step, decode) and whose later calls only replay them (one
+   capture, then none, and no launch through a wrapper), the third under
+   the profiler, whose trace must hold as many launches of each kernel,
+   by name, as the eager run's wrappers counted; the replay bit-identical
+   to the eager run (or, where two eager runs differ, no further from it
+   than they are); each with its wall time per call and per denoise step,
+   capture time, peak memory and the memory the key's programs keep;
+5. the full-size SDXL QL-Edit at 1024², 30 Euler steps, random weights
+   from a seed, eager and through ``generate()``'s graphs as in phase 4,
+   with the K1, K2 and K5 launch counts of the eager run (2100 each, 300
+   K2 with the IP branch) and of the replayed ``generate()`` (2100 each)
+   checked, then one denoise step of each mode
+   under the profiler (``utils/profile_edit.per_step``: kernels, kernel
+   and wall ms, the device's idle share);
 6. one tiny training step on the card (bf16, K1, K3 and K5) against the
    same weights and draws on the CPU (fp32, plain versions);
 7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
@@ -111,12 +130,15 @@ is non-zero:
    gives, and the K2 and K5 launches per step (forward and recompute: 140
    each);
 8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4,
-   K5) against the same weights on the CPU (fp32, plain versions), and a
-   short run of it with the ``resampler`` and with the ``mlp_proj`` head;
-9. the full-width SD1.5 ``generate()`` at 512², 30 Euler steps, random
-   weights from a seed, with the K4, K2 and K5 launch counts checked (480
-   each, and no K1 launch), then a 10-step call under the profiler for the
-   device time by kernel class and the idle share;
+   K5), eager and through ``generate()``'s graphs as in phase 4, the eager
+   run against the same weights on the CPU (fp32, plain versions), and a
+   short ``generate()`` of it with the ``resampler`` and with the
+   ``mlp_proj`` head;
+9. the full-width SD1.5 edit at 512², 30 Euler steps, random weights from
+   a seed, eager and through ``generate()``'s graphs as in phase 4, with
+   the K4, K2 and K5 launch counts of the eager run (480 each, and no K1
+   launch) and of the replayed ``generate()`` (480 each) checked, then one
+   denoise step of each mode under the profiler as in phase 5;
 10. the full-width SD1.5 UNet at 512², batch 1, bf16, forward and backward
    to the IP projections: 16 K4, 16 K2, 16 K5 and the K3 launches the
    config gives (15), then the narrow SD1.5 UNet's IP gradients on the card
@@ -137,7 +159,15 @@ at the same tile, with one ``by_shape`` row per setting of the entry. A shape's 
 (M, K, inner), for P1 (M, K, N). The probes' launches are those of the
 probe tools' run (``launches_by_path`` "probes"), where K1 (the attention
 tools' current kernel) and K5 (the matmul tool's GEGLU half) are counted
-too; no pipeline launches P1-P6. The last line is {"ok": true, "device": {...}}.
+too; no pipeline launches P1-P6. ``launches`` of K1, K2 and K5, and
+``launches_by_path`` "generate" and "generate_sd15" (K4's ``launches``),
+are those of one warm ``generate()``, the main path, which only replays
+its programs: counted by kernel name in its profiler trace, since a replay
+launches through no wrapper (``replay_launches``); "edit_eager" and
+"edit_eager_sd15" are the wrappers' counts of the eager module functions
+on the same inputs, "edit_eager_ip" K2's launches with the IP branch
+there.
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -173,7 +203,6 @@ FULL_STEPS = 30
 SELF_ATTN_PER_UNET_CALL = 70  # SDXL at 1024²: 10 at S=4096 + 60 at S=1024
 
 SD15_SELF_ATTN_PER_UNET_CALL = 16  # SD1.5 at 512²: 5 + 5 + 5 + 1, see K4_SHAPES
-SD15_PROFILED_STEPS = 10
 
 MAIN_SHAPES = [(4096, 10, 64), (1024, 20, 64)]
 EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
@@ -221,6 +250,7 @@ TRAIN_STEPS = 4
 
 # the device kernel behind K1's and K4's entry points
 FWD_KERNEL = "attn_fwd_wgmma_kernel"
+CROSS_KERNEL = "cross_attn_wgmma_kernel"
 
 # K5, (M, K, inner): timed at kernel_ab.K5_SHAPES, the SDXL and SD1.5
 # inference shapes; checked also: training at 512², batch 1 (10 and 60 per
@@ -235,6 +265,10 @@ K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456), (4000, 200, 4
 K5_MAX_REL = 1e-2  # of the reference's max-abs
 K5_MIN_COSINE = 0.9999
 GEGLU_KERNEL = "geglu_wgmma_kernel"
+
+# the edit's kernels, each under the device kernel's name its launches
+# carry in a profiler trace (K1 and K4 launch one device kernel)
+PATH_KERNELS = {"K1/K4": FWD_KERNEL, "K2": CROSS_KERNEL, "K5": GEGLU_KERNEL}
 
 # P1, (M, K, N): timed at kernel_ab.P1_SHAPES, the matmul probe's SDXL
 # feed-forward products, in both pairs, of which P1_SPLIT's tiles are split
@@ -628,10 +662,16 @@ def phase_k2(ca):
             # ip_scale 0 adds exactly 0: the text-only call's output, bit for bit
             zero = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=0.0))
             text = ca.flash_cross_nhd(q, k, v, **dict(kw, k_ip=None, v_ip=None))
+            # the weight as a 0-dim fp32 tensor on the card, as the captured
+            # denoise step gives it: 0.0 is the text branch, ip_scale the float's
+            table = torch.tensor([0.0, ip_scale], device="cuda")
+            zero_t = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=table[0]))
+            live_t = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=table[1]))
             torch.cuda.synchronize()
-            same = torch.equal(zero, text)
+            same = (torch.equal(zero, text) and torch.equal(zero_t, text)
+                    and torch.equal(live_t, out))
         print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f}, ip_scale 0 bit-identical "
-              f"to text only {same}", flush=True)
+              f"to text only and a device-tensor weight to the float {same}", flush=True)
         if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE and same is not False):
             raise AssertionError(f"K2 disagrees with its plain version at {label}")
         max_err = max(max_err, err)
@@ -1048,15 +1088,165 @@ def phase_p5(ps, pa, fa):
     return errs, times
 
 
-def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
+def _reset_launches(fa, ca, kg):
+    fa.launches = fa.bhsd_launches = ca.cross_launches = ca.cross_ip_launches = 0
+    kg.geglu_launches = 0
+
+
+def _launches(fa, ca, kg):
+    return {"K1": fa.launches, "K4": fa.bhsd_launches, "K2": ca.cross_launches,
+            "K2 IP": ca.cross_ip_launches, "K5": kg.geglu_launches}
+
+
+def _eager_edit(pipe, img, kw, timings=None):
+    """The eager reference of generate(img, **kw): the module functions
+    (``harmony_edit.edit``) on the same prepared inputs."""
+    from imagharmony_tpu_torch.pipelines import harmony_edit as he
+
+    call_kw = {k: v for k, v in kw.items() if k != "output_type"}
+    with torch.inference_mode():
+        clock = he.PhaseClock(timings, pipe.device, time.perf_counter())
+        return he.edit(pipe.components, pipe.prepare(img, **call_kw), clock)
+
+
+def _timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def replay_launches(run, label, tries=4):
+    """Launches of each kernel of PATH_KERNELS in one call of ``run`` (a warm
+    generate(), the card synchronized at its end), counted from zero by name
+    in the profiler's trace: a replay launches through no wrapper, so no
+    wrapper's count sees it. The profiler now and then loses kernel events,
+    so sessions run until two in a row hold as many kernel events."""
+    prev = None
+    for _ in range(tries):
+        _, _, kernels = profiling.profiled(run)
+        if prev == len(kernels):
+            return {k: sum(name in e["name"] for e in kernels) for k, name in PATH_KERNELS.items()}
+        prev = len(kernels)
+    raise AssertionError(f"{label}: no two profiler traces of generate() in a row agree on "
+                         f"its kernels")
+
+
+def edit_modes(pipe, img, kw, fa, ca, kg, label):
+    """The edit generate(img, **kw) asks for, run twice eagerly through the
+    module functions, then through generate() three times: the first call
+    captures the key's programs (CUDA graphs, ``pipelines/programs.py``), the
+    second only replays them and is timed, the third only replays them under
+    the profiler, whose trace counts its launches of each kernel
+    (``replay_launches``). Fails unless the first generate() captured one key
+    and the later ones none and launched nothing through a kernel's wrapper,
+    the replayed launches by kernel name equal the eager run's by wrapper,
+    the first two generate() calls agree bit for bit, and the replay is
+    bit-identical to the eager run; where the two eager runs already differ,
+    the replay may differ from the first eager run by no more than they do.
+    Returns the outputs, the second eager run's launch counts (each eager run
+    must give the same) and the replayed generate()'s (``generate``)."""
+    dev, steps = pipe.device, kw["num_inference_steps"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(2):
+        _reset_launches(fa, ca, kg)
+        timings = {}
+        out, wall = _timed(lambda: _eager_edit(pipe, img, kw, timings), dev)
+        runs.append((out, wall, timings, _launches(fa, ca, kg)))
+    peak_eager = torch.cuda.max_memory_allocated(dev) / 2**30
+    (eager, _, _, first_counts), (eager2, eager_s, eager_t, launches) = runs
+    if first_counts != launches:
+        raise AssertionError(f"{label}: two eager runs launched {first_counts} and {launches}")
+    eager_same = torch.equal(eager, eager2)
+    eager_diff = float((eager.float() - eager2.float()).abs().max())
+
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls = []
+    for _ in range(2):
+        _reset_launches(fa, ca, kg)
+        before = len(pipe.programs)
+        timings = {}
+        out, wall = _timed(lambda: pipe.generate(img, timings=timings, **kw), dev)
+        calls.append((out, wall, timings, _launches(fa, ca, kg), len(pipe.programs) - before))
+        if len(calls) == 1:  # what the key's programs keep, and the call's output
+            torch.cuda.empty_cache()
+            kept = (torch.cuda.memory_reserved(dev) - reserved) / 2**30
+    peak_graphs = torch.cuda.max_memory_allocated(dev) / 2**30
+    (first, first_s, _, captured, n_first), (replay, replay_s, replay_t, replayed, n_second) = calls
+    _reset_launches(fa, ca, kg)
+    before = len(pipe.programs)
+    graph = replay_launches(lambda: _timed(lambda: pipe.generate(img, **kw), dev), label)
+    profiled, n_profiled = _launches(fa, ca, kg), len(pipe.programs) - before
+    expected = {"K1/K4": launches["K1"] + launches["K4"], "K2": launches["K2"],
+                "K5": launches["K5"]}
+    capture_s = list(pipe.programs.values())[-1].capture_s
+    replay_diff = float((replay.float() - eager.float()).abs().max())
+    eager_step_ms, replay_step_ms = (t["denoise_s"] / steps * 1e3 for t in (eager_t, replay_t))
+    print(f"{label} eager (module functions) vs generate() (CUDA graphs), {steps} steps: "
+          f"eager {eager_s:.4f} s a call, {eager_step_ms:.3f} ms a denoise step; replayed "
+          f"{replay_s:.4f} s a call, {replay_step_ms:.3f} ms a denoise step; first "
+          f"generate() {first_s:.4f} s, of it capture with warm-up {capture_s:.4f} s; peak "
+          f"memory allocated eager {peak_eager:.2f} GiB, with graphs {peak_graphs:.2f} GiB; "
+          f"kept by the key's programs {kept:.3f} GiB (reserved after empty_cache, before "
+          f"and after the capture, the call's output included); captures {n_first} then "
+          f"{n_second}; two eager runs bit-identical {eager_same} (max abs {eager_diff:.3e}); "
+          f"replay bit-identical to eager {torch.equal(replay, eager)} (max abs "
+          f"{replay_diff:.3e}); launches eager {launches}, first generate() {captured}, "
+          f"second {replayed}; replayed generate() by kernel name in its trace {graph}",
+          flush=True)
+    if (n_first, n_second, n_profiled) != (1, 0, 0) or any(replayed.values()) \
+            or any(profiled.values()):
+        raise AssertionError(f"{label}: captures {n_first}, {n_second}, {n_profiled} and "
+                             f"launches {replayed}, {profiled} of the later generate() calls: "
+                             f"they did not only replay")
+    if graph != expected:
+        raise AssertionError(f"{label}: the replayed generate() launched {graph}, the eager run "
+                             f"{expected}")
+    if not torch.equal(first, replay):
+        raise AssertionError(f"{label}: two generate() calls differ")
+    if not (torch.equal(replay, eager) if eager_same else replay_diff <= eager_diff):
+        raise AssertionError(f"{label}: the replay differs from the eager run by {replay_diff} "
+                             f"(two eager runs: {eager_diff})")
+    if any(captured[k] != 2 * launches[k] // steps for k in launches):
+        raise AssertionError(f"{label}: the first generate() launched {captured}, expected "
+                             f"twice one step's of {launches}")
+    return dict(eager=eager, replay=replay, launches=launches, generate=graph)
+
+
+def profile_modes(pipe, img, kw, label):
+    """Prints one denoise step of the eager module functions and of
+    generate()'s replayed programs under the profiler
+    (``utils/profile_edit.per_step``): kernels, kernel ms, wall ms and the
+    device's idle share a step."""
+    from imagharmony_tpu_torch.utils import profile_edit
+
+    call_kw = {k: v for k, v in kw.items() if k not in ("num_inference_steps", "output_type")}
+    runs = {"eager": lambda n: _eager_edit(pipe, img, dict(call_kw, num_inference_steps=n)),
+            "replayed": lambda n: pipe.generate(img, num_inference_steps=n, output_type="raw",
+                                                **call_kw)}
+    for mode, run in runs.items():
+        row = profile_edit.per_step(lambda n: _timed(lambda: run(n), pipe.device))
+        print(f"{label} profile of one denoise step, {mode}: " + json.dumps(
+            {k.replace("_per_unet_call", ""): v for k, v in row.items()}), flush=True)
+
+
+def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline):
     """Each kernel (P1 in both pairs and split along K, P2, and P6 v0 of the
     P5-P6 recipes) on cuda:0 and then on cuda:1 in this process, against
     its plain version: the libraries' shared-memory attributes, SM counts,
-    thread contexts and K5's and P1's tile counters are kept per device."""
+    thread contexts and K5's and P1's tile counters are kept per device.
+    Then on each device the tiny edit eagerly and through generate()'s
+    captured programs (``edit_modes``; the programs are keyed by device)."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"phase 3f second device: skipped, {n} card", flush=True)
         return
+    cpu = HarmonyPipeline.random_tiny(seed=0, device="cpu")
+    img, edit_kw = _tiny_edit()
     errs = {}
     for dev in ("cuda:0", "cuda:1"):
         gen = torch.Generator(device=dev).manual_seed(6)
@@ -1125,26 +1315,33 @@ def phase_second_device(fa, ca, kg, pm, pa, ps, split_heads):
                 or max(e["P1"], e["P1 split"]) > P1_MAX_REL
                 or not p1q_exact or not min(p2_cos, p6_cos) >= K1_MIN_COSINE):
             raise AssertionError(f"a kernel disagrees with its plain version on {dev}: {e}")
+        card = HarmonyPipeline(
+            copy.deepcopy(cpu.components).to(device=dev, dtype=torch.bfloat16), cpu.tokenizers)
+        edit_modes(card, img, edit_kw, fa, ca, kg, f"phase 3f {dev} tiny edit")
 
 
-def phase_tiny(fa, kg, HarmonyPipeline):
+def _tiny_edit():
+    """The tiny edit's image and generate() arguments (phases 3f and 4)."""
+    img = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
+    noise = np.random.default_rng(1).standard_normal((1, 32, 32, 4)).astype(np.float32)
+    return img, dict(prompt="a dog", extra_text="six dogs", num_inference_steps=3,
+                     height=64, width=64, noise=noise, output_type="raw")
+
+
+def phase_tiny(fa, ca, kg, HarmonyPipeline):
     cpu = HarmonyPipeline.random_tiny(seed=0, device="cpu")
     card = HarmonyPipeline(
         copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
     )
-    img = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
-    noise = np.random.default_rng(1).standard_normal((1, 32, 32, 4)).astype(np.float32)
-    kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=3,
-              height=64, width=64, noise=noise, output_type="raw")
+    img, kw = _tiny_edit()
     ref = cpu.generate(img, **kw)
-    fa.launches = kg.geglu_launches = 0
-    out = card.generate(img, **kw)
-    torch.cuda.synchronize()
+    r = edit_modes(card, img, kw, fa, ca, kg, "phase 4 tiny pipeline")
+    out, n = r["eager"], r["launches"]
     cos = _cosine(out.float().cpu(), ref)
-    print(f"phase 4 tiny pipeline card bf16 vs cpu fp32: image cosine={cos:.6f}, "
-          f"K1 launches={fa.launches}, K5 launches={kg.geglu_launches}", flush=True)
-    if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE and fa.launches > 0
-            and kg.geglu_launches > 0):
+    print(f"phase 4 tiny pipeline card bf16 (eager) vs cpu fp32: image cosine={cos:.6f}, "
+          f"K1 launches={n['K1']}, K5 launches={n['K5']}", flush=True)
+    if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE and n["K1"] > 0
+            and n["K5"] > 0):
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
 
 
@@ -1156,31 +1353,28 @@ def phase_full(fa, ca, kg, HarmonyPipeline):
     print(f"phase 5 built random_full: {n_params / 1e9:.3f} B params in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     img = np.random.default_rng(0).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
-    torch.cuda.reset_peak_memory_stats()
-    timings = {}
-    fa.launches = ca.cross_launches = ca.cross_ip_launches = kg.geglu_launches = 0
-    t0 = time.perf_counter()
-    out = pipe.generate(img, prompt="a photo of six sheep on a meadow", extra_text="six sheep",
-                        num_samples=1, seed=0, num_inference_steps=FULL_STEPS,
-                        guidance_scale=5.0, output_type="raw", timings=timings)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, k2, k5 = fa.launches, (ca.cross_launches, ca.cross_ip_launches), kg.geglu_launches
+    kw = dict(prompt="a photo of six sheep on a meadow", extra_text="six sheep", num_samples=1,
+              seed=0, num_inference_steps=FULL_STEPS, guidance_scale=5.0, output_type="raw")
+    r = edit_modes(pipe, img, kw, fa, ca, kg, "phase 5 SDXL 1024²")
+    out, n, g = r["replay"], r["launches"], r["generate"]
     finite = bool(torch.isfinite(out).all())
-    print(f"phase 5 generate 1024² {FULL_STEPS} steps: total {wall:.3f} s, "
-          f"conditioning {timings['conditioning_s']:.3f} s, denoise {timings['denoise_s']:.3f} s, "
-          f"decode {timings['decode_s']:.3f} s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 launches {launches}, "
-          f"K2 launches {k2[0]} ({k2[1]} with the IP branch), K5 launches {k5}, shape "
-          f"{tuple(out.shape)}, finite {finite}", flush=True)
+    launches, k2, k5 = n["K1"], (n["K2"], n["K2 IP"]), n["K5"]
+    print(f"phase 5 generate 1024² {FULL_STEPS} steps: replayed K1 launches {g['K1/K4']}, K2 "
+          f"{g['K2']}, K5 {g['K5']}; eager K1 {launches}, K2 {k2[0]} ({k2[1]} with the IP "
+          f"branch), K5 {k5}; shape {tuple(out.shape)}, finite {finite}", flush=True)
     expected = SELF_ATTN_PER_UNET_CALL * FULL_STEPS  # one feed-forward per self-attention
     expected_k2 = (SDXL_CROSS_PER_UNET_CALL * FULL_STEPS, SDXL_IP_CROSS_PER_UNET_CALL * FULL_STEPS)
     if tuple(out.shape) != (1, 1024, 1024, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
-    if launches != expected or k2 != expected_k2 or k5 != expected:
-        raise AssertionError(f"K1 launched {launches} times, expected {expected}; K2 {k2}, "
-                             f"expected {expected_k2}; K5 {k5}, expected {expected}")
-    return launches, k2[0], k5
+    if launches != expected or k2 != expected_k2 or k5 != expected or n["K4"]:
+        raise AssertionError(f"eager: K1 launched {launches} times, expected {expected}; K2 "
+                             f"{k2}, expected {expected_k2}; K5 {k5}, expected {expected}; K4 "
+                             f"{n['K4']}, expected 0")
+    if g != {"K1/K4": expected, "K2": expected_k2[0], "K5": expected}:
+        raise AssertionError(f"the replayed generate() launched {g}, expected {expected} K1, "
+                             f"{expected_k2[0]} K2 and {expected} K5")
+    profile_modes(pipe, img, kw, "phase 5 SDXL 1024²")
+    return n, g
 
 
 def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
@@ -1321,33 +1515,33 @@ def narrow_sd15_configs(comp, proj_kind="image_proj"):
     return dataclasses.replace(cfgs, unet=u, proj_kind=proj_kind, resampler=rs)
 
 
-def phase_sd15_narrow(fa, kg, comp, HarmonyPipeline):
+def phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline):
     img = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
     noise = np.random.default_rng(1).standard_normal((1, 32, 32, 4)).astype(np.float32)
-    kw = dict(prompt="a dog", height=64, width=64, noise=noise, output_type="raw")
+    kw = dict(prompt="a dog", height=64, width=64, noise=noise, num_inference_steps=3,
+              output_type="raw")
     cpu = HarmonyPipeline.random(narrow_sd15_configs(comp), seed=0, device="cpu")
     card = HarmonyPipeline(
         copy.deepcopy(cpu.components).to(device="cuda", dtype=torch.bfloat16), cpu.tokenizers
     )
-    ref = cpu.generate(img, num_inference_steps=3, **kw)
-    fa.launches = fa.bhsd_launches = kg.geglu_launches = 0
-    out = card.generate(img, num_inference_steps=3, **kw)
-    torch.cuda.synchronize()
+    ref = cpu.generate(img, **kw)
+    r = edit_modes(card, img, kw, fa, ca, kg, "phase 8 narrow SD1.5 pipeline")
+    out, n = r["eager"], r["launches"]
     cos = _cosine(out.float().cpu(), ref)
     expected = 3 * SD15_SELF_ATTN_PER_UNET_CALL  # as many feed-forwards
-    print(f"phase 8 narrow SD1.5 pipeline card bf16 vs cpu fp32: image cosine={cos:.6f}, "
-          f"K4 launches={fa.bhsd_launches}, K5 launches={kg.geglu_launches} (expected "
-          f"{expected} each), K1 launches={fa.launches}", flush=True)
+    print(f"phase 8 narrow SD1.5 pipeline card bf16 (eager) vs cpu fp32: image cosine={cos:.6f}, "
+          f"K4 launches={n['K4']}, K5 launches={n['K5']} (expected {expected} each), K1 "
+          f"launches={n['K1']}", flush=True)
     if not (torch.isfinite(out).all() and cos >= TINY_MIN_COSINE):
         raise AssertionError("the narrow SD1.5 pipeline on the card disagrees with the CPU")
-    if (fa.bhsd_launches, kg.geglu_launches, fa.launches) != (expected, expected, 0):
-        raise AssertionError(f"K4 launched {fa.bhsd_launches} times, K5 {kg.geglu_launches}, "
-                             f"expected {expected}; K1 {fa.launches}, expected 0")
+    if (n["K4"], n["K5"], n["K1"]) != (expected, expected, 0):
+        raise AssertionError(f"K4 launched {n['K4']} times, K5 {n['K5']}, expected {expected}; "
+                             f"K1 {n['K1']}, expected 0")
     for kind in ("resampler", "mlp_proj"):
         pipe = HarmonyPipeline.random(narrow_sd15_configs(comp, kind), seed=0, device="cuda",
                                       dtype=torch.bfloat16)
         fa.bhsd_launches = 0
-        out = pipe.generate(img, num_inference_steps=2, **kw)
+        out = pipe.generate(img, **dict(kw, num_inference_steps=2))
         torch.cuda.synchronize()
         finite = bool(torch.isfinite(out).all())
         print(f"phase 8 narrow SD1.5 with proj_kind={kind}: shape {tuple(out.shape)}, "
@@ -1365,28 +1559,17 @@ def phase_sd15_full(fa, ca, kg, HarmonyPipeline):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     img = np.random.default_rng(0).integers(0, 255, (512, 512, 3), dtype=np.uint8)
     kw = dict(prompt="a photo of six sheep on a meadow", num_samples=1, seed=0,
-              guidance_scale=5.0, height=512, width=512, output_type="raw")
+              guidance_scale=5.0, height=512, width=512, num_inference_steps=FULL_STEPS,
+              output_type="raw")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(2):  # the first call pays cuDNN/cuBLAS set-up at these shapes
-        timings = {}
-        fa.launches = fa.bhsd_launches = ca.cross_launches = ca.cross_ip_launches = 0
-        kg.geglu_launches = 0
-        t0 = time.perf_counter()
-        out = pipe.generate(img, num_inference_steps=FULL_STEPS, timings=timings, **kw)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0, timings))
-    k1, k4, k2 = fa.launches, fa.bhsd_launches, (ca.cross_launches, ca.cross_ip_launches)
-    k5 = kg.geglu_launches
+    r = edit_modes(pipe, img, kw, fa, ca, kg, "phase 9 SD1.5 512²")
+    out, n, g = r["replay"], r["launches"], r["generate"]
+    k1, k4, k2, k5 = n["K1"], n["K4"], (n["K2"], n["K2 IP"]), n["K5"]
     finite = bool(torch.isfinite(out).all())
-    for name, (wall, tm) in zip(("first", "second"), walls):
-        print(f"phase 9 SD1.5 generate 512² {FULL_STEPS} steps, {name} call: total {wall:.3f} s, "
-              f"conditioning {tm['conditioning_s']:.3f} s, denoise {tm['denoise_s']:.3f} s, "
-              f"decode {tm['decode_s']:.3f} s", flush=True)
-    print(f"phase 9 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K4 launches "
-          f"{k4}, K1 launches {k1}, K2 launches {k2[0]} ({k2[1]} with the IP branch), K5 "
-          f"launches {k5}, shape {tuple(out.shape)}, finite {finite}", flush=True)
+    print(f"phase 9 SD1.5 generate 512² {FULL_STEPS} steps: replayed K4 launches "
+          f"{g['K1/K4']}, K2 {g['K2']}, K5 {g['K5']}; eager K4 {k4}, K1 {k1}, K2 {k2[0]} "
+          f"({k2[1]} with the IP branch), K5 {k5}; shape {tuple(out.shape)}, finite {finite}",
+          flush=True)
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {finite}")
     # as many cross-attentions (IP on all) and feed-forwards as self-attentions
@@ -1395,14 +1578,11 @@ def phase_sd15_full(fa, ca, kg, HarmonyPipeline):
         raise AssertionError(f"K4 launched {k4} times, expected {expected}; K1 {k1}, expected 0; "
                              f"K2 {k2}, expected {expected} with the IP branch; K5 {k5}, "
                              f"expected {expected}")
-    # where a call's time goes: a short generate() under the profiler
-    n = SD15_PROFILED_STEPS
-    _, wall_ms, kernels = profiling.profiled(
-        lambda: pipe.generate(img, num_inference_steps=n, **kw))
-    prof = profiling.summarize(kernels, 1, wall_ms)
-    print(f"phase 9 profile of a {n}-step generate(): "
-          + json.dumps({k.replace("_per_step", ""): v for k, v in prof.items()}), flush=True)
-    return k4, k2[0], k5
+    if g != {"K1/K4": expected, "K2": expected, "K5": expected}:
+        raise AssertionError(f"the replayed generate() launched {g}, expected {expected} K4, "
+                             f"K2 and K5")
+    profile_modes(pipe, img, kw, "phase 9 SD1.5 512²")
+    return n, g
 
 
 def _unet_ip_grads(unet, inputs, dev):
@@ -1522,13 +1702,13 @@ def main():
         raise AssertionError(f"a kernel was not launched on the probes' path: {missing} "
                              f"of {probes}")
     p1_launches = probes["probe_mm"]
-    phase_second_device(fa, ca, kg, pm, pa, ps, split_heads)
-    phase_tiny(fa, kg, HarmonyPipeline)
-    launches, k2_launches, k5_launches = phase_full(fa, ca, kg, HarmonyPipeline)
+    phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
+    phase_tiny(fa, ca, kg, HarmonyPipeline)
+    sdxl, sdxl_gen = phase_full(fa, ca, kg, HarmonyPipeline)
     phase_train_tiny(fa, kg, comp, step_lib)
     k1_train, k3_train, k2_train, k5_train = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
-    phase_sd15_narrow(fa, kg, comp, HarmonyPipeline)
-    k4_launches, k2_sd15, k5_sd15 = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
+    phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline)
+    sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
@@ -1556,8 +1736,9 @@ def main():
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:415",
-        "launches": launches,
-        "launches_by_path": {"generate": launches, "train": k1_train,
+        "launches": sdxl_gen["K1/K4"],
+        "launches_by_path": {"generate": sdxl_gen["K1/K4"], "edit_eager": sdxl["K1"],
+                             "train": k1_train,
                              "probes": probes["flash_attention_nhd"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
@@ -1584,8 +1765,9 @@ def main():
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:95",
-        "launches": k4_launches,
-        "launches_by_path": {"generate_sd15": k4_launches, "sd15_unet_grad": k4_grad},
+        "launches": sd15_gen["K1/K4"],
+        "launches_by_path": {"generate_sd15": sd15_gen["K1/K4"], "edit_eager_sd15": sd15["K4"],
+                             "sd15_unet_grad": k4_grad},
         "max_abs_err": k4_err,
         "shape": list(K4_SHAPES[0]),
         **_line_times(k4, k4["bound"]),
@@ -1596,9 +1778,11 @@ def main():
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/cross_attn_nhd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:630",
-        "launches": k2_launches,
-        "launches_by_path": {"generate": k2_launches, "train": k2_train,
-                             "generate_sd15": k2_sd15, "sd15_unet_grad": k2_grad},
+        "launches": sdxl_gen["K2"],
+        "launches_by_path": {"generate": sdxl_gen["K2"], "edit_eager": sdxl["K2"],
+                             "edit_eager_ip": sdxl["K2 IP"], "train": k2_train,
+                             "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
+                             "sd15_unet_grad": k2_grad},
         "max_abs_err": k2_err,
         "shape": list(K2_SHAPES[0][:5]),
         **_line_times(k2, k2["bound"]),
@@ -1610,9 +1794,10 @@ def main():
         "source": "imagharmony_tpu_torch/kernels/csrc/geglu.cu",
         "replaces": "tools/probe_geglu_v2.py:36 (also tools/probe_geglu_epilogue.py:64, "
                     "tools/probe_geglu_tune.py:37, tools/probe_pallas_matmul.py:60)",
-        "launches": k5_launches,
-        "launches_by_path": {"generate": k5_launches, "train": k5_train,
-                             "generate_sd15": k5_sd15, "sd15_unet_grad": k5_grad,
+        "launches": sdxl_gen["K5"],
+        "launches_by_path": {"generate": sdxl_gen["K5"], "edit_eager": sdxl["K5"],
+                             "train": k5_train, "generate_sd15": sd15_gen["K5"],
+                             "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,
                              "probes": probes["geglu"]},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),

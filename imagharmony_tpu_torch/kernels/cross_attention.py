@@ -17,7 +17,10 @@ through K2: one launch where the plain chain is ~10-20 kernels. Both
 branches use the exact fp32 softmax with their own max and normaliser, as
 the JAX model's XLA path does; ``ip_scale`` is an argument, not folded into
 v_ip, so 0.0 (``ip_scale_schedule``'s off steps) gives the text branch
-alone.
+alone. The kernel reads ``ip_scale`` from device memory: a 0-dim fp32
+tensor on q's device is passed as it is (so a captured launch reads each
+step's weight from the table the denoise loop indexes), a float goes
+through a tensor kept per (device, value).
 
 When a gradient is needed the call goes through ``FlashCrossNHD``, whose
 backward is the plain-formula backward of each branch on either device: the
@@ -60,7 +63,8 @@ def _attend(qh, k, v, scale, head_dim):
 
 def flash_cross_nhd_plain(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=1.0):
     """K2's reference: fp32 logits, softmax and PV per branch, the IP branch
-    times ``ip_scale`` added in fp32, cast to q's dtype.
+    times ``ip_scale`` (a float or a 0-dim fp32 tensor) added in fp32, cast
+    to q's dtype.
 
     q: (B, Sq, H*D); k, v: (B, Sk, H*D); k_ip, v_ip: (B, Sk_ip, H*D) or None
     -> (B, Sq, H*D)."""
@@ -92,9 +96,27 @@ def _entry():
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 18 + [f32, f32, ptr]
+    fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 18 + [f32, ptr, ptr]
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _weight(device, value):
+    """A float IP weight as the one fp32 on ``device`` that the kernel
+    reads; kept for the process, so a launch captured with it stays valid."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _ip_weight(ip_scale, device):
+    """The fp32 on ``device`` holding ``ip_scale`` (a float or a 0-dim
+    fp32 tensor there)."""
+    if not isinstance(ip_scale, torch.Tensor):
+        return _weight(device, float(ip_scale))
+    if ip_scale.dim() != 0 or ip_scale.dtype != torch.float32 or ip_scale.device != device:
+        raise ValueError(f"flash_cross_nhd: a tensor ip_scale must be 0-dim fp32 on {device}, "
+                         f"got {tuple(ip_scale.shape)} {ip_scale.dtype} on {ip_scale.device}")
+    return ip_scale
 
 
 def _operands(q, k, v, k_ip, v_ip):
@@ -163,13 +185,15 @@ def _launch(q, k, v, k_ip, v_ip, *, scale, head_dim, ip_scale):
     def strides(x):  # batch, head, row
         return (x.stride(0), head_dim, x.stride(1)) if x is not None else (0, 0, 0)
 
+    weight = _ip_weight(ip_scale, q.device).data_ptr() if k_ip is not None else None
+
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry()(
             *(x.data_ptr() if x is not None else None for x in (q, k, v, k_ip, v_ip, out)),
             b, sq, k.shape[1], k_ip.shape[1] if k_ip is not None else 0, hd // head_dim,
             head_dim, *(st for x in (q, k, v, k_ip, v_ip, out) for st in strides(x)),
-            float(scale) * _LOG2E, float(ip_scale), stream,
+            float(scale) * _LOG2E, weight, stream,
         )
     fa._check_rc("flash_cross_nhd", rc)
     cross_launches += 1
@@ -211,6 +235,9 @@ def flash_cross_nhd(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=
     stride (k and v as column views of one packed to_kv output are taken as
     they are). Returns a contiguous (B, Sq, H*D) tensor.
 
+    ip_scale: a float, or a 0-dim fp32 tensor on q's device (read there by
+    the kernel, never by the host).
+
     CPU tensors go to ``flash_cross_nhd_plain``. CUDA tensors must be bf16
     with head_dim in HEAD_DIMS; anything else raises. With grad mode on and
     an input that requires grad, the call goes through ``FlashCrossNHD`` so
@@ -219,7 +246,9 @@ def flash_cross_nhd(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=
     """
     if (k_ip is None) != (v_ip is None):
         raise ValueError("flash_cross_nhd: give both k_ip and v_ip, or neither")
-    kw = dict(scale=scale, head_dim=head_dim, ip_scale=float(ip_scale))
+    if not isinstance(ip_scale, torch.Tensor):
+        ip_scale = float(ip_scale)
+    kw = dict(scale=scale, head_dim=head_dim, ip_scale=ip_scale)
     ops = [x for x in (q, k, v, k_ip, v_ip) if x is not None]
     if torch.is_grad_enabled() and any(x.requires_grad for x in ops):
         if not fa._on_cpu(*ops):

@@ -11,7 +11,9 @@
 // pads the keys to 128 on the host, computes exp2 in bf16 and wants v_ip
 // pre-scaled by ip_scale in device memory. This one computes what the port's
 // model computes: the exact fp32 softmax of each branch, each with its own
-// max and normaliser, ip_scale as an argument, the ragged key edges (77 text
+// max and normaliser, ip_scale one fp32 in device memory that the kernel
+// reads (so one captured launch serves every step of a per-step IP scale
+// schedule, its 0.0 steps too), the ragged key edges (77 text
 // keys; 4, 16 or 257 IP keys) and query rows masked here, nothing padded in
 // device memory.
 //
@@ -88,14 +90,14 @@ struct CrossMaps {
   sm90::Map q, k, v, k_ip, v_ip, o;
 };
 
-// One branch of the kernel: its keys (0: no IP branch), its weight, and
-// where its K and V are in shared memory when it is resident.
+// One branch of the kernel: its keys (0: no IP branch) and where its K and
+// V are in shared memory when it is resident. Its weight is passed apart:
+// 1 for text, the IP weight read from device memory for IP.
 struct Branch {
   int keys;
   int resident;
   int k_off, v_off;  // byte offsets from the aligned base
   int rows;          // rows of each panel: keys rounded up to 16
-  float scale;       // 1 for text, ip_scale for IP
 };
 
 struct CrossArgs {
@@ -105,6 +107,7 @@ struct CrossArgs {
   int q_off;      // the stages' Q / output tiles
   int bar_off;
   float scale_log2;
+  const float* ip_scale;  // the IP branch's weight, in device memory
 };
 
 __host__ __device__ inline int round16(int n) { return (n + kKeyBox - 1) / kKeyBox * kKeyBox; }
@@ -199,13 +202,14 @@ __device__ __forceinline__ void scale_rows(float (&sc)[M], const float (&w)[2]) 
   for (int e = 0; e < M; ++e) sc[e] *= w[(e >> 1) & 1];
 }
 
-// o += scale * softmax(s) V for a resident branch, in one pass (see the
+// o += weight * softmax(s) V for a resident branch, in one pass (see the
 // header): S over its first 64 keys where kWide (more than 16 keys), and
 // over a tail of 16 keys where kTail (keys 64-79, or all of at most 16).
 // cs = scale*log2(e).
 template <int D, bool kWide, bool kTail>
 __device__ __forceinline__ void add_resident(float (&o)[sm90::kPanels<D>][32], const uint8_t* q,
-                                             const uint8_t* smem, const Branch& br, float cs) {
+                                             const uint8_t* smem, const Branch& br, float weight,
+                                             float cs) {
   constexpr int kTail0 = kWide ? 64 : 0;  // the tail's first key
   const int panel = br.rows * kRowBytes;
   const uint8_t* k = smem + br.k_off;
@@ -232,7 +236,7 @@ __device__ __forceinline__ void add_resident(float (&o)[sm90::kPanels<D>][32], c
   if constexpr (kWide) exp_rows(sw, m, l);
   if constexpr (kTail) exp_rows(st, m, l);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) w[r] = br.scale / quad_sum(l[r]);  // l >= 1: the max adds 1
+  for (int r = 0; r < 2; ++r) w[r] = weight / quad_sum(l[r]);  // l >= 1: the max adds 1
   constexpr int kSteps = (kWide ? 4 : 0) + (kTail ? 1 : 0);
   uint32_t pa[kSteps][4];
   if constexpr (kWide) {
@@ -265,12 +269,12 @@ __device__ __forceinline__ void load_chunk(uint8_t* ck, const sm90::Map& km, con
   phase ^= 1;
 }
 
-// o += scale * softmax(s) V for a streamed branch: pass 1 walks the chunks
+// o += weight * softmax(s) V for a streamed branch: pass 1 walks the chunks
 // for the row max and sum (online), pass 2 walks them again for P V.
 template <int D>
 __device__ __forceinline__ void add_streamed(float (&o)[sm90::kPanels<D>][32], const uint8_t* q,
                                              uint8_t* ck, const sm90::Map& km, const sm90::Map& vm,
-                                             const Branch& br, float cs, uint64_t* bar,
+                                             const Branch& br, float weight, float cs, uint64_t* bar,
                                              uint32_t& phase, int h, int b) {
   constexpr int kTile = sm90::kPanels<D> * kPanel;
   const int n_chunks = (br.keys + 63) / 64;
@@ -297,7 +301,7 @@ __device__ __forceinline__ void add_streamed(float (&o)[sm90::kPanels<D>][32], c
   }
   float w[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) w[r] = br.scale / quad_sum(l[r]);
+  for (int r = 0; r < 2; ++r) w[r] = weight / quad_sum(l[r]);
   for (int c = 0; c < n_chunks; ++c) {
     load_chunk<D>(ck, km, vm, true, bar, phase, c, br.keys, h, b);
     float sc[32];
@@ -320,16 +324,16 @@ __device__ __forceinline__ void add_streamed(float (&o)[sm90::kPanels<D>][32], c
 template <int D>
 __device__ __forceinline__ void add_branch(float (&o)[sm90::kPanels<D>][32], const uint8_t* q,
                                            uint8_t* smem, const CrossArgs& a, const Branch& br,
-                                           const sm90::Map& km, const sm90::Map& vm,
+                                           float weight, const sm90::Map& km, const sm90::Map& vm,
                                            uint64_t* bar, uint32_t& phase, int h, int b) {
   if (!br.resident) {
-    add_streamed<D>(o, q, smem + a.chunk_off, km, vm, br, a.scale_log2, bar, phase, h, b);
+    add_streamed<D>(o, q, smem + a.chunk_off, km, vm, br, weight, a.scale_log2, bar, phase, h, b);
   } else if (br.rows <= 16) {
-    add_resident<D, false, true>(o, q, smem, br, a.scale_log2);
+    add_resident<D, false, true>(o, q, smem, br, weight, a.scale_log2);
   } else if (br.rows <= 64) {
-    add_resident<D, true, false>(o, q, smem, br, a.scale_log2);
+    add_resident<D, true, false>(o, q, smem, br, weight, a.scale_log2);
   } else {
-    add_resident<D, true, true>(o, q, smem, br, a.scale_log2);
+    add_resident<D, true, true>(o, q, smem, br, weight, a.scale_log2);
   }
 }
 
@@ -400,6 +404,7 @@ cross_attn_wgmma_kernel(const __grid_constant__ CrossMaps maps, const __grid_con
   }
 
   // ---- consumer warpgroup: one query tile after another ----
+  const float ip_weight = has_ip ? *a.ip_scale : 0.f;
   if (resident) sm90::mbar_wait(kvbar, 0);
   uint32_t chunk_phase = 0;
   int i = 0;
@@ -414,7 +419,8 @@ cross_attn_wgmma_kernel(const __grid_constant__ CrossMaps maps, const __grid_con
       for (int e = 0; e < 32; ++e) o[p][e] = 0.f;
 #pragma unroll 1
     for (int bi = 0; bi < (has_ip ? 2 : 1); ++bi) {  // the text branch, then the IP one
-      add_branch<D>(o, st, smem, a, bi ? a.ip : a.text, bi ? maps.k_ip : maps.k,
+      add_branch<D>(o, st, smem, a, bi ? a.ip : a.text, bi ? ip_weight : 1.f,
+                    bi ? maps.k_ip : maps.k,
                     bi ? maps.v_ip : maps.v, chunkbar, chunk_phase, h, b);
     }
 
@@ -486,12 +492,11 @@ int plan(CrossArgs* a, int sk, int sk_ip) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* k_ip, const void* v_ip,
            void* o, int batch, int sq, int sk, int sk_ip, int heads, const long long (&st)[6][3],
-           float scale_log2, float ip_scale, cudaStream_t stream) {
+           float scale_log2, const float* ip_scale, cudaStream_t stream) {
   CrossArgs a{};
   a.text.keys = sk;
-  a.text.scale = 1.f;
   a.ip.keys = sk_ip;
-  a.ip.scale = ip_scale;
+  a.ip_scale = ip_scale;
   a.n_tiles = (sq + kRows - 1) / kRows;
   a.scale_log2 = scale_log2;
   const int bytes = plan<D>(&a, sk, sk_ip);
@@ -537,7 +542,9 @@ int launch(const void* q, const void* k, const void* v, const void* k_ip, const 
 
 // Plain C entry point (loaded with ctypes). Strides are in elements, three
 // per operand (batch, head, row); unit stride along D. k_ip and v_ip are
-// null with sk_ip = 0 for the text branch alone. Every base address and
+// null with sk_ip = 0 for the text branch alone; ip_scale points to one
+// fp32 on the launch's device (read by the kernel, null without the IP
+// branch). Every base address and
 // stride must be a multiple of 16 bytes (the TMA's rule). Returns
 // cudaGetLastError() after the launch (0 on success); an operand whose
 // tensor map cuTensorMapEncodeTiled refuses returns
@@ -552,9 +559,10 @@ extern "C" int cross_attn_nhd_bf16(
     long long kip_batch, long long kip_head, long long kip_row,
     long long vip_batch, long long vip_head, long long vip_row,
     long long o_batch, long long o_head, long long o_row,
-    float scale_log2, float ip_scale, void* stream) {
+    float scale_log2, const float* ip_scale, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535 ||
-      sk_ip < 0 || (sk_ip > 0) != (k_ip != nullptr && v_ip != nullptr)) {
+      sk_ip < 0 || (sk_ip > 0) != (k_ip != nullptr && v_ip != nullptr) ||
+      (sk_ip > 0 && ip_scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long st[6][3] = {{q_batch, q_head, q_row},       {k_batch, k_head, k_row},

@@ -1,10 +1,15 @@
 """The QL-Edit pipeline: reference image + prompt + extra_text -> edited
 image (port of the main path of imagharmony_tpu/pipelines/harmony_edit.py).
 
-The path, in eager PyTorch: text encoders -> vision encoder -> HA fusion ->
-image projection -> an Euler denoise loop with the CFG pair packed on the
-batch axis ([uncond | cond]) -> VAE decode. The device and dtype come from
-the weights; there is no platform switch.
+The path: text encoders -> vision encoder -> HA fusion -> image projection
+-> an Euler denoise loop with the CFG pair packed on the batch axis
+([uncond | cond]) -> VAE decode. The device and dtype come from the
+weights. The module functions run it eagerly (``edit``: what generate()
+runs on the CPU, and the reference on a card); on a CUDA device generate()
+runs the same functions as captured CUDA graphs (``programs.py``). The
+loop's body, ``denoise_step``, reads each step's constants from a device
+table at a device step index, as the JAX package's ``lax.scan`` reads its
+xs.
 
 Two families run it. SDXL: both text towers, micro-conditioning, the HA
 fusion with extra_text. SD1.5 (``cfgs.family == "sd15"``): CLIP-L's last
@@ -24,6 +29,7 @@ inversion, encoder propagation and batched/serving entry points.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -95,6 +101,20 @@ def image_prompt_tokens(comps: comp.Components, pixel_values, extra_context):
     return cond, uncond
 
 
+def _repeat_rows(x, n):
+    """Each row of x n times in a row (repeat_interleave on the batch axis,
+    with no host read)."""
+    return x.unsqueeze(1).expand(-1, n, *x.shape[1:]).reshape(-1, *x.shape[1:])
+
+
+@functools.lru_cache(maxsize=None)
+def _time_ids(time_ids, device):
+    """SDXL's micro-conditioning row on ``device``, made once per (row,
+    device), so that a captured conditioning program copies nothing from the
+    host."""
+    return torch.tensor([time_ids], dtype=torch.float32, device=device)
+
+
 def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_values, *,
                        num_samples):
     """CFG-packed conditioning, each (2 * num_samples, ...) in [uncond | cond]
@@ -110,7 +130,7 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
         extra_ctx, _ = encode_texts(comps, ids["extra_l"], ids["extra_g"])
 
     def rep(x):
-        return x.repeat_interleave(num_samples, dim=0)
+        return _repeat_rows(x, num_samples)
 
     ip_cond, ip_uncond = image_prompt_tokens(comps, pixel_values, extra_ctx)
     ip2 = torch.cat([rep(ip_uncond), rep(ip_cond)])
@@ -119,38 +139,66 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
         return context2, None, None, ip2
     neg_pooled, pos_pooled = pooled.chunk(2)
     pooled2 = torch.cat([rep(neg_pooled), rep(pos_pooled)])
-    tid = torch.tensor([opts.time_ids()], dtype=torch.float32, device=context.device)
-    time_ids = tid.repeat(2 * num_samples, 1)
+    tid = _time_ids(tuple(opts.time_ids()), context.device)
+    time_ids = tid.expand(2 * num_samples, -1)
     return context2, pooled2, time_ids, ip2
 
 
-def cfg_eps(unet, lat, t, sigma, context, pooled, time_ids, ip_tokens, *, kind,
-            guidance_scale, ip_scale):
-    """One CFG-pair UNet evaluation: the batch is [lat | lat] against the
-    [uncond | cond] conditioning (pooled and time_ids None for SD1.5);
-    returns the epsilon after classifier-free guidance."""
-    lat_in = sched.scale_model_input_c(kind, sigma, torch.cat([lat, lat]))
-    ts = torch.full((lat_in.shape[0],), float(t), dtype=torch.float32, device=lat.device)
-    eps = unet(lat_in, ts, context, pooled_text_embeds=pooled, time_ids=time_ids,
-               ip_tokens=ip_tokens, ip_scale=ip_scale)
+def scan_tables(schedule: sched.Schedule, ip_scales, device=None) -> torch.Tensor:
+    """The denoise loop's per-step constants as one (4, num_steps) fp32
+    tensor on ``device``, rows (timestep, sigma, next sigma, IP scale): the
+    xs of the JAX package's scan, ``sched.scan_constants(schedule) +
+    (ip_scales,)``."""
+    ip = torch.as_tensor(np.asarray(ip_scales, dtype=np.float32), device=device)
+    return torch.stack([*sched.scan_constants(schedule, device), ip])
+
+
+def denoise_step(unet, latents, index, tables, cond, *, kind, guidance_scale):
+    """One step of the denoise loop, the body of the JAX package's scan:
+    the CFG-pair UNet call on [latents | latents] against the CFG-packed
+    ``cond`` (context2, pooled2, time_ids, ip2; pooled2 and time_ids None for
+    SD1.5), classifier-free guidance, the scheduler step. Returns the next
+    latents (B, 4, h, w).
+
+    Every per-step constant is read on the device: ``index`` is a (1,)
+    int64 tensor, the step, at which the timestep, sigmas and IP scale are
+    gathered from ``tables`` (``scan_tables``, as long as the loop or
+    longer); ``guidance_scale`` is a 0-dim fp32 tensor, applied in the
+    guided epsilon's dtype. So one captured step serves every step."""
+    context, pooled, time_ids, ip_tokens = cond
+    t, sigma, sigma_next, ip_scale = tables.index_select(1, index).view(4).unbind(0)
+    lat_in = sched.scale_model_input_c(kind, sigma, torch.cat([latents, latents]))
+    eps = unet(lat_in, t.expand(lat_in.shape[0]), context, pooled_text_embeds=pooled,
+               time_ids=time_ids, ip_tokens=ip_tokens, ip_scale=ip_scale)
     eps_u, eps_c = eps.chunk(2)
-    return eps_u + guidance_scale * (eps_c - eps_u)
+    eps = eps_u + guidance_scale * (eps_c - eps_u)
+    return sched.step_c(kind, sigma, sigma_next, eps, latents)
+
+
+def check_guidance(guidance_scale):
+    if guidance_scale <= 1.0:
+        raise NotImplementedError("the no-CFG path (guidance_scale <= 1) is not ported yet")
 
 
 def denoise(unet, latents, context, pooled, time_ids, ip_tokens, schedule: sched.Schedule,
-            ip_scales, *, guidance_scale):
-    """The Euler denoise loop. latents (B, 4, h, w); the conditioning is
-    CFG-packed (2B, ...) [uncond | cond]."""
-    if guidance_scale <= 1.0:
-        raise NotImplementedError("the no-CFG path (guidance_scale <= 1) is not ported yet")
-    kind = schedule.kind
-    state = sched.init_solver_state(kind, latents)
-    for i in range(schedule.num_steps):
-        sigma, sigma_next = schedule.sigmas[i], schedule.sigmas[i + 1]
-        eps = cfg_eps(unet, latents, schedule.timesteps[i], sigma, context, pooled,
-                      time_ids, ip_tokens, kind=kind, guidance_scale=guidance_scale,
-                      ip_scale=float(ip_scales[i]))
-        latents, state = sched.step_s(kind, sigma, sigma_next, eps, latents, state)
+            ip_scales, *, guidance_scale, on_step=None):
+    """The Euler denoise loop, eagerly: ``denoise_step`` once per step, the
+    step index advanced on the device. latents (B, 4, h, w); the
+    conditioning is CFG-packed (2B, ...) [uncond | cond]. ``on_step``, if
+    given, is called with the latents before the first step and after each."""
+    check_guidance(guidance_scale)
+    on_step = on_step or (lambda _: None)
+    dev = latents.device
+    tables = scan_tables(schedule, ip_scales, dev)
+    guidance = torch.full((), guidance_scale, dtype=torch.float32, device=dev)
+    index = torch.zeros(1, dtype=torch.long, device=dev)
+    cond = (context, pooled, time_ids, ip_tokens)
+    on_step(latents)
+    for _ in range(schedule.num_steps):
+        latents = denoise_step(unet, latents, index, tables, cond, kind=schedule.kind,
+                               guidance_scale=guidance)
+        index += 1
+        on_step(latents)
     return latents
 
 
@@ -164,9 +212,57 @@ def to_uint8(images: torch.Tensor) -> np.ndarray:
     return (np.clip(arr / 2 + 0.5, 0.0, 1.0) * 255).round().astype(np.uint8)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+@dataclasses.dataclass
+class EditCall:
+    """One edit after the host's preprocessing, what the JAX package's
+    ``_edit_jit`` takes: the options, the token ids (keyed as
+    ``build_conditioning`` reads them), the CLIP pixels (1, H, W, 3), the
+    initial latents (B, 4, h, w), contiguous, in the weights' dtype (noise
+    times the schedule's initial sigma) and the schedule."""
+
+    opts: EditOptions
+    ids: dict
+    pixel_values: torch.Tensor
+    latents: torch.Tensor
+    schedule: sched.Schedule
+
+    @property
+    def num_samples(self) -> int:
+        return self.latents.shape[0]
+
+
+class PhaseClock:
+    """Wall seconds of the phases of a call, the device synchronized at each
+    mark; does nothing without a ``timings`` dict."""
+
+    def __init__(self, timings, device, t0):
+        self.timings, self.device, self.t = timings, device, t0
+
+    def mark(self, name):
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name], self.t = now - self.t, now
+
+
+def edit(comps: comp.Components, call: EditCall, clock: Optional[PhaseClock] = None):
+    """The edit after preprocessing, eagerly: ``build_conditioning``,
+    ``denoise``, ``decode``. Images (B, H, W, 3) in [-1, 1]. generate()
+    runs this on the CPU; on a CUDA device it is the eager reference of the
+    captured programs (``programs.py``), which generate() runs there."""
+    clock = clock or PhaseClock(None, None, 0.0)
+    opts = call.opts
+    context2, pooled2, time_ids, ip2 = build_conditioning(
+        comps, opts, call.ids, call.pixel_values, num_samples=call.num_samples)
+    clock.mark("conditioning_s")
+    latents = denoise(comps.unet, call.latents, context2, pooled2, time_ids, ip2, call.schedule,
+                      ip_scale_schedule(opts), guidance_scale=opts.guidance_scale)
+    clock.mark("denoise_s")
+    images = decode(comps, latents)
+    clock.mark("decode_s")
+    return images
 
 
 class HarmonyPipeline:
@@ -182,6 +278,7 @@ class HarmonyPipeline:
         self.tokenizers = tokenizers
         p = next(components.parameters())
         self.device, self.dtype = p.device, p.dtype
+        self.programs = {}  # the captured edit programs by key (programs.py)
 
     # -- constructors ------------------------------------------------------
 
@@ -261,6 +358,32 @@ class HarmonyPipeline:
 
     # -- main entry --------------------------------------------------------
 
+    def prepare(self, pil_image, *, prompt: Optional[str] = None,
+                extra_text: Optional[str] = None, num_samples: int = 1, scale: float = 1.0,
+                seed: Optional[int] = None, guidance_scale: float = 5.0,
+                num_inference_steps: int = 30, height: int = 1024, width: int = 1024,
+                noise=None) -> EditCall:
+        """The host's part of generate(): CLIP preprocessing, tokenization,
+        the schedule and the initial latents, on the pipeline's device."""
+        check_guidance(guidance_scale)
+        pixel_values = self._pixel_values(pil_image)
+        ids = self._ids(prompt or DEFAULT_PROMPT, extra_text)
+        opts = EditOptions(height=height, width=width, num_inference_steps=num_inference_steps,
+                           guidance_scale=guidance_scale, ip_scale=scale,
+                           use_harmony=extra_text is not None)
+        schedule = sched.make("euler", opts.num_inference_steps)
+
+        down = self.cfgs.vae.downscale
+        lat_shape = (num_samples, height // down, width // down, 4)
+        if noise is None:
+            gen = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
+            noise = torch.randn(lat_shape, generator=gen, device=self.device)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+        if tuple(noise.shape) != lat_shape:
+            raise ValueError(f"noise must be {lat_shape}, got {tuple(noise.shape)}")
+        latents = (noise * schedule.init_noise_sigma).to(self.dtype).permute(0, 3, 1, 2)
+        return EditCall(opts, ids, pixel_values, latents.contiguous(), schedule)
+
     @torch.inference_mode()
     def generate(self, pil_image, *, prompt: Optional[str] = None,
                  extra_text: Optional[str] = None, num_samples: int = 1,
@@ -278,44 +401,27 @@ class HarmonyPipeline:
         timings: if a dict is given, the call synchronizes the device at
         its phase boundaries and records conditioning_s, denoise_s and
         decode_s wall seconds in it.
+
+        On a CUDA device the edit runs as the captured programs of
+        ``programs.py`` (captured at the first call of a (device, height,
+        width, num_samples, extra_text or not) key, replayed after); on the
+        CPU it runs ``edit``, the eager module functions. A pipeline keeps
+        every key's programs for its life, and one key's programs serve one
+        call at a time: two concurrent calls of a key on one pipeline would
+        overwrite each other's inputs.
         """
-        t0 = time.perf_counter()
-        pixel_values = self._pixel_values(pil_image)
-        ids = self._ids(prompt or DEFAULT_PROMPT, extra_text)
-        opts = EditOptions(height=height, width=width, num_inference_steps=num_inference_steps,
-                           guidance_scale=guidance_scale, ip_scale=scale,
-                           use_harmony=extra_text is not None)
-        schedule = sched.make("euler", opts.num_inference_steps)
-        ip_scales = ip_scale_schedule(opts)
+        clock = PhaseClock(timings, self.device, time.perf_counter())
+        call = self.prepare(pil_image, prompt=prompt, extra_text=extra_text,
+                            num_samples=num_samples, scale=scale, seed=seed,
+                            guidance_scale=guidance_scale,
+                            num_inference_steps=num_inference_steps, height=height,
+                            width=width, noise=noise)
+        if self.device.type == "cuda":
+            from imagharmony_tpu_torch.pipelines import programs
 
-        down = self.cfgs.vae.downscale
-        lat_shape = (num_samples, height // down, width // down, 4)
-        if noise is None:
-            gen = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
-            noise = torch.randn(lat_shape, generator=gen, device=self.device)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
-        if tuple(noise.shape) != lat_shape:
-            raise ValueError(f"noise must be {lat_shape}, got {tuple(noise.shape)}")
-
-        comps = self.components
-        context2, pooled2, time_ids, ip2 = build_conditioning(
-            comps, opts, ids, pixel_values, num_samples=num_samples
-        )
-        latents = (noise * schedule.init_noise_sigma).to(self.dtype).permute(0, 3, 1, 2)
-        if timings is not None:
-            _sync(self.device)
-            t1 = time.perf_counter()
-            timings["conditioning_s"] = t1 - t0
-        latents = denoise(comps.unet, latents, context2, pooled2, time_ids, ip2, schedule,
-                          ip_scales, guidance_scale=opts.guidance_scale)
-        if timings is not None:
-            _sync(self.device)
-            t2 = time.perf_counter()
-            timings["denoise_s"] = t2 - t1
-        images = decode(comps, latents)
-        if timings is not None:
-            _sync(self.device)
-            timings["decode_s"] = time.perf_counter() - t2
+            images = programs.run(self, call, clock)
+        else:
+            images = edit(self.components, call, clock)
         if output_type == "raw":
             return images
         return to_uint8(images)

@@ -3,8 +3,10 @@ the Euler path and the training half of
 imagharmony_tpu/schedulers/diffusion.py).
 
 A schedule is a bundle of precomputed per-step host constants (timesteps
-and sigmas as float32 numpy arrays); the step functions take one step's
-constants. For inference only the SDXL default is ported: scaled_linear
+and sigmas as float32 numpy arrays); ``scan_constants`` stacks them as
+fp32 tables on a device, as the JAX package's ``lax.scan`` takes them, and
+the step functions take one step's constants as 0-dim fp32 tensors read
+from those tables, never as host floats. For inference only the SDXL default is ported: scaled_linear
 betas, leading timestep spacing, epsilon prediction. Training adds the
 zero-terminal-SNR rescale of ``alphas_cumprod``, ``add_noise`` and
 ``velocity_target``. The other samplers and options of the JAX module
@@ -110,34 +112,33 @@ def make(kind: str, num_steps: int, cfg: NoiseScheduleConfig = NoiseScheduleConf
     return euler_schedule(num_steps, cfg)
 
 
-def scale_model_input_c(kind: str, sigma, sample: torch.Tensor) -> torch.Tensor:
-    """Pre-UNet input scaling from one step's sigma."""
-    if kind != "euler":
-        raise ValueError(kind)
-    denom = np.sqrt(np.float32(sigma) ** 2 + np.float32(1.0), dtype=np.float32)
-    return sample / torch.tensor(float(denom), dtype=sample.dtype)
+def scan_constants(schedule: Schedule, device=None):
+    """The per-step constants of the denoise loop as fp32 tensors on
+    ``device``: (timesteps, sigmas[:-1], sigmas[1:]), each (num_steps,)."""
+    def table(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    return table(schedule.timesteps), table(schedule.sigmas[:-1]), table(schedule.sigmas[1:])
 
 
-def step_c(kind: str, sigma, sigma_next, model_output, sample):
-    """Euler reverse step (epsilon prediction) in fp32, cast back to the
+def scale_model_input_c(kind: str, sigma: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+    """Pre-UNet input scaling from one step's sigma, a 0-dim fp32 tensor on
+    the sample's device: the divisor sqrt(sigma² + 1) in fp32, cast to the
     sample's dtype."""
     if kind != "euler":
         raise ValueError(kind)
-    sigma, sigma_next = float(np.float32(sigma)), float(np.float32(sigma_next))
+    return sample / torch.sqrt(sigma * sigma + 1.0).to(sample.dtype)
+
+
+def step_c(kind: str, sigma: torch.Tensor, sigma_next: torch.Tensor, model_output, sample):
+    """Euler reverse step (epsilon prediction) in fp32, cast back to the
+    sample's dtype; sigma and sigma_next are 0-dim fp32 tensors on the
+    sample's device."""
+    if kind != "euler":
+        raise ValueError(kind)
     s32 = sample.float()
     eps = model_output.float()
     denoised = s32 - sigma * eps
     derivative = (s32 - denoised) / sigma
     return (s32 + derivative * (sigma_next - sigma)).to(sample.dtype)
 
-
-def init_solver_state(kind: str, latents):
-    """Euler is single-step: its solver state is empty."""
-    if kind != "euler":
-        raise ValueError(kind)
-    return ()
-
-
-def step_s(kind: str, sigma, sigma_next, model_output, sample, state):
-    """State-carrying step, ``(new_sample, new_state)``; Euler carries none."""
-    return step_c(kind, sigma, sigma_next, model_output, sample), state

@@ -1,8 +1,10 @@
 """Numerical-parity harness (port of imagharmony_tpu/utils/parity.py).
 
 ``run_capture`` runs an edit of either family (SDXL, or SD1.5 with no pooled
-embedding and no time ids) and keeps every intermediate latent, reusing a
-given initial noise so that two implementations share x_T; ``compare``
+embedding and no time ids) through the eager denoise loop
+(``harmony_edit.denoise``, over the body that generate()'s captured step
+runs, ``denoise_step``) and keeps every intermediate latent,
+reusing a given initial noise so that two implementations share x_T; ``compare``
 scores the per-step cosine between two captures. Captures hold numpy
 arrays in the JAX layout (latents (steps+1, B, h, w, 4), image
 (B, H, W, 3)), so a capture of the port compares directly with the JAX
@@ -40,7 +42,7 @@ def run_capture(pipe, pil_image, *, prompt, extra_text=None, steps=8, height=256
     comps, dev = pipe.components, pipe.device
     opts = he.EditOptions(height=height, width=width, num_inference_steps=steps,
                           guidance_scale=guidance_scale, use_harmony=extra_text is not None)
-    context, pooled, time_ids, ip2 = he.build_conditioning(
+    cond = he.build_conditioning(
         comps, opts, pipe._ids(prompt, extra_text), pipe._pixel_values(pil_image), num_samples=1
     )
 
@@ -50,16 +52,11 @@ def run_capture(pipe, pil_image, *, prompt, extra_text=None, steps=8, height=256
         gen = torch.Generator(device=dev).manual_seed(seed)
         noise = torch.randn((1, height // down, width // down, 4), generator=gen, device=dev)
     noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
-    lat = (noise * schedule.init_noise_sigma).to(pipe.dtype).permute(0, 3, 1, 2)
+    lat = (noise * schedule.init_noise_sigma).to(pipe.dtype).permute(0, 3, 1, 2).contiguous()
 
-    traj = [_nhwc(lat)]
-    for i in range(schedule.num_steps):
-        sigma, sigma_next = schedule.sigmas[i], schedule.sigmas[i + 1]
-        eps = he.cfg_eps(comps.unet, lat, schedule.timesteps[i], sigma, context, pooled,
-                         time_ids, ip2, kind=schedule.kind, guidance_scale=guidance_scale,
-                         ip_scale=1.0)
-        lat = sched.step_c(schedule.kind, sigma, sigma_next, eps, lat)
-        traj.append(_nhwc(lat))
+    traj = []
+    lat = he.denoise(comps.unet, lat, *cond, schedule, he.ip_scale_schedule(opts),
+                     guidance_scale=guidance_scale, on_step=lambda x: traj.append(_nhwc(x)))
 
     img = he.decode(comps, lat)
     return {

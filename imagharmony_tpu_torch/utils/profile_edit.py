@@ -1,12 +1,15 @@
-"""Where the time of one denoise step of the edit goes, on the card.
+"""Where the time of one denoise step of the edit goes, on the card, run
+eagerly and as the captured programs that generate() replays.
 
-    python imagharmony_tpu_torch/utils/profile_edit.py [--family sdxl|sd15] [--steps N]
+    PYTHONPATH=. python imagharmony_tpu_torch/utils/profile_edit.py [--family sdxl|sd15] [--steps N]
 
 Builds the full-size pipeline of the family (random bf16 weights, seed 0:
-SDXL at 1024², SD1.5 at 512²; CFG 5.0, one sample), runs one warm-up
-``generate()``, then profiles ``generate()`` at 2 and at 2 + N Euler steps
-under torch.profiler. The difference of the two, over N, is one denoise
-step: one CFG-pair UNet call and its Euler update. It prints one JSON line:
+SDXL at 1024², SD1.5 at 512²; CFG 5.0, one sample), runs one warm-up call
+of each mode, then profiles each mode at 2 and at 2 + N Euler steps under
+torch.profiler: "eager", the module functions (``harmony_edit.edit``), and
+"replayed", ``generate()``, whose programs the warm-up captured. The
+difference of the two, over N, is one denoise step: one CFG-pair UNet call
+and its Euler update. It prints one JSON line with a row per mode:
 kernels, kernel ms, device-busy ms and wall ms per step (wall with the
 profiler on), the idle share 1 - busy / wall, kernel ms per class of
 ``utils/profiling.KERNEL_CLASSES``, and the elementwise class split by the
@@ -15,9 +18,10 @@ function in the kernel's name, e.g. ``GeluCUDAKernelImpl``, ``MulFunctor``),
 so the GEGLU epilogue's gelu and multiply show apart.
 
 It calls only ``HarmonyPipeline.random_full`` / ``random_full_sd15``,
-``generate()`` and ``utils/profiling``, which every slice of the port has,
-so it profiles another checkout of the package as well: put that checkout
-first on PYTHONPATH and run this file by its path. Needs a CUDA card.
+``prepare()``, ``generate()``, ``harmony_edit.edit`` and
+``utils/profiling``, so it profiles another checkout of the package that
+has them as well: put that checkout first on PYTHONPATH instead of the
+root of this one and run this file by its path. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import re
 import numpy as np
 import torch
 
+from imagharmony_tpu_torch.pipelines import harmony_edit
 from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
 from imagharmony_tpu_torch.utils import profiling
 
@@ -52,9 +57,8 @@ def elementwise_op(name: str) -> str:
     return name.split("(")[0][:80]
 
 
-def _profile(pipe, img, kw, steps):
-    _, wall_ms, kernels = profiling.profiled(
-        lambda: pipe.generate(img, num_inference_steps=steps, **kw))
+def _profile(run, steps):
+    _, wall_ms, kernels = profiling.profiled(lambda: run(steps))
     out = profiling.summarize(kernels, 1, wall_ms)
     ops = {}
     for e in kernels:
@@ -63,6 +67,32 @@ def _profile(pipe, img, kw, steps):
             ops[op] = ops.get(op, 0.0) + e["dur"] / 1000.0
     out["elementwise_ms"] = ops
     return out
+
+
+def per_step(run, steps=4):
+    """One denoise step of ``run(num_steps)`` (an edit, the card synchronized
+    at its end): the difference of profiled runs at BASE_STEPS + ``steps``
+    and BASE_STEPS steps, over ``steps``, after one profiled run that is
+    dropped (the first profiled run of a mode has come out longer than the
+    longer run, which made the difference negative). Warm ``run`` up
+    first."""
+    _profile(run, BASE_STEPS)
+    a = _profile(run, BASE_STEPS)
+    b = _profile(run, BASE_STEPS + steps)
+    per = {key: (b[key + "_per_step"] - a[key + "_per_step"]) / steps
+           for key in ("wall_ms", "kernel_ms", "device_busy_ms", "kernels")}
+    classes = set(a["class_ms_per_step"]) | set(b["class_ms_per_step"])
+    by_class = {c: (b["class_ms_per_step"].get(c, 0.0) - a["class_ms_per_step"].get(c, 0.0))
+                / steps for c in classes}
+    ops = set(a["elementwise_ms"]) | set(b["elementwise_ms"])
+    by_op = {op: (b["elementwise_ms"].get(op, 0.0) - a["elementwise_ms"].get(op, 0.0))
+             / steps for op in ops}
+    return {
+        **{f"{key}_per_unet_call": v for key, v in per.items()},
+        "idle_share": 1.0 - per["device_busy_ms"] / per["wall_ms"],
+        "class_ms_per_unet_call": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "elementwise_ms_per_unet_call": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+    }
 
 
 def main(argv=None):
@@ -75,7 +105,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(prompt="a photo of six sheep on a meadow", num_samples=1, seed=0,
-              guidance_scale=5.0, output_type="raw")
+              guidance_scale=5.0)
     if args.family == "sdxl":
         pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
         size, kw["extra_text"] = 1024, "six sheep"
@@ -84,26 +114,26 @@ def main(argv=None):
         size = 512
         kw.update(height=512, width=512)
     img = np.random.default_rng(0).integers(0, 255, (size, size, 3), dtype=np.uint8)
-    pipe.generate(img, num_inference_steps=BASE_STEPS, **kw)  # cuDNN/cuBLAS set-up
-    a = _profile(pipe, img, kw, BASE_STEPS)
-    b = _profile(pipe, img, kw, BASE_STEPS + args.steps)
-    per = {key: (b[key + "_per_step"] - a[key + "_per_step"]) / args.steps
-           for key in ("wall_ms", "kernel_ms", "device_busy_ms", "kernels")}
-    classes = set(a["class_ms_per_step"]) | set(b["class_ms_per_step"])
-    by_class = {c: (b["class_ms_per_step"].get(c, 0.0) - a["class_ms_per_step"].get(c, 0.0))
-                / args.steps for c in classes}
-    ops = set(a["elementwise_ms"]) | set(b["elementwise_ms"])
-    by_op = {op: (b["elementwise_ms"].get(op, 0.0) - a["elementwise_ms"].get(op, 0.0))
-             / args.steps for op in ops}
+
+    def replayed(n):
+        pipe.generate(img, num_inference_steps=n, output_type="raw", **kw)
+        torch.cuda.synchronize()
+
+    @torch.inference_mode()
+    def eager(n):
+        harmony_edit.edit(pipe.components, pipe.prepare(img, num_inference_steps=n, **kw))
+        torch.cuda.synchronize()
+
+    rows = {}
+    for name, run in {"eager": eager, "replayed": replayed}.items():
+        run(BASE_STEPS)  # cuDNN/cuBLAS set-up; the programs' capture
+        rows[name] = per_step(run, args.steps)
     out = {
         "family": args.family,
         "package": profiling.__file__,
         "device": torch.cuda.get_device_name(0),
         "steps": [BASE_STEPS, BASE_STEPS + args.steps],
-        **{f"{key}_per_unet_call": v for key, v in per.items()},
-        "idle_share": 1.0 - per["device_busy_ms"] / per["wall_ms"],
-        "class_ms_per_unet_call": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-        "elementwise_ms_per_unet_call": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+        **rows,
     }
     print(json.dumps(out), flush=True)
     return out

@@ -224,15 +224,28 @@ def test_k2_checks_name_k2():
 
 def test_k2_on_cpu_is_plain_and_ip_scale_zero_is_text():
     """CPU tensors take the plain version (no launch counted); ip_scale 0
-    gives the text branch alone, and zero gradients to the IP keys; without
-    a gradient request there is no Function."""
+    gives the text branch alone, and zero gradients to the IP keys; a 0-dim
+    fp32 tensor ip_scale gives what its float gives, bit for bit; without a
+    gradient request there is no Function."""
     q, k, v, k_ip, v_ip = (t(x) for x in _cross_case(30, 2, 70, 2, 40, 4))
     kw = dict(scale=40**-0.5, head_dim=40)
     before = ca.cross_launches
     text = ca.flash_cross_nhd(q, k, v, **kw)
     zero = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=0.0, **kw)
+    # the IP weight as a 0-dim fp32 tensor (what the denoise loop reads from
+    # its table) gives the float's output exactly, 0.0 the text branch
+    as_float = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=0.7, **kw)
+    as_tensor = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=torch.tensor(0.7),
+                                   **kw)
+    zero_tensor = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=torch.tensor(0.0),
+                                     **kw)
     assert ca.cross_launches == before
     torch.testing.assert_close(zero, text, rtol=0, atol=0)
+    torch.testing.assert_close(as_tensor, as_float, rtol=0, atol=0)
+    torch.testing.assert_close(zero_tensor, text, rtol=0, atol=0)
+    assert not torch.equal(as_float, text)
+    with pytest.raises(ValueError, match="a tensor ip_scale must be 0-dim fp32"):
+        ca._ip_weight(torch.ones(1), torch.device("cpu"))
     assert text.grad_fn is None and text.shape == (2, 70, 80) and text.is_contiguous()
     leaves = [x.clone().requires_grad_() for x in (k_ip, v_ip)]
     ca.flash_cross_nhd(q, k, v, k_ip=leaves[0], v_ip=leaves[1], ip_scale=0.0, **kw).sum().backward()
@@ -354,7 +367,9 @@ def test_cuda_k2_matches_plain(cuda):
     expanded over the batch (batch stride 0, the prompt and image of both
     halves of the CFG pair), which also gives the bits of contiguous copies.
     Then, at the UNets' IP shapes, ip_scale 0 with the IP keys gives the
-    text-only call's output bit for bit."""
+    text-only call's output bit for bit, also as a 0-dim fp32 tensor on the
+    card (the kernel reads the weight from device memory), where 0.7 gives
+    the float's output bit for bit; a tensor on another device raises."""
     def check(q, k, v, k_ip, v_ip, ip_scale, what):
         d = what[3]
         kw = dict(scale=d**-0.5, head_dim=d, k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
@@ -396,8 +411,16 @@ def test_cuda_k2_matches_plain(cuda):
         kw = dict(scale=d**-0.5, head_dim=d)
         text = ca.flash_cross_nhd(q, k, v, **kw)
         zero = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=0.0, **kw)
+        # the weight from a table on the card, as a captured denoise step reads it
+        table = torch.tensor([0.0, 0.7], device=cuda)
+        zero_t = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=table[0], **kw)
+        live_t = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=table[1], **kw)
+        live = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=0.7, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(zero, text), (b, sq, heads, d, sk_ip)
+        assert torch.equal(zero, text) and torch.equal(zero_t, text), (b, sq, heads, d, sk_ip)
+        assert torch.equal(live_t, live) and not torch.equal(live, text), (b, sq, heads, d, sk_ip)
+    with pytest.raises(ValueError, match="a tensor ip_scale must be 0-dim fp32 on cuda"):
+        ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=table[1].cpu(), **kw)
 
 
 @pytest.mark.cuda

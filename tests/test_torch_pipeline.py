@@ -19,10 +19,12 @@ from imagharmony_tpu.io import hf_import
 from imagharmony_tpu.models import tokenizer as jtok
 from imagharmony_tpu.pipelines import HarmonyPipeline as JaxPipeline
 from imagharmony_tpu.pipelines import harmony_edit as jhe
+from imagharmony_tpu.schedulers import diffusion as jsched
 from imagharmony_tpu_torch.io import from_jax
 from imagharmony_tpu_torch.models import tokenizer as ptok
 from imagharmony_tpu_torch.pipelines import components as pcomp
 from imagharmony_tpu_torch.pipelines import harmony_edit as phe
+from imagharmony_tpu_torch.schedulers import diffusion as psched
 from imagharmony_tpu_torch.utils import parity
 from torch_port_util import close
 
@@ -47,7 +49,8 @@ def _image():
 
 def test_tiny_edit_matches_golden(pipes):
     """The call and thresholds of tests/test_golden.py, with the golden's
-    initial noise handed to the port."""
+    initial noise handed to the port, through the denoise loop's body that
+    generate() runs; generate() gives the capture's image bit for bit."""
     _, port = pipes
     gold = parity.load(GOLDEN)
     cap = parity.run_capture(port, _image(), prompt="a dog", extra_text="six dogs",
@@ -55,6 +58,10 @@ def test_tiny_edit_matches_golden(pipes):
     rep = parity.compare(cap, gold)
     assert rep["min_cosine"] > 0.9999, rep
     assert rep["image_cosine"] > 0.9999, rep
+    # generate() runs the same body (harmony_edit.denoise_step) on the CPU
+    img = port.generate(_image(), prompt="a dog", extra_text="six dogs", num_inference_steps=3,
+                        height=32, width=32, noise=gold["noise"], output_type="raw")
+    np.testing.assert_array_equal(img.numpy(), cap["image"])
 
 
 def test_build_conditioning_matches_jax(pipes):
@@ -85,12 +92,11 @@ def test_generate_tiny():
               width=32, seed=3)
     timings = {}
     a = pipe.generate(_image(), timings=timings, **kw)
-    b = pipe.generate(_image(), **kw)
-    assert a.shape == (1, 32, 32, 3) and a.dtype == np.uint8
-    np.testing.assert_array_equal(a, b)
-    assert set(timings) == {"conditioning_s", "denoise_s", "decode_s"}
     raw = pipe.generate(_image(), output_type="raw", **kw)
+    assert a.shape == (1, 32, 32, 3) and a.dtype == np.uint8
     assert raw.shape == (1, 32, 32, 3) and torch.isfinite(raw).all()
+    np.testing.assert_array_equal(a, phe.to_uint8(raw))
+    assert set(timings) == {"conditioning_s", "denoise_s", "decode_s"}
     with pytest.raises(ValueError, match="noise must be"):
         pipe.generate(_image(), noise=np.zeros((1, 8, 8, 4), np.float32), **kw)
 
@@ -102,6 +108,20 @@ def test_ip_scale_schedule_and_time_ids_match_jax():
         np.testing.assert_array_equal(phe.ip_scale_schedule(phe.EditOptions(**kw)),
                                       jhe.ip_scale_schedule(jhe.EditOptions(**kw)))
     assert phe.EditOptions(height=768).time_ids() == jhe.EditOptions(height=768).time_ids()
+    # the scan's per-step tables: JAX's xs, scan_constants(schedule) + (ip_scales,)
+    for steps in (1, 30):
+        opts_p = phe.EditOptions(num_inference_steps=steps, ip_scale=0.6,
+                                 control_guidance_start=0.2, control_guidance_end=0.7)
+        opts_j = jhe.EditOptions(num_inference_steps=steps, ip_scale=0.6,
+                                 control_guidance_start=0.2, control_guidance_end=0.7)
+        sched_p, sched_j = psched.make("euler", steps), jsched.make("euler", steps)
+        ref = [np.asarray(x) for x in jsched.scan_constants(sched_j)]
+        for o, r in zip(psched.scan_constants(sched_p), ref):
+            assert o.dtype == torch.float32 and o.shape == (steps,)
+            np.testing.assert_array_equal(o.numpy(), r)
+        tables = phe.scan_tables(sched_p, phe.ip_scale_schedule(opts_p))
+        np.testing.assert_array_equal(tables.numpy(),
+                                      np.stack(ref + [jhe.ip_scale_schedule(opts_j)]))
 
 
 @pytest.mark.parametrize("text", ["a dog", "a photo of eight sheep!", "", "Six   CATS, a dog"])
