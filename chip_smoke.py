@@ -123,12 +123,29 @@ is non-zero:
    under the profiler (``utils/profile_edit.per_step``: kernels, kernel
    and wall ms, the device's idle share);
 6. one tiny training step on the card (bf16, K1, K3 and K5) against the
-   same weights and draws on the CPU (fp32, plain versions);
+   same weights and draws on the CPU (fp32, plain versions); then the tiny
+   trainer on the card as phase 7 runs the full one (``train_modes``), and
+   every branch of the step (grad_accum 2, v-prediction, Min-SNR, noise
+   offset, EMA, warmup-cosine lr, the clip scaling and keeping) through
+   ``train/programs.run`` against the eager ``train_step``;
 7. the adapter trainer at full width (``--full_random``, its defaults: 512²,
-   batch 1, bf16, gradient checkpointing) for 4 steps on synthetic data,
-   with the K3 launches per step checked against the count the UNet config
-   gives, and the K2 and K5 launches per step (forward and recompute: 140
-   each);
+   batch 1, bf16, gradient checkpointing) on synthetic data, first through
+   ``step.train_step`` called directly (eager: every step's K1, K2 and K5
+   launches, 140 each, forward and recompute, and its K3 launches, the
+   count the UNet config gives, 55; nonzero gradients on the live IP
+   projections and the HA head), then through ``trainer.main``, whose every
+   step is one replay of the step's CUDA graph (``train/programs.py``): one
+   capture, which launches twice one eager step's kernels (its warm-up and
+   itself), then replays that launch through no wrapper; the last
+   TRAIN_PROFILED replays under the profiler, two in a row of which must
+   agree on their kernel events and launch 140 ``attn_fwd_wgmma_kernel``,
+   140 ``cross_attn_wgmma_kernel``, 140 ``geglu_wgmma_kernel`` and 55
+   ``attn_bwd_dkdv_kernel`` by name; the replayed steps' losses, grad norms
+   and trainable parameters equal the eager run's bit for bit (or, where two
+   eager runs differ, are no further from it than they are), with the step
+   wall of each mode, the replayed step's kernels, kernel ms and idle
+   share, the capture time, the peak memory allocated and what the program
+   keeps;
 8. a narrow SD1.5 pipeline (head dims 40/80/160) on the card (bf16, K4,
    K5), eager and through ``generate()``'s graphs as in phase 4, the eager
    run against the same weights on the CPU (fp32, plain versions), and a
@@ -166,7 +183,9 @@ its programs: counted by kernel name in its profiler trace, since a replay
 launches through no wrapper (``replay_launches``); "edit_eager" and
 "edit_eager_sd15" are the wrappers' counts of the eager module functions
 on the same inputs, "edit_eager_ip" K2's launches with the IP branch
-there.
+there. "train" is one replayed full-width train step's launches (by kernel
+name in its trace; K3's ``launches`` too) and "train_eager" one eager
+step's (the wrappers' counts).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -174,6 +193,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -246,7 +266,10 @@ K3_BHSD_EDGES = [(2, 1000, 2, 40)]
 # tiny training step, bf16 on the card vs fp32 on the CPU
 TRAIN_MAX_LOSS_REL = 2e-2
 TRAIN_MIN_GRAD_COSINE = 0.99
-TRAIN_STEPS = 4
+# the full-width trainer: steps 2 to TRAIN_STEPS - TRAIN_PROFILED time the
+# replays, the last TRAIN_PROFILED are profiled (two in a row must agree)
+TRAIN_STEPS = 10
+TRAIN_PROFILED = 6
 
 # the device kernel behind K1's and K4's entry points
 FWD_KERNEL = "attn_fwd_wgmma_kernel"
@@ -269,6 +292,8 @@ GEGLU_KERNEL = "geglu_wgmma_kernel"
 # the edit's kernels, each under the device kernel's name its launches
 # carry in a profiler trace (K1 and K4 launch one device kernel)
 PATH_KERNELS = {"K1/K4": FWD_KERNEL, "K2": CROSS_KERNEL, "K5": GEGLU_KERNEL}
+# and training's: K3 by the one of its three kernels that runs its main loop
+TRAIN_KERNELS = {**PATH_KERNELS, "K3": "attn_bwd_dkdv_kernel"}
 
 # P1, (M, K, N): timed at kernel_ab.P1_SHAPES, the matmul probe's SDXL
 # feed-forward products, in both pairs, of which P1_SPLIT's tiles are split
@@ -1117,20 +1142,17 @@ def _timed(fn, dev):
     return out, time.perf_counter() - t0
 
 
-def replay_launches(run, label, tries=4):
+def replay_launches(run, label, tries=8):
     """Launches of each kernel of PATH_KERNELS in one call of ``run`` (a warm
     generate(), the card synchronized at its end), counted from zero by name
     in the profiler's trace: a replay launches through no wrapper, so no
     wrapper's count sees it. The profiler now and then loses kernel events,
     so sessions run until two in a row hold as many kernel events."""
-    prev = None
-    for _ in range(tries):
-        _, _, kernels = profiling.profiled(run)
-        if prev == len(kernels):
-            return {k: sum(name in e["name"] for e in kernels) for k, name in PATH_KERNELS.items()}
-        prev = len(kernels)
-    raise AssertionError(f"{label}: no two profiler traces of generate() in a row agree on "
-                         f"its kernels")
+    got, counts = profiling.profiled_agreeing(run, tries)
+    if got is None:
+        raise AssertionError(f"{label}: no two profiler traces of generate() in a row agree on "
+                             f"its kernel events: {counts}")
+    return {k: sum(name in e["name"] for e in got[2]) for k, name in PATH_KERNELS.items()}
 
 
 def edit_modes(pipe, img, kw, fa, ca, kg, label):
@@ -1387,7 +1409,275 @@ def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
     return float(loss.detach()), flat
 
 
-def phase_train_tiny(fa, kg, comp, step_lib):
+def _reset_train_launches(fa, ca, kg):
+    _reset_launches(fa, ca, kg)
+    fa.bwd_launches = 0
+
+
+def _train_launches(fa, ca, kg):
+    """The wrappers' counts under TRAIN_KERNELS' keys."""
+    return {"K1/K4": fa.launches + fa.bhsd_launches, "K2": ca.cross_launches,
+            "K5": kg.geglu_launches, "K3": fa.bwd_launches}
+
+
+def _max_grad(state, pred):
+    gs = [p.grad.abs().max() for n, p in state.trainable.items()
+          if pred(n) and p.grad is not None]
+    return float(torch.stack(gs).max()) if gs else 0.0
+
+
+def _gap(a, b):
+    """Largest difference of two runs: (per-step (loss, grad_norm) pairs,
+    trainable parameters by name)."""
+    (ma, pa), (mb, pb) = a, b
+    metrics = max(abs(x - y) for u, v in zip(ma, mb) for x, y in zip(u, v))
+    params = max(float((pa[n].float() - pb[n].float()).abs().max()) for n in pa)
+    return metrics, params
+
+
+def _agrees(label, replayed, eager, eager_again):
+    """Fails unless the replayed run equals the eager one bit for bit, or,
+    where a second eager run (``eager_again()``, called only then) differs
+    from the first, the replay is no further from the first than it is.
+    Returns (replay's gap, two eager runs' gap) as printed."""
+    gap = _gap(replayed, eager)
+    if gap == (0.0, 0.0):
+        return gap, "not run (the replay is bit-identical)"
+    gap2 = _gap(eager_again(), eager)
+    if gap2 == (0.0, 0.0) or gap[0] > gap2[0] or gap[1] > gap2[1]:
+        raise AssertionError(f"{label}: the replayed steps differ from the eager ones by {gap} "
+                             f"(metrics, parameters), two eager runs by {gap2}")
+    return gap, gap2
+
+
+def eager_train(argv, steps, fa, ca, kg, step_lib, trainer):
+    """The steps ``trainer.main(argv)`` takes on its synthetic data, through
+    the eager ``step_lib.train_step`` called directly: the trainer's
+    components, config, seed, batches and generator. Per step the loss and
+    grad norm, the wrappers' launch counts, the largest |gradient| of the
+    live IP projections and of the HA head, and the host time of the
+    synchronized step; then the trainable parameters after the last step
+    and the peak memory allocated."""
+    args = trainer.parse_args(argv)
+    cfgs, comps, _ = trainer.build_components(args)
+    tcfg = trainer.train_config(args, cfgs)
+    state = step_lib.init_state(comps, tcfg)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    rows = args.train_batch_size * max(args.grad_accum, 1)
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for i in range(steps):
+        batch = step_lib.to_device(step_lib.dummy_batch(cfgs, rows, args.resolution, rng=i),
+                                   args.device)
+        _reset_train_launches(fa, ca, kg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_lib.train_step(state, comps, tcfg, batch,
+                                step_lib.step_draws(gen, cfgs, tcfg, rows, args.resolution))
+        torch.cuda.synchronize()
+        out.append({"wall": time.perf_counter() - t0, "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "launches": _train_launches(fa, ca, kg),
+                    "ip": _max_grad(state, lambda n: "down_blocks.2.attentions.1." in n
+                                    and "_ip." in n),
+                    "harmony": _max_grad(state, lambda n: n.startswith("harmony."))})
+    trained = {n: p.detach().clone() for n, p in state.trainable.items()}
+    return out, trained, torch.cuda.max_memory_allocated() / 2**30
+
+
+def captured_train(argv, profile_from, fa, ca, kg, trainer):
+    """``trainer.main(argv)`` on the card, each step one replay of its
+    captured program (``train/programs.py``), watched: each capture's time
+    (warm-up included), the wrappers' launches during it, the memory it
+    keeps (reserved after ``empty_cache()``, before and after, less the
+    AdamW state its warm-up step creates, which the trainer keeps anyway)
+    and that state; per replay the wrappers' launches (a replay launches
+    through no wrapper) and, from step ``profile_from`` on, its profiler
+    trace (``profiling.profiled``: those steps' host times carry the
+    profiler). Returns them with the logged metrics, the trainable
+    parameters of the last checkpoint and the peak memory allocated."""
+    from imagharmony_tpu_torch.train import programs
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = [*argv, "--log_every", "1", "--output_dir", out_dir]
+    captures, replays = [], []
+    init, run = programs.TrainProgram.__init__, programs.TrainProgram.run
+
+    def init_watched(self, state, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        _reset_train_launches(fa, ca, kg)
+        init(self, state, *a, **kw)
+        launches = _train_launches(fa, ca, kg)
+        torch.cuda.empty_cache()
+        opt = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v))
+        captures.append({"s": self.capture_s, "launches": launches, "opt_gib": opt / 2**30,
+                         "kept_gib": (torch.cuda.memory_reserved() - before - opt) / 2**30})
+
+    def run_watched(self, batch, gen):
+        _reset_train_launches(fa, ca, kg)
+        kernels, wall_ms = None, None
+        if len(replays) + 1 >= profile_from:
+            m, wall_ms, kernels = profiling.profiled(lambda: run(self, batch, gen))
+        else:
+            m = run(self, batch, gen)
+        replays.append({"launches": _train_launches(fa, ca, kg), "kernels": kernels,
+                        "wall_ms": wall_ms})
+        return m
+
+    programs.TrainProgram.__init__, programs.TrainProgram.run = init_watched, run_watched
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        final = trainer.main(argv)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        trained = torch.load(os.path.join(out_dir, "checkpoints", f"step-{final}.pt"),
+                             map_location="cuda", weights_only=True)["trainable"]
+    finally:
+        programs.TrainProgram.__init__, programs.TrainProgram.run = init, run
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(final=final, metrics=metrics, trained=trained, peak=peak, captures=captures,
+                replays=replays)
+
+
+def train_modes(argv, steps, profile_from, fa, ca, kg, step_lib, trainer, label):
+    """``argv``'s trainer for ``steps`` steps eagerly (``eager_train``), then
+    through ``trainer.main`` (``captured_train``, the replays from step
+    ``profile_from`` on profiled). Fails unless the trainer captured once
+    and its capture launched twice one eager step's kernels (warm-up and
+    capture), every replay launched through no wrapper, two profiled
+    replays in a row hold as many kernel events (the profiler now and then
+    loses some) and as many launches of each of TRAIN_KERNELS, by name, as
+    an eager step's wrappers count, and the replayed steps agree with the
+    eager ones (``_agrees``). Returns the eager steps, the replayed step's
+    launches by name and summary (``profiling.summarize``), and the rest."""
+    eager, eager_p, eager_peak = eager_train(argv, steps, fa, ca, kg, step_lib, trainer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = captured_train([*argv, "--max_steps", str(steps)], profile_from, fa, ca, kg, trainer)
+    per_step = eager[-1]["launches"]
+    if any(e["launches"] != per_step for e in eager):
+        raise AssertionError(f"{label}: eager steps launched {[e['launches'] for e in eager]}")
+    caps, reps = run["captures"], run["replays"]
+    if run["final"] != steps or len(run["metrics"]) != steps or len(reps) != steps:
+        raise AssertionError(f"{label}: the trainer ran {run['final']} steps, logged "
+                             f"{len(run['metrics'])}, replayed {len(reps)}")
+    if len(caps) != 1 or caps[0]["launches"] != {k: 2 * n for k, n in per_step.items()}:
+        raise AssertionError(f"{label}: captures {caps}, expected one launching twice "
+                             f"{per_step}")
+    if any(any(r["launches"].values()) for r in reps):
+        raise AssertionError(f"{label}: a replay launched through a wrapper: "
+                             f"{[r['launches'] for r in reps]}")
+    traced = [r for r in reps if r["kernels"] is not None]
+    pair = next((b for a, b in zip(traced, traced[1:])
+                 if a["kernels"] and len(a["kernels"]) == len(b["kernels"])), None)
+    if pair is None:
+        raise AssertionError(f"{label}: no two profiled replays in a row agree on their kernel "
+                             f"events: {[len(r['kernels']) for r in traced]}")
+    by_name = {k: sum(name in e["name"] for e in pair["kernels"])
+               for k, name in TRAIN_KERNELS.items()}
+    if by_name != per_step:
+        raise AssertionError(f"{label}: a replayed step launched {by_name} by kernel name, an "
+                             f"eager step {per_step}")
+    summary = profiling.summarize(pair["kernels"], 1, pair["wall_ms"])
+
+    def runs(metrics, trained):
+        return [(m["loss"], m["grad_norm"]) for m in metrics], trained
+
+    def again():
+        gc.collect()
+        torch.cuda.empty_cache()
+        e, p, _ = eager_train(argv, steps, fa, ca, kg, step_lib, trainer)
+        return runs(e, p)
+
+    gap, gap2 = _agrees(label, runs(run["metrics"], run["trained"]), runs(eager, eager_p), again)
+    replay_s = statistics.median(m["step_time_s"] for m in run["metrics"][1:profile_from - 1])
+    return dict(eager=eager, eager_peak=eager_peak, replayed=by_name, summary=summary,
+                gap=gap, gap2=gap2, profile_from=profile_from, replay_s=replay_s, **run)
+
+
+def _print_train_modes(r, label):
+    """One line per step of each mode, then the comparison."""
+    steps_from = 2  # the first step of each mode pays cuDNN/cuBLAS set-up or the capture
+    for i, (e, m) in enumerate(zip(r["eager"], r["metrics"])):
+        print(f"{label} step {i + 1}: eager loss {e['loss']:.6f}, grad_norm "
+              f"{e['grad_norm']:.6e}, {e['wall']:.4f} s, max |grad| live IP {e['ip']:.3e}, "
+              f"harmony {e['harmony']:.3e}, launches {e['launches']}; replayed loss "
+              f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6e}, {m['step_time_s']:.4f} s "
+              + ("logged, profiled" if i + 1 >= r["profile_from"] else "logged"), flush=True)
+    cap = r["captures"][0]
+    eager_s = statistics.median(e["wall"] for e in r["eager"][steps_from - 1:])
+    s = r["summary"]
+    print(f"{label}: eager step median of steps {steps_from}-{len(r['eager'])} {eager_s:.4f} "
+          f"s; replayed step median of the unprofiled steps {steps_from}-"
+          f"{r['profile_from'] - 1} {r['replay_s']:.4f} s; a profiled replayed step: wall "
+          f"{s['wall_ms_per_step']:.2f} ms, kernels {s['kernels_per_step']:.0f}, kernel ms "
+          f"{s['kernel_ms_per_step']:.2f}, device busy {s['device_busy_ms_per_step']:.2f} ms, "
+          f"idle {s['idle_share']:.3%} (between kernels: the largest stretch "
+          f"{s['largest_gap_ms']:.3f} ms, those over 20 us {s['gaps_over_20us_ms_per_step']:.3f} "
+          f"ms); capture with its warm-up step {cap['s']:.3f} s, "
+          f"launching {cap['launches']}; kept by the program {cap['kept_gib']:.3f} GiB "
+          f"(reserved after empty_cache, before and after the capture, less the AdamW state "
+          f"of {cap['opt_gib']:.3f} GiB that its warm-up step creates); peak memory "
+          f"allocated eager {r['eager_peak']:.2f} GiB, replayed {r['peak']:.2f} GiB; captures "
+          f"{len(r['captures'])}, replays {len(r['replays'])}, each launching through no "
+          f"wrapper; replayed step by kernel name {r['replayed']}; eager step by wrapper "
+          f"{r['eager'][-1]['launches']}; replay vs eager max abs (metrics, parameters) "
+          f"{r['gap']}, two eager runs {r['gap2']}", flush=True)
+    print(f"{label} replayed step by kernel class (ms): " + json.dumps(s["class_ms_per_step"]),
+          flush=True)
+
+
+def _branch_programs(comp, step_lib, label):
+    """Every branch of the step under capture on the tiny bundle (bf16):
+    grad_accum 2, v-prediction, Min-SNR, a noise offset, the EMA, a
+    warmup-cosine lr, and the clip both scaling (max_grad_norm 1e-3) and
+    keeping; three steps through ``train/programs.run`` against three eager
+    ``train_step`` on a copy of the same components and generator."""
+    from imagharmony_tpu_torch.train import programs
+
+    cfgs = comp.tiny_configs()
+    base = comp.init_params(torch.Generator(device="cuda").manual_seed(0), cfgs,
+                            dtype=torch.bfloat16, device="cuda")
+    batches = [step_lib.to_device(step_lib.dummy_batch(cfgs, 4, 32, rng=i), "cuda")
+               for i in range(3)]
+    for max_norm in (1e-3, 1e3):
+        tcfg = step_lib.TrainConfig(
+            unet_cfg=cfgs.unet, grad_accum=2, prediction_type="v_prediction", snr_gamma=5.0,
+            noise_offset=0.05, ema_decay=0.9, lr_schedule="cosine", lr_warmup_steps=1,
+            lr_total_steps=3, max_grad_norm=max_norm)
+
+        def steps(replay):
+            comps = copy.deepcopy(base)
+            state = step_lib.init_state(comps, tcfg)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            progs, metrics = {}, []
+            for batch in batches:
+                if replay:
+                    m = programs.run(progs, state, comps, cfgs, tcfg, batch, gen, 32)
+                else:
+                    m = step_lib.train_step(state, comps, tcfg, batch,
+                                            step_lib.step_draws(gen, cfgs, tcfg, 4, 32))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            return metrics, {n: p.detach().clone() for n, p in state.trainable.items()}
+
+        eager = steps(False)
+        gap, gap2 = _agrees(f"{label} max_grad_norm {max_norm}", steps(True), eager,
+                            lambda: steps(False))
+        print(f"{label} every branch (grad_accum 2, v-prediction, Min-SNR, noise offset, EMA, "
+              f"warmup-cosine lr, max_grad_norm {max_norm}, grad norms "
+              f"{[f'{g:.3e}' for _, g in eager[0]]}), 3 steps through train/programs.run vs "
+              f"eager: max abs (metrics, parameters) {gap}, two eager runs {gap2}", flush=True)
+
+
+def phase_train_tiny(fa, ca, kg, comp, step_lib, trainer):
+    """The tiny train step card vs CPU; then the tiny trainer captured
+    against eager (``train_modes``), and every branch of the step under
+    capture (``_branch_programs``)."""
     cfgs = comp.tiny_configs()
     cpu = comp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
     card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
@@ -1407,6 +1697,11 @@ def phase_train_tiny(fa, kg, comp, step_lib):
     if not (rel <= TRAIN_MAX_LOSS_REL and cos >= TRAIN_MIN_GRAD_COSINE and fa.bwd_launches > 0
             and kg.geglu_launches > 0):
         raise AssertionError("the tiny train step on the card disagrees with the CPU")
+    argv = ["--tiny", "--synthetic_data", "6", "--train_batch_size", "2", "--resolution", "32",
+            "--learning_rate", "1e-3", "--ema_decay", "0.9"]
+    r = train_modes(argv, 6, 3, fa, ca, kg, step_lib, trainer, "phase 6 tiny trainer")
+    _print_train_modes(r, "phase 6 tiny trainer")
+    _branch_programs(comp, step_lib, "phase 6 tiny")
 
 
 def expected_k3_per_step(ucfg):
@@ -1434,69 +1729,39 @@ def expected_k3_per_step(ucfg):
 
 
 def phase_train_full(fa, ca, kg, comp, step_lib, trainer):
-    """trainer.main at full width; a wrapper around the step's update
-    records the launch counts and the gradients of each step."""
-    expected = expected_k3_per_step(comp.sdxl_configs().unet)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    steps = []
-    update = step_lib.apply_update
-
-    def watched(state, cfg):
-        def max_grad(pred):
-            gs = [p.grad.abs().max() for n, p in state.trainable.items()
-                  if pred(n) and p.grad is not None]
-            return float(torch.stack(gs).max()) if gs else 0.0
-
-        steps.append({
-            "k1": fa.launches, "k3": fa.bwd_launches, "k2": ca.cross_launches,
-            "k5": kg.geglu_launches,
-            "ip": max_grad(lambda n: "down_blocks.2.attentions.1." in n and "_ip." in n),
-            "harmony": max_grad(lambda n: n.startswith("harmony.")),
-        })
-        return update(state, cfg)
-
-    step_lib.apply_update = watched
+    """The adapter trainer at full width (``--full_random``: 512², batch 1,
+    bf16, gradient checkpointing) for TRAIN_STEPS steps, eagerly and
+    through ``trainer.main``'s captured program (``train_modes``), the last
+    TRAIN_PROFILED of them profiled, at the trainer's own TF32 setting.
+    Every eager step launches K3 as often
+    as the UNet config gives and K1, K2 and K5 140 times each (forward and
+    checkpoint recompute), with nonzero gradients on the live IP
+    projections and the HA head; a replayed step launches the same by
+    kernel name. Returns the replayed step's launches by name and an eager
+    step's by wrapper."""
+    expected = {"K1/K4": 2 * SELF_ATTN_PER_UNET_CALL, "K2": 2 * SDXL_CROSS_PER_UNET_CALL,
+                "K5": 2 * SELF_ATTN_PER_UNET_CALL, "K3": expected_k3_per_step(
+                    comp.sdxl_configs().unet)}
+    argv = ["--full_random", "--synthetic_data", str(TRAIN_STEPS)]
+    label = "phase 7 full-width trainer"
+    # the trainer's own settings: cuDNN may use TF32 for the fp32 VAE encode
+    # (PyTorch's default; phase 1 turns it off for the fp32 references)
+    torch.backends.cudnn.allow_tf32 = True
     try:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.bwd_launches = ca.cross_launches = kg.geglu_launches = 0
-        t0 = time.perf_counter()
-        final = trainer.main(["--full_random", "--synthetic_data", str(TRAIN_STEPS),
-                              "--max_steps", str(TRAIN_STEPS), "--log_every", "1",
-                              "--output_dir", out_dir])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
+        r = train_modes(argv, TRAIN_STEPS, TRAIN_STEPS - TRAIN_PROFILED + 1, fa, ca, kg,
+                        step_lib, trainer, label)
     finally:
-        step_lib.apply_update = update
-        shutil.rmtree(out_dir, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    k1, k2, k3, k5 = ([s[key] - (steps[i - 1][key] if i else 0) for i, s in enumerate(steps)]
-                      for key in ("k1", "k2", "k3", "k5"))
-    step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
-    for m, s, a, c, x, g in zip(metrics, steps, k1, k3, k2, k5):
-        print(f"phase 7 step {m['step']}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6e}, "
-              f"step {m['step_time_s']:.4f} s, max |grad| live IP {s['ip']:.3e}, harmony "
-              f"{s['harmony']:.3e}, K1 launches {a}, K3 launches {c}, K2 launches {x}, "
-              f"K5 launches {g}", flush=True)
-    expected_k2 = 2 * SDXL_CROSS_PER_UNET_CALL  # forward and checkpoint recompute
-    expected_k5 = 2 * SELF_ATTN_PER_UNET_CALL  # one feed-forward a block, twice
-    print(f"phase 7 full-width training {final} steps: total {wall:.3f} s, step time median "
-          f"of steps 2-{TRAIN_STEPS} {step_s:.4f} s, peak memory {peak:.2f} GiB, K1/K3/K2/K5 "
-          f"launches per step {k1[-1]}/{k3[-1]}/{k2[-1]}/{k5[-1]} (K3 expected {expected}, K2 "
-          f"{expected_k2}, K5 {expected_k5})", flush=True)
-    if final != TRAIN_STEPS or len(metrics) != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
-        raise AssertionError(f"the trainer ran {final} steps, logged {len(metrics)}")
-    for m, s in zip(metrics, steps):
-        if not (m["loss"] == m["loss"] and abs(m["loss"]) < float("inf")
-                and m["grad_norm"] > 0 and s["ip"] > 0 and s["harmony"] > 0):
-            raise AssertionError(f"step {m['step']}: non-finite loss or a zero gradient")
-    if (any(c != expected for c in k3) or min(k1) <= 0 or any(x != expected_k2 for x in k2)
-            or any(g != expected_k5 for g in k5)):
-        raise AssertionError(f"K3 launches per step {k3}, expected {expected}; K2 {k2}, "
-                             f"expected {expected_k2}; K5 {k5}, expected {expected_k5}; K1 {k1}")
-    return sum(k1), sum(k3), sum(k2), sum(k5)
+        torch.backends.cudnn.allow_tf32 = False
+    _print_train_modes(r, label)
+    for e in r["eager"]:
+        if not (abs(e["loss"]) < float("inf") and e["grad_norm"] > 0 and e["ip"] > 0
+                and e["harmony"] > 0):
+            raise AssertionError(f"{label}: an eager step gave a non-finite loss or a zero "
+                                 f"gradient: {e}")
+    if r["eager"][-1]["launches"] != expected or r["replayed"] != expected:
+        raise AssertionError(f"{label}: an eager step launched {r['eager'][-1]['launches']}, a "
+                             f"replayed one {r['replayed']}, expected {expected}")
+    return r["replayed"], r["eager"][-1]["launches"]
 
 
 def narrow_sd15_configs(comp, proj_kind="image_proj"):
@@ -1705,8 +1970,8 @@ def main():
     phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
     phase_tiny(fa, ca, kg, HarmonyPipeline)
     sdxl, sdxl_gen = phase_full(fa, ca, kg, HarmonyPipeline)
-    phase_train_tiny(fa, kg, comp, step_lib)
-    k1_train, k3_train, k2_train, k5_train = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
+    phase_train_tiny(fa, ca, kg, comp, step_lib, trainer)
+    train, train_eager = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
     phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline)
     sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
@@ -1738,7 +2003,7 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:415",
         "launches": sdxl_gen["K1/K4"],
         "launches_by_path": {"generate": sdxl_gen["K1/K4"], "edit_eager": sdxl["K1"],
-                             "train": k1_train,
+                             "train": train["K1/K4"], "train_eager": train_eager["K1/K4"],
                              "probes": probes["flash_attention_nhd"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
@@ -1752,8 +2017,9 @@ def main():
         "route": "cuda",
         "source": "imagharmony_tpu_torch/kernels/csrc/flash_attn_nhd_bwd.cu",
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:220",
-        "launches": k3_train,
-        "launches_by_path": {"train": k3_train, "sd15_unet_grad": k3_grad},
+        "launches": train["K3"],
+        "launches_by_path": {"train": train["K3"], "train_eager": train_eager["K3"],
+                             "sd15_unet_grad": k3_grad},
         "max_abs_err": max(k3_err, k3b_err),
         "shape": list(K3_SHAPES[0]),
         **_line_times(k3, k3["bound"]),
@@ -1780,7 +2046,8 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:630",
         "launches": sdxl_gen["K2"],
         "launches_by_path": {"generate": sdxl_gen["K2"], "edit_eager": sdxl["K2"],
-                             "edit_eager_ip": sdxl["K2 IP"], "train": k2_train,
+                             "edit_eager_ip": sdxl["K2 IP"], "train": train["K2"],
+                             "train_eager": train_eager["K2"],
                              "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
                              "sd15_unet_grad": k2_grad},
         "max_abs_err": k2_err,
@@ -1796,7 +2063,8 @@ def main():
                     "tools/probe_geglu_tune.py:37, tools/probe_pallas_matmul.py:60)",
         "launches": sdxl_gen["K5"],
         "launches_by_path": {"generate": sdxl_gen["K5"], "edit_eager": sdxl["K5"],
-                             "train": k5_train, "generate_sd15": sd15_gen["K5"],
+                             "train": train["K5"], "train_eager": train_eager["K5"],
+                             "generate_sd15": sd15_gen["K5"],
                              "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,
                              "probes": probes["geglu"]},
         "max_abs_err": k5_err,

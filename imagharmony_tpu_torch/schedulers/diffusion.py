@@ -17,6 +17,7 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -52,9 +53,19 @@ def alphas_cumprod(cfg: NoiseScheduleConfig) -> np.ndarray:
     return acp.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def alphas_cumprod_on(cfg: NoiseScheduleConfig, device) -> torch.Tensor:
+    """``alphas_cumprod(cfg)`` as an fp32 tensor on ``device``, made once per
+    (config, device), so that a captured train step copies nothing from the
+    host; ``add_noise`` and ``velocity_target`` take it as it is."""
+    return torch.as_tensor(alphas_cumprod(cfg), device=device)
+
+
 def _sqrt_alphas(acp, latents, timesteps):
     """sqrt(acp_t) and sqrt(1 - acp_t) per sample, fp32 then cast to the
-    latents' dtype, shaped to broadcast over the non-batch axes."""
+    latents' dtype, shaped to broadcast over the non-batch axes. ``acp``:
+    the numpy table, or ``alphas_cumprod_on``'s tensor on the latents'
+    device, which is read in place."""
     a = torch.as_tensor(acp, dtype=torch.float32, device=latents.device)[timesteps]
     shape = (-1,) + (1,) * (latents.dim() - 1)
     return (a.sqrt().reshape(shape).to(latents.dtype),

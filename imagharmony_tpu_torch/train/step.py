@@ -15,8 +15,17 @@ and ``loss_fn`` takes them as tensors (``Draws``), so a test can hand the
 loss the JAX draws. Tensors at this surface keep the JAX layout: images
 (B, H, W, 3), noise and latent draws (B, h, w, 4).
 
-The optimizer is torch.optim.AdamW with optax's defaults and schedules; the
-global-norm clip uses optax's formula. LoRA training (``lora_rank``) and
+``train_step`` is the one body of an optimizer step: the CPU runs it
+eagerly, and on a CUDA device ``train/programs.py`` captures it once as a
+CUDA graph and replays it, the counterpart of the JAX trainer's donated
+``jax.jit`` step. So nothing in it reads the device from the host or copies
+from the host: the global-norm clip is optax's ``clip_by_global_norm``, a
+select on the device between g and g / norm * max_norm; the learning rate
+is gathered on the device from a table of the schedule (``lr_table``) at
+the update count, a device tensor the step advances, into the 0-dim lr
+tensor AdamW reads; the noise schedule is a device tensor cached per
+device. The optimizer is torch.optim.AdamW with optax's defaults
+(``capturable`` on a CUDA device). LoRA training (``lora_rank``) and
 cached-encoder batches are not ported yet and raise.
 """
 
@@ -117,10 +126,33 @@ def learning_rate(cfg: TrainConfig) -> Callable[[int], float]:
     return lambda count: peak
 
 
-def make_optimizer(trainable: Dict[str, torch.Tensor], cfg: TrainConfig):
-    """(AdamW, LambdaLR) over ``trainable``: optax.adamw's b1 0.9, b2 0.999,
-    eps 1e-8; the inert IP projections (``decay_mask``) in a group without
-    weight decay. The scheduler's lambda is the absolute lr (base lr 1)."""
+def lr_table(cfg: TrainConfig, device=None) -> torch.Tensor:
+    """``learning_rate(cfg)`` at the update counts 0..H as fp32 on ``device``,
+    H the count from which the schedule stays constant (the warmup's end;
+    for cosine the horizon, where it reaches 0): a count past H reads entry
+    H, as optax's schedules clamp (``lr_at``)."""
+    fn = learning_rate(cfg)
+    if cfg.lr_schedule == "cosine":
+        horizon = max(cfg.lr_total_steps, cfg.lr_warmup_steps + 1)
+    else:
+        horizon = max(cfg.lr_warmup_steps, 0)
+    return torch.tensor([fn(c) for c in range(horizon + 1)], dtype=torch.float32,
+                        device=device)
+
+
+def lr_at(table: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The lr at update count ``count`` ((1,) int64 on the table's device),
+    as a 0-dim fp32 tensor, read on the device."""
+    return table.index_select(0, count.clamp(max=table.shape[0] - 1)).view(())
+
+
+def make_optimizer(trainable: Dict[str, torch.Tensor], cfg: TrainConfig, lr: torch.Tensor):
+    """AdamW over ``trainable`` with optax.adamw's b1 0.9, b2 0.999, eps 1e-8;
+    the inert IP projections (``decay_mask``) in a group without weight
+    decay. Every group reads its lr from ``lr``, a 0-dim fp32 tensor the
+    step writes. On a CUDA device it is ``capturable`` (its step count and
+    bias corrections stay on the device, as a captured step needs); torch
+    refuses that on the CPU."""
     mask = (decay_mask(trainable, cfg.unet_cfg) if cfg.unet_cfg is not None
             else dict.fromkeys(trainable, True))
     groups = [
@@ -128,31 +160,42 @@ def make_optimizer(trainable: Dict[str, torch.Tensor], cfg: TrainConfig):
          "weight_decay": cfg.weight_decay},
         {"params": [p for n, p in trainable.items() if not mask[n]], "weight_decay": 0.0},
     ]
-    opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=1.0, betas=(0.9, 0.999),
-                            eps=1e-8)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, learning_rate(cfg))
+    return torch.optim.AdamW([g for g in groups if g["params"]], lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, capturable=lr.device.type == "cuda")
 
 
 class TrainState:
     """The trainable parameters (live tensors of the model, by name), their
-    optimizer and lr schedule, the update count and the optional EMA."""
+    optimizer, the lr schedule as a device table, the update count (on the
+    device, ``count``; its host mirror ``step`` names logs and checkpoints)
+    and the optional EMA. ``loads`` counts ``load_state_dict`` calls: a load
+    replaces the optimizer's state tensors, so a program captured before it
+    is stale."""
 
     def __init__(self, comps: comp.Components, cfg: TrainConfig):
         if cfg.lora_rank:
             raise NotImplementedError(
                 "LoRA training (adapters/lora.py) is not ported yet (ROADMAP A13)")
         self.trainable = tree_util.set_trainable(comps, cfg.predicate())
-        self.optimizer, self.scheduler = make_optimizer(self.trainable, cfg)
+        device = next(iter(self.trainable.values())).device
+        self.lr_table = lr_table(cfg, device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.count = torch.zeros(1, dtype=torch.long, device=device)
+        self.optimizer = make_optimizer(self.trainable, cfg, self.lr)
         self.step = 0
+        self.loads = 0
         self.ema = ({n: p.detach().clone() for n, p in self.trainable.items()}
                     if cfg.ema_decay else None)
 
     def state_dict(self):
-        """Everything a resume needs, as tensors and plain values."""
+        """Everything a resume needs, as tensors and plain values; the
+        trainable parameters copied to host memory (a copy on the card would
+        add their size to a saving trainer's peak)."""
         return {
-            "trainable": {n: p.detach().clone() for n, p in self.trainable.items()},
+            "trainable": {n: p.detach().to("cpu", copy=True) for n, p in self.trainable.items()},
             "optimizer": self.optimizer.state_dict(),
-            "scheduler": self.scheduler.state_dict(),
+            "count": self.count.clone(),
+            "lr": self.lr.clone(),
             "step": self.step,
             "ema": self.ema,
         }
@@ -162,11 +205,15 @@ class TrainState:
         for n, p in self.trainable.items():
             p.copy_(sd["trainable"][n])
         self.optimizer.load_state_dict(sd["optimizer"])
-        self.scheduler.load_state_dict(sd["scheduler"])
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr  # the loaded groups hold a copy of it
+        self.lr.copy_(sd["lr"])
+        self.count.copy_(sd["count"])
         self.step = int(sd["step"])
         if self.ema is not None:
             for n, e in self.ema.items():
                 e.copy_(sd["ema"][n])
+        self.loads += 1
 
 
 def init_state(comps: comp.Components, cfg: TrainConfig) -> TrainState:
@@ -187,16 +234,37 @@ class Draws:
 
 
 def draw(gen: torch.Generator, cfgs: comp.ComponentConfigs, cfg: TrainConfig, batch_size,
-         resolution) -> Draws:
-    """One loss evaluation's draws from ``gen`` (on the device it lives on)."""
+         resolution, out: Optional[Draws] = None) -> Draws:
+    """One loss evaluation's draws from ``gen`` (on the device it lives on),
+    in the order noise, timesteps, latent_eps, offset; into ``out``'s
+    tensors when it is given (a program's static buffers), which gives the
+    same values."""
     side = resolution // cfgs.vae.downscale
     shape = (batch_size, side, side, cfgs.vae.latent_channels)
     kw = dict(generator=gen, device=gen.device)
-    noise = torch.randn(shape, **kw)
-    timesteps = torch.randint(0, cfg.num_train_timesteps, (batch_size,), **kw)
-    latent_eps = torch.randn(shape, **kw)
-    offset = (torch.randn((batch_size, 1, 1, shape[-1]), **kw) if cfg.noise_offset else None)
+    o = out if out is not None else Draws(None, None, None)
+    noise = torch.randn(shape, out=o.noise, **kw)
+    timesteps = torch.randint(0, cfg.num_train_timesteps, (batch_size,), out=o.timesteps, **kw)
+    latent_eps = torch.randn(shape, out=o.latent_eps, **kw)
+    offset = (torch.randn((batch_size, 1, 1, shape[-1]), out=o.offset, **kw)
+              if cfg.noise_offset else None)
     return Draws(noise, timesteps, latent_eps, offset)
+
+
+def _microbatches(rows, cfg: TrainConfig) -> int:
+    a = max(cfg.grad_accum, 1)
+    if rows % a:
+        raise ValueError(f"batch of {rows} rows does not split into {a} microbatches")
+    return a
+
+
+def step_draws(gen: torch.Generator, cfgs: comp.ComponentConfigs, cfg: TrainConfig, rows,
+               resolution, out=None):
+    """The draws of one optimizer step over ``rows`` rows: one ``Draws`` per
+    microbatch, in order (into ``out``'s, when given)."""
+    a = _microbatches(rows, cfg)
+    return [draw(gen, cfgs, cfg, rows // a, resolution, None if out is None else out[i])
+            for i in range(a)]
 
 
 def _nchw(x):
@@ -209,10 +277,10 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
     if "context" in batch:
         raise NotImplementedError(
             "cached-encoder batches (train/cache.py) are not ported yet (ROADMAP A11)")
-    acp = sched.alphas_cumprod(sched.NoiseScheduleConfig(
+    dt, device = comps.unet.conv_in.weight.dtype, comps.unet.conv_in.weight.device
+    acp = sched.alphas_cumprod_on(sched.NoiseScheduleConfig(
         prediction_type=cfg.prediction_type, rescale_betas_zero_snr=cfg.rescale_zero_snr,
-    ))
-    dt = comps.unet.conv_in.weight.dtype
+    ), device)
     with torch.no_grad():
         # frozen VAE encode, fp32 whatever the weights (reference train.py:628)
         latents = comps.vae.encode(_nchw(batch["images"]), eps=_nchw(draws.latent_eps)).to(dt)
@@ -244,8 +312,11 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
     args = (noisy, draws.timesteps, context, pooled, time_ids, ip_tokens)
     if cfg.gradient_checkpoint:
         # recompute the UNet's activations in the backward: the frozen base
-        # has no parameter gradients, only activation gradients
-        pred = checkpoint(unet_fwd, *args, use_reentrant=False)
+        # has no parameter gradients, only activation gradients. The UNet
+        # draws no random number, so the recompute is exact without the RNG
+        # state that checkpoint would otherwise stash and restore (which a
+        # captured step may not read)
+        pred = checkpoint(unet_fwd, *args, use_reentrant=False, preserve_rng_state=False)
     else:
         pred = unet_fwd(*args)
     if cfg.prediction_type == "v_prediction":
@@ -258,7 +329,7 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
     if cfg.snr_gamma is None:
         return sq.mean()
     # Min-SNR weighting; epsilon weight min(SNR, g)/SNR as min(1, g/SNR)
-    acp_t = torch.as_tensor(acp, dtype=torch.float32, device=sq.device)[draws.timesteps]
+    acp_t = acp[draws.timesteps]
     snr = acp_t / (1.0 - acp_t)
     if cfg.prediction_type == "v_prediction":
         w = torch.clamp(snr, max=cfg.snr_gamma) / (snr + 1.0)
@@ -267,26 +338,31 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
     return (w * sq.reshape(sq.shape[0], -1).mean(dim=1)).mean()
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, device=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, fp32 (optax.global_norm;
-    a parameter without a gradient counts as zeros)."""
+    a parameter without a gradient counts as zeros, and with none at all it
+    is a zero on ``device``)."""
     sq = [g.float().pow(2).sum() for g in grads if g is not None]
-    return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+    return torch.stack(sq).sum().sqrt() if sq else torch.zeros((), device=device)
 
 
 @torch.no_grad()
 def apply_update(state: TrainState, cfg: TrainConfig) -> torch.Tensor:
-    """Clip (optax clip_by_global_norm: scale by max_norm / norm only when
-    norm > max_norm), one AdamW update with this step's lr, the EMA; returns
-    the pre-clip global norm."""
-    grads = [p.grad for p in state.trainable.values()]
-    norm = global_norm(grads).to(next(iter(state.trainable.values())).device)
-    if cfg.max_grad_norm and float(norm) > cfg.max_grad_norm:
+    """The clip (optax clip_by_global_norm: g where norm < max_norm, else
+    (g / norm) * max_norm, chosen on the device), one AdamW update at the
+    lr of the update count, the count advanced, the EMA; returns the
+    pre-clip global norm."""
+    params = list(state.trainable.values())
+    grads = [p.grad for p in params]
+    norm = global_norm(grads, params[0].device)
+    if cfg.max_grad_norm:
+        keep = norm < cfg.max_grad_norm
         for g in grads:
             if g is not None:
-                g.div_(norm.to(g.dtype)).mul_(cfg.max_grad_norm)
+                g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * cfg.max_grad_norm))
+    state.lr.copy_(lr_at(state.lr_table, state.count))
     state.optimizer.step()
-    state.scheduler.step()
+    state.count.add_(1)
     state.step += 1
     if state.ema is not None:
         d = cfg.ema_decay
@@ -296,20 +372,22 @@ def apply_update(state: TrainState, cfg: TrainConfig) -> torch.Tensor:
     return norm
 
 
-def train_step(state: TrainState, comps: comp.Components, cfgs: comp.ComponentConfigs,
-               cfg: TrainConfig, batch, gen: torch.Generator, resolution):
-    """One optimizer step over ``batch`` (grad_accum microbatches of its
-    rows, each with its own draws): returns {"loss", "grad_norm"} as fp32
-    tensors on the device (read them only where the host needs them)."""
+def train_step(state: TrainState, comps: comp.Components, cfg: TrainConfig, batch, draws):
+    """One optimizer step over ``batch``: grad_accum microbatches of its
+    rows, the i-th with ``draws[i]`` (``step_draws``), the microbatch loop
+    unrolled (JAX's lax.scan over them). Returns {"loss", "grad_norm"} as
+    fp32 tensors on the device (read them only where the host needs them).
+    The gradients are set to None first, so a captured step's backward
+    allocates them in its graph's pool and each replay overwrites them."""
     state.optimizer.zero_grad(set_to_none=True)
-    a = max(cfg.grad_accum, 1)
     rows = next(iter(batch.values())).shape[0]
-    if rows % a:
-        raise ValueError(f"batch of {rows} rows does not split into {a} microbatches")
+    a = _microbatches(rows, cfg)
+    if len(draws) != a:
+        raise ValueError(f"{len(draws)} draws for {a} microbatches")
     loss_sum = None
-    for i in range(a):
+    for i, d in enumerate(draws):
         mb = {k: v[i * rows // a:(i + 1) * rows // a] for k, v in batch.items()}
-        loss = loss_fn(comps, cfg, mb, draw(gen, cfgs, cfg, rows // a, resolution))
+        loss = loss_fn(comps, cfg, mb, d)
         loss.backward()
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
     if a > 1:

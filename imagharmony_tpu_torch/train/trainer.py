@@ -3,14 +3,18 @@ the reference's train.py main()).
 
     python -m imagharmony_tpu_torch.train.trainer --full_random --synthetic_data 4 --max_steps 4
 
-Runs on the card unless ``--device cpu``. Against the JAX trainer:
+Runs on the card unless ``--device cpu``. On a CUDA device every optimizer
+step is one CUDA graph, captured at the first step (after any resume) and
+replayed once a step (``train/programs.py``, the program layer: the
+counterpart of the JAX trainer's donated ``jax.jit`` step); the CPU runs
+``step.train_step`` eagerly. Against the JAX trainer:
 
 * one device, no mesh: the ``--fsdp`` flags are not ported (ROADMAP A15);
 * resume through torch.save/torch.load of the trainable weights, the
-  optimizer and lr-schedule state, the EMA, the step and the state of the
-  torch.Generator the draws come from (the JAX trainer used orbax and
-  replayed its key splits), so a resumed run is bit-identical to an
-  uninterrupted one on the same device;
+  optimizer state, the update count and lr, the EMA, the step and the
+  state of the torch.Generator the draws come from (the JAX trainer used
+  orbax and replayed its key splits), so a resumed run is bit-identical to
+  an uninterrupted one on the same device;
 * the weights take the compute dtype (bf16 under ``--mixed_precision
   bf16``, fp32 under ``no``), the port's dtype rule;
 * not ported yet: ``--pretrained_model_name_or_path`` (checkpoint loading,
@@ -37,6 +41,7 @@ from imagharmony_tpu_torch.adapters import harmony as harmony_lib
 from imagharmony_tpu_torch.io import checkpoints as ckpt_io
 from imagharmony_tpu_torch.models import tokenizer as tok_lib
 from imagharmony_tpu_torch.pipelines import components as comp
+from imagharmony_tpu_torch.train import programs as train_programs
 from imagharmony_tpu_torch.train import step as step_lib
 
 FUSION_METHODS = ("cross_attention", "qformer", "mlp", "gated-attention")
@@ -123,6 +128,30 @@ def build_components(args):
     return cfgs, comp.init_params(gen, cfgs, dtype=dtype, device=args.device), toks
 
 
+def train_config(args, cfgs) -> step_lib.TrainConfig:
+    """The TrainConfig of ``args`` (weight decay masked off the inert IP
+    projections of ``cfgs.unet``; a cosine schedule decays over
+    --max_steps)."""
+    return step_lib.TrainConfig(
+        learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay,
+        noise_offset=args.noise_offset,
+        prediction_type=args.prediction_type,
+        rescale_zero_snr=args.zero_snr,
+        snr_gamma=args.snr_gamma,
+        train_image_proj=args.train_image_proj,
+        unet_cfg=cfgs.unet,
+        grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay,
+        lr_warmup_steps=args.lr_warmup_steps,
+        lr_schedule=args.lr_scheduler,
+        lr_total_steps=args.max_steps or 0,
+        lora_rank=args.lora_rank,
+        lora_alpha=args.lora_alpha,
+        lora_targets=args.lora_targets,
+    )
+
+
 def _checkpoints(ckpt_dir):
     """{step: path} of the saved training states."""
     if not os.path.isdir(ckpt_dir):
@@ -156,24 +185,7 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
 
     cfgs, comps, tokenizers = build_components(args)
-    tcfg = step_lib.TrainConfig(
-        learning_rate=args.learning_rate,
-        weight_decay=args.weight_decay,
-        noise_offset=args.noise_offset,
-        prediction_type=args.prediction_type,
-        rescale_zero_snr=args.zero_snr,
-        snr_gamma=args.snr_gamma,
-        train_image_proj=args.train_image_proj,
-        unet_cfg=cfgs.unet,  # masks weight decay off the inert IP projections
-        grad_accum=args.grad_accum,
-        ema_decay=args.ema_decay,
-        lr_warmup_steps=args.lr_warmup_steps,
-        lr_schedule=args.lr_scheduler,
-        lr_total_steps=args.max_steps or 0,
-        lora_rank=args.lora_rank,
-        lora_alpha=args.lora_alpha,
-        lora_targets=args.lora_targets,
-    )
+    tcfg = train_config(args, cfgs)
     state = step_lib.init_state(comps, tcfg)
     n_train = sum(p.numel() for p in state.trainable.values())
     print(f"trainable params: {n_train / 1e6:.2f}M")
@@ -210,9 +222,11 @@ def main(argv=None):
         next(batches, None)
 
     device = torch.device(args.device)
+    programs = {}  # the captured step, on a CUDA device
     global_step = start_step
     with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_log:
-        # metrics stay on the device between log points: reading one is a sync
+        # metrics stay on the device between log points: reading one is a
+        # sync; each step's are a clone, as a replay overwrites the program's
         pending = []  # (step, metrics, data_time)
         window_t0 = time.perf_counter()
 
@@ -220,16 +234,19 @@ def main(argv=None):
             nonlocal window_t0
             if not pending:
                 return
+            # reading the metrics waits for their steps, so the window's
+            # time is that of finished steps
+            rows = [(s, float(m["loss"]), float(m["grad_norm"]), dtm) for s, m, dtm in pending]
             per_step = (time.perf_counter() - window_t0) / len(pending)
-            for s, m, dtm in pending:
+            for s, loss, grad_norm, dtm in rows:
                 metrics_log.write(json.dumps({
-                    "step": s, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "step": s, "loss": loss, "grad_norm": grad_norm,
                     "step_time_s": round(per_step, 4), "data_time_s": round(dtm, 4),
                     "wall": time.time(),
                 }) + "\n")
             metrics_log.flush()
-            print(f"step {pending[-1][0]}, {per_step * 1000:.0f} ms/step, "
-                  f"step_loss: {float(pending[-1][1]['loss']):.5f}")
+            print(f"step {rows[-1][0]}, {per_step * 1000:.0f} ms/step, "
+                  f"step_loss: {rows[-1][1]:.5f}")
             pending.clear()
             window_t0 = time.perf_counter()
 
@@ -238,11 +255,15 @@ def main(argv=None):
             if args.max_steps and global_step >= args.max_steps:
                 break
             data_time = time.perf_counter() - t_begin
-            metrics = step_lib.train_step(state, comps, cfgs, tcfg,
-                                          step_lib.to_device(batch, device), gen,
-                                          args.resolution)
+            batch = step_lib.to_device(batch, device)
+            if device.type == "cuda":
+                metrics = train_programs.run(programs, state, comps, cfgs, tcfg, batch, gen,
+                                             args.resolution)
+            else:
+                draws = step_lib.step_draws(gen, cfgs, tcfg, step_rows, args.resolution)
+                metrics = step_lib.train_step(state, comps, tcfg, batch, draws)
             global_step = state.step
-            pending.append((global_step, metrics, data_time))
+            pending.append((global_step, {k: v.clone() for k, v in metrics.items()}, data_time))
             last = bool(args.max_steps and global_step >= args.max_steps)
             if global_step % args.log_every == 0 or last:
                 drain_pending()

@@ -1,15 +1,28 @@
-"""Where the time of full-width adapter-training steps goes, on the card.
+"""Where the time of full-width adapter-training steps goes, on the card,
+run eagerly and as the captured program that the trainer replays.
 
     python -m imagharmony_tpu_torch.utils.profiling
 
 Builds the trainer's ``--full_random`` bundle at the trainer's defaults
-(SDXL-base widths, 512², batch 1, bf16, gradient checkpointing, seed 0),
-runs ``WARMUP_STEPS`` train steps (the first ones pay cuDNN/cuBLAS set-up),
-then ``PROFILED_STEPS`` more under torch.profiler.
-It prints one JSON line: wall ms per step (host clock around synchronized
-steps, profiler on), device kernel ms per step, the device idle share
-(1 - the union of kernel intervals / the wall window), kernels per step and
-the kernel ms per step of each class in ``KERNEL_CLASSES``. The kernel
+(SDXL-base widths, 512², batch 1, bf16, gradient checkpointing, seed 0).
+For each mode, "eager" (``step.train_step`` called directly) and then
+"replayed" (``train/programs.run``, whose first step captures), it runs
+``WARMUP_STEPS`` train steps (the first ones pay cuDNN/cuBLAS set-up, or
+the capture), then ``PROFILED_STEPS`` more under torch.profiler, again
+until two such sessions in a row hold as many kernel events
+(``profiled_agreeing``).
+It prints one JSON line with a row per mode: wall ms per step (host clock
+around synchronized steps, profiler on), device kernel ms per step, the
+device idle share (1 - the union of kernel intervals / the wall window),
+kernels per step and the kernel ms per step of each class in
+``KERNEL_CLASSES``, the idle stretches between kernels (``summarize``),
+the host ms of a step call that returns before the card finishes (the
+median of ``PROFILED_STEPS`` unprofiled, synchronized calls: for the
+replayed mode the batch copy, the draws and the graph's launch), the wall
+ms per step of ``PROFILED_STEPS`` unprofiled steps in a row and the idle
+share it gives with the profiled busy time (the profiler slows the host's
+launch of a large graph several times over), and the peak memory
+allocated over the mode (its capture included). The kernel
 times come from the profiler's chrome trace (events of category
 ``kernel``). Needs a CUDA card; fails without one.
 
@@ -93,6 +106,20 @@ def profiled(fn):
         return out, wall_ms, kernel_events(path)
 
 
+def profiled_agreeing(fn, tries=8):
+    """``profiled(fn)`` until two sessions in a row hold as many kernel
+    events, none of them zero (the profiler now and then loses some).
+    Returns the second of the two, or None after ``tries`` sessions, and
+    the event counts of the sessions run."""
+    counts = []
+    for _ in range(tries):
+        out = profiled(fn)
+        counts.append(len(out[2]))
+        if len(counts) > 1 and counts[-1] and counts[-1] == counts[-2]:
+            return out, counts
+    return None, counts
+
+
 def event_ms(fn, reps=20, warmup=3):
     """Median CUDA-event time of ``fn`` in milliseconds, after ``warmup``
     calls; unlike ``kernel_ms`` it holds the host's launch work."""
@@ -140,25 +167,44 @@ def kernel_ms(fn, names=(), reps=5, tries=6):
     return {n: (t / 1000.0 / reps or None) for n, t in us.items()}
 
 
+def _gaps_us(intervals):
+    """The idle stretches between the first start and the last end of
+    (start, end) intervals."""
+    gaps, end = [], None
+    for s, e in sorted(intervals):
+        if end is not None and s > end:
+            gaps.append(s - end)
+        end = e if end is None else max(end, e)
+    return gaps
+
+
 def summarize(kernels, n_steps, wall_ms):
     """Per-step numbers of ``n_steps`` steps whose kernel events are
-    ``kernels`` and whose host time per step is ``wall_ms``."""
+    ``kernels`` and whose host time per step is ``wall_ms``; the idle
+    between kernels also as its largest stretch and the sum of the
+    stretches over 20 us (the rest is many short ones, or lies outside the
+    kernels' span)."""
     by_class = {}
     for e in kernels:
         cls = kernel_class(e["name"])
         by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1000.0 / n_steps
-    busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1000.0 / n_steps
+    intervals = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+    busy_ms = _busy_us(intervals) / 1000.0 / n_steps
+    gaps = _gaps_us(intervals)
     return {
         "wall_ms_per_step": wall_ms,
         "kernel_ms_per_step": sum(by_class.values()),
         "device_busy_ms_per_step": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "largest_gap_ms": max(gaps, default=0.0) / 1000.0,
+        "gaps_over_20us_ms_per_step": sum(g for g in gaps if g > 20) / 1000.0 / n_steps,
         "kernels_per_step": len(kernels) / n_steps,
         "class_ms_per_step": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
     }
 
 
 def main():
+    from imagharmony_tpu_torch.train import programs
     from imagharmony_tpu_torch.train import step as step_lib
     from imagharmony_tpu_torch.train import trainer
 
@@ -166,21 +212,46 @@ def main():
         raise SystemExit("profiling needs a CUDA card")
     args = trainer.parse_args(["--full_random"])
     cfgs, comps, _ = trainer.build_components(args)
-    tcfg = step_lib.TrainConfig(unet_cfg=cfgs.unet)
+    tcfg = trainer.train_config(args, cfgs)
     state = step_lib.init_state(comps, tcfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = step_lib.to_device(step_lib.dummy_batch(cfgs, 1, args.resolution), "cuda")
+    progs = {}
+    steps = {
+        "eager": lambda: step_lib.train_step(
+            state, comps, tcfg, batch, step_lib.step_draws(gen, cfgs, tcfg, 1, args.resolution)),
+        "replayed": lambda: programs.run(progs, state, comps, cfgs, tcfg, batch, gen,
+                                         args.resolution),
+    }
+    out = {"device": torch.cuda.get_device_name(0)}
+    for mode, step in steps.items():
+        def run(n):
+            for _ in range(n):
+                m = step()
+            torch.cuda.synchronize()
+            return m
 
-    def run(n):
-        for _ in range(n):
-            m = step_lib.train_step(state, comps, cfgs, tcfg, batch, gen, args.resolution)
-        torch.cuda.synchronize()
-        return m
-
-    run(WARMUP_STEPS)
-    m, wall_ms, kernels = profiled(lambda: run(PROFILED_STEPS))
-    out = summarize(kernels, PROFILED_STEPS, wall_ms / PROFILED_STEPS)
-    out.update(loss=float(m["loss"]), device=torch.cuda.get_device_name(0))
+        torch.cuda.reset_peak_memory_stats()
+        run(WARMUP_STEPS)
+        host_ms = []
+        for _ in range(PROFILED_STEPS):
+            t0 = time.perf_counter()
+            step()  # returns once the host has enqueued the step
+            host_ms.append((time.perf_counter() - t0) * 1000.0)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(PROFILED_STEPS)  # the steps overlap the host's work as in training
+        unprofiled_ms = (time.perf_counter() - t0) * 1000.0 / PROFILED_STEPS
+        got, counts = profiled_agreeing(lambda: run(PROFILED_STEPS))
+        if got is None:
+            raise SystemExit(f"{mode}: no two profiler sessions in a row agree on the kernel "
+                             f"events: {counts}")
+        m, wall_ms, kernels = got
+        row = out[mode] = summarize(kernels, PROFILED_STEPS, wall_ms / PROFILED_STEPS)
+        row.update(loss=float(m["loss"]), host_ms_per_call=statistics.median(host_ms),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   unprofiled_wall_ms_per_step=unprofiled_ms,
+                   unprofiled_idle_share=1.0 - row["device_busy_ms_per_step"] / unprofiled_ms)
     print(json.dumps(out), flush=True)
     return out
 

@@ -119,7 +119,10 @@ def test_trainable_surface_matches_jax(case, train_image_proj):
 def test_adamw_matches_optax(case):
     """The same gradients into optax (JAX make_optimizer: clip_by_global_norm
     then masked adamw) and into the port's update: parameters after one and
-    two updates within 1e-6."""
+    two updates within 1e-6. Both branches of the port's branch-free clip:
+    the gradients' norm above max_grad_norm (the clip scales them), then a
+    quarter of the gradients, exact in fp32, whose norm is below it (the
+    clip keeps them)."""
     import jax
     import optax
 
@@ -128,32 +131,38 @@ def test_adamw_matches_optax(case):
     kw = dict(learning_rate=1e-3, weight_decay=0.1, max_grad_norm=0.5 * case["grad_norm"])
     tcfg_j = jstep.TrainConfig(unet_cfg=case["jcfgs"].unet, **kw)
     tx = jstep.make_optimizer(tcfg_j)
-    trainable = case["state"]["trainable"]
-    opt_state = tx.init(trainable)
-
-    comps = copy.deepcopy(case["comps"])
     tcfg = pstep.TrainConfig(unet_cfg=case["pcfgs"].unet, **kw)
-    state = pstep.init_state(comps, tcfg)
-    grads = from_jax.state_dict(case["grads"])
 
     @jax.jit
     def update(grads, opt_state, trainable):
         updates, opt_state = tx.update(grads, opt_state, trainable)
         return optax.apply_updates(trainable, updates), opt_state
 
-    for _ in range(2):
-        trainable, opt_state = update(case["grads"], opt_state, trainable)
-        for n, p in state.trainable.items():
-            p.grad = grads[n].clone()
-        pstep.apply_update(state, tcfg)
-        ref = from_jax.state_dict(jax.device_get(trainable))
-        for n, p in state.trainable.items():
-            close(p, ref[n], rtol=0, atol=1e-6)
+    for f in (1.0, 0.25):
+        jgrads = jax.tree.map(lambda g: g * np.float32(f), case["grads"])
+        grads = from_jax.state_dict(jgrads)
+        trainable = case["state"]["trainable"]
+        opt_state = tx.init(trainable)
+        state = pstep.init_state(copy.deepcopy(case["comps"]), tcfg)
+        for _ in range(2):
+            trainable, opt_state = update(jgrads, opt_state, trainable)
+            for n, p in state.trainable.items():
+                p.grad = grads[n].clone()
+            pstep.apply_update(state, tcfg)
+            ref = from_jax.state_dict(jax.device_get(trainable))
+            for n, p in state.trainable.items():
+                close(p, ref[n], rtol=0, atol=1e-6)
 
 
 def test_inert_ip_projections_not_decayed(case):
     """One port train step with weight decay: the inert mid-block IP
-    projection stays bit-identical, the live one moves."""
+    projection stays bit-identical, the live one moves. The step's draws go
+    into static buffers first (``step_draws`` with ``out=``, as a captured
+    program takes them): they equal ``draw``'s values on the same generator
+    bit for bit, also with a noise offset and two microbatches, and leave
+    the generator in the same state."""
+    import dataclasses
+
     comps = copy.deepcopy(case["comps"])
     tcfg = pstep.TrainConfig(learning_rate=1e-2, weight_decay=0.1, gradient_checkpoint=False,
                              unet_cfg=case["pcfgs"].unet)
@@ -161,9 +170,22 @@ def test_inert_ip_projections_not_decayed(case):
     inert = "unet.mid_block.attentions.0.transformer_blocks.0.attn2.to_k_ip.weight"
     live = "unet.down_blocks.2.attentions.1.transformer_blocks.0.attn2.to_k_ip.weight"
     before = {n: state.trainable[n].detach().clone() for n in (inert, live)}
-    gen = torch.Generator().manual_seed(0)
-    m = pstep.train_step(state, comps, case["pcfgs"], tcfg,
-                         pstep.to_device(case["batch"], "cpu"), gen, 32)
+    step_draws = None
+    for cfg in (tcfg, dataclasses.replace(tcfg, noise_offset=0.05, grad_accum=2)):
+        ref_gen = torch.Generator().manual_seed(0)
+        ref = [pstep.draw(ref_gen, case["pcfgs"], cfg, 2 // cfg.grad_accum, 32)
+               for _ in range(cfg.grad_accum)]
+        bufs = [pstep.Draws(*(None if x is None else torch.full_like(x, 7) for x in
+                              (d.noise, d.timesteps, d.latent_eps, d.offset))) for d in ref]
+        gen = torch.Generator().manual_seed(0)
+        draws = pstep.step_draws(gen, case["pcfgs"], cfg, 2, 32, out=bufs)
+        assert torch.equal(gen.get_state(), ref_gen.get_state())
+        for got, want, buf in zip(draws, ref, bufs):
+            for f in ("noise", "timesteps", "latent_eps", "offset"):
+                x, y, b = (getattr(d, f) for d in (got, want, buf))
+                assert (x is b is y is None) or (x is b and torch.equal(x, y)), f
+        step_draws = step_draws or draws
+    m = pstep.train_step(state, comps, tcfg, pstep.to_device(case["batch"], "cpu"), step_draws)
     assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
     torch.testing.assert_close(state.trainable[inert], before[inert], rtol=0, atol=0)
     assert float((state.trainable[live] - before[live]).detach().abs().max()) > 0
@@ -174,25 +196,31 @@ def test_inert_ip_projections_not_decayed(case):
                                         lr_total_steps=6)],
                          ids=["constant", "warmup", "cosine"])
 def test_lr_schedule_matches_optax(sched):
-    """The lr the port's optimizer applies at its k-th update equals optax's
-    schedule at count k (0-based), checked through step 0, 1, the warmup end
-    and past the horizon; 1e-6 relative, as optax evaluates its schedules
-    in fp32."""
+    """The lr the port's optimizer applies at its k-th update, gathered from
+    the schedule's device table (``lr_table``) at the update count into the
+    0-dim lr tensor every param group reads, equals optax's schedule at
+    count k (0-based), checked through step 0, 1, the warmup end and past
+    the horizon (where the table's last entry holds); 1e-6 relative, as
+    optax evaluates its schedules in fp32."""
     from imagharmony_tpu.train import step as jstep
 
     ref = jstep.learning_rate(_jax_train_config(learning_rate=1e-3, **sched))
     fn = ref if callable(ref) else (lambda count: ref)
     cfg = pstep.TrainConfig(learning_rate=1e-3, **sched)
     p = torch.nn.Parameter(torch.zeros(3))
-    opt, lr_sched = pstep.make_optimizer({"harmony.w": p}, cfg)
-    for count in range(8):
-        want = float(fn(count))
-        got = opt.param_groups[0]["lr"]
-        assert abs(got - want) <= 1e-6 * max(abs(want), 1e-12), (count, got, want)
-        assert pstep.learning_rate(cfg)(count) == pytest.approx(want, rel=1e-6, abs=1e-12)
+    table, lr = pstep.lr_table(cfg), torch.zeros(())
+    count = torch.zeros(1, dtype=torch.long)
+    opt = pstep.make_optimizer({"harmony.w": p}, cfg, lr)
+    for k in range(8):
+        want = float(fn(k))
+        lr.copy_(pstep.lr_at(table, count))
+        assert all(g["lr"] is lr for g in opt.param_groups)
+        got = float(lr)
+        assert abs(got - want) <= 1e-6 * max(abs(want), 1e-12), (k, got, want)
+        assert pstep.learning_rate(cfg)(k) == pytest.approx(want, rel=1e-6, abs=1e-12)
         p.grad = torch.ones(3)
         opt.step()
-        lr_sched.step()
+        count += 1
 
 
 def test_seed_ip_from_unet_matches_jax(case):
@@ -337,12 +365,39 @@ def test_trainer_refuses_unported_modes(tmp_path):
         pstep.loss_fn(None, pstep.TrainConfig(), {"context": None}, None)
 
 
+def _eager_trainer(argv, steps):
+    """What ``trainer.main(argv)`` computes for ``steps`` steps of its
+    synthetic data, through the eager ``train_step``: the losses, the grad
+    norms and the trainable parameters after the last step."""
+    args = ptrainer.parse_args(argv)
+    cfgs, comps, _ = ptrainer.build_components(args)
+    tcfg = ptrainer.train_config(args, cfgs)
+    state = pstep.init_state(comps, tcfg)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    metrics = []
+    for i in range(steps):
+        batch = pstep.to_device(pstep.dummy_batch(cfgs, args.train_batch_size, args.resolution,
+                                                  rng=i), args.device)
+        draws = pstep.step_draws(gen, cfgs, tcfg, args.train_batch_size, args.resolution)
+        m = pstep.train_step(state, comps, tcfg, batch, draws)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, {n: p.detach().clone() for n, p in state.trainable.items()}
+
+
 @pytest.mark.cuda
-def test_cuda_tiny_train_step_matches_cpu(cuda):
+def test_cuda_tiny_train_step_matches_cpu(cuda, tmp_path, monkeypatch):
     """One tiny train step's loss and gradients in bf16 on the card (K1 and
     K3) against the same weights and draws in fp32 on the CPU: loss within
     2e-2 relative, cosine of the flattened trainable gradients >= 0.99, and
-    K3 launched."""
+    K3 launched. Then the tiny trainer on the card, whose steps are one
+    captured program (``train/programs.py``): it captures once and then only
+    replays, and its losses, grad norms and trainable parameters after 4
+    steps equal the eager ``train_step``'s on the same seed bit for bit
+    (where two eager runs differ, they are no further from the first than
+    the second is); and 2 steps plus a ``--resume`` to 4, each run through a
+    captured program, equal 4 straight, bit for bit."""
+    from imagharmony_tpu_torch.train import programs as ptprograms
+
     cfgs = pcomp.tiny_configs()
     cpu = pcomp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
     card = copy.deepcopy(cpu).to(device=cuda, dtype=torch.bfloat16)
@@ -364,11 +419,55 @@ def test_cuda_tiny_train_step_matches_cpu(cuda):
     assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu)
     assert float(torch.nn.functional.cosine_similarity(g_card, g_cpu, dim=0)) >= 0.99
 
+    captures = []
+    init = ptprograms.TrainProgram.__init__
+
+    def counted(self, *a, **kw):
+        captures.append(1)
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(ptprograms.TrainProgram, "__init__", counted)
+
+    def card_args(out, steps, *extra):  # bf16 weights, the kernels' dtype
+        return ["--tiny", "--synthetic_data", "4", "--train_batch_size", "2", "--resolution",
+                "32", "--save_steps", "2", "--learning_rate", "1e-3", "--ema_decay", "0.9",
+                "--log_every", "1", "--device", "cuda", "--max_steps", str(steps),
+                "--output_dir", str(out), *extra]
+
+    def losses(d):
+        return [(m["loss"], m["grad_norm"]) for m in map(json.loads, open(d / "metrics.jsonl"))]
+
+    def trained(d):
+        return torch.load(d / "checkpoints" / "step-4.pt", weights_only=True)["trainable"]
+
+    def dist(p, q):
+        return max(float((p[n].float().cpu() - q[n].float().cpu()).abs().max()) for n in p)
+
+    straight, resumed = tmp_path / "straight", tmp_path / "resumed"
+    assert ptrainer.main(card_args(straight, 4)) == 4 and len(captures) == 1
+    got, got_p = losses(straight), trained(straight)
+    (want, want_p), (want2, want2_p) = (_eager_trainer(card_args(tmp_path, 4), 4)
+                                        for _ in range(2))
+    if want == want2 and dist(want_p, want2_p) == 0:
+        assert got == want and dist(got_p, want_p) == 0
+    else:  # a backward that is not deterministic: no further than two eager runs
+        def gap(x, y):
+            return max(abs(a - b) for u, v in zip(x, y) for a, b in zip(u, v))
+
+        assert gap(got, want) <= gap(want2, want)
+        assert dist(got_p, want_p) <= dist(want2_p, want_p)
+
+    assert ptrainer.main(card_args(resumed, 2)) == 2
+    assert ptrainer.main(card_args(resumed, 4, "--resume")) == 4
+    assert len(captures) == 3
+    assert losses(resumed) == got and dist(trained(resumed), got_p) == 0
+
 
 def test_profile_summary_classes_and_idle_share(tmp_path):
     """The profiling tool's summary of a chrome trace: kernel events only,
     kernel classes by name, device busy time as the union of overlapping
-    kernels, idle share against the wall window."""
+    kernels, idle share against the wall window, the idle stretches
+    between kernels."""
     from imagharmony_tpu_torch.utils import profiling
 
     events = [
@@ -397,13 +496,18 @@ def test_profile_summary_classes_and_idle_share(tmp_path):
     assert out["device_busy_ms_per_step"] == pytest.approx(0.81)
     assert out["idle_share"] == pytest.approx(0.595)
     assert out["kernels_per_step"] == 8
+    # the stretches between kernels: 500, 100, 100, 50, 70 and 80 us
+    assert out["largest_gap_ms"] == pytest.approx(0.5)
+    assert out["gaps_over_20us_ms_per_step"] == pytest.approx(0.9)
 
 
 def test_kernel_ms_takes_only_traces_that_agree(monkeypatch):
     """kernel_ms uses a profiler trace only when the one before it holds as
     many kernel events, a multiple of the calls made; traces that lost
     events (short or empty) are run again, and with no agreeing pair every
-    value is None. The profiler is faked: it needs the card."""
+    value is None. ``profiled_agreeing`` likewise keeps the second session
+    of the first agreeing pair, or None. The profiler is faked: it needs
+    the card."""
     from imagharmony_tpu_torch.utils import profiling
 
     def events(n_calls):  # each call launches a (10 us) and b (30 us)
@@ -418,3 +522,10 @@ def test_kernel_ms_takes_only_traces_that_agree(monkeypatch):
     traces = iter([events(5)[:-1], events(5)[:-3], [], events(4)])
     assert profiling.kernel_ms(lambda: None, ("a_kernel",), reps=5, tries=4) == {
         "a_kernel": None, "total": None}
+    # profiled_agreeing: the second of two sessions in a row with as many
+    # events, never two empty ones
+    traces = iter([[], [], events(2)[:-1], events(2), events(2)])
+    got, counts = profiling.profiled_agreeing(lambda: None, tries=5)
+    assert got[2] == events(2) and counts == [0, 0, 3, 4, 4]
+    traces = iter([[], [], events(1), events(2)])
+    assert profiling.profiled_agreeing(lambda: None, tries=4) == (None, [0, 0, 2, 4])
