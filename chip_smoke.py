@@ -159,7 +159,15 @@ is non-zero:
 10. the full-width SD1.5 UNet at 512², batch 1, bf16, forward and backward
    to the IP projections: 16 K4, 16 K2, 16 K5 and the K3 launches the
    config gives (15), then the narrow SD1.5 UNet's IP gradients on the card
-   (bf16) against the CPU (fp32).
+   (bf16) against the CPU (fp32);
+11. checkpoint IO at full width: phase 5's and 7's bundle written as a
+   diffusers tree (``io/checkpoints.save_tree``, ~10.4 GiB, plus the
+   adapter as ``.bin`` and ``.safetensors``) in a temporary directory, read
+   back by ``load_pipeline`` (the bundle's weights exactly; its edit as in
+   phase 5, phase 5's image bit for bit, 2100 K1, K2 and K5 launches
+   replayed) and by the trainer's ``--pretrained_model_name_or_path`` (phase
+   7's captured run bit for bit), with the write and read times and the
+   peak host RSS.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -185,7 +193,9 @@ launches through no wrapper (``replay_launches``); "edit_eager" and
 on the same inputs, "edit_eager_ip" K2's launches with the IP branch
 there. "train" is one replayed full-width train step's launches (by kernel
 name in its trace; K3's ``launches`` too) and "train_eager" one eager
-step's (the wrappers' counts).
+step's (the wrappers' counts). "generate_loaded" is phase 11's warm
+``generate()`` of the pipeline loaded from the tree, counted as
+"generate" is.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1367,6 +1377,15 @@ def phase_tiny(fa, ca, kg, HarmonyPipeline):
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
 
 
+def _full_edit():
+    """The full-size SDXL edit's image and generate() arguments (phases 5
+    and 11)."""
+    img = np.random.default_rng(0).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+    return img, dict(prompt="a photo of six sheep on a meadow", extra_text="six sheep",
+                     num_samples=1, seed=0, num_inference_steps=FULL_STEPS, guidance_scale=5.0,
+                     output_type="raw")
+
+
 def phase_full(fa, ca, kg, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
@@ -1374,9 +1393,7 @@ def phase_full(fa, ca, kg, HarmonyPipeline):
     n_params = sum(p.numel() for p in pipe.components.parameters())
     print(f"phase 5 built random_full: {n_params / 1e9:.3f} B params in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    img = np.random.default_rng(0).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
-    kw = dict(prompt="a photo of six sheep on a meadow", extra_text="six sheep", num_samples=1,
-              seed=0, num_inference_steps=FULL_STEPS, guidance_scale=5.0, output_type="raw")
+    img, kw = _full_edit()
     r = edit_modes(pipe, img, kw, fa, ca, kg, "phase 5 SDXL 1024²")
     out, n, g = r["replay"], r["launches"], r["generate"]
     finite = bool(torch.isfinite(out).all())
@@ -1396,7 +1413,7 @@ def phase_full(fa, ca, kg, HarmonyPipeline):
         raise AssertionError(f"the replayed generate() launched {g}, expected {expected} K1, "
                              f"{expected_k2[0]} K2 and {expected} K5")
     profile_modes(pipe, img, kw, "phase 5 SDXL 1024²")
-    return n, g
+    return n, g, out
 
 
 def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
@@ -1737,8 +1754,8 @@ def phase_train_full(fa, ca, kg, comp, step_lib, trainer):
     as the UNet config gives and K1, K2 and K5 140 times each (forward and
     checkpoint recompute), with nonzero gradients on the live IP
     projections and the HA head; a replayed step launches the same by
-    kernel name. Returns the replayed step's launches by name and an eager
-    step's by wrapper."""
+    kernel name. Returns the replayed step's launches by name, an eager
+    step's by wrapper, and the run (``train_modes``)."""
     expected = {"K1/K4": 2 * SELF_ATTN_PER_UNET_CALL, "K2": 2 * SDXL_CROSS_PER_UNET_CALL,
                 "K5": 2 * SELF_ATTN_PER_UNET_CALL, "K3": expected_k3_per_step(
                     comp.sdxl_configs().unet)}
@@ -1761,7 +1778,7 @@ def phase_train_full(fa, ca, kg, comp, step_lib, trainer):
     if r["eager"][-1]["launches"] != expected or r["replayed"] != expected:
         raise AssertionError(f"{label}: an eager step launched {r['eager'][-1]['launches']}, a "
                              f"replayed one {r['replayed']}, expected {expected}")
-    return r["replayed"], r["eager"][-1]["launches"]
+    return r["replayed"], r["eager"][-1]["launches"], r
 
 
 def narrow_sd15_configs(comp, proj_kind="image_proj"):
@@ -1917,6 +1934,146 @@ def phase_sd15_grad(fa, ca, kg, comp, punet):
     return full[:4]
 
 
+def _peak_rss_gib():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+
+
+def phase_load_full(fa, ca, kg, comp, trainer, image5, run7):
+    """Checkpoint IO at full width: the bundle of phases 5 and 7 (the
+    weights ``random_full()`` and the trainer's ``--full_random`` build from
+    seed 0, bf16) written as a diffusers tree with the port's writer (the
+    UNet without its IP projections, as diffusers writes one; the adapter
+    as ``ip_adapter.bin`` and ``ip_adapter.safetensors``), then read back
+    through the entry points a user calls. ``load_pipeline(tree, adapter)``
+    must give the bundle's weights exactly, and its edit (phase 5's inputs,
+    eager and through ``generate()``'s graphs, ``edit_modes``: 2100 K1, K2
+    and K5 launches replayed) phase 5's image bit for bit; the trainer with
+    ``--pretrained_model_name_or_path`` and ``--pretrained_ip_adapter_path``
+    must give phase 7's captured run bit for bit: every step's loss and grad
+    norm and the trainable parameters. The tree's tokenizer_2 pads with
+    "!", as SDXL's does, where the toy pair of ``random_full()`` pads with
+    EOS: the edit's comparison takes ``random_full()``'s tokenizers, after
+    the tree's are checked. Prints the tree's bytes, the write time, each
+    component's read time and rate, and the process's peak host RSS; the
+    tree is removed afterwards, whatever the outcome. Returns the loaded
+    edit's replayed launches by kernel name."""
+    from imagharmony_tpu_torch.io import checkpoints as ckpt_io
+    from imagharmony_tpu_torch.models import tokenizer as tok_lib
+    from imagharmony_tpu_torch.nn.attention import pack_inference_params
+
+    label = "phase 11 checkpoint IO"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    cfgs = comp.sdxl_configs()
+    bundle = comp.init_params(torch.Generator(device="cuda").manual_seed(0), cfgs,
+                              dtype=torch.bfloat16, device="cuda")
+    ip_bytes = sum(p.numel() * p.element_size() for n, p in bundle.unet.named_parameters()
+                   if "_ip." in n)
+    unet_bytes = sum(p.numel() * p.element_size() for p in bundle.unet.parameters())
+    tree_bytes = sum(p.numel() * p.element_size() for p in bundle.parameters()) - ip_bytes \
+        - sum(p.numel() * p.element_size() for m in (bundle.image_proj, bundle.harmony)
+              for p in m.parameters())
+    root = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    free = shutil.disk_usage(root).free
+    print(f"{label} ({smi}): the tree holds {tree_bytes / 2**30:.3f} GiB of weights (the UNet "
+          f"{(unet_bytes - ip_bytes) / 2**30:.3f} GiB without its IP projections), the adapter "
+          f"about {ip_bytes / 2**30:.3f} GiB twice more; {free / 2**30:.1f} GiB free under "
+          f"{os.path.dirname(root)}; peak host RSS so far {_peak_rss_gib():.2f} GiB", flush=True)
+    try:
+        toy = tok_lib.build_toy_tokenizer()
+        toy_pair = tok_lib.SDXLTokenizers(toy, toy)
+        t0 = time.perf_counter()
+        written = ckpt_io.save_tree(root, bundle, tokenizers=toy_pair)
+        write_s = time.perf_counter() - t0
+        adapters = {}
+        for ext in ("bin", "safetensors"):
+            adapters[ext] = os.path.join(root, f"ip_adapter.{ext}")
+            t0 = time.perf_counter()
+            ckpt_io.save_adapter_checkpoint(
+                adapters[ext], unet=bundle.unet, unet_cfg=cfgs.unet, image_proj=bundle.image_proj,
+                harmony=bundle.harmony, harmony_cfg=cfgs.harmony)
+            adapter_s = time.perf_counter() - t0
+            print(f"{label}: wrote ip_adapter.{ext}, {os.path.getsize(adapters[ext]) / 2**30:.3f} "
+                  f"GiB in {adapter_s:.2f} s", flush=True)
+        print(f"{label}: wrote the tree, {written / 2**30:.3f} GiB in {write_s:.2f} s "
+              f"({written / write_s / 1e9:.3f} GB/s); peak host RSS {_peak_rss_gib():.2f} GiB",
+              flush=True)
+
+        timings = {}
+        t0 = time.perf_counter()
+        pipe = ckpt_io.load_pipeline(root, adapters["bin"], device="cuda", dtype=torch.bfloat16,
+                                     timings=timings)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        per = ", ".join(f"{k} {v['bytes'] / 2**30:.3f} GiB in {v['s']:.2f} s "
+                        f"({v['bytes'] / v['s'] / 1e9:.3f} GB/s)" if "bytes" in v
+                        else f"{k} {v['s']:.2f} s" for k, v in timings.items())
+        print(f"{label}: load_pipeline(tree, ip_adapter.bin) {load_s:.2f} s in all: {per}; peak "
+              f"host RSS {_peak_rss_gib():.2f} GiB", flush=True)
+        pack_inference_params(bundle.unet)
+        want, got = bundle.state_dict(), pipe.components.state_dict()
+        differ = [k for k in want if k not in got or not torch.equal(want[k], got[k])]
+        if differ or set(got) != set(want):
+            raise AssertionError(f"{label}: the loaded weights differ from the bundle's at "
+                                 f"{len(differ)} keys (first {differ[:5]}), keys "
+                                 f"{len(got)} vs {len(want)}")
+        del bundle, want, got
+        for text in ("a photo of six sheep on a meadow", "six sheep"):
+            ids, pad = pipe.tokenizers(text), toy_pair(text)
+            bang = toy.encoder["!"]  # tokenizer_2's pad
+            if not np.array_equal(ids[0], pad[0]) or not np.array_equal(
+                    np.where(ids[1] == bang, toy.eos_token_id, ids[1]), pad[1]):
+                raise AssertionError(f"{label}: the tree's tokenizers give {ids} for {text!r}")
+        pipe.tokenizers = toy_pair
+        img, kw = _full_edit()
+        r = edit_modes(pipe, img, kw, fa, ca, kg, f"{label} SDXL 1024² loaded")
+        same = torch.equal(r["replay"], image5)
+        diff = float((r["replay"].float() - image5.float()).abs().max())
+        print(f"{label}: the loaded pipeline's generate() vs phase 5's random_full(): "
+              f"bit-identical {same} (max abs {diff:.3e}); replayed launches {r['generate']}",
+              flush=True)
+        expected = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+        if r["generate"] != {"K1/K4": expected, "K2": expected, "K5": expected}:
+            raise AssertionError(f"{label}: the replayed generate() launched {r['generate']}")
+        if not same:
+            raise AssertionError(f"{label}: the loaded pipeline's image differs from phase 5's "
+                                 f"by {diff}")
+        loaded_gen = r["generate"]
+        del pipe, r
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        argv = ["--pretrained_model_name_or_path", root, "--pretrained_ip_adapter_path",
+                adapters["safetensors"], "--synthetic_data", str(TRAIN_STEPS)]
+        torch.backends.cudnn.allow_tf32 = True  # the trainer's setting, as in phase 7
+        try:
+            t0 = time.perf_counter()
+            run = captured_train([*argv, "--max_steps", str(TRAIN_STEPS)], TRAIN_STEPS + 1, fa,
+                                 ca, kg, trainer)
+            train_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        ours = [(m["loss"], m["grad_norm"]) for m in run["metrics"]]
+        theirs = [(m["loss"], m["grad_norm"]) for m in run7["metrics"]]
+        params_same = set(run["trained"]) == set(run7["trained"]) and all(
+            torch.equal(run["trained"][n], run7["trained"][n]) for n in run7["trained"])
+        print(f"{label}: the trainer from the tree (--pretrained_model_name_or_path, "
+              f"--pretrained_ip_adapter_path ip_adapter.safetensors), {TRAIN_STEPS} captured "
+              f"steps in {train_s:.2f} s with the load: losses and grad norms "
+              f"{'equal' if ours == theirs else 'differ from'} phase 7's --full_random run "
+              f"({ours[0]} ... {ours[-1]}), trainable parameters bit-identical {params_same}; "
+              f"captures {len(run['captures'])}; peak host RSS {_peak_rss_gib():.2f} GiB",
+              flush=True)
+        if ours != theirs or not params_same:
+            raise AssertionError(f"{label}: the trainer from the tree differs from phase 7's run: "
+                                 f"{ours} vs {theirs}, parameters equal {params_same}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return loaded_gen
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -1969,12 +2126,13 @@ def main():
     p1_launches = probes["probe_mm"]
     phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
     phase_tiny(fa, ca, kg, HarmonyPipeline)
-    sdxl, sdxl_gen = phase_full(fa, ca, kg, HarmonyPipeline)
+    sdxl, sdxl_gen, sdxl_image = phase_full(fa, ca, kg, HarmonyPipeline)
     phase_train_tiny(fa, ca, kg, comp, step_lib, trainer)
-    train, train_eager = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
+    train, train_eager, train_run = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
     phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline)
     sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
+    loaded_gen = phase_load_full(fa, ca, kg, comp, trainer, sdxl_image, train_run)
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -2003,6 +2161,7 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:415",
         "launches": sdxl_gen["K1/K4"],
         "launches_by_path": {"generate": sdxl_gen["K1/K4"], "edit_eager": sdxl["K1"],
+                             "generate_loaded": loaded_gen["K1/K4"],
                              "train": train["K1/K4"], "train_eager": train_eager["K1/K4"],
                              "probes": probes["flash_attention_nhd"]},
         "max_abs_err": max_err,
@@ -2046,6 +2205,7 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:630",
         "launches": sdxl_gen["K2"],
         "launches_by_path": {"generate": sdxl_gen["K2"], "edit_eager": sdxl["K2"],
+                             "generate_loaded": loaded_gen["K2"],
                              "edit_eager_ip": sdxl["K2 IP"], "train": train["K2"],
                              "train_eager": train_eager["K2"],
                              "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
@@ -2063,6 +2223,7 @@ def main():
                     "tools/probe_geglu_tune.py:37, tools/probe_pallas_matmul.py:60)",
         "launches": sdxl_gen["K5"],
         "launches_by_path": {"generate": sdxl_gen["K5"], "edit_eager": sdxl["K5"],
+                             "generate_loaded": loaded_gen["K5"],
                              "train": train["K5"], "train_eager": train_eager["K5"],
                              "generate_sd15": sd15_gen["K5"],
                              "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,

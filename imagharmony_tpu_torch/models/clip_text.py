@@ -42,6 +42,53 @@ def clip_bigg_config() -> CLIPTextConfig:
                           intermediate_size=5120, hidden_act="gelu", projection_dim=1280)
 
 
+def config_from_transformers(d: dict, *, with_projection=None, **overrides) -> CLIPTextConfig:
+    """A CLIPTextConfig from a transformers CLIPTextModel ``config.json``
+    dict. ``with_projection`` forces the projection head on or off; None
+    keeps it when the architectures list names a WithProjection class.
+
+    The published SD1.5 and SDXL towers' configs say ``eos_token_id: 2``,
+    which transformers reads as its legacy rule, pooling at the highest id:
+    CLIP's ``<|endoftext|>``, the vocab's last. Here that becomes
+    ``vocab_size - 1`` (the JAX package keeps 2, and pools at position 0)."""
+    if with_projection is None:
+        with_projection = any("WithProjection" in a for a in d.get("architectures") or [])
+    vocab_size = int(d.get("vocab_size", 49408))
+    eos = int(d.get("eos_token_id", 49407))
+    cfg = dict(
+        vocab_size=vocab_size,
+        hidden_size=int(d.get("hidden_size", 768)),
+        num_layers=int(d.get("num_hidden_layers", 12)),
+        num_heads=int(d.get("num_attention_heads", 12)),
+        intermediate_size=int(d.get("intermediate_size", 3072)),
+        max_position_embeddings=int(d.get("max_position_embeddings", 77)),
+        hidden_act=d.get("hidden_act", "quick_gelu"),
+        projection_dim=int(d["projection_dim"]) if with_projection else None,
+        eos_token_id=vocab_size - 1 if eos == 2 else eos,
+    )
+    cfg.update(overrides)
+    return CLIPTextConfig(**cfg)
+
+
+def config_to_transformers(cfg: CLIPTextConfig) -> dict:
+    """The inverse of ``config_from_transformers``."""
+    d = {
+        "architectures": ["CLIPTextModelWithProjection" if cfg.projection_dim is not None
+                          else "CLIPTextModel"],
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "hidden_act": cfg.hidden_act,
+        "eos_token_id": cfg.eos_token_id,
+    }
+    if cfg.projection_dim is not None:
+        d["projection_dim"] = cfg.projection_dim
+    return d
+
+
 def tiny_config(**overrides) -> CLIPTextConfig:
     base = dict(vocab_size=1000, hidden_size=32, num_layers=2, num_heads=4,
                 intermediate_size=64, max_position_embeddings=16, eos_token_id=999)

@@ -41,6 +41,34 @@ def vit_h_config() -> CLIPVisionConfig:
                             intermediate_size=5120, projection_dim=1024)
 
 
+def config_from_transformers(d: dict, **overrides) -> CLIPVisionConfig:
+    """A CLIPVisionConfig from a transformers CLIPVisionModelWithProjection
+    ``config.json`` dict (the JAX package has no such importer: it takes the
+    family's encoder; on the IP-Adapter encoders' files both give those
+    widths)."""
+    cfg = dict(
+        image_size=int(d.get("image_size", 224)),
+        patch_size=int(d.get("patch_size", 14)),
+        hidden_size=int(d.get("hidden_size", 1664)),
+        num_layers=int(d.get("num_hidden_layers", 48)),
+        num_heads=int(d.get("num_attention_heads", 16)),
+        intermediate_size=int(d.get("intermediate_size", 8192)),
+        projection_dim=int(d.get("projection_dim", 1280)),
+        hidden_act=d.get("hidden_act", "gelu"),
+    )
+    cfg.update(overrides)
+    return CLIPVisionConfig(**cfg)
+
+
+def config_to_transformers(cfg: CLIPVisionConfig) -> dict:
+    """The inverse of ``config_from_transformers``."""
+    return {"architectures": ["CLIPVisionModelWithProjection"], "image_size": cfg.image_size,
+            "patch_size": cfg.patch_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "intermediate_size": cfg.intermediate_size, "projection_dim": cfg.projection_dim,
+            "hidden_act": cfg.hidden_act}
+
+
 def tiny_config(**overrides) -> CLIPVisionConfig:
     base = dict(image_size=28, patch_size=7, hidden_size=32, num_layers=2, num_heads=4,
                 intermediate_size=64, projection_dim=24)

@@ -107,6 +107,16 @@ class CLIPTokenizer:
             os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt"), **kw
         )
 
+    def save_pretrained_dir(self, path):
+        """Write ``vocab.json`` and ``merges.txt`` as ``from_pretrained_dir``
+        reads them."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(self.encoder, f)
+        merges = sorted(self.bpe_ranks, key=self.bpe_ranks.get)
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "".join(" ".join(m) + "\n" for m in merges))
+
     # -- BPE --------------------------------------------------------------
 
     def _bpe(self, token):

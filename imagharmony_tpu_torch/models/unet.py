@@ -118,6 +118,109 @@ def sd15_config(**overrides) -> UNetConfig:
     return UNetConfig(**base)
 
 
+def config_from_diffusers(d: dict, **overrides) -> UNetConfig:
+    """A UNetConfig from a diffusers UNet2DConditionModel ``config.json``
+    dict; raises on architecture options this UNet does not implement.
+
+    The head-count quirk, as diffusers documents it: without
+    ``num_attention_heads``, ``attention_head_dim`` holds the per-block
+    *number of heads* (SDXL ships attention_head_dim=[5,10,20]); with both,
+    ``attention_head_dim`` is the head width."""
+    n_blocks = len(d["block_out_channels"])
+    unsupported = {
+        "class_embed_type": None,
+        "encoder_hid_dim": None,
+        "time_cond_proj_dim": None,
+        "dual_cross_attention": False,
+        "mid_block_type": "UNetMidBlock2DCrossAttn",
+        "resnet_time_scale_shift": "default",
+        "class_embeddings_concat": False,
+    }
+    for key, ok in unsupported.items():
+        val = d.get(key, ok)
+        if val != ok and val is not None:
+            raise ValueError(f"diffusers UNet config option {key}={val!r} is not supported by "
+                             f"this implementation (expected {ok!r})")
+    for key in ("down_block_types", "up_block_types"):
+        bad = set(d.get(key, ())) - {"DownBlock2D", "CrossAttnDownBlock2D", "UpBlock2D",
+                                     "CrossAttnUpBlock2D"}
+        if bad:
+            raise ValueError(f"unsupported {key} entries: {sorted(bad)}")
+
+    def per_block(v, name):
+        if isinstance(v, (list, tuple)):
+            if len(v) != n_blocks:
+                raise ValueError(f"{name} length {len(v)} != {n_blocks} blocks")
+            return tuple(int(x) for x in v)
+        return (int(v),) * n_blocks
+
+    heads_raw = d.get("num_attention_heads")
+    ahd = d.get("attention_head_dim", 8)
+    if heads_raw is not None:
+        heads = per_block(heads_raw, "num_attention_heads")
+        head_dim = int(ahd) if isinstance(ahd, (int, float)) else None
+    else:
+        heads = per_block(ahd, "attention_head_dim")
+        head_dim = None
+
+    def uniform(key, default):
+        v = d.get(key, default)
+        if isinstance(v, (list, tuple)):
+            if len(set(v)) != 1:
+                raise ValueError(f"non-uniform {key} {v} unsupported")
+            v = v[0]
+        return int(v)
+
+    cfg = dict(
+        sample_size=int(d.get("sample_size", 128)),
+        in_channels=int(d.get("in_channels", 4)),
+        out_channels=int(d.get("out_channels", 4)),
+        block_out_channels=tuple(int(c) for c in d["block_out_channels"]),
+        down_block_types=tuple(d["down_block_types"]),
+        up_block_types=tuple(d["up_block_types"]),
+        layers_per_block=uniform("layers_per_block", 2),
+        transformer_layers_per_block=per_block(d.get("transformer_layers_per_block", 1),
+                                               "transformer_layers_per_block"),
+        num_attention_heads=heads,
+        attention_head_dim=head_dim,
+        cross_attention_dim=uniform("cross_attention_dim", 1280),
+        norm_num_groups=int(d.get("norm_num_groups", 32)),
+        addition_embed_type=d.get("addition_embed_type"),
+        addition_time_embed_dim=int(d.get("addition_time_embed_dim") or 256),
+        projection_class_embeddings_input_dim=int(
+            d.get("projection_class_embeddings_input_dim") or 2816),
+    )
+    cfg.update(overrides)
+    return UNetConfig(**cfg)
+
+
+def config_to_diffusers(cfg: UNetConfig) -> dict:
+    """The inverse of ``config_from_diffusers`` (what a tree's
+    ``unet/config.json`` holds); the IP layout is not part of it."""
+    heads = list(cfg.num_attention_heads)
+    return {
+        "_class_name": "UNet2DConditionModel",
+        "sample_size": cfg.sample_size,
+        "in_channels": cfg.in_channels,
+        "out_channels": cfg.out_channels,
+        "block_out_channels": list(cfg.block_out_channels),
+        "down_block_types": list(cfg.down_block_types),
+        "up_block_types": list(cfg.up_block_types),
+        "layers_per_block": cfg.layers_per_block,
+        "transformer_layers_per_block": list(cfg.transformer_layers_per_block),
+        # diffusers' quirk: with no num_attention_heads, attention_head_dim
+        # holds the head counts
+        "num_attention_heads": heads if cfg.attention_head_dim is not None else None,
+        "attention_head_dim": cfg.attention_head_dim if cfg.attention_head_dim is not None
+        else heads,
+        "cross_attention_dim": cfg.cross_attention_dim,
+        "norm_num_groups": cfg.norm_num_groups,
+        "addition_embed_type": cfg.addition_embed_type,
+        "addition_time_embed_dim": cfg.addition_time_embed_dim,
+        "projection_class_embeddings_input_dim": cfg.projection_class_embeddings_input_dim,
+    }
+
+
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch, out_ch, temb_dim, *, groups, eps=1e-5, device=None, dtype=None):
         super().__init__()

@@ -53,6 +53,30 @@ def tiny_config(**overrides) -> VAEConfig:
     return VAEConfig(**base)
 
 
+def config_from_diffusers(d: dict, **overrides) -> VAEConfig:
+    """A VAEConfig from a diffusers AutoencoderKL ``config.json`` dict, notably
+    its ``scaling_factor`` (SDXL 0.13025, SD1.5 0.18215), which corrupts
+    every latent if assumed."""
+    cfg = dict(
+        in_channels=int(d.get("in_channels", 3)),
+        out_channels=int(d.get("out_channels", 3)),
+        latent_channels=int(d.get("latent_channels", 4)),
+        block_out_channels=tuple(int(c) for c in d.get("block_out_channels",
+                                                       (128, 256, 512, 512))),
+        layers_per_block=int(d.get("layers_per_block", 2)),
+        norm_num_groups=int(d.get("norm_num_groups", 32)),
+        scaling_factor=float(d.get("scaling_factor", 0.13025)),
+    )
+    cfg.update(overrides)
+    return VAEConfig(**cfg)
+
+
+def config_to_diffusers(cfg: VAEConfig) -> dict:
+    """The inverse of ``config_from_diffusers``."""
+    return {"_class_name": "AutoencoderKL", **dataclasses.asdict(cfg),
+            "block_out_channels": list(cfg.block_out_channels)}
+
+
 class VAEAttention(nn.Module):
     """Single-head self-attention of the VAE mid block (biased to_q/k/v)."""
 

@@ -283,12 +283,16 @@ class HarmonyPipeline:
     # -- constructors ------------------------------------------------------
 
     @classmethod
-    def _build(cls, comps):
+    def _build(cls, comps, tokenizers=None):
+        """The pipeline over loaded ``comps``, with ``tokenizers`` or, for
+        random weights (whose vocab does not matter), the toy tokenizer."""
         # inference packing: one to_qkv per self-attention, so K1 and K4 get
         # q/k/v as strided column views of a single projection output
         pack_inference_params(comps.unet)
-        toy = tok_lib.build_toy_tokenizer()
-        return cls(comps.eval().requires_grad_(False), tok_lib.SDXLTokenizers(toy, toy))
+        if tokenizers is None:
+            toy = tok_lib.build_toy_tokenizer()
+            tokenizers = tok_lib.SDXLTokenizers(toy, toy)
+        return cls(comps.eval().requires_grad_(False), tokenizers)
 
     @classmethod
     def random(cls, cfgs: comp.ComponentConfigs, seed=0, *, device="cuda",
@@ -327,7 +331,9 @@ class HarmonyPipeline:
     def from_state_dict(cls, state_dict, cfgs: comp.ComponentConfigs, *, device="cuda",
                         dtype=torch.float32):
         """Pipeline over given weights (e.g. io/from_jax.state_dict of a
-        JAX bundle), with the toy tokenizer."""
+        JAX bundle), with the toy tokenizer, whose vocab is the tiny
+        configs' (real weights come with their tokenizers:
+        ``io/checkpoints.load_pipeline`` reads a tree's)."""
         with torch.device("meta"):
             comps = comp.Components(cfgs, dtype=dtype)
         comps = comps.to_empty(device=device)

@@ -17,9 +17,12 @@ counterpart of the JAX trainer's donated ``jax.jit`` step); the CPU runs
   an uninterrupted one on the same device;
 * the weights take the compute dtype (bf16 under ``--mixed_precision
   bf16``, fp32 under ``no``), the port's dtype rule;
-* not ported yet: ``--pretrained_model_name_or_path`` (checkpoint loading,
-  ROADMAP A10), ``--cache_encoders`` (train/cache.py) and ``--lora_rank``
-  (ROADMAP A13); each raises.
+* ``--pretrained_model_name_or_path`` reads a local diffusers SDXL tree
+  (``io/checkpoints.load_components``, with ``--pretrained_ip_adapter_path``
+  and ``--image_encoder_path``); the HA head's widths come from the tree's
+  towers, its other sizes from the ``--composed_*`` flags;
+* not ported yet: ``--cache_encoders`` (train/cache.py) and
+  ``--lora_rank`` (ROADMAP A13); each raises.
 
 Metrics go to ``metrics.jsonl`` with the JAX trainer's keys, and every
 ``--save_steps`` (and at ``--max_steps``) the adapters are exported as
@@ -50,9 +53,15 @@ KEEP_CHECKPOINTS = 3
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="HA-module / IP-adapter fine-tuning")
-    p.add_argument("--pretrained_model_name_or_path", default=None)
-    p.add_argument("--pretrained_ip_adapter_path", default=None)
-    p.add_argument("--image_encoder_path", default=None)
+    p.add_argument("--pretrained_model_name_or_path", default=None,
+                   help="a local diffusers SDXL directory (unet/, vae/, text_encoder/, "
+                        "text_encoder_2/, image_encoder/, tokenizer/, tokenizer_2/)")
+    p.add_argument("--pretrained_ip_adapter_path", default=None,
+                   help="a 3-dict adapter checkpoint (.bin or .safetensors) to start from; "
+                        "without it the HA head is fresh from --seed and each IP projection "
+                        "starts as its layer's to_k/to_v")
+    p.add_argument("--image_encoder_path", default=None,
+                   help="the CLIP vision directory, if not the tree's image_encoder/")
     p.add_argument("--data_json_file", default=None)
     p.add_argument("--data_root_path", default="")
     p.add_argument("--output_dir", default="harmony-train")
@@ -102,30 +111,64 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _harmony_config(args, **widths) -> harmony_lib.HarmonyConfig:
+    return harmony_lib.HarmonyConfig(
+        inter_dim=args.composed_inter_dim,
+        cross_heads=args.composed_cross_heads,
+        reshape_blocks=args.composed_reshape_blocks,
+        cross_value_dim=args.composed_cross_value_dim,
+        fusion_method=args.fusion_method,
+        **widths,
+    )
+
+
 def build_components(args):
-    """(cfgs, components on args.device, tokenizers) for --tiny or
-    --full_random, random weights from --seed."""
+    """(cfgs, components on args.device in the compute dtype, tokenizers):
+    random weights from --seed for --tiny or --full_random, else the tree
+    of --pretrained_model_name_or_path (JAX trainer.py:149-171)."""
     dtype = torch.float32 if args.mixed_precision == "no" else torch.bfloat16
     toy = tok_lib.build_toy_tokenizer()
     toks = tok_lib.SDXLTokenizers(toy, toy)
     if args.tiny:
         cfgs = comp.tiny_configs(vocab_size=len(toy.encoder))
     elif args.full_random:
-        cfgs = comp.sdxl_configs(harmony_lib.HarmonyConfig(
-            inter_dim=args.composed_inter_dim,
-            cross_heads=args.composed_cross_heads,
-            reshape_blocks=args.composed_reshape_blocks,
-            cross_value_dim=args.composed_cross_value_dim,
-            fusion_method=args.fusion_method,
-        ))
+        cfgs = comp.sdxl_configs(_harmony_config(args))
     elif args.pretrained_model_name_or_path:
-        raise NotImplementedError(
-            "loading a pretrained model is not ported yet (ROADMAP A10): use --tiny or "
-            "--full_random")
+        return _pretrained_components(args, dtype)
     else:
         raise SystemExit("--pretrained_model_name_or_path required (or use --tiny)")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     return cfgs, comp.init_params(gen, cfgs, dtype=dtype, device=args.device), toks
+
+
+def _pretrained_components(args, dtype):
+    """The tree and adapter of ``args``. The HA config is the flags' at the
+    tree's widths (the vision projection, both text towers); an adapter's
+    HA weights must have that config. Without an adapter the HA head and
+    the image projection are fresh from --seed (the reference builds a new
+    ImageProjModel; the JAX trainer keeps the loader's zeros, through which
+    no gradient reaches the adapter) and each IP projection copies its
+    layer's to_k/to_v (reference train.py:554-561)."""
+    cfgs, comps, toks = ckpt_io.load_components(
+        args.pretrained_model_name_or_path, args.pretrained_ip_adapter_path,
+        args.image_encoder_path, device=args.device, dtype=dtype)
+    if cfgs.family != "sdxl":
+        raise NotImplementedError(f"the train step is ported for the SDXL family only, not "
+                                  f"{cfgs.family}")
+    ha_cfg = _harmony_config(args, image_hidden_size=cfgs.vision.projection_dim,
+                             text_context_dim=cfgs.text_l.hidden_size + cfgs.text_g.hidden_size)
+    if args.pretrained_ip_adapter_path is None:
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        with torch.device("meta"):
+            fresh = harmony_lib.HarmonyAttention(ha_cfg, dtype=dtype)
+        comps.harmony = comp.init_weights_(fresh.to_empty(device=args.device), gen)
+        comp.init_weights_(comps.image_proj, gen)
+        comp.seed_ip_from_unet(comps.unet)
+    elif ha_cfg != cfgs.harmony:
+        raise ValueError(f"the adapter's HA config {cfgs.harmony} is not the flags' {ha_cfg}")
+    cfgs = dataclasses.replace(cfgs, harmony=ha_cfg)
+    comps.cfgs = cfgs
+    return cfgs, comps, toks
 
 
 def train_config(args, cfgs) -> step_lib.TrainConfig:

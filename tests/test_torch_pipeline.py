@@ -1,9 +1,13 @@
 """The ported slice as a whole, on the CPU: the port loaded with the JAX
 tiny pipeline's weights against the fp32 golden trajectory, the CFG-packed
-conditioning against JAX's, generate(), the tokenizer, io/from_jax, and
-that the port runs without JAX."""
+conditioning against JAX's, generate(), the tokenizer, io/from_jax, the
+checkpoint loader against JAX's on trees the JAX package wrote, and that
+the port runs without JAX."""
 
+import copy
+import dataclasses
 import functools
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +24,8 @@ from imagharmony_tpu.models import tokenizer as jtok
 from imagharmony_tpu.pipelines import HarmonyPipeline as JaxPipeline
 from imagharmony_tpu.pipelines import harmony_edit as jhe
 from imagharmony_tpu.schedulers import diffusion as jsched
+from imagharmony_tpu_torch.io import checkpoints as pckpt
+from imagharmony_tpu_torch.io import hf_import as hf_import_torch
 from imagharmony_tpu_torch.io import from_jax
 from imagharmony_tpu_torch.models import tokenizer as ptok
 from imagharmony_tpu_torch.pipelines import components as pcomp
@@ -132,9 +138,113 @@ def test_tokenizer_ids_match_jax(text):
         np.testing.assert_array_equal(a, b)
 
 
-def test_from_jax_keys_and_shapes_match_export_tree(pipes):
+def _write_jax_tree(root, params, cfgs, toy):
+    """A diffusers tree of a JAX bundle, written by the JAX package's writers
+    as tests/test_load_pipeline.py writes one: the UNet without its IP
+    projections (as diffusers writes it) and sharded in two under an
+    index.json, CLIP-L as a torch .bin, the rest .safetensors, the
+    tokenizers' files and the 3-dict ``ip_adapter.bin``."""
+    from imagharmony_tpu.io import checkpoints as jckpt
+    from imagharmony_tpu.io import safetensors_io, torch_pickle
+
+    sdxl = cfgs.text_g is not None
+    root.mkdir()
+    (root / "model_index.json").write_text(json.dumps(
+        {"_class_name": "StableDiffusionXLPipeline" if sdxl else "StableDiffusionPipeline"}))
+    for sub in ("unet", "vae", "text_encoder", "image_encoder"):
+        (root / sub).mkdir()
+    unet = {k: v for k, v in hf_import.export_tree(params["unet"]).items() if "_ip." not in k}
+    keys = sorted(unet)
+    names = [f"diffusion_pytorch_model-0000{i}-of-00002.safetensors" for i in (1, 2)]
+    shards = (keys[: len(keys) // 2], keys[len(keys) // 2:])
+    for name, part in zip(names, shards):
+        safetensors_io.save(root / "unet" / name, {k: unet[k] for k in part})
+    (root / "unet" / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": {k: n for n, part in zip(names, shards) for k in part}}))
+    safetensors_io.save(root / "vae" / "diffusion_pytorch_model.safetensors",
+                        hf_import.export_tree(params["vae"]))
+    torch_pickle.save(str(root / "text_encoder" / "pytorch_model.bin"),
+                      hf_import.export_tree(params["text_encoder"], prefix="text_model."))
+    if sdxl:
+        (root / "text_encoder_2").mkdir()
+        te2 = hf_import.export_tree(params["text_encoder_2"], prefix="text_model.")
+        safetensors_io.save(root / "text_encoder_2" / "model.safetensors", {
+            k.replace("text_model.text_projection", "text_projection"): v
+            for k, v in te2.items()})
+    vis = hf_import.export_tree(params["image_encoder"], prefix="vision_model.")
+    safetensors_io.save(root / "image_encoder" / "model.safetensors", {
+        k.replace("vision_model.visual_projection", "visual_projection"): v
+        for k, v in vis.items()})
+    for sub in ("tokenizer", "tokenizer_2") if sdxl else ("tokenizer",):
+        (root / sub).mkdir()
+        (root / sub / "vocab.json").write_text(json.dumps(toy.encoder))
+        merges = sorted(toy.bpe_ranks, key=toy.bpe_ranks.get)
+        (root / sub / "merges.txt").write_text(
+            "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    if sdxl:
+        jckpt.save_adapter_checkpoint(
+            root / "ip_adapter.bin", unet_params=params["unet"], unet_cfg=cfgs.unet,
+            image_proj_params=params["image_proj"], harmony_params=params["harmony"],
+            harmony_cfg=cfgs.harmony)
+    else:  # SD1.5 adapters carry no composed_adapter (no HA head)
+        torch_pickle.save(str(root / "ip_adapter.bin"), {
+            "image_proj": hf_import.export_tree(params["image_proj"]),
+            "ip_adapter": jckpt.extract_adapter_state(params["unet"], cfgs.unet)})
+    return str(root)
+
+
+# published config.json values (stabilityai/stable-diffusion-xl-base-1.0,
+# runwayml/stable-diffusion-v1-5), the keys the importers read and some
+# they ignore
+_SDXL_UNET = dict(
+    _class_name="UNet2DConditionModel", act_fn="silu", addition_embed_type="text_time",
+    addition_embed_type_num_heads=64, addition_time_embed_dim=256,
+    attention_head_dim=[5, 10, 20], block_out_channels=[320, 640, 1280],
+    class_embed_type=None, class_embeddings_concat=False, cross_attention_dim=2048,
+    down_block_types=["DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"],
+    dual_cross_attention=False, encoder_hid_dim=None, in_channels=4, layers_per_block=2,
+    mid_block_type="UNetMidBlock2DCrossAttn", norm_num_groups=32, num_attention_heads=None,
+    out_channels=4, projection_class_embeddings_input_dim=2816,
+    resnet_time_scale_shift="default", sample_size=128, time_cond_proj_dim=None,
+    transformer_layers_per_block=[1, 2, 10],
+    up_block_types=["CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"],
+    use_linear_projection=True)
+_SD15_UNET = dict(
+    _class_name="UNet2DConditionModel", act_fn="silu", attention_head_dim=8,
+    block_out_channels=[320, 640, 1280, 1280], cross_attention_dim=768,
+    down_block_types=["CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                      "DownBlock2D"], in_channels=4, layers_per_block=2, norm_num_groups=32,
+    out_channels=4, sample_size=64,
+    up_block_types=["UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                    "CrossAttnUpBlock2D"])
+_VAE = dict(_class_name="AutoencoderKL", act_fn="silu", block_out_channels=[128, 256, 512, 512],
+            in_channels=3, latent_channels=4, layers_per_block=2, norm_num_groups=32,
+            out_channels=3, sample_size=1024, scaling_factor=0.13025)
+_CLIP_L = dict(architectures=["CLIPTextModel"], bos_token_id=0, eos_token_id=2,
+               hidden_act="quick_gelu", hidden_size=768, intermediate_size=3072,
+               max_position_embeddings=77, num_attention_heads=12, num_hidden_layers=12,
+               pad_token_id=1, projection_dim=768, vocab_size=49408)
+_CLIP_G = dict(_CLIP_L, architectures=["CLIPTextModelWithProjection"], hidden_act="gelu",
+               hidden_size=1280, intermediate_size=5120, num_attention_heads=20,
+               num_hidden_layers=32, projection_dim=1280)
+
+
+def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path):
     """io/from_jax gives export_tree's keys and shapes, and the port's
-    modules have exactly those keys."""
+    modules have exactly those keys. The port's loader on trees the JAX
+    package wrote (SDXL and SD1.5, with and without the adapter) gives
+    exactly from_jax.state_dict of the JAX load_pipeline's params, the same
+    token ids and family; the config importers equal the JAX ones on the
+    published SDXL and SD1.5 configs."""
+    from imagharmony_tpu.io import checkpoints as jckpt
+    from imagharmony_tpu.models import clip_text as jclip
+    from imagharmony_tpu.models import unet as junet
+    from imagharmony_tpu.models import vae as jvae
+    from imagharmony_tpu.pipelines import components as jcomp
+    from imagharmony_tpu_torch.models import clip_text as pclip
+    from imagharmony_tpu_torch.models import unet as punet
+    from imagharmony_tpu_torch.models import vae as pvae
+
     jpipe, _ = pipes
     params = jax.device_get(jpipe.params)
     sd = from_jax.state_dict(params)
@@ -142,9 +252,67 @@ def test_from_jax_keys_and_shapes_match_export_tree(pipes):
     assert set(sd) == set(ref)
     for k, v in ref.items():
         assert tuple(sd[k].shape) == tuple(v.shape), k
+    toy = jpipe.tokenizers.tok1
     with torch.device("meta"):
-        comps = pcomp.Components(pcomp.tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder)))
+        comps = pcomp.Components(pcomp.tiny_configs(vocab_size=len(toy.encoder)))
     assert set(comps.state_dict()) == set(sd)
+
+    sd15_jcfgs = jcomp.sd15_tiny_configs(vocab_size=len(toy.encoder))
+    trees = [("sdxl", jpipe.cfgs, params, pcomp.tiny_configs(vocab_size=len(toy.encoder))),
+             ("sd15", sd15_jcfgs, jax.device_get(jcomp.init_params(0, sd15_jcfgs)),
+              pcomp.sd15_tiny_configs(vocab_size=len(toy.encoder)))]
+    for family, jcfgs, jparams, pcfgs in trees:
+        root = _write_jax_tree(tmp_path / family, jparams, jcfgs, toy)
+        assert pckpt.detect_family(root) == jckpt.detect_family(root) == family
+        for adapter in (f"{root}/ip_adapter.bin", None):
+            want = from_jax.state_dict(
+                jckpt.load_pipeline(model_dir=root, adapter_ckpt=adapter, cfgs=jcfgs).params)
+            _, got, _ = pckpt.load_components(root, adapter, cfgs=pcfgs, device="cpu",
+                                              dtype=torch.float32)
+            got_unet, got = got.unet, got.state_dict()
+            assert set(got) == set(want), (family, adapter)
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+        if family == "sd15":  # published SD1.5 UNets store proj_in/out as 1x1 convs
+            flat = pckpt.load_sharded_dir(f"{root}/unet")
+            conv = {k: v[..., None, None] if ".proj_in.w" in k or ".proj_out.w" in k else v
+                    for k, v in pckpt.seed_ip_weights(flat).items()}
+            assert sum(v.dim() == 4 for v in conv.values()) > sum(
+                v.dim() == 4 for v in flat.values())
+            unet_sd = hf_import_torch.import_state(copy.deepcopy(got_unet), conv).state_dict()
+            for k, v in got_unet.state_dict().items():
+                torch.testing.assert_close(unet_sd[k], v, rtol=0, atol=0)
+        port = pckpt.load_pipeline(root, cfgs=pcfgs, device="cpu", dtype=torch.float32)
+        jaxp = jckpt.load_pipeline(model_dir=root, cfgs=jcfgs)
+        for text in ("a dog", "a photo of eight sheep!", ""):
+            for a, b in zip(port.tokenizers(text), jaxp.tokenizers(text)):
+                np.testing.assert_array_equal(a, b)
+
+    sd15_vae = dict(_VAE, sample_size=512, scaling_factor=0.18215)
+    for d in (_SDXL_UNET, _SD15_UNET):
+        for ip in (("down_blocks.2.attentions.1",), ("",)):
+            assert dataclasses.asdict(punet.config_from_diffusers(d, ip_layers=ip)) == \
+                dataclasses.asdict(junet.config_from_diffusers(d, ip_layers=ip))
+    for d in (_VAE, sd15_vae):
+        assert dataclasses.asdict(pvae.config_from_diffusers(d)) == \
+            dataclasses.asdict(jvae.config_from_diffusers(d))
+    assert pvae.config_from_diffusers(sd15_vae).scaling_factor == 0.18215
+    for d, proj in ((_CLIP_L, None), (_CLIP_G, True), (_CLIP_G, None),
+                    (dict(_CLIP_L, eos_token_id=49407), None)):
+        ours = pclip.config_from_transformers(d, with_projection=proj)
+        theirs = jclip.config_from_transformers(d, with_projection=proj)
+        # "eos_token_id": 2 is transformers' legacy "the highest id": the
+        # port pools at <|endoftext|>, the JAX package at id 2
+        assert ours.eos_token_id == 49407
+        assert dataclasses.asdict(ours) == dataclasses.asdict(
+            dataclasses.replace(theirs, eos_token_id=49407))
+    # the full-size defaults are the published configs
+    assert punet.config_from_diffusers(_SDXL_UNET) == pcomp.sdxl_configs().unet
+    assert punet.config_from_diffusers(_SD15_UNET, ip_layers=("",)) == pcomp.sd15_configs().unet
+    assert pclip.config_from_transformers(_CLIP_L) == pcomp.sdxl_configs().text_l
+    assert pclip.config_from_transformers(_CLIP_G) == pcomp.sdxl_configs().text_g
+    with pytest.raises(ValueError, match="class_embed_type"):
+        punet.config_from_diffusers(dict(_SDXL_UNET, class_embed_type="timestep"))
 
 
 def test_port_imports_no_jax():

@@ -262,9 +262,98 @@ def test_export_matches_jax(case, tmp_path):
             torch.testing.assert_close(b[group][k], torch.as_tensor(a[group][k]), rtol=0, atol=0)
     cfg_a, cfg_b = json.loads(a["harmony_config"]), json.loads(b["harmony_config"])
     assert {k: cfg_a[k] for k in cfg_b} == cfg_b
-    # JAX's own reader takes the port's file
-    proj, ip, composed, ha_cfg = jckpt.load_adapter_checkpoint(tmp_path / "port.bin")
-    assert {k: getattr(ha_cfg, k) for k in cfg_b} == cfg_b and len(ip) == len(b["ip_adapter"])
+    # JAX's own reader takes the port's files, .bin and .safetensors
+    pckpt.save_adapter_checkpoint(
+        tmp_path / "port.safetensors", unet=comps.unet, unet_cfg=case["pcfgs"].unet,
+        image_proj=comps.image_proj, harmony=comps.harmony, harmony_cfg=case["pcfgs"].harmony)
+    jckpt.save_adapter_checkpoint(
+        tmp_path / "jax.safetensors", unet_params=params["unet"], unet_cfg=jcfgs.unet,
+        image_proj_params=params["image_proj"], harmony_params=params["harmony"],
+        harmony_cfg=jcfgs.harmony)
+    for name in ("port.bin", "port.safetensors"):
+        proj, ip, composed, ha_cfg = jckpt.load_adapter_checkpoint(tmp_path / name)
+        assert {k: getattr(ha_cfg, k) for k in cfg_b} == cfg_b
+        for group, got in (("image_proj", proj), ("ip_adapter", ip),
+                           ("composed_adapter", composed)):
+            assert set(got) == set(b[group]), (name, group)
+            for k in got:
+                np.testing.assert_array_equal(got[k], b[group][k].numpy())
+    # the port's reader on every file: the JAX reader's values
+    for name in ("jax.bin", "jax.safetensors", "port.bin", "port.safetensors"):
+        ours, theirs = pckpt.load_adapter_checkpoint(tmp_path / name), \
+            jckpt.load_adapter_checkpoint(tmp_path / name)
+        assert {k: getattr(ours[3], k) for k in cfg_b} == cfg_b
+        for got, want in zip(ours[:3], theirs[:3]):
+            assert set(got) == set(want), name
+            for k in want:
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    # the legacy composed layout ("cross_attention." for "fusion_text_image.")
+    legacy = {k.replace("fusion_text_image.", "cross_attention."): v
+              for k, v in pckpt.load_adapter_checkpoint(tmp_path / "jax.bin")[2].items()}
+    ha = copy.deepcopy(comps.harmony)
+    for p in ha.parameters():
+        p.data.zero_()
+    pckpt.import_harmony(ha, legacy)
+    want = from_jax.state_dict(jckpt.import_harmony(
+        params["harmony"], {k: v.numpy() for k, v in legacy.items()}))
+    for k, v in ha.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0)
+
+    # safetensors both ways, and with the safetensors package
+    import ml_dtypes
+    from safetensors.torch import load_file
+
+    from imagharmony_tpu.io import safetensors_io
+    from imagharmony_tpu_torch.io import safetensors as pst
+
+    g = torch.Generator().manual_seed(0)
+    tensors = {"f32": torch.randn(3, 5, generator=g), "f16": torch.randn(7, generator=g).half(),
+               "bf16": torch.randn(2, 3, 4, generator=g).bfloat16(),
+               "i64": torch.arange(-4, 5, dtype=torch.int64), "scalar": torch.tensor(2.5)}
+    pst.save(tmp_path / "port.st", tensors, metadata={"k": "v"})
+    back, meta = pst.load(tmp_path / "port.st")
+    jax_back, jax_meta = safetensors_io.load(tmp_path / "port.st")
+    pkg_back = load_file(tmp_path / "port.st")
+    assert meta == jax_meta == {"k": "v"}
+    for k, v in tensors.items():
+        for got in (back[k], pkg_back[k], torch.from_numpy(
+                np.asarray(jax_back[k], np.float32) if k == "bf16" else jax_back[k].copy())):
+            torch.testing.assert_close(got.to(v.dtype), v, rtol=0, atol=0)
+    # (the JAX writer stores a 0-dim array as shape [1])
+    safetensors_io.save(tmp_path / "jax.st", {
+        k: v.float().numpy().astype(ml_dtypes.bfloat16) if k == "bf16" else v.numpy()
+        for k, v in tensors.items() if v.dim()})
+    back = pst.load(tmp_path / "jax.st")[0]
+    assert set(back) == set(tensors) - {"scalar"}
+    for k, v in back.items():
+        torch.testing.assert_close(v, tensors[k], rtol=0, atol=0)
+
+    # convert_training_checkpoints on an accelerate-style dump
+    dump = {f"image_proj_model.{k}": v for k, v in comps.image_proj.state_dict().items()}
+    dump.update({f"adapter_modules.{k}": v for k, v in b["ip_adapter"].items()})
+    dump.update({f"composed_modules.{k}": v for k, v in comps.harmony.state_dict().items()})
+    for side in ("jax", "port"):
+        (tmp_path / side / "checkpoint-2").mkdir(parents=True)
+        torch.save(dump, tmp_path / side / "checkpoint-2" / "pytorch_model.bin")
+    assert len(jckpt.convert_training_checkpoints(tmp_path / "jax")) == 1
+    assert len(pckpt.convert_training_checkpoints(tmp_path / "port")) == 1
+    x, y = (pckpt.load_adapter_checkpoint(tmp_path / side / "checkpoint-2" / "ip_adapter.bin")
+            for side in ("jax", "port"))
+    for got, want in zip(y[:3], x[:3]):
+        assert set(got) == set(want) and got
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+    # the .bin reader runs no code from the file
+    import pickle
+    import zipfile
+
+    from imagharmony_tpu_torch.io import torch_zip
+
+    with zipfile.ZipFile(tmp_path / "evil.bin", "w") as zf:
+        zf.writestr("archive/data.pkl", pickle.dumps({"x": os.system}, protocol=2))
+    with pytest.raises(pickle.UnpicklingError, match="blocked global"):
+        torch_zip.load(tmp_path / "evil.bin")
 
 
 def _records(tmp_path, n=2):
@@ -354,13 +443,46 @@ def test_trainer_json_data_one_step(tmp_path):
     assert len(ckpt["ip_adapter"]) == 2 * n_attn2
     assert json.loads(ckpt["harmony_config"])["fusion_method"] == "cross_attention"
 
+    # the trainer from a diffusers tree the port wrote from the --tiny
+    # bundle: with its adapter, one step bit-identical to --tiny; without,
+    # every IP projection starts as its layer's to_k/to_v
+    from imagharmony_tpu_torch.models import tokenizer as ptok
+
+    toy = ptok.build_toy_tokenizer()
+    cfgs = pcomp.tiny_configs(vocab_size=len(toy.encoder))
+    tiny = pcomp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
+    tree = tmp_path / "tree"
+    pckpt.save_tree(tree, tiny, tokenizers=ptok.SDXLTokenizers(toy, toy))
+    pckpt.save_adapter_checkpoint(tree / "ip_adapter.safetensors", unet=tiny.unet,
+                                  unet_cfg=cfgs.unet, image_proj=tiny.image_proj,
+                                  harmony=tiny.harmony, harmony_cfg=cfgs.harmony)
+    steps = ["--synthetic_data", "1", "--train_batch_size", "2", "--resolution", "32",
+             "--max_steps", "1", "--mixed_precision", "no", "--device", "cpu"]
+    ha = ["--composed_inter_dim", "64", "--composed_cross_heads", "2",
+          "--composed_reshape_blocks", "4", "--composed_cross_value_dim", "8"]
+    runs = {"tiny": ["--tiny"],
+            "tree": ["--pretrained_model_name_or_path", str(tree), *ha,
+                     "--pretrained_ip_adapter_path", str(tree / "ip_adapter.safetensors")],
+            "bare": ["--pretrained_model_name_or_path", str(tree), *ha]}
+    for name, argv in runs.items():
+        assert ptrainer.main([*argv, *steps, "--output_dir", str(tmp_path / name)]) == 1
+    tiny_m, tree_m, bare_m = (json.loads(open(tmp_path / name / "metrics.jsonl").readline())
+                              for name in runs)
+    assert (tree_m["loss"], tree_m["grad_norm"]) == (tiny_m["loss"], tiny_m["grad_norm"])
+    assert bare_m["grad_norm"] > 0
+    _, bare, _ = ptrainer.build_components(ptrainer.parse_args([*runs["bare"], *steps]))
+    sd = bare.unet.state_dict()
+    for k in (k for k in sd if "_ip." in k):
+        torch.testing.assert_close(sd[k], sd[k.replace("_ip.", ".")], rtol=0, atol=0)
+
 
 def test_trainer_refuses_unported_modes(tmp_path):
     with pytest.raises(NotImplementedError, match="A13"):
         ptrainer.main(_tiny_args(tmp_path, "--lora_rank", "2", "--max_steps", "1"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ptrainer.main(["--pretrained_model_name_or_path", "x", "--device", "cpu",
-                       "--output_dir", str(tmp_path)])
+    # a missing tree raises, as the JAX load_pipeline does
+    with pytest.raises(FileNotFoundError):
+        ptrainer.main(["--pretrained_model_name_or_path", str(tmp_path / "missing"),
+                       "--device", "cpu", "--output_dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="cache"):
         pstep.loss_fn(None, pstep.TrainConfig(), {"context": None}, None)
 
