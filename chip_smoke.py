@@ -167,7 +167,22 @@ is non-zero:
    phase 5, phase 5's image bit for bit, 2100 K1, K2 and K5 launches
    replayed) and by the trainer's ``--pretrained_model_name_or_path`` (phase
    7's captured run bit for bit), with the write and read times and the
-   peak host RSS.
+   peak host RSS;
+12. the sampler zoo and the edit's features at full width, on phase 5's
+   SDXL bf16 pipeline (``feature_configs``): DPM++ 2M Karras with
+   guidance_rescale, micro-conditioning overrides, a negative prompt and
+   clip_skip; Euler-a; DDIM with trailing spacing, v-prediction and
+   zero-SNR; LCM at 4 steps with no CFG and no image; img2img at strength
+   0.6; inpainting; the denoising_end 0.8 -> denoising_start 0.8 latent
+   handoff; encoder_interval 2 with prompt weighting and tile_vae; then an
+   SD1.5 512² DPM++ edit. Each configuration is one key, run as phase 5's
+   edit is (``edit_modes``: the replay bit-identical to the eager module
+   functions, one capture then none, the replayed launches by kernel name
+   equal to the eager run's), its launches against what the UNet config
+   gives (70 K1, K2 and K5 a UNet call, 46 on an encoder-reuse step, 16
+   K4, K2 and K5 for SD1.5), its output finite; each with its wall time,
+   per-step time, capture time and the memory its programs keep, dropped
+   before the next key's capture.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -195,7 +210,8 @@ there. "train" is one replayed full-width train step's launches (by kernel
 name in its trace; K3's ``launches`` too) and "train_eager" one eager
 step's (the wrappers' counts). "generate_loaded" is phase 11's warm
 ``generate()`` of the pipeline loaded from the tree, counted as
-"generate" is.
+"generate" is, and "generate_<tag>" phase 12's of each configuration
+(``feature_configs``' tags; "generate_sd15_dpmpp" the SD1.5 DPM++ edit).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1138,10 +1154,9 @@ def _eager_edit(pipe, img, kw, timings=None):
     (``harmony_edit.edit``) on the same prepared inputs."""
     from imagharmony_tpu_torch.pipelines import harmony_edit as he
 
-    call_kw = {k: v for k, v in kw.items() if k != "output_type"}
     with torch.inference_mode():
         clock = he.PhaseClock(timings, pipe.device, time.perf_counter())
-        return he.edit(pipe.components, pipe.prepare(img, **call_kw), clock)
+        return he.edit(pipe.components, pipe.prepare(img, **kw), clock)
 
 
 def _timed(fn, dev):
@@ -1152,22 +1167,30 @@ def _timed(fn, dev):
     return out, time.perf_counter() - t0
 
 
-def replay_launches(run, label, tries=8):
+def replay_launches(run, label, tries=10):
     """Launches of each kernel of PATH_KERNELS in one call of ``run`` (a warm
     generate(), the card synchronized at its end), counted from zero by name
     in the profiler's trace: a replay launches through no wrapper, so no
-    wrapper's count sees it. The profiler now and then loses kernel events,
-    so sessions run until two in a row hold as many kernel events."""
-    got, counts = profiling.profiled_agreeing(run, tries)
-    if got is None:
-        raise AssertionError(f"{label}: no two profiler traces of generate() in a row agree on "
-                             f"its kernel events: {counts}")
-    return {k: sum(name in e["name"] for e in got[2]) for k, name in PATH_KERNELS.items()}
+    wrapper's count sees it. The profiler now and then loses kernel events
+    (more often the more a call launches: ~132k events in a DPM++ SDXL
+    call), so sessions run until two of them count the same launches of
+    those kernels, as many as any session counted."""
+    seen = []
+    for _ in range(tries):
+        _, _, events = profiling.profiled(run)
+        counts = {k: sum(name in e["name"] for e in events) for k, name in PATH_KERNELS.items()}
+        seen.append(counts)
+        if seen.count(counts) > 1 and sum(counts.values()) >= max(sum(c.values()) for c in seen):
+            return counts
+    raise AssertionError(f"{label}: no two profiler traces of generate() agree on its "
+                         f"launches of {list(PATH_KERNELS)} at the most counted: {seen}")
 
 
-def edit_modes(pipe, img, kw, fa, ca, kg, label):
-    """The edit generate(img, **kw) asks for, run twice eagerly through the
-    module functions, then through generate() three times: the first call
+def edit_modes(pipe, img, kw, fa, ca, kg, label, run_steps=None, first_call=None,
+               eager_runs=2):
+    """The edit generate(img, **kw) asks for, run ``eager_runs`` times (twice,
+    or once where the replay must then equal that run bit for bit) eagerly
+    through the module functions, then through generate() three times: the first call
     captures the key's programs (CUDA graphs, ``pipelines/programs.py``), the
     second only replays them and is timed, the third only replays them under
     the profiler, whose trace counts its launches of each kernel
@@ -1178,17 +1201,22 @@ def edit_modes(pipe, img, kw, fa, ca, kg, label):
     bit-identical to the eager run; where the two eager runs already differ,
     the replay may differ from the first eager run by no more than they do.
     Returns the outputs, the second eager run's launch counts (each eager run
-    must give the same) and the replayed generate()'s (``generate``)."""
-    dev, steps = pipe.device, kw["num_inference_steps"]
+    must give the same) and the replayed generate()'s (``generate``).
+    ``run_steps``: the denoise steps the call runs (img2img and the handoff
+    run fewer than num_inference_steps); ``first_call``: the launches the
+    first generate() makes, by wrapper (its warm-up and capture), where they
+    are not twice one step's (encoder propagation: a key and a reuse step,
+    each warmed up and captured)."""
+    dev, steps = pipe.device, run_steps or kw["num_inference_steps"]
     torch.cuda.reset_peak_memory_stats(dev)
     runs = []
-    for _ in range(2):
+    for _ in range(eager_runs):
         _reset_launches(fa, ca, kg)
         timings = {}
         out, wall = _timed(lambda: _eager_edit(pipe, img, kw, timings), dev)
         runs.append((out, wall, timings, _launches(fa, ca, kg)))
     peak_eager = torch.cuda.max_memory_allocated(dev) / 2**30
-    (eager, _, _, first_counts), (eager2, eager_s, eager_t, launches) = runs
+    (eager, _, _, first_counts), (eager2, eager_s, eager_t, launches) = runs[0], runs[-1]
     if first_counts != launches:
         raise AssertionError(f"{label}: two eager runs launched {first_counts} and {launches}")
     eager_same = torch.equal(eager, eager2)
@@ -1243,10 +1271,13 @@ def edit_modes(pipe, img, kw, fa, ca, kg, label):
     if not (torch.equal(replay, eager) if eager_same else replay_diff <= eager_diff):
         raise AssertionError(f"{label}: the replay differs from the eager run by {replay_diff} "
                              f"(two eager runs: {eager_diff})")
-    if any(captured[k] != 2 * launches[k] // steps for k in launches):
+    first_call = first_call or {k: 2 * launches[k] // steps for k in launches}
+    if captured != first_call:
         raise AssertionError(f"{label}: the first generate() launched {captured}, expected "
-                             f"twice one step's of {launches}")
-    return dict(eager=eager, replay=replay, launches=launches, generate=graph)
+                             f"{first_call} (its warm-up and capture)")
+    return dict(eager=eager, replay=replay, launches=launches, generate=graph, eager_s=eager_s,
+                replay_s=replay_s, replay_step_ms=replay_step_ms, capture_s=capture_s,
+                kept_gib=kept)
 
 
 def profile_modes(pipe, img, kw, label):
@@ -2074,6 +2105,131 @@ def phase_load_full(fa, ca, kg, comp, trainer, image5, run7):
     return loaded_gen
 
 
+# phase 12: a reuse step of encoder propagation runs the mid block and the
+# decoder alone, 46 of SDXL's 70 transformer blocks (10 mid, 36 up); the IP
+# layer (down_blocks.2.attentions.1, 10 blocks) is in the cached encoder
+SDXL_REUSE_PER_UNET_CALL = 46
+
+
+def feature_configs(init, mask):
+    """Phase 12's SDXL keys: (tag, what it runs, generate() arguments over
+    phase 5's, the steps it runs, K1/K2/K5 launches a run, K2 launches with
+    the IP branch a run). ``init``: the img2img and inpaint init image;
+    ``mask``: the inpaint mask. The denoising_start key takes the
+    denoising_end key's latents (``latents=None`` here)."""
+    full, ip = SELF_ATTN_PER_UNET_CALL, SDXL_IP_CROSS_PER_UNET_CALL
+    half = FULL_STEPS // 2
+    return [
+        ("dpmpp_karras", "DPM++ 2M Karras, guidance_rescale 0.7, micro-conditioning overrides, "
+         "negative prompt, clip_skip 1",
+         dict(scheduler="dpm++", use_karras_sigmas=True, guidance_rescale=0.7,
+              original_size=(768, 1024), crops_coords_top_left=(64, 0),
+              negative_original_size=(512, 512), negative_target_size=(1024, 1024),
+              negative_prompt="blurry, lowres", clip_skip=1),
+         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+        ("euler_a", "Euler-a, seed 3", dict(scheduler="euler_a", seed=3),
+         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+        ("ddim_vpred_zsnr", "DDIM, trailing spacing, v-prediction, zero-SNR",
+         dict(scheduler="ddim", timestep_spacing="trailing", prediction_type="v_prediction",
+              rescale_zero_snr=True),
+         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+        ("lcm_t2i", "LCM 4 steps, guidance_scale 1.0 (no CFG: batch 1), no image",
+         dict(scheduler="lcm", num_inference_steps=4, guidance_scale=1.0, image=None),
+         4, full * 4, 0),
+        ("img2img", "img2img at strength 0.6", dict(init_image=init, strength=0.6),
+         18, full * 18, ip * 18),
+        ("inpaint", "inpaint, Euler", dict(init_image=init, mask_image=mask),
+         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+        ("denoising_end", "denoising_end 0.8, latents out", dict(denoising_end=0.8),
+         23, full * 23, ip * 23),
+        ("denoising_start", "denoising_start 0.8 from those latents",
+         dict(denoising_start=0.8, latents=None), 7, full * 7, ip * 7),
+        ("encoder_prop", "encoder_interval 2, prompt weighting, tile_vae",
+         dict(encoder_interval=2, prompt_weighting=True, tile_vae=True,
+              prompt="a photo of (six sheep:1.3) on a [meadow]"),
+         FULL_STEPS, half * (full + SDXL_REUSE_PER_UNET_CALL), ip * half),
+    ]
+
+
+def phase_features(fa, ca, kg, HarmonyPipeline):
+    """Phase 12: the sampler zoo and the edit's features at full width on
+    phase 5's SDXL bf16 pipeline (the same seed), then one SD1.5 512²
+    DPM++ edit: each configuration one key, run by ``edit_modes`` (the
+    replayed generate() bit-identical to the eager module functions, one
+    capture and then none, the replayed launches by kernel name equal to
+    the eager run's), its launches against what the UNet config gives and
+    its output finite; each key's programs dropped before the next key's
+    capture; one eager run a key (phase 5 shows two agree), which the replay
+    must equal bit for bit. Returns the replayed launches by tag."""
+    t0 = time.perf_counter()
+    pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"phase 12 built random_full in {time.perf_counter() - t0:.1f} s", flush=True)
+    img, base = _full_edit()
+    init = np.random.default_rng(12).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+    mask = np.zeros((1024, 1024), np.uint8)
+    mask[256:768, 256:768] = 255
+    out, handoff = {}, None
+
+    def run(pipe, tag, what, kw, image, steps, per_run, ip_per_run, k_self="K1", size=1024):
+        first = None
+        if kw.get("encoder_interval", 1) > 1:  # a key and a reuse step, warmed up and captured
+            both = SELF_ATTN_PER_UNET_CALL + SDXL_REUSE_PER_UNET_CALL
+            first = {"K1": 2 * both, "K4": 0, "K2": 2 * both,
+                     "K2 IP": 2 * SDXL_IP_CROSS_PER_UNET_CALL, "K5": 2 * both}
+        r = edit_modes(pipe, image, kw, fa, ca, kg, f"phase 12 {tag}", run_steps=steps,
+                       first_call=first, eager_runs=1)
+        n, g, res = r["launches"], r["generate"], r["replay"]
+        latent = kw.get("output_type") == "latent" or kw.get("denoising_end") is not None
+        shape = (1, size // 8, size // 8, 4) if latent else (1, size, size, 3)
+        finite = bool(torch.isfinite(res).all())
+        other = "K4" if k_self == "K1" else "K1"
+        eager = {k_self: n[k_self], other: n[other], "K2": n["K2"], "K2 IP": n["K2 IP"],
+                 "K5": n["K5"]}
+        want = {k_self: per_run, other: 0, "K2": per_run, "K2 IP": ip_per_run, "K5": per_run}
+        row = dict(tag=tag, what=what, steps=steps, replayed=g, eager=eager,
+                   wall_s=r["replay_s"], step_ms=r["replay_step_ms"],
+                   capture_s=r["capture_s"], kept_gib=r["kept_gib"])
+        print(f"phase 12 {tag} ({what}): {json.dumps(row)}; shape {tuple(res.shape)}, "
+              f"finite {finite}", flush=True)
+        if tuple(res.shape) != shape or not finite:
+            raise AssertionError(f"phase 12 {tag}: bad output: shape {tuple(res.shape)}, "
+                                 f"finite {finite}")
+        if eager != want or g != {"K1/K4": per_run, "K2": per_run, "K5": per_run}:
+            raise AssertionError(f"phase 12 {tag}: eager launches {eager}, expected {want}; "
+                                 f"replayed {g}, expected {per_run} each")
+        out[tag] = g
+        pipe.programs.clear()  # one key's programs on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    for tag, what, extra, steps, per_run, ip_per_run in feature_configs(init, mask):
+        kw = dict(base, **extra)
+        image = kw.pop("image", img)
+        if tag == "denoising_start":
+            kw["latents"] = handoff
+        res = run(pipe, tag, what, kw, image, steps, per_run, ip_per_run)
+        if tag == "denoising_end":
+            handoff = res
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe = HarmonyPipeline.random_full_sd15(seed=0, device="cuda", dtype=torch.bfloat16)
+    img15 = np.random.default_rng(0).integers(0, 255, (512, 512, 3), dtype=np.uint8)
+    kw = dict(prompt="a photo of six sheep on a meadow", num_samples=1, seed=0,
+              guidance_scale=5.0, height=512, width=512, num_inference_steps=FULL_STEPS,
+              output_type="raw", scheduler="dpm++")
+    per_run = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    run(pipe, "sd15_dpmpp", "SD1.5 512², DPM++ 2M", kw, img15, FULL_STEPS, per_run, per_run,
+        k_self="K4", size=512)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -2133,6 +2289,8 @@ def main():
     sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
     loaded_gen = phase_load_full(fa, ca, kg, comp, trainer, sdxl_image, train_run)
+    features = phase_features(fa, ca, kg, HarmonyPipeline)
+    feature_paths = {f"generate_{tag}": g for tag, g in features.items()}
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -2163,7 +2321,9 @@ def main():
         "launches_by_path": {"generate": sdxl_gen["K1/K4"], "edit_eager": sdxl["K1"],
                              "generate_loaded": loaded_gen["K1/K4"],
                              "train": train["K1/K4"], "train_eager": train_eager["K1/K4"],
-                             "probes": probes["flash_attention_nhd"]},
+                             "probes": probes["flash_attention_nhd"],
+                             **{p: g["K1/K4"] for p, g in feature_paths.items()
+                                if p != "generate_sd15_dpmpp"}},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
@@ -2192,7 +2352,8 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:95",
         "launches": sd15_gen["K1/K4"],
         "launches_by_path": {"generate_sd15": sd15_gen["K1/K4"], "edit_eager_sd15": sd15["K4"],
-                             "sd15_unet_grad": k4_grad},
+                             "sd15_unet_grad": k4_grad,
+                             "generate_sd15_dpmpp": features["sd15_dpmpp"]["K1/K4"]},
         "max_abs_err": k4_err,
         "shape": list(K4_SHAPES[0]),
         **_line_times(k4, k4["bound"]),
@@ -2209,7 +2370,8 @@ def main():
                              "edit_eager_ip": sdxl["K2 IP"], "train": train["K2"],
                              "train_eager": train_eager["K2"],
                              "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
-                             "sd15_unet_grad": k2_grad},
+                             "sd15_unet_grad": k2_grad,
+                             **{p: g["K2"] for p, g in feature_paths.items()}},
         "max_abs_err": k2_err,
         "shape": list(K2_SHAPES[0][:5]),
         **_line_times(k2, k2["bound"]),
@@ -2227,7 +2389,8 @@ def main():
                              "train": train["K5"], "train_eager": train_eager["K5"],
                              "generate_sd15": sd15_gen["K5"],
                              "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,
-                             "probes": probes["geglu"]},
+                             "probes": probes["geglu"],
+                             **{p: g["K5"] for p, g in feature_paths.items()}},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),
         **_line_times(k5, k5["bound"]),

@@ -9,6 +9,7 @@ EOS-pooled state and, for the projection tower, its projection.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -172,33 +173,62 @@ class CLIPTextModel(nn.Module):
             if cfg.projection_dim else None
         )
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, clip_skip: int = 0):
         """input_ids (B, S) -> dict of penultimate (B, S, D), last (B, S, D),
-        pooled (B, D) and, with a projection, projected (B, P)."""
+        pooled (B, D) and, with a projection, projected (B, P).
+
+        ``clip_skip`` > 0 conditions on an earlier layer (diffusers'
+        clip_skip): ``penultimate`` becomes hidden_states[-(2 + clip_skip)]
+        and ``last`` the final layer norm of hidden_states[-(1 + clip_skip)];
+        ``pooled`` and ``projected`` come from the whole tower."""
         cfg = self.cfg
+        if not 0 <= clip_skip < cfg.num_layers - 1:
+            raise ValueError(f"clip_skip must be in [0, {cfg.num_layers - 2}], got {clip_skip}")
         s = input_ids.shape[1]
         x = self.embeddings(input_ids)
         # CLIP text towers are causal
         causal = torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
-        penultimate = None
+        penultimate = skip_hidden = None
         for i, layer in enumerate(self.encoder.layers):
-            if i == cfg.num_layers - 1:
+            if i == cfg.num_layers - 1 - clip_skip:
                 penultimate = x
+            if clip_skip and i == cfg.num_layers - clip_skip:
+                skip_hidden = x
             x = layer(x, mask=causal)
-        last = self.final_layer_norm(x)
+        last_full = self.final_layer_norm(x)
+        last = self.final_layer_norm(skip_hidden) if clip_skip else last_full
         # EOS pooling: first position holding the EOS token id
         eos_pos = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
-        pooled = last[torch.arange(last.shape[0], device=last.device), eos_pos]
+        pooled = last_full[torch.arange(last_full.shape[0], device=x.device), eos_pos]
         out = {"penultimate": penultimate, "last": last, "pooled": pooled}
         if self.text_projection is not None:
             out["projected"] = self.text_projection(pooled)
         return out
 
+    def with_token_rows(self, rows):
+        """A copy of this tower with ``rows`` (n, D) appended to its token
+        table (textual inversion) and the first new id: the table is new,
+        every other module is shared."""
+        table = self.embeddings.token_embedding.weight
+        rows = torch.atleast_2d(torch.as_tensor(rows, dtype=torch.float32))
+        if rows.shape[-1] != table.shape[1]:
+            raise ValueError(f"embedding dim {rows.shape[-1]} != tower hidden {table.shape[1]}")
+        new_table = torch.cat([table, rows.to(table.device, table.dtype)])
+        emb = copy.copy(self.embeddings)
+        emb._modules = dict(emb._modules)
+        emb.token_embedding = nn.Embedding.from_pretrained(new_table, freeze=True)
+        tower = copy.copy(self)
+        tower._modules = dict(tower._modules)
+        tower.embeddings = emb
+        tower.cfg = dataclasses.replace(self.cfg, vocab_size=int(new_table.shape[0]))
+        return tower, int(table.shape[0])
 
-def encode_for_sdxl(text_l: CLIPTextModel, text_g: CLIPTextModel, ids_l, ids_g):
+
+def encode_for_sdxl(text_l: CLIPTextModel, text_g: CLIPTextModel, ids_l, ids_g,
+                    clip_skip: int = 0):
     """The SDXL dual-tower conditioning: concatenated penultimates
     (768 + 1280 -> 2048) and the projected pooled embedding of tower 2."""
-    out_l = text_l(ids_l)
-    out_g = text_g(ids_g)
+    out_l = text_l(ids_l, clip_skip=clip_skip)
+    out_g = text_g(ids_g, clip_skip=clip_skip)
     context = torch.cat([out_l["penultimate"], out_g["penultimate"]], dim=-1)
     return context, out_g["projected"]

@@ -384,11 +384,13 @@ class UNet2DConditionModel(nn.Module):
         ip_tokens:             (B, num_ip_tokens, cross_attention_dim) or None
         ip_scale:              IP branch weight
 
-        return_encoder / encoder_override (encoder propagation) are part of
-        the interface but not implemented in the port yet.
+        Encoder propagation (Faster Diffusion, arXiv 2312.09608), the JAX
+        package's ``unet.apply`` interface:
+        return_encoder:   also return ``(skip stack, mid block input)``;
+        encoder_override: such a pair from an earlier call: conv_in and the
+                          down blocks are skipped, the mid block and the
+                          decoder run on it.
         """
-        if return_encoder or encoder_override is not None:
-            raise NotImplementedError("encoder propagation is not ported yet")
         cfg = self.cfg
         ts = torch.as_tensor(timesteps, device=sample.device)
         if ts.dim() == 0:
@@ -406,17 +408,21 @@ class UNet2DConditionModel(nn.Module):
         ctx = encoder_hidden_states.to(dt)
         ip = ip_tokens.to(dt) if ip_tokens is not None else None
 
-        h = self.conv_in(sample)
-        res_stack = [h]
-        for block in self.down_blocks:
-            for j, res in enumerate(block.resnets):
-                h = res(h, temb)
-                if len(block.attentions):
-                    h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale)
-                res_stack.append(h)
-            if block.downsamplers is not None:
-                h = block.downsamplers[0](h)
-                res_stack.append(h)
+        if encoder_override is not None:
+            res_stack, h = list(encoder_override[0]), encoder_override[1]
+        else:
+            h = self.conv_in(sample)
+            res_stack = [h]
+            for block in self.down_blocks:
+                for j, res in enumerate(block.resnets):
+                    h = res(h, temb)
+                    if len(block.attentions):
+                        h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale)
+                    res_stack.append(h)
+                if block.downsamplers is not None:
+                    h = block.downsamplers[0](h)
+                    res_stack.append(h)
+        encoder_feats = (tuple(res_stack), h)
 
         mid = self.mid_block
         h = mid.resnets[0](h, temb)
@@ -431,5 +437,5 @@ class UNet2DConditionModel(nn.Module):
             if block.upsamplers is not None:
                 h = block.upsamplers[0](h)
 
-        h = self.conv_norm_out(h)
-        return self.conv_out(F.silu(h))
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return (h, encoder_feats) if return_encoder else h

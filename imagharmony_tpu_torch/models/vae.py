@@ -252,6 +252,51 @@ class AutoencoderKL(nn.Module):
             mean = mean + torch.exp(0.5 * logvar) * eps.float()
         return mean * self.cfg.scaling_factor
 
+    def encode_mean(self, images):
+        """Images -> scaled posterior-mean latents, computed in the weights'
+        dtype and returned in fp32 (img2img's start, as the JAX package
+        encodes it: in the compute dtype, ``sample=False``)."""
+        dt = self.quant_conv.weight.dtype
+        mean, _ = self.quant_conv(self.encoder(images.to(dt))).chunk(2, dim=1)
+        return (mean * self.cfg.scaling_factor).float()
+
     def decode(self, latents):
         """Scaled latents (B, 4, h, w) -> images (B, 3, H, W) in [-1, 1]."""
         return self.decoder(self.post_quant_conv(latents / self.cfg.scaling_factor))
+
+    def decode_tiled(self, latents, *, tile_latent_size=64, overlap=16):
+        """``decode`` tile by tile with linearly blended seams (diffusers'
+        enable_vae_tiling role; the JAX package's ``decode_tiled``): square
+        tiles of ``tile_latent_size`` latents, ``overlap`` apart at the
+        seams, decoded independently and summed with ramp weights in fp32,
+        the result in the weights' dtype. Latents that fit in one tile take
+        ``decode``."""
+        b, _, h, w = latents.shape
+        size = tile_latent_size
+        if h <= size and w <= size:
+            return self.decode(latents)
+        stride, scale = size - overlap, self.cfg.downscale
+        rows = max(1, -(-(h - overlap) // stride))
+        cols = max(1, -(-(w - overlap) // stride))
+        canvas = torch.zeros((b, self.cfg.out_channels, h * scale, w * scale),
+                             dtype=torch.float32, device=latents.device)
+        weight = torch.zeros((1, 1, h * scale, w * scale), dtype=torch.float32,
+                             device=latents.device)
+        ramp = _blend_window(size * scale, scale * overlap, latents.device)
+        win = ramp[:, None] * ramp[None, :]
+        for r in range(rows):
+            for c in range(cols):
+                y, x = min(r * stride, h - size), min(c * stride, w - size)
+                img = self.decode(latents[:, :, y:y + size, x:x + size]).float()
+                ys, xs = slice(y * scale, (y + size) * scale), slice(x * scale, (x + size) * scale)
+                canvas[:, :, ys, xs] += img * win
+                weight[:, :, ys, xs] += win
+        return (canvas / weight.clamp_min(1e-8)).to(self.quant_conv.weight.dtype)
+
+
+def _blend_window(size, ramp, device):
+    """1 inside, a linear ramp over ``ramp`` pixels at each end."""
+    if ramp <= 0:
+        return torch.ones(size, device=device)
+    edge = (torch.arange(ramp, dtype=torch.float32, device=device) + 1.0) / (ramp + 1.0)
+    return torch.cat([edge, torch.ones(size - 2 * ramp, device=device), edge.flip(0)])

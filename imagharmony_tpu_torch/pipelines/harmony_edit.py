@@ -1,15 +1,25 @@
 """The QL-Edit pipeline: reference image + prompt + extra_text -> edited
-image (port of the main path of imagharmony_tpu/pipelines/harmony_edit.py).
+image (port of imagharmony_tpu/pipelines/harmony_edit.py).
 
 The path: text encoders -> vision encoder -> HA fusion -> image projection
--> an Euler denoise loop with the CFG pair packed on the batch axis
+-> a denoise loop with the CFG pair packed on the batch axis
 ([uncond | cond]) -> VAE decode. The device and dtype come from the
 weights. The module functions run it eagerly (``edit``: what generate()
 runs on the CPU, and the reference on a card); on a CUDA device generate()
 runs the same functions as captured CUDA graphs (``programs.py``). The
 loop's body, ``denoise_step``, reads each step's constants from a device
 table at a device step index, as the JAX package's ``lax.scan`` reads its
-xs.
+xs, and its scalars (guidance, rescale) from a device vector.
+
+Every sampler of ``schedulers/diffusion.py`` runs it (DPM++'s history as
+tensors the step takes and returns, the stochastic samplers' draws made by
+the caller from a generator seeded from the run's seed(s)), with or
+without classifier-free guidance (guidance_scale <= 1: batch B, not 2B),
+guidance rescale, text-to-image with no image prompt, img2img and
+inpainting from an init image encoded by the VAE, the base/refiner latent
+handoff (denoising_end / denoising_start), SDXL micro-conditioning
+overrides, clip_skip, prompt weighting, textual inversion, encoder
+propagation (encoder_interval) and a tiled VAE decode.
 
 Two families run it. SDXL: both text towers, micro-conditioning, the HA
 fusion with extra_text. SD1.5 (``cfgs.family == "sd15"``): CLIP-L's last
@@ -18,18 +28,20 @@ HA head, the IP branch on every cross-attention. Either takes the
 ``image_proj`` head or, from the penultimate patch features, the
 ``resampler`` (Plus) or ``mlp_proj`` (Full) head.
 
-The pipeline surface keeps the JAX layout: noise is (B, h, w, 4) and images
-are (B, H, W, 3) in [-1, 1]. Inside the models activations are NCHW.
+The pipeline surface keeps the JAX layout: noise and latents are
+(B, h, w, 4) and images (B, H, W, 3) in [-1, 1]. Inside the models
+activations are NCHW.
 
-Not ported yet: the other samplers, no-CFG, guidance rescale, img2img,
-inpainting, ControlNet, LoRA, the refiner, prompt weighting, textual
-inversion, encoder propagation and batched/serving entry points.
+Not ported yet: ControlNet, LoRA, the refiner family, the chunked runner
+(callback_on_step_end, chunk_steps), and the batched and serving entry
+points; generate() raises on their arguments.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-import functools
+import os
 import time
 from typing import Optional
 
@@ -47,42 +59,130 @@ from imagharmony_tpu_torch.schedulers import diffusion as sched
 DEFAULT_NEGATIVE = "monochrome, lowres, bad anatomy, worst quality, low quality"
 DEFAULT_PROMPT = "best quality, high quality"
 
+# rows of the denoise loop's per-step table: timestep, sigma, next sigma,
+# IP scale, inpaint blend level
+STEP_ROWS = 5
+OUTPUT_TYPES = ("np", "raw", "latent", "pil")
+# the per-step noise's stream, apart from the initial noise's (the JAX
+# package folds the same tag into its key, ``ancestral_key``)
+STEP_NOISE_TAG = 0xA9CE57
+
 
 @dataclasses.dataclass(frozen=True)
 class EditOptions:
-    """Knobs of one edit call (the subset the ported path uses)."""
+    """Knobs of one edit call (the JAX package's, but the refiner's
+    aesthetic scores)."""
 
     height: int = 1024
     width: int = 1024
     num_inference_steps: int = 30
+    scheduler: str = "euler"
+    # "leading" (SDXL's shipped config) | "trailing" | "linspace"
+    timestep_spacing: str = "leading"
+    # Karras rho=7 sigma spacing (euler and dpm++ only)
+    use_karras: bool = False
     guidance_scale: float = 5.0
     ip_scale: float = 1.0
     # the per-step IP-scale window (fractions of the schedule)
     control_guidance_start: float = 0.0
     control_guidance_end: float = 1.0
     use_harmony: bool = True
+    tile_vae: bool = False
+    # CFG rescale (arXiv 2305.08891 §3.4)
+    guidance_rescale: float = 0.0
+    # stop at this fraction of the schedule and return latents (the base
+    # side of a base/refiner handoff)
+    denoising_end: Optional[float] = None
+    # skip this fraction and start from given latents (the other side)
+    denoising_start: Optional[float] = None
+    # return the pre-decode latents (B, h, w, 4)
+    return_latents: bool = False
+    # img2img: skip the first N steps and start from the init image
+    # noised to step N
+    img2img_skip: int = 0
+    # SDXL micro-conditioning overrides ((h, w) and (top, left) tuples;
+    # None -> the output size and a zero crop)
+    original_size: Optional[tuple] = None
+    crops_coords_top_left: tuple = (0, 0)
+    target_size: Optional[tuple] = None
+    negative_original_size: Optional[tuple] = None
+    negative_crops_coords_top_left: Optional[tuple] = None
+    negative_target_size: Optional[tuple] = None
+    # encoder propagation (Faster Diffusion, arXiv 2312.09608): the UNet
+    # encoder runs on every k-th step only; 1 is exact
+    encoder_interval: int = 1
+    # "epsilon" | "v_prediction" | "sample"
+    prediction_type: str = "epsilon"
+    # zero terminal SNR betas (arXiv 2305.08891 §3.1)
+    rescale_zero_snr: bool = False
+    # condition on an earlier text-encoder layer (diffusers clip_skip)
+    clip_skip: int = 0
 
-    def time_ids(self):
-        """SDXL micro-conditioning: original size, crop (0, 0), target size,
-        both the output size."""
-        h, w = float(self.height), float(self.width)
-        return [h, w, 0.0, 0.0, h, w]
+    def time_ids(self, negative=False):
+        """SDXL micro-conditioning: original size, crop (top, left), target
+        size; the negative row takes its own overrides where given."""
+        osz = self.original_size or (self.height, self.width)
+        tsz = self.target_size or (self.height, self.width)
+        crop = self.crops_coords_top_left
+        if negative:
+            osz = self.negative_original_size or osz
+            tsz = self.negative_target_size or tsz
+            crop = self.negative_crops_coords_top_left or crop
+        return [float(osz[0]), float(osz[1]), float(crop[0]), float(crop[1]),
+                float(tsz[0]), float(tsz[1])]
+
+
+def rescale_noise_cfg(eps_cfg, eps_text, rescale):
+    """arXiv 2305.08891 eq. 16: the guided output's std brought back toward
+    the text branch's, by ``rescale`` (a float or a 0-dim fp32 tensor)."""
+    dims = tuple(range(1, eps_text.dim()))
+    std_text = eps_text.float().std(dim=dims, keepdim=True, correction=0)
+    std_cfg = eps_cfg.float().std(dim=dims, keepdim=True, correction=0)
+    rescaled = eps_cfg * (std_text / std_cfg.clamp_min(1e-8)).to(eps_cfg.dtype)
+    return rescale * rescaled + (1.0 - rescale) * eps_cfg
+
+
+def sched_config(opts: EditOptions) -> sched.NoiseScheduleConfig:
+    """The NoiseScheduleConfig an EditOptions implies."""
+    return sched.NoiseScheduleConfig(
+        timestep_spacing=opts.timestep_spacing,
+        use_karras_sigmas=opts.use_karras,
+        prediction_type=opts.prediction_type,
+        rescale_betas_zero_snr=opts.rescale_zero_snr,
+    )
 
 
 def ip_scale_schedule(opts: EditOptions) -> np.ndarray:
-    """Per-step IP scale: 0 outside the [start, end) window."""
+    """Per-step IP scale over the whole schedule: 0 outside the
+    [start, end) window."""
     n = opts.num_inference_steps
     i = np.arange(n, dtype=np.float32)
     on = (i / n >= opts.control_guidance_start) & ((i + 1) / n <= opts.control_guidance_end)
     return np.where(on, opts.ip_scale, 0.0).astype(np.float32)
 
 
-def encode_texts(comps: comp.Components, ids_l, ids_g):
+def schedule_for(opts: EditOptions):
+    """The schedule the edit runs, cut for img2img and the base/refiner
+    split, and its per-step IP scales: the whole schedule's, less the
+    skipped steps (the first lines of the JAX package's ``_edit_jit``)."""
+    cfg = sched_config(opts)
+    schedule = sched.make(opts.scheduler, opts.num_inference_steps, cfg,
+                          denoising_end=opts.denoising_end,
+                          denoising_start=opts.denoising_start, skip_steps=opts.img2img_skip)
+    n_skip = opts.img2img_skip
+    if opts.denoising_start is not None and 0.0 < opts.denoising_start < 1.0:
+        n_skip += sched.steps_for_denoising_end(opts.num_inference_steps,
+                                                opts.denoising_start, cfg)
+    return schedule, ip_scale_schedule(opts)[n_skip: n_skip + schedule.num_steps]
+
+
+def encode_texts(comps: comp.Components, ids_l, ids_g, clip_skip: int = 0):
     """Text conditioning (context, pooled): the dual-tower concatenation for
     SDXL; CLIP-L's last hidden state alone, with pooled None, for SD1.5."""
     if comps.cfgs.family == "sd15":
-        return comps.text_encoder(ids_l)["last"], None
-    return clip_text.encode_for_sdxl(comps.text_encoder, comps.text_encoder_2, ids_l, ids_g)
+        return comps.text_encoder(ids_l, clip_skip=clip_skip)["last"], None
+    return clip_text.encode_for_sdxl(comps.text_encoder, comps.text_encoder_2, ids_l, ids_g,
+                                     clip_skip=clip_skip)
 
 
 def image_prompt_tokens(comps: comp.Components, pixel_values, extra_context):
@@ -107,96 +207,209 @@ def _repeat_rows(x, n):
     return x.unsqueeze(1).expand(-1, n, *x.shape[1:]).reshape(-1, *x.shape[1:])
 
 
-@functools.lru_cache(maxsize=None)
-def _time_ids(time_ids, device):
-    """SDXL's micro-conditioning row on ``device``, made once per (row,
-    device), so that a captured conditioning program copies nothing from the
-    host."""
-    return torch.tensor([time_ids], dtype=torch.float32, device=device)
+def apply_prompt_weights(ctx, w):
+    """Each token's context embedding times its weight (B, S), then the
+    per-row mean restored (the A1111 rule, ``utils/prompts.py``), in fp32."""
+    z = ctx.float()
+    mean0 = z.mean(dim=(1, 2), keepdim=True)
+    z = z * w[:, :, None]
+    mean1 = z.mean(dim=(1, 2), keepdim=True)
+    ratio = torch.where(mean1.abs() < 1e-7, torch.ones_like(mean1), mean0 / mean1)
+    return (z * ratio).to(ctx.dtype)
+
+
+def time_ids_rows(opts: EditOptions) -> torch.Tensor:
+    """The (2, 6) fp32 micro-conditioning rows [negative, positive] on the
+    CPU."""
+    return torch.tensor([opts.time_ids(negative=True), opts.time_ids()], dtype=torch.float32)
 
 
 def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_values, *,
-                       num_samples):
-    """CFG-packed conditioning, each (2 * num_samples, ...) in [uncond | cond]
-    row order: (context2, pooled2, time_ids, ip2); pooled2 and time_ids are
-    None for the SD1.5 family."""
+                       num_samples, time_ids=None):
+    """CFG-packed conditioning, each (2 * B * num_samples, ...) in
+    [uncond | cond] row order for B requests (the rows of ``ids``):
+    (context2, pooled2, time_ids2, ip2). pooled2 and time_ids2 are None for
+    the SD1.5 family, ip2 when ``pixel_values`` is None (text-to-image, the
+    IP branch off).
+
+    ``ids``: token ids keyed pos_l/pos_g/neg_l/neg_g (extra_l/extra_g with
+    an extra_text), and pos_w/neg_w (B, S) fp32 prompt weights where a
+    prompt carries weights. ``time_ids``: the (2, 6) fp32 rows [negative,
+    positive] on the device (a captured program's buffer), else made from
+    ``opts``."""
+    breq = ids["pos_l"].shape[0]
     ids_l = torch.cat([ids["neg_l"], ids["pos_l"]])
     ids_g = torch.cat([ids["neg_g"], ids["pos_g"]])
-    context, pooled = encode_texts(comps, ids_l, ids_g)
-    neg_ctx, pos_ctx = context.chunk(2)
+    context, pooled = encode_texts(comps, ids_l, ids_g, opts.clip_skip)
+    neg_ctx, pos_ctx = context[:breq], context[breq:]
+    # prompt weights scale the combined context, so both towers' halves
+    # scale together; the pooled embeddings stay unweighted
+    if "pos_w" in ids:
+        pos_ctx = apply_prompt_weights(pos_ctx, ids["pos_w"])
+    if "neg_w" in ids:
+        neg_ctx = apply_prompt_weights(neg_ctx, ids["neg_w"])
 
     extra_ctx = None
     if opts.use_harmony and "extra_l" in ids:
-        extra_ctx, _ = encode_texts(comps, ids["extra_l"], ids["extra_g"])
+        extra_ctx, _ = encode_texts(comps, ids["extra_l"], ids["extra_g"], opts.clip_skip)
 
     def rep(x):
         return _repeat_rows(x, num_samples)
 
-    ip_cond, ip_uncond = image_prompt_tokens(comps, pixel_values, extra_ctx)
-    ip2 = torch.cat([rep(ip_uncond), rep(ip_cond)])
+    ip2 = None
+    if pixel_values is not None:
+        ip_cond, ip_uncond = image_prompt_tokens(comps, pixel_values, extra_ctx)
+        ip2 = torch.cat([rep(ip_uncond), rep(ip_cond)])
     context2 = torch.cat([rep(neg_ctx), rep(pos_ctx)])
     if comps.cfgs.family == "sd15":
         return context2, None, None, ip2
-    neg_pooled, pos_pooled = pooled.chunk(2)
-    pooled2 = torch.cat([rep(neg_pooled), rep(pos_pooled)])
-    tid = _time_ids(tuple(opts.time_ids()), context.device)
-    time_ids = tid.expand(2 * num_samples, -1)
-    return context2, pooled2, time_ids, ip2
+    pooled2 = torch.cat([rep(pooled[:breq]), rep(pooled[breq:])])
+    if time_ids is None:
+        time_ids = time_ids_rows(opts).to(context.device)
+    tid_neg, tid_pos = (time_ids[i:i + 1].expand(breq, -1) for i in range(2))
+    return context2, pooled2, torch.cat([rep(tid_neg), rep(tid_pos)]), ip2
+
+
+def inpaint_blend_levels(schedule: sched.Schedule) -> np.ndarray:
+    """The inpaint blend's per-step re-noise levels: the next step's entry,
+    but the last step blends the clean init latents (sigma 0, or an
+    alpha-cumprod of 1 for ddim and lcm)."""
+    tail = np.array(schedule.sigmas[1:], dtype=np.float32)
+    if schedule.num_steps:
+        tail[-1] = 1.0 if schedule.kind in ("ddim", "lcm") else 0.0
+    return tail
 
 
 def scan_tables(schedule: sched.Schedule, ip_scales, device=None) -> torch.Tensor:
-    """The denoise loop's per-step constants as one (4, num_steps) fp32
-    tensor on ``device``, rows (timestep, sigma, next sigma, IP scale): the
-    xs of the JAX package's scan, ``sched.scan_constants(schedule) +
-    (ip_scales,)``."""
-    ip = torch.as_tensor(np.asarray(ip_scales, dtype=np.float32), device=device)
-    return torch.stack([*sched.scan_constants(schedule, device), ip])
+    """The denoise loop's per-step constants as one (STEP_ROWS, num_steps)
+    fp32 tensor on ``device``, rows (timestep, sigma, next sigma, IP scale,
+    inpaint blend level): the xs of the JAX package's scan."""
+    rows = [*sched.scan_constants(schedule, device),
+            torch.as_tensor(np.asarray(ip_scales, dtype=np.float32), device=device),
+            torch.as_tensor(inpaint_blend_levels(schedule), device=device)]
+    return torch.stack(rows)
 
 
-def denoise_step(unet, latents, index, tables, cond, *, kind, guidance_scale):
-    """One step of the denoise loop, the body of the JAX package's scan:
-    the CFG-pair UNet call on [latents | latents] against the CFG-packed
-    ``cond`` (context2, pooled2, time_ids, ip2; pooled2 and time_ids None for
-    SD1.5), classifier-free guidance, the scheduler step. Returns the next
-    latents (B, 4, h, w).
+@dataclasses.dataclass(frozen=True)
+class Branches:
+    """What an edit's code does, as opposed to the values it does it on:
+    with the shapes, the key of a captured program. Every value (steps,
+    sigmas, scales, sizes, prompts) reaches the code through tensors."""
 
-    Every per-step constant is read on the device: ``index`` is a (1,)
-    int64 tensor, the step, at which the timestep, sigmas and IP scale are
-    gathered from ``tables`` (``scan_tables``, as long as the loop or
-    longer); ``guidance_scale`` is a 0-dim fp32 tensor, applied in the
-    guided epsilon's dtype. So one captured step serves every step."""
+    kind: str
+    prediction_type: str
+    cfg: bool                 # guidance_scale > 1: the CFG pair, batch 2B
+    rescale: bool             # guidance rescale (with CFG only)
+    image_prompt: bool        # an image prompt, else the IP branch is off
+    harmony: bool             # the HA fusion with an extra_text
+    weights: tuple            # prompt weights on (positive, negative)
+    init_image: bool          # a VAE-encoded init image (img2img, inpaint)
+    from_image: bool          # the loop starts from it noised, not from noise
+    inpaint: bool
+    latent_output: bool       # no decode: latents (B, h, w, 4)
+    tile_vae: bool
+    clip_skip: int
+    encoder_interval: int
+
+
+def cfg_rows(cond, use_cfg):
+    """The conditioning a step takes: the CFG-packed rows, or without CFG
+    the conditional half alone."""
+    if use_cfg:
+        return cond
+    return tuple(None if x is None else x[x.shape[0] // 2:] for x in cond)
+
+
+def image_latents(comps: comp.Components, init_pixels, num_samples):
+    """An init image (1, 3, H, W) in [-1, 1] -> its scaled posterior-mean
+    latents (num_samples, 4, h, w), fp32, encoded in the weights' dtype."""
+    return _repeat_rows(comps.vae.encode_mean(init_pixels), num_samples)
+
+
+def initial_latents(kind, scalars, noise, img_lat, dtype):
+    """The loop's first latents in ``dtype``: ``img_lat`` noised to the first
+    step's level (img2img; ``scalars[2]``), else the noise times the
+    schedule's initial sigma (``scalars[3]``)."""
+    if img_lat is not None:
+        return sched.noise_to_level(kind, scalars[2], img_lat, noise).to(dtype)
+    return (noise * scalars[3]).to(dtype)
+
+
+def inpaint_blend(kind, level, latents, inpaint):
+    """mask 1 keeps the step's latents, mask 0 the init image's latents
+    re-noised to ``level`` with the run's initial noise; fp32, cast back."""
+    mask, img_lat, noise = inpaint
+    keep = sched.noise_to_level(kind, level, img_lat, noise)
+    return (mask * latents.float() + (1.0 - mask) * keep).to(latents.dtype)
+
+
+def denoise_step(unet, latents, index, tables, scalars, cond, br: Branches, *, state=None,
+                 z=None, inpaint=None, encoder=None, want_encoder=False):
+    """One step of the denoise loop, the body of the JAX package's scan: the
+    UNet call on [latents | latents] (or on the latents alone without CFG)
+    against ``cond`` (``cfg_rows``' output), classifier-free guidance and
+    its rescale, the scheduler step, the inpaint blend. Returns
+    (next latents (B, 4, h, w), the solver state, the encoder features).
+
+    Every per-step value is read on the device: ``index`` is a (1,) int64
+    tensor, the step, at which the timestep, sigmas, IP scale and blend
+    level are gathered from ``tables`` (``scan_tables``, as long as the loop
+    or longer); ``scalars`` is a (4,) fp32 tensor whose first two entries
+    are the guidance scale and the rescale, applied in the guided output's
+    dtype. ``state``: DPM++'s history (``sched.init_solver_state``); ``z``:
+    this step's N(0, 1) draw for the stochastic samplers; ``inpaint``:
+    (mask (1, 1, h, w), image latents, noise), fp32. Encoder propagation:
+    ``want_encoder`` (a key step) returns this call's encoder features,
+    ``encoder`` (a reuse step) runs the mid block and the decoder on given
+    ones. So one captured step serves every step of its kind."""
     context, pooled, time_ids, ip_tokens = cond
-    t, sigma, sigma_next, ip_scale = tables.index_select(1, index).view(4).unbind(0)
-    lat_in = sched.scale_model_input_c(kind, sigma, torch.cat([latents, latents]))
+    t, sigma, sigma_next, ip_scale, level = tables.index_select(1, index).view(STEP_ROWS).unbind(0)
+    lat_in = torch.cat([latents, latents]) if br.cfg else latents
+    lat_in = sched.scale_model_input_c(br.kind, sigma, lat_in)
     eps = unet(lat_in, t.expand(lat_in.shape[0]), context, pooled_text_embeds=pooled,
-               time_ids=time_ids, ip_tokens=ip_tokens, ip_scale=ip_scale)
-    eps_u, eps_c = eps.chunk(2)
-    eps = eps_u + guidance_scale * (eps_c - eps_u)
-    return sched.step_c(kind, sigma, sigma_next, eps, latents)
+               time_ids=time_ids, ip_tokens=ip_tokens, ip_scale=ip_scale,
+               return_encoder=want_encoder, encoder_override=encoder)
+    if want_encoder:
+        eps, encoder = eps
+    if br.cfg:
+        eps_u, eps_c = eps.chunk(2)
+        eps = eps_u + scalars[0] * (eps_c - eps_u)
+        if br.rescale:
+            eps = rescale_noise_cfg(eps, eps_c, scalars[1])
+    latents, state = sched.step_s(br.kind, sigma, sigma_next, eps, latents, state,
+                                  br.prediction_type, timestep=t, z=z)
+    if inpaint is not None:
+        latents = inpaint_blend(br.kind, level, latents, inpaint)
+    return latents, state, encoder
 
 
-def check_guidance(guidance_scale):
-    if guidance_scale <= 1.0:
-        raise NotImplementedError("the no-CFG path (guidance_scale <= 1) is not ported yet")
+def draw_step_noise(generator: torch.Generator, out: torch.Tensor) -> torch.Tensor:
+    """One step's N(0, 1) draw for the stochastic samplers, into ``out`` (a
+    captured program's static buffer, or a new tensor of the eager loop):
+    the same generator gives both the same numbers."""
+    return out.normal_(generator=generator)
 
 
-def denoise(unet, latents, context, pooled, time_ids, ip_tokens, schedule: sched.Schedule,
-            ip_scales, *, guidance_scale, on_step=None):
-    """The Euler denoise loop, eagerly: ``denoise_step`` once per step, the
-    step index advanced on the device. latents (B, 4, h, w); the
-    conditioning is CFG-packed (2B, ...) [uncond | cond]. ``on_step``, if
-    given, is called with the latents before the first step and after each."""
-    check_guidance(guidance_scale)
+def denoise(unet, latents, cond, tables, scalars, br: Branches, *, inpaint=None,
+            step_noise=None, on_step=None):
+    """The denoise loop, eagerly: ``denoise_step`` once per step (a column
+    of ``tables``), the step index advanced on the device. latents
+    (B, 4, h, w); ``cond`` from ``cfg_rows``. With encoder propagation every
+    ``br.encoder_interval``-th step is a key step and the others reuse its
+    features. ``step_noise(i)``: step i's draw (stochastic samplers).
+    ``on_step``, if given, is called with the latents before the first step
+    and after each."""
     on_step = on_step or (lambda _: None)
-    dev = latents.device
-    tables = scan_tables(schedule, ip_scales, dev)
-    guidance = torch.full((), guidance_scale, dtype=torch.float32, device=dev)
-    index = torch.zeros(1, dtype=torch.long, device=dev)
-    cond = (context, pooled, time_ids, ip_tokens)
+    index = torch.zeros(1, dtype=torch.long, device=latents.device)
+    state = sched.init_solver_state(br.kind, latents)
+    prop, encoder = br.encoder_interval > 1, None
     on_step(latents)
-    for _ in range(schedule.num_steps):
-        latents = denoise_step(unet, latents, index, tables, cond, kind=schedule.kind,
-                               guidance_scale=guidance)
+    for i in range(tables.shape[1]):
+        key = i % br.encoder_interval == 0
+        latents, state, encoder = denoise_step(
+            unet, latents, index, tables, scalars, cond, br, state=state,
+            z=step_noise(i) if step_noise is not None else None, inpaint=inpaint,
+            encoder=None if key else encoder, want_encoder=prop and key)
         index += 1
         on_step(latents)
     return latents
@@ -207,6 +420,17 @@ def decode(comps: comp.Components, latents):
     return comps.vae.decode(latents).permute(0, 2, 3, 1)
 
 
+def finish(comps: comp.Components, br: Branches, latents):
+    """The edit's output from the loop's last latents: the latents
+    (B, h, w, 4) when they are the output, else the images (B, H, W, 3),
+    tile by tile with ``tile_vae``."""
+    if br.latent_output:
+        return latents.permute(0, 2, 3, 1)
+    if br.tile_vae:
+        return comps.vae.decode_tiled(latents).permute(0, 2, 3, 1)
+    return decode(comps, latents)
+
+
 def to_uint8(images: torch.Tensor) -> np.ndarray:
     arr = images.float().cpu().numpy()
     return (np.clip(arr / 2 + 0.5, 0.0, 1.0) * 255).round().astype(np.uint8)
@@ -215,20 +439,50 @@ def to_uint8(images: torch.Tensor) -> np.ndarray:
 @dataclasses.dataclass
 class EditCall:
     """One edit after the host's preprocessing, what the JAX package's
-    ``_edit_jit`` takes: the options, the token ids (keyed as
-    ``build_conditioning`` reads them), the CLIP pixels (1, H, W, 3), the
-    initial latents (B, 4, h, w), contiguous, in the weights' dtype (noise
-    times the schedule's initial sigma) and the schedule."""
+    ``_edit_jit`` takes, on the pipeline's device: the options; the token
+    ids (and prompt weights), keyed as ``build_conditioning`` reads them;
+    the CLIP pixels (1, H, W, 3) or None; the initial N(0, 1) noise, or the
+    handed-off latents, (B, 4, h, w) fp32; the micro-conditioning rows
+    (2, 6); the schedule and its per-step table (``scan_tables``); the
+    scalars (guidance scale, rescale, the first step's level, the initial
+    sigma); the init image (1, 3, H, W) and the inpaint mask (1, 1, h, w),
+    fp32, or None; the seed of the stochastic samplers' draws, and, for
+    tests only, the draws themselves (num_steps, B, 4, h, w)."""
 
     opts: EditOptions
     ids: dict
-    pixel_values: torch.Tensor
-    latents: torch.Tensor
+    pixel_values: Optional[torch.Tensor]
+    noise: torch.Tensor
+    time_ids: torch.Tensor
     schedule: sched.Schedule
+    tables: torch.Tensor
+    scalars: torch.Tensor
+    init_pixels: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
+    step_seed: Optional[int] = None
+    step_noise: Optional[torch.Tensor] = None
 
     @property
     def num_samples(self) -> int:
-        return self.latents.shape[0]
+        return self.noise.shape[0]
+
+    @property
+    def branches(self) -> Branches:
+        o = self.opts
+        cfg = o.guidance_scale > 1.0
+        return Branches(
+            kind=self.schedule.kind, prediction_type=o.prediction_type, cfg=cfg,
+            rescale=cfg and o.guidance_rescale > 0.0,
+            image_prompt=self.pixel_values is not None,
+            harmony=o.use_harmony and "extra_l" in self.ids,
+            weights=("pos_w" in self.ids, "neg_w" in self.ids),
+            init_image=self.init_pixels is not None,
+            # inpainting at strength 1 starts from pure noise
+            from_image=self.init_pixels is not None
+            and not (self.mask is not None and o.img2img_skip == 0),
+            inpaint=self.mask is not None,
+            latent_output=o.return_latents or o.denoising_end is not None,
+            tile_vae=o.tile_vae, clip_skip=o.clip_skip, encoder_interval=o.encoder_interval)
 
 
 class PhaseClock:
@@ -247,30 +501,101 @@ class PhaseClock:
         self.timings[name], self.t = now - self.t, now
 
 
-def edit(comps: comp.Components, call: EditCall, clock: Optional[PhaseClock] = None):
-    """The edit after preprocessing, eagerly: ``build_conditioning``,
-    ``denoise``, ``decode``. Images (B, H, W, 3) in [-1, 1]. generate()
-    runs this on the CPU; on a CUDA device it is the eager reference of the
-    captured programs (``programs.py``), which generate() runs there."""
+def start(comps: comp.Components, br: Branches, opts: EditOptions, ids, pixel_values,
+          init_pixels, noise, time_ids, scalars):
+    """The edit's first part, what a captured program's conditioning graph
+    runs: the step's conditioning (``cfg_rows`` of ``build_conditioning``),
+    the loop's first latents and the init image's latents (or None)."""
+    b = noise.shape[0]
+    cond = cfg_rows(build_conditioning(comps, opts, ids, pixel_values, num_samples=b,
+                                       time_ids=time_ids), br.cfg)
+    img_lat = image_latents(comps, init_pixels, b) if br.init_image else None
+    latents = initial_latents(br.kind, scalars, noise, img_lat if br.from_image else None,
+                              comps.unet.conv_in.weight.dtype)
+    return cond, latents, img_lat
+
+
+def step_noise_of(call: EditCall, like: torch.Tensor):
+    """The eager loop's draws: None for a deterministic sampler, the call's
+    own draws where a test gives them, else one draw a step from a
+    generator seeded with the call's ``step_seed``."""
+    if call.schedule.kind not in sched.STOCHASTIC:
+        return None
+    if call.step_noise is not None:
+        return lambda i: call.step_noise[i]
+    gen = torch.Generator(device=like.device).manual_seed(call.step_seed)
+    return lambda i: draw_step_noise(gen, torch.empty(like.shape, dtype=torch.float32,
+                                                      device=like.device))
+
+
+def edit(comps: comp.Components, call: EditCall, clock: Optional[PhaseClock] = None,
+         on_step=None):
+    """The edit after preprocessing, eagerly: ``start``, ``denoise``,
+    ``finish``. Images (B, H, W, 3) in [-1, 1], or latents (B, h, w, 4).
+    generate() runs this on the CPU; on a CUDA device it is the eager
+    reference of the captured programs (``programs.py``), which generate()
+    runs there. ``on_step``: as ``denoise`` takes it."""
     clock = clock or PhaseClock(None, None, 0.0)
-    opts = call.opts
-    context2, pooled2, time_ids, ip2 = build_conditioning(
-        comps, opts, call.ids, call.pixel_values, num_samples=call.num_samples)
+    br = call.branches
+    cond, latents, img_lat = start(comps, br, call.opts, call.ids, call.pixel_values,
+                                   call.init_pixels, call.noise, call.time_ids, call.scalars)
     clock.mark("conditioning_s")
-    latents = denoise(comps.unet, call.latents, context2, pooled2, time_ids, ip2, call.schedule,
-                      ip_scale_schedule(opts), guidance_scale=opts.guidance_scale)
+    inpaint = (call.mask, img_lat, call.noise) if br.inpaint else None
+    latents = denoise(comps.unet, latents, cond, call.tables, call.scalars, br, inpaint=inpaint,
+                      step_noise=step_noise_of(call, latents), on_step=on_step)
     clock.mark("denoise_s")
-    images = decode(comps, latents)
+    out = finish(comps, br, latents)
     clock.mark("decode_s")
-    return images
+    return out
+
+
+def preprocess_init_image(image, height, width):
+    """One RGB image (PIL or HWC uint8 array) resized to the output size,
+    (1, H, W, 3) float32 in [-1, 1]: the VAE encoder's input (img2img)."""
+    from PIL import Image
+
+    if isinstance(image, np.ndarray):
+        image = Image.fromarray(image.astype(np.uint8))
+    arr = np.asarray(image.convert("RGB").resize((width, height)), np.float32)
+    return (arr / 127.5 - 1.0)[None]
+
+
+def preprocess_mask(mask_image, height, width, downscale):
+    """One inpaint mask (PIL, an HW/HWC uint8 array, or an (h, w) / (h, w, 1)
+    float array in [0, 1]) -> (1, h_lat, w_lat, 1) float32 in {0, 1}; white
+    or 1 is repainted (diffusers' convention). Nearest-neighbour to the
+    latent size, binarized at 0.5."""
+    from PIL import Image
+
+    hl, wl = height // downscale, width // downscale
+    if isinstance(mask_image, np.ndarray) and mask_image.dtype != np.uint8:
+        arr = np.squeeze(np.asarray(mask_image, np.float32))
+        mask_image = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+    if isinstance(mask_image, np.ndarray):
+        mask_image = Image.fromarray(mask_image)
+    m = mask_image.convert("L").resize((wl, hl), Image.NEAREST)
+    arr = (np.asarray(m, np.float32) >= 127.5).astype(np.float32)
+    return arr[None, :, :, None]
+
+
+def step_seed(seeds) -> int:
+    """The seed of the stochastic samplers' per-step draws for a run's
+    seed(s): a stream apart from the initial noise's."""
+    state = np.random.SeedSequence([int(s) for s in seeds] + [STEP_NOISE_TAG])
+    return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _pair(x):
+    return tuple(x) if x else None
 
 
 class HarmonyPipeline:
     """Host front end: tokenization and CLIP preprocessing, then the edit
     on the device the weights live on.
 
-    generate(pil_image, prompt=..., extra_text=...) mirrors the reference
-    entry point (IPAdapterXL.generate)."""
+    generate(pil_image, prompt=..., extra_text=..., ...) mirrors the
+    reference entry point (IPAdapterXL.generate) with the JAX package's
+    one-call signature (``prepare``'s arguments)."""
 
     def __init__(self, components: comp.Components, tokenizers):
         self.components = components
@@ -339,6 +664,73 @@ class HarmonyPipeline:
         comps = comps.to_empty(device=device)
         return cls._build(comp.load_state_dict_(comps, state_dict))
 
+    def with_textual_inversion(self, source, token=None):
+        """A new pipeline with a learned textual-inversion embedding
+        installed (diffusers load_textual_inversion role): the placeholder
+        ``token`` becomes a literal tokenizer token whose ids are rows
+        appended to the text towers' token tables; a multi-vector
+        embedding's one prompt token expands to its n ids. Every other
+        weight is shared with this pipeline, which is left as it was; the
+        new one starts with no captured programs.
+
+        ``source``: a ``.safetensors`` file, an A1111 ``.pt``/``.bin`` file
+        (``{"string_to_param": {"*": rows}, "name": ...}`` or a bare
+        ``{token: rows}``), or a ``{key: (n, D) rows}`` dict. SDXL takes the
+        dual-tower ``{"clip_l": ..., "clip_g": ...}``; SD1.5 one entry whose
+        key is the token name (or ``token=``). Chainable: once per
+        concept."""
+        from imagharmony_tpu_torch.io import safetensors, torch_zip
+
+        if isinstance(source, (str, bytes, os.PathLike)):
+            name = os.fsdecode(source)
+            if name.endswith((".pt", ".bin")):
+                obj = torch_zip.load(name)
+                if isinstance(obj, dict) and "string_to_param" in obj:
+                    vec = next(iter(obj["string_to_param"].values()))
+                    if token is None and isinstance(obj.get("name"), str):
+                        token = obj["name"]
+                    tensors = {token or "<concept>": vec}
+                else:
+                    tensors = {k: v for k, v in obj.items() if hasattr(v, "shape")}
+            else:
+                tensors, _ = safetensors.load(name)
+        else:
+            tensors = dict(source)
+
+        dual = "clip_l" in tensors and "clip_g" in tensors
+        if not dual and len(tensors) != 1:
+            raise ValueError("expected {'clip_l', 'clip_g'} (SDXL) or a single token-keyed "
+                             f"entry, got keys {sorted(tensors)}")
+        if token is None:
+            token = "<concept>" if dual else next(iter(tensors))
+        token = token.lower()
+        if self.cfgs.family == "sd15":
+            jobs = [("text_encoder", "text_l", "tok1", tensors[next(iter(tensors))])]
+        elif dual:
+            jobs = [("text_encoder", "text_l", "tok1", tensors["clip_l"]),
+                    ("text_encoder_2", "text_g", "tok2", tensors["clip_g"])]
+        else:
+            raise ValueError("SDXL textual inversion needs the dual-tower format "
+                             "{'clip_l': (n, 768), 'clip_g': (n, 1280)}")
+
+        comps = copy.copy(self.components)
+        comps._modules = dict(comps._modules)
+        toks = {"tok1": copy.copy(self.tokenizers.tok1), "tok2": copy.copy(self.tokenizers.tok2)}
+        for t in toks.values():  # their own added tokens, even where tok1 is tok2
+            t.added_tokens = dict(t.added_tokens)
+        cfgs, n_vec = self.cfgs, None
+        for attr, field, tok, rows in jobs:
+            rows = torch.atleast_2d(torch.as_tensor(np.asarray(rows, np.float32)))
+            if n_vec is not None and rows.shape[0] != n_vec:
+                raise ValueError("clip_l/clip_g vector counts differ")
+            n_vec = rows.shape[0]
+            tower, first = getattr(self.components, attr).with_token_rows(rows)
+            setattr(comps, attr, tower)
+            cfgs = dataclasses.replace(cfgs, **{field: tower.cfg})
+            toks[tok].add_token(token, range(first, first + n_vec))
+        comps.cfgs = cfgs
+        return HarmonyPipeline(comps, tok_lib.SDXLTokenizers(toks["tok1"], toks["tok2"]))
+
     # -- pieces ------------------------------------------------------------
 
     def _tokenize(self, text):
@@ -348,86 +740,266 @@ class HarmonyPipeline:
                                          device=self.device)
         return as_t(ids1), as_t(ids2)
 
+    def _tokenize_weighted(self, text):
+        """Tokenize with the A1111 ``(word:1.5)`` grammar
+        (``utils/prompts.py``): (ids_l, ids_g, weights (1, S) fp32 or None).
+        With no weighting syntax the ids are ``_tokenize``'s; weighted
+        prompts are tokenized fragment by fragment, so the weights line up
+        with the ids."""
+        from imagharmony_tpu_torch.utils import prompts
+
+        frags = prompts.parse_prompt_attention(text or "")
+        if not prompts.is_weighted(frags):
+            return self._tokenize(prompts.plain_text(frags)) + (None,)
+        max_l = self.cfgs.text_l.max_position_embeddings
+
+        def build(tok):
+            toks, ws = [], []
+            for frag, w in frags:
+                fids = tok.encode(frag, pad_to_max=False)[1:-1]
+                toks.extend(fids)
+                ws.extend([w] * len(fids))
+            toks, ws = toks[: max_l - 2], ws[: max_l - 2]
+            ids = [tok.bos_token_id] + toks + [tok.eos_token_id]
+            ids += [tok.pad_token_id] * (max_l - len(ids))
+            return ids, [1.0] + ws + [1.0] * (max_l - 1 - len(ws))
+
+        (i1, w1), (i2, w2) = build(self.tokenizers.tok1), build(self.tokenizers.tok2)
+        if w1 != w2:
+            raise ValueError("the two text towers tokenize the weighted prompt to different "
+                             "lengths: prompt weighting needs aligned tokens")
+        as_t = lambda a, dt: torch.tensor([a], dtype=dt, device=self.device)
+        return as_t(i1, torch.long), as_t(i2, torch.long), as_t(w1, torch.float32)
+
     def _pixel_values(self, pil_image):
         arr = clip_vision.preprocess_numpy(pil_image, image_size=self.cfgs.vision.image_size)
         return torch.as_tensor(arr[:1], device=self.device)
 
-    def _ids(self, prompt, extra_text):
-        """Token ids of the prompt, the default negative and (if given) the
-        extra_text, keyed as build_conditioning expects."""
+    def _ids(self, prompt, extra_text, negative_prompt=DEFAULT_NEGATIVE, weighting=False):
+        """Token ids of the prompt, the negative prompt and (if given) the
+        extra_text, and the prompts' weights where ``weighting`` finds
+        any, keyed as build_conditioning expects."""
         ids = {}
-        ids["pos_l"], ids["pos_g"] = self._tokenize(prompt)
-        ids["neg_l"], ids["neg_g"] = self._tokenize(DEFAULT_NEGATIVE)
+        if weighting:
+            ids["pos_l"], ids["pos_g"], w_pos = self._tokenize_weighted(prompt)
+            ids["neg_l"], ids["neg_g"], w_neg = self._tokenize_weighted(negative_prompt)
+            for k, w in (("pos_w", w_pos), ("neg_w", w_neg)):
+                if w is not None:
+                    ids[k] = w
+        else:
+            ids["pos_l"], ids["pos_g"] = self._tokenize(prompt)
+            ids["neg_l"], ids["neg_g"] = self._tokenize(negative_prompt)
         if extra_text is not None:
             ids["extra_l"], ids["extra_g"] = self._tokenize(extra_text)
         return ids
 
+    def _noise(self, seed, num_samples, lat_shape):
+        """The initial N(0, 1) noise (num_samples, h, w, 4) on the device:
+        one generator a sample for a seed list, so that sample i of a list
+        is a one-sample run of seed i."""
+        if isinstance(seed, (list, tuple)):
+            if len(seed) != num_samples:
+                raise ValueError(f"len(seed) {len(seed)} != num_samples {num_samples}")
+            return torch.cat([torch.randn((1,) + lat_shape, device=self.device,
+                                          generator=torch.Generator(device=self.device)
+                                          .manual_seed(int(s))) for s in seed])
+        gen = torch.Generator(device=self.device).manual_seed(0 if seed is None else int(seed))
+        return torch.randn((num_samples,) + lat_shape, generator=gen, device=self.device)
+
     # -- main entry --------------------------------------------------------
 
-    def prepare(self, pil_image, *, prompt: Optional[str] = None,
-                extra_text: Optional[str] = None, num_samples: int = 1, scale: float = 1.0,
-                seed: Optional[int] = None, guidance_scale: float = 5.0,
-                num_inference_steps: int = 30, height: int = 1024, width: int = 1024,
-                noise=None) -> EditCall:
-        """The host's part of generate(): CLIP preprocessing, tokenization,
-        the schedule and the initial latents, on the pipeline's device."""
-        check_guidance(guidance_scale)
-        pixel_values = self._pixel_values(pil_image)
-        ids = self._ids(prompt or DEFAULT_PROMPT, extra_text)
-        opts = EditOptions(height=height, width=width, num_inference_steps=num_inference_steps,
-                           guidance_scale=guidance_scale, ip_scale=scale,
-                           use_harmony=extra_text is not None)
-        schedule = sched.make("euler", opts.num_inference_steps)
+    def prepare(self, pil_image=None, *, pixel_values=None, prompt: Optional[str] = None,
+                negative_prompt: Optional[str] = None, extra_text: Optional[str] = None,
+                scale: float = 1.0, num_samples: int = 1, seed=None,
+                guidance_scale: float = 5.0, num_inference_steps: int = 30,
+                height: int = 1024, width: int = 1024, scheduler: str = "euler",
+                control_guidance_start: float = 0.0, control_guidance_end: float = 1.0,
+                tile_vae: bool = False, control_image=None,
+                controlnet_conditioning_scale: float = 1.0, guidance_rescale: float = 0.0,
+                denoising_end: Optional[float] = None, denoising_start: Optional[float] = None,
+                latents=None, init_image=None, mask_image=None,
+                strength: Optional[float] = None, timestep_spacing: str = "leading",
+                use_karras_sigmas: bool = False, original_size=None,
+                crops_coords_top_left=(0, 0), target_size=None, negative_original_size=None,
+                negative_crops_coords_top_left=None, negative_target_size=None,
+                output_type: str = "np", callback_on_step_end=None,
+                chunk_steps: Optional[int] = None, encoder_interval: int = 1,
+                prediction_type: str = "epsilon", rescale_zero_snr: bool = False,
+                aesthetic_score: Optional[float] = None,
+                negative_aesthetic_score: Optional[float] = None, clip_skip: int = 0,
+                prompt_weighting: bool = False, noise=None, _step_noise=None) -> EditCall:
+        """The host's part of generate(): checks, CLIP preprocessing,
+        tokenization, the schedule and its table, the initial noise, the
+        init image and mask, on the pipeline's device. The arguments are the
+        JAX package's ``generate()``'s, with its defaults:
+
+        pil_image / pixel_values: the image prompt (a PIL image or HWC uint8
+        array, or CLIP-preprocessed (1, H, W, 3)); neither: text-to-image,
+        the IP branch off. scale: the IP branch's weight, over the
+        [control_guidance_start, control_guidance_end) window of the steps.
+        seed: an int, or one a sample (sample i of a list is a one-sample
+        run of seed i); the stochastic samplers draw their per-step noise
+        from a generator seeded from the seed(s) on a stream apart.
+        scheduler: euler, euler_a, ddim, dpm++ or lcm, with
+        timestep_spacing, use_karras_sigmas, prediction_type and
+        rescale_zero_snr. guidance_scale <= 1 runs no CFG. denoising_end:
+        stop at that fraction and return latents; latents= (num_samples,
+        h, w, 4) with denoising_start: the other side of the handoff.
+        init_image (img2img, strength default 0.8) and mask_image
+        (inpainting, white repainted, strength default 1.0). The SDXL
+        micro-conditioning overrides, clip_skip, encoder_interval, tile_vae
+        and prompt_weighting as in ``EditOptions``. output_type: "np"
+        (uint8), "raw" (float tensor in [-1, 1]), "latent" or "pil".
+        noise: the initial N(0, 1) noise (num_samples, h, w, 4) in place of
+        the seed's. ``_step_noise`` (tests only): the stochastic samplers'
+        draws (num_steps, num_samples, h, w, 4).
+
+        ControlNet (control_image), the chunked runner
+        (callback_on_step_end, chunk_steps) and the refiner family
+        (aesthetic_score, negative_aesthetic_score) are not ported: they
+        raise NotImplementedError. Every refused combination raises before
+        any work."""
+        if control_image is not None:
+            raise NotImplementedError("control_image: ControlNet is not ported yet")
+        if callback_on_step_end is not None or chunk_steps is not None:
+            raise NotImplementedError("callback_on_step_end / chunk_steps: the chunked runner "
+                                      "is not ported yet")
+        if aesthetic_score is not None or negative_aesthetic_score is not None:
+            raise NotImplementedError("aesthetic_score / negative_aesthetic_score: the refiner "
+                                      "family is not ported yet")
+        if output_type not in OUTPUT_TYPES:
+            raise ValueError(f"output_type must be one of {OUTPUT_TYPES}, got {output_type!r}")
+        if prediction_type not in sched.PREDICTION_TYPES:
+            raise ValueError(f"prediction_type must be one of {sched.PREDICTION_TYPES}, got "
+                             f"{prediction_type!r}")
+        if int(encoder_interval) != encoder_interval or encoder_interval < 1:
+            raise ValueError(f"encoder_interval must be an int >= 1, got {encoder_interval}")
+        if mask_image is not None and init_image is None:
+            raise ValueError("mask_image= requires init_image= (the image whose unmasked "
+                             "region is kept)")
+        if latents is not None and denoising_start is None:
+            raise ValueError("latents= requires denoising_start= (the base run's "
+                             "denoising_end)")
+        if latents is not None and noise is not None:
+            raise ValueError("give latents= or noise=, not both")
+        if init_image is not None and (latents is not None or denoising_start is not None):
+            raise ValueError("init_image= cannot combine with the refiner-stage inputs "
+                             "(latents=, denoising_start=)")
+        if strength is None:
+            strength = 1.0 if mask_image is not None else 0.8
+        img2img_skip = 0
+        if init_image is not None:
+            img2img_skip = sched.img2img_skip_steps(num_inference_steps, strength)
+
+        opts = EditOptions(
+            height=height, width=width, num_inference_steps=num_inference_steps,
+            scheduler=scheduler, timestep_spacing=timestep_spacing, use_karras=use_karras_sigmas,
+            guidance_scale=guidance_scale, ip_scale=scale,
+            control_guidance_start=control_guidance_start,
+            control_guidance_end=control_guidance_end, use_harmony=extra_text is not None,
+            tile_vae=tile_vae, guidance_rescale=guidance_rescale, denoising_end=denoising_end,
+            denoising_start=denoising_start, return_latents=output_type == "latent",
+            img2img_skip=img2img_skip, original_size=_pair(original_size),
+            crops_coords_top_left=tuple(crops_coords_top_left), target_size=_pair(target_size),
+            negative_original_size=_pair(negative_original_size),
+            negative_crops_coords_top_left=_pair(negative_crops_coords_top_left),
+            negative_target_size=_pair(negative_target_size),
+            encoder_interval=int(encoder_interval), prediction_type=prediction_type,
+            rescale_zero_snr=rescale_zero_snr, clip_skip=clip_skip)
+        schedule, ip_scales = schedule_for(opts)
+        stochastic = schedule.kind in sched.STOCHASTIC
+        for tower in (self.cfgs.text_l, self.cfgs.text_g):
+            if tower is not None and not 0 <= clip_skip < tower.num_layers - 1:
+                raise ValueError(f"clip_skip must be in [0, {tower.num_layers - 2}], got "
+                                 f"{clip_skip}")
+        if _step_noise is not None and (not stochastic or self.device.type == "cuda"):
+            raise ValueError("_step_noise is for the stochastic samplers' eager loop on the "
+                             "CPU (tests); a card's programs draw from the seed")
 
         down = self.cfgs.vae.downscale
-        lat_shape = (num_samples, height // down, width // down, 4)
+        lat_shape = (height // down, width // down, 4)
+        if latents is not None:
+            noise = latents  # the handed-off latents: their schedule applies no initial sigma
         if noise is None:
-            gen = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
-            noise = torch.randn(lat_shape, generator=gen, device=self.device)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
-        if tuple(noise.shape) != lat_shape:
-            raise ValueError(f"noise must be {lat_shape}, got {tuple(noise.shape)}")
-        latents = (noise * schedule.init_noise_sigma).to(self.dtype).permute(0, 3, 1, 2)
-        return EditCall(opts, ids, pixel_values, latents.contiguous(), schedule)
+            noise = self._noise(seed, num_samples, lat_shape)
+        if not isinstance(noise, torch.Tensor):
+            noise = torch.from_numpy(np.array(noise, np.float32))
+        noise = noise.to(device=self.device, dtype=torch.float32)
+        if tuple(noise.shape) != (num_samples,) + lat_shape:
+            what = "latents" if latents is not None else "noise"
+            raise ValueError(f"{what} must be {(num_samples,) + lat_shape}, got "
+                             f"{tuple(noise.shape)}")
+
+        if pil_image is not None or pixel_values is not None:
+            if pixel_values is None:
+                pixel_values = clip_vision.preprocess_numpy(
+                    pil_image, image_size=self.cfgs.vision.image_size)
+            if not isinstance(pixel_values, torch.Tensor):
+                pixel_values = torch.from_numpy(np.array(pixel_values, np.float32))
+            pixel_values = pixel_values[:1].to(self.device, torch.float32)
+        ids = self._ids(prompt or DEFAULT_PROMPT, extra_text,
+                        negative_prompt or DEFAULT_NEGATIVE, prompt_weighting)
+
+        def on_device(x, nhwc_to_nchw=True):
+            x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            return x.permute(0, 3, 1, 2).contiguous() if nhwc_to_nchw else x
+
+        scalars = [guidance_scale, guidance_rescale, float(schedule.sigmas[0]),
+                   schedule.init_noise_sigma]
+        step_noise = None
+        if _step_noise is not None:
+            want = (schedule.num_steps, num_samples) + lat_shape
+            if np.shape(_step_noise) != want:
+                raise ValueError(f"_step_noise must be {want}, got {np.shape(_step_noise)}")
+            step_noise = on_device(_step_noise, False).permute(0, 1, 4, 2, 3).contiguous()
+        return EditCall(
+            opts=opts, ids=ids, pixel_values=pixel_values,
+            noise=noise.permute(0, 3, 1, 2).contiguous(),
+            time_ids=time_ids_rows(opts).to(self.device), schedule=schedule,
+            tables=scan_tables(schedule, ip_scales, self.device),
+            scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
+            init_pixels=None if init_image is None
+            else on_device(preprocess_init_image(init_image, height, width)),
+            mask=None if mask_image is None
+            else on_device(preprocess_mask(mask_image, height, width, down)),
+            step_seed=step_seed(seed if isinstance(seed, (list, tuple))
+                                else [0 if seed is None else seed]) if stochastic else None,
+            step_noise=step_noise)
 
     @torch.inference_mode()
-    def generate(self, pil_image, *, prompt: Optional[str] = None,
-                 extra_text: Optional[str] = None, num_samples: int = 1,
-                 scale: float = 1.0, seed: Optional[int] = None,
-                 guidance_scale: float = 5.0,
-                 num_inference_steps: int = 30, height: int = 1024, width: int = 1024,
-                 noise=None, output_type: str = "np", timings: Optional[dict] = None):
-        """Edit ``pil_image`` (PIL image or HWC uint8 array).
+    def generate(self, pil_image=None, *, timings: Optional[dict] = None, **options):
+        """Edit ``pil_image`` (a PIL image or HWC uint8 array; None:
+        text-to-image). ``options``: ``prepare``'s arguments, the JAX
+        package's generate() signature. Returns, by ``output_type``: "np"
+        uint8 (B, H, W, 3), "raw" a float tensor (B, H, W, 3) in [-1, 1],
+        "pil" a list of PIL images; latents (B, h, w, 4) for "latent" or a
+        ``denoising_end``.
 
-        scale: the weight of the image-prompt (IP) branch.
-        noise: optional (num_samples, h, w, 4) initial N(0, 1) latents;
-        otherwise drawn from ``seed`` with a torch.Generator on the device.
-        output_type: "np" (uint8 (B, H, W, 3)) or "raw" (float tensor in
-        [-1, 1], (B, H, W, 3)).
         timings: if a dict is given, the call synchronizes the device at
         its phase boundaries and records conditioning_s, denoise_s and
         decode_s wall seconds in it.
 
         On a CUDA device the edit runs as the captured programs of
-        ``programs.py`` (captured at the first call of a (device, height,
-        width, num_samples, extra_text or not) key, replayed after); on the
-        CPU it runs ``edit``, the eager module functions. A pipeline keeps
-        every key's programs for its life, and one key's programs serve one
-        call at a time: two concurrent calls of a key on one pipeline would
-        overwrite each other's inputs.
-        """
+        ``programs.py`` (captured at the first call of a key: the device,
+        the shapes and the ``Branches``; replayed after); on the CPU it runs
+        ``edit``, the eager module functions. A pipeline keeps every key's
+        programs for its life, and one key's programs serve one call at a
+        time: two concurrent calls of a key on one pipeline would overwrite
+        each other's inputs."""
         clock = PhaseClock(timings, self.device, time.perf_counter())
-        call = self.prepare(pil_image, prompt=prompt, extra_text=extra_text,
-                            num_samples=num_samples, scale=scale, seed=seed,
-                            guidance_scale=guidance_scale,
-                            num_inference_steps=num_inference_steps, height=height,
-                            width=width, noise=noise)
+        call = self.prepare(pil_image, **options)
         if self.device.type == "cuda":
             from imagharmony_tpu_torch.pipelines import programs
 
-            images = programs.run(self, call, clock)
+            out = programs.run(self, call, clock)
         else:
-            images = edit(self.components, call, clock)
-        if output_type == "raw":
-            return images
-        return to_uint8(images)
+            out = edit(self.components, call, clock)
+        output_type = options.get("output_type", "np")
+        if call.branches.latent_output or output_type == "raw":
+            return out
+        arr = to_uint8(out)
+        if output_type == "pil":
+            from PIL import Image
+
+            return [Image.fromarray(a) for a in arr]
+        return arr

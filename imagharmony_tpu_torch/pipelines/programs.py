@@ -2,22 +2,38 @@
 package's ``_edit_jit`` (imagharmony_tpu/pipelines/harmony_edit.py:556-560)
 and of its ``lax.scan`` denoise loop (:427).
 
-On a CUDA device ``HarmonyPipeline.generate()`` runs the edit as three CUDA
-graphs, captured at the first call of a key (device, height, width,
-num_samples, whether an extra_text is given: the shapes and the branches of
-the programs) into one memory pool:
+On a CUDA device ``HarmonyPipeline.generate()`` runs the edit as CUDA
+graphs, captured at the first call of a key into one memory pool. The key
+is the device, the output size, num_samples and the call's
+``harmony_edit.Branches``: what the code does (the sampler, the prediction
+type, CFG or not, the rescale, the image prompt, img2img, inpaint, latent
+output, clip_skip, encoder_interval, tile_vae, prompt weights), never a
+value and never the step count. The graphs:
 
-(a) conditioning: static token-id and pixel buffers to the CFG-packed
-    (context2, pooled2, time_ids, ip2) (``harmony_edit.build_conditioning``);
-(b) one denoise step (``harmony_edit.denoise_step``) on static latents,
-    the static (4, MAX_STEPS) table of per-step constants and a static step
-    index that the graph itself advances, so the loop is ``num_steps``
-    replays with no per-step host work and the key does not depend on the
-    step count; the IP weight K2 reads is the table's entry for the step;
-(c) decode (``harmony_edit.decode``).
+(a) conditioning (``harmony_edit.start``): static token-id, weight,
+    pixel, init-image, noise, time-id and scalar buffers to the step's
+    conditioning, the init image's latents and the first latents;
+(b) one denoise step (``harmony_edit.denoise_step``) on the static latents,
+    the static (STEP_ROWS, MAX_STEPS) table of per-step constants and a
+    static step index that the graph itself advances, so the loop is
+    ``num_steps`` replays with no per-step host read. With encoder
+    propagation there are two: a key step, which writes the encoder
+    features the program keeps, and a reuse step, which reads them; the
+    host replays one or the other by the step index (``i % k == 0``),
+    known before the loop;
+(c) the finish (``harmony_edit.finish``: decode, tiled or not), which a
+    latent output does without.
+
+DPM++'s history lives in static buffers that every call's ``load`` zeroes
+(a first step is first order); its first/second-order choice is a
+``torch.where`` in the graph. The stochastic samplers (Euler-a, LCM) read
+each step's draw from a static buffer that the host refills before each
+step's replay from the call's generator (``harmony_edit.draw_step_noise``,
+the eager loop's draw): one latent-sized fp32 buffer, 256 KiB for one
+1024² sample.
 
 A call copies its inputs into the static buffers, replays (a), (b) as many
-times as it has steps, and (c), and returns a copy of the images. A capture
+times as it has steps, and (c), and returns a copy of the output. A capture
 or replay error raises; nothing falls back to the eager functions, which
 stay the reference (``harmony_edit.edit``) and the CPU path.
 
@@ -28,7 +44,7 @@ thread, device or stream happens there and not under capture: the
 ``sm90_tiles.cuh``, K2's register count, the cached GEMM plans and the GEMM
 tile counters kept per (device, stream) (``kernels/gemm.py``). Tensors the
 graphs read stay alive with the program: the weights, the static buffers,
-the cached tensors of ``build_conditioning`` and K2.
+the cached tensors of K2.
 
 The kernels' Python launch counters count the launches of the warm-up and
 of the capture, not those of replays; a replay's launches show only in a
@@ -48,97 +64,146 @@ import time
 import torch
 
 from imagharmony_tpu_torch.pipelines import harmony_edit as he
+from imagharmony_tpu_torch.schedulers import diffusion as sched
 
 # the longest denoise loop a program takes: leading spacing needs one
 # training timestep a step
 MAX_STEPS = 1000
 
 
+def _like(x):
+    return None if x is None else torch.empty_like(x)
+
+
 class EditProgram:
-    """The three graphs of one key and the static buffers they read and
-    write."""
+    """The graphs of one key and the static buffers they read and write."""
 
     def __init__(self, pipe, call: he.EditCall):
         t0 = time.perf_counter()
         self.comps, self.device = pipe.components, pipe.device
+        self.br = br = call.branches
+        # the conditioning reads use_harmony and clip_skip, both in the key
         self.opts = he.EditOptions(height=call.opts.height, width=call.opts.width,
-                                   use_harmony=call.opts.use_harmony)
-        self.num_samples = call.num_samples
+                                   use_harmony=br.harmony, clip_skip=br.clip_skip)
         self.ids = {k: torch.empty_like(v) for k, v in call.ids.items()}
-        self.pixel_values = torch.empty_like(call.pixel_values)
-        self.latents = torch.empty_like(call.latents)
-        self.tables = torch.zeros((4, MAX_STEPS), dtype=torch.float32, device=self.device)
-        self.guidance = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.pixel_values, self.init_pixels, self.mask = (
+            _like(call.pixel_values), _like(call.init_pixels), _like(call.mask))
+        self.noise, self.time_ids = torch.empty_like(call.noise), torch.empty_like(call.time_ids)
+        self.tables = torch.zeros((he.STEP_ROWS, MAX_STEPS), dtype=torch.float32,
+                                  device=self.device)
+        self.scalars = torch.zeros_like(call.scalars)
         self.index = torch.zeros(1, dtype=torch.long, device=self.device)
+        self.latents = torch.empty(call.noise.shape, dtype=pipe.dtype, device=self.device)
+        self.state = sched.init_solver_state(br.kind, self.latents)
+        self.z = torch.zeros_like(call.noise) if br.kind in sched.STOCHASTIC else None
+        self.gen = torch.Generator(device=self.device) if self.z is not None else None
         self.load(call)
+        prop = br.encoder_interval > 1
 
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):  # the warm-up, on the capture stream
-            self._step(self._conditioning())
-            self._decode()
+            self.cond, self.img_lat = self._start()
+            self.encoder = self._step(key=True)
+            if prop:
+                self._step(key=False)
+            if not br.latent_output:
+                self._finish()
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.load(call)  # the warm-up step moved the latents and the index
+        self.load(call)  # the warm-up steps moved the latents, the state and the index
 
         pool = torch.cuda.graph_pool_handle()
-        self.conditioning, self.step, self.decode = (torch.cuda.CUDAGraph() for _ in range(3))
-        with torch.cuda.graph(self.conditioning, pool=pool, stream=stream):
-            self.cond = self._conditioning()
-        with torch.cuda.graph(self.step, pool=pool, stream=stream):
-            self._step(self.cond)
-        with torch.cuda.graph(self.decode, pool=pool, stream=stream):
-            self.images = self._decode()
+
+        def capture(piece):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                out = piece()
+            return g, out
+
+        self.conditioning, (self.cond, self.img_lat) = capture(self._start)
+        self.key_step, self.encoder = capture(lambda: self._step(key=True))
+        self.reuse_step = capture(lambda: self._step(key=False))[0] if prop else None
+        self.finish, self.out = capture(self._finish) if not br.latent_output else (None, None)
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0  # the warm-up and the captures
 
-    def _conditioning(self):
-        return he.build_conditioning(self.comps, self.opts, self.ids, self.pixel_values,
-                                     num_samples=self.num_samples)
+    def _start(self):
+        cond, latents, img_lat = he.start(self.comps, self.br, self.opts, self.ids,
+                                          self.pixel_values, self.init_pixels, self.noise,
+                                          self.time_ids, self.scalars)
+        self.latents.copy_(latents)
+        return cond, img_lat
 
-    def _step(self, cond):
-        nxt = he.denoise_step(self.comps.unet, self.latents, self.index, self.tables, cond,
-                              kind="euler", guidance_scale=self.guidance)
+    def _step(self, key):
+        """One step; a key step (or any step without encoder propagation)
+        returns the encoder features it computed, a reuse step reads the
+        kept ones."""
+        br = self.br
+        inpaint = (self.mask, self.img_lat, self.noise) if br.inpaint else None
+        nxt, state, encoder = he.denoise_step(
+            self.comps.unet, self.latents, self.index, self.tables, self.scalars, self.cond, br,
+            state=self.state, z=self.z, inpaint=inpaint, encoder=None if key else self.encoder,
+            want_encoder=key and br.encoder_interval > 1)
         self.latents.copy_(nxt)
+        if self.state is not None:
+            for k, buf in self.state.items():
+                buf.copy_(state[k])
         self.index.add_(1)
+        return encoder
 
-    def _decode(self):
-        return he.decode(self.comps, self.latents)
+    def _finish(self):
+        return he.finish(self.comps, self.br, self.latents)
 
     def load(self, call: he.EditCall):
-        """Copies a call's inputs into the static buffers and sets the step
-        index to 0."""
+        """Copies a call's inputs into the static buffers, sets the step
+        index to 0 and zeroes the solver state."""
         n = call.schedule.num_steps
         if n > MAX_STEPS:
             raise ValueError(f"num_inference_steps {n} > {MAX_STEPS}, the longest loop a "
                              f"program takes")
         for k, buf in self.ids.items():
             buf.copy_(call.ids[k])
-        self.pixel_values.copy_(call.pixel_values)
-        self.latents.copy_(call.latents)
-        table = torch.zeros((4, MAX_STEPS), dtype=torch.float32)
-        table[:, :n] = he.scan_tables(call.schedule, he.ip_scale_schedule(call.opts))
-        self.tables.copy_(table)
-        self.guidance.fill_(call.opts.guidance_scale)
+        for buf, x in ((self.pixel_values, call.pixel_values),
+                       (self.init_pixels, call.init_pixels), (self.mask, call.mask)):
+            if buf is not None:
+                buf.copy_(x)
+        self.noise.copy_(call.noise)
+        self.time_ids.copy_(call.time_ids)
+        self.scalars.copy_(call.scalars)
+        self.tables.zero_()
+        self.tables[:, :n].copy_(call.tables)
         self.index.zero_()
+        if self.state is not None:
+            for buf in self.state.values():
+                buf.zero_()
+        if self.gen is not None:
+            self.gen.manual_seed(call.step_seed)
 
     def run(self, call: he.EditCall, clock: he.PhaseClock):
-        """The call's images (B, H, W, 3) in [-1, 1], by replays."""
+        """The call's output by replays: images (B, H, W, 3) in [-1, 1], or
+        latents (B, h, w, 4)."""
         self.load(call)
         self.conditioning.replay()
         clock.mark("conditioning_s")
-        for _ in range(call.schedule.num_steps):
-            self.step.replay()
+        k = self.br.encoder_interval
+        for i in range(call.schedule.num_steps):
+            if self.z is not None:
+                he.draw_step_noise(self.gen, self.z)
+            (self.key_step if i % k == 0 else self.reuse_step).replay()
         clock.mark("denoise_s")
-        self.decode.replay()
-        images = self.images.clone()
+        if self.finish is None:
+            out = self.latents.permute(0, 2, 3, 1).clone()
+        else:
+            self.finish.replay()
+            out = self.out.clone()
         clock.mark("decode_s")
-        return images
+        return out
 
 
 def run(pipe, call: he.EditCall, clock: he.PhaseClock):
     """The edit of ``call`` on ``pipe``'s CUDA device through the key's
     programs, captured first if the key has none."""
-    k = (pipe.device, call.opts.height, call.opts.width, call.num_samples, "extra_l" in call.ids)
+    k = (pipe.device, call.opts.height, call.opts.width, call.num_samples, call.branches)
     with torch.cuda.device(pipe.device):
         prog = pipe.programs.get(k)
         if prog is None:

@@ -1,13 +1,14 @@
 """Numerical-parity harness (port of imagharmony_tpu/utils/parity.py).
 
 ``run_capture`` runs an edit of either family (SDXL, or SD1.5 with no pooled
-embedding and no time ids) through the eager denoise loop
-(``harmony_edit.denoise``, over the body that generate()'s captured step
-runs, ``denoise_step``) and keeps every intermediate latent,
-reusing a given initial noise so that two implementations share x_T; ``compare``
-scores the per-step cosine between two captures. Captures hold numpy
-arrays in the JAX layout (latents (steps+1, B, h, w, 4), image
-(B, H, W, 3)), so a capture of the port compares directly with the JAX
+embedding and no time ids), with any of generate()'s options, through the
+eager module functions (``harmony_edit.edit``, whose loop runs the body
+that generate()'s captured step runs, ``denoise_step``) and keeps every
+intermediate latent, reusing a given initial noise so that two
+implementations share x_T; ``compare`` scores the per-step cosine between
+two captures. Captures hold numpy arrays in the JAX layout (latents
+(steps+1, B, h, w, 4), image (B, H, W, 3), or the output latents
+(B, h, w, 4)), so a capture of the port compares directly with the JAX
 package's and with its golden files.
 """
 
@@ -30,39 +31,26 @@ def _nhwc(x) -> np.ndarray:
 
 @torch.inference_mode()
 def run_capture(pipe, pil_image, *, prompt, extra_text=None, steps=8, height=256,
-                width=256, seed=0, noise=None, guidance_scale=5.0):
+                width=256, seed=0, noise=None, guidance_scale=5.0, **options):
     """Run an edit and capture every intermediate latent.
 
-    Returns dict: noise (1, h, w, 4), latents (steps+1, 1, h, w, 4), image
-    (1, H, W, 3). ``noise``: optional (1, h, w, 4) initial N(0, 1) latents;
-    otherwise drawn from ``seed`` with a torch.Generator."""
+    Returns dict: noise (B, h, w, 4), latents (steps+1, B, h, w, 4), image:
+    the output (B, H, W, 3), or the latents (B, h, w, 4) where the edit
+    returns latents. ``noise``: optional (B, h, w, 4) initial N(0, 1)
+    latents; otherwise drawn from ``seed`` as generate() draws it.
+    ``options``: any other argument of ``HarmonyPipeline.prepare`` (the
+    sampler, img2img, inpaint, the handoff, ``_step_noise``...)."""
     from imagharmony_tpu_torch.pipelines import harmony_edit as he
-    from imagharmony_tpu_torch.schedulers import diffusion as sched
 
-    comps, dev = pipe.components, pipe.device
-    opts = he.EditOptions(height=height, width=width, num_inference_steps=steps,
-                          guidance_scale=guidance_scale, use_harmony=extra_text is not None)
-    cond = he.build_conditioning(
-        comps, opts, pipe._ids(prompt, extra_text), pipe._pixel_values(pil_image), num_samples=1
-    )
-
-    schedule = sched.make("euler", steps)
-    down = pipe.cfgs.vae.downscale
-    if noise is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        noise = torch.randn((1, height // down, width // down, 4), generator=gen, device=dev)
-    noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
-    lat = (noise * schedule.init_noise_sigma).to(pipe.dtype).permute(0, 3, 1, 2).contiguous()
-
+    call = pipe.prepare(pil_image, prompt=prompt, extra_text=extra_text,
+                        num_inference_steps=steps, height=height, width=width, seed=seed,
+                        noise=noise, guidance_scale=guidance_scale, **options)
     traj = []
-    lat = he.denoise(comps.unet, lat, *cond, schedule, he.ip_scale_schedule(opts),
-                     guidance_scale=guidance_scale, on_step=lambda x: traj.append(_nhwc(x)))
-
-    img = he.decode(comps, lat)
+    out = he.edit(pipe.components, call, on_step=lambda x: traj.append(_nhwc(x)))
     return {
-        "noise": noise.cpu().numpy(),
+        "noise": call.noise.permute(0, 2, 3, 1).cpu().numpy(),
         "latents": np.stack(traj),
-        "image": img.float().cpu().numpy(),
+        "image": out.float().cpu().numpy(),
     }
 
 

@@ -1,11 +1,13 @@
 """Port (imagharmony_tpu_torch.models/adapters/schedulers) vs JAX on the
-CPU at the tiny configs, fp32 on both sides: the UNet forward, the VAE
-encode and decode, both CLIP text towers, the CLIP vision tower, the HA
-``cross_attention`` fusion with ImageProjModel, the Euler schedule and
-step, and the training forward process."""
+CPU at the tiny configs, fp32 on both sides: the UNet forward and its
+encoder propagation, the VAE encode and decode (tiled too), both CLIP text
+towers (with clip_skip), the CLIP vision tower, the HA ``cross_attention``
+fusion with ImageProjModel, every sampler's schedule and step, and the
+training forward process."""
 
 import copy
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,7 @@ from imagharmony_tpu_torch.models import unet as punet
 from imagharmony_tpu_torch.models import vae as pvae
 from imagharmony_tpu_torch.nn.attention import pack_inference_params
 from imagharmony_tpu_torch.schedulers import diffusion as psched
-from torch_port_util import close, load, nchw, nhwc, randn, t
+from torch_port_util import close, edit_parity, load, nchw, nhwc, randn, t, tiny_pipes
 
 FP32 = jdt.FP32
 
@@ -66,10 +68,33 @@ def test_unet_forward(unet_case, packed):
     close(nhwc(out), ref)
 
 
-def test_unet_encoder_propagation_not_ported():
-    port = punet.UNet2DConditionModel(punet.tiny_config())
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 4, 8, 8), 1.0, torch.zeros(1, 5, 64), return_encoder=True)
+def test_unet_encoder_propagation_not_ported(unet_case):
+    """Encoder propagation, now ported: ``return_encoder`` gives JAX's
+    output and the (skip stack, mid-block input) pair, one skip a resnet and
+    a downsampler and conv_in's; ``encoder_override`` runs the mid block
+    and the decoder on them, whatever the sample (the encoder is skipped),
+    to JAX's output. Then the pipeline's encoder_interval 2, with prompt
+    weighting and tile_vae, against the JAX package's generate(), every
+    step and the image at cosine > 0.9999."""
+    jp, x, ref = unet_case
+    port = load(punet.UNet2DConditionModel(punet.tiny_config()), jp)
+    pack_inference_params(port)
+    kw = dict(pooled_text_embeds=t(x["pooled_text_embeds"]), time_ids=t(x["time_ids"]),
+              ip_tokens=t(x["ip_tokens"]), ip_scale=0.7)
+    args = (t(x["timesteps"]), t(x["encoder_hidden_states"]))
+    with torch.no_grad():
+        eps, (stack, mid) = port(nchw(x["sample"]), *args, return_encoder=True, **kw)
+        other = port(nchw(randn(30, 2, 8, 8, 4)), *args, encoder_override=(stack, mid), **kw)
+    close(nhwc(eps), ref)
+    cfg = punet.tiny_config()
+    assert len(stack) == 1 + len(cfg.down_block_types) * (cfg.layers_per_block + 1) - 1
+    assert mid.shape == (2, cfg.block_out_channels[-1], 2, 2)
+    close(nhwc(other), ref)
+
+    jpipe, pipe = tiny_pipes()
+    image = np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
+    edit_parity(jpipe, pipe, image, steps=4, encoder_interval=2, prompt_weighting=True,
+                prompt="a (dog:1.4) on [grass]", negative_prompt="(lowres:0.8)", tile_vae=True)
 
 
 def test_vae_decode():
@@ -82,6 +107,15 @@ def test_vae_decode():
     with torch.no_grad():
         out = port.decode(nchw(lat))
     close(nhwc(out), ref)
+    # tile by tile with blended seams: 3 x 2 tiles of 8 latents, 2 apart
+    lat = randn(31, 1, 20, 12, 4)
+    ref = jax.jit(functools.partial(jvae.decode_tiled, cfg=cfg, policy=FP32, tile_latent_size=8,
+                                    overlap=2))(jp, latents=jnp.asarray(lat))
+    with torch.no_grad():
+        out = port.decode_tiled(nchw(lat), tile_latent_size=8, overlap=2)
+        whole = port.decode_tiled(nchw(lat[:, :8, :8]), tile_latent_size=8, overlap=2)
+    close(nhwc(out), ref)
+    torch.testing.assert_close(whole, port.decode(nchw(lat[:, :8, :8])), rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +142,12 @@ def test_vae_encode_moments(vae_case):
     with torch.no_grad():
         pm, plv = port.encode_moments(nchw(img))
         sample = port.encode(nchw(img), eps=nchw(eps))
+        # img2img's start: JAX's encode(sample=False), the scaled mean
+        scaled = port.encode_mean(nchw(img))
     close(nhwc(pm), mean)
     close(nhwc(plv), logvar)
     close(nhwc(sample), ref)
+    close(nhwc(scaled), mean * cfg.scaling_factor)
 
 
 def test_vae_encode_is_fp32_on_bf16_weights(vae_case):
@@ -162,6 +199,21 @@ def test_clip_text(tower):
     assert set(out) == set(ref)
     for k in ref:
         close(out[k], ref[k])
+    # clip_skip on a three-layer tower: an earlier layer's states, the whole
+    # tower's pooled output; out-of-range values raise on both sides
+    jcfg = jct.tiny_config(num_layers=3, **cfg)
+    jp = jct.init(1, jcfg)
+    port = load(pct.CLIPTextModel(pct.tiny_config(num_layers=3, **cfg)), jp)
+    for skip in (0, 1):
+        ref = jct.apply(jp, jcfg, jnp.asarray(ids), policy=FP32, clip_skip=skip)
+        with torch.no_grad():
+            out = port(torch.as_tensor(ids, dtype=torch.long), clip_skip=skip)
+        for k in ref:
+            close(out[k], ref[k])
+    with pytest.raises(ValueError, match="clip_skip"):
+        jct.apply(jp, jcfg, jnp.asarray(ids), clip_skip=2)
+    with pytest.raises(ValueError, match="clip_skip"):
+        port(torch.as_tensor(ids, dtype=torch.long), clip_skip=2)
 
 
 def test_encode_for_sdxl():
@@ -230,34 +282,116 @@ def test_harmony_other_fusions_not_ported():
         pha.HarmonyAttention(pha.tiny_config(fusion_method="qformer"))
 
 
+KINDS = ("euler", "euler_a", "ddim", "dpm++", "lcm")
+
+
 @pytest.mark.parametrize("steps", [1, 3, 30, 50])
 def test_euler_schedule_constants(steps):
-    """SDXL's scheduler config: scaled_linear betas, leading spacing."""
+    """SDXL's scheduler config (scaled_linear betas, leading spacing), and
+    every sampler kind at every combination of spacing, Karras sigmas,
+    prediction type, zero-SNR and beta schedule: the same timesteps, sigmas
+    (alpha-cumprods for ddim and lcm) and initial sigma as JAX's, or the
+    same refusal."""
     np.testing.assert_array_equal(psched.alphas_cumprod(psched.NoiseScheduleConfig()),
                                   jsched.alphas_cumprod(jsched.NoiseScheduleConfig()))
     ref, out = jsched.euler_schedule(steps), psched.euler_schedule(steps)
     np.testing.assert_array_equal(out.timesteps, np.asarray(ref.timesteps))
     np.testing.assert_array_equal(out.sigmas, np.asarray(ref.sigmas))
     assert out.init_noise_sigma == ref.init_noise_sigma
+    refused = 0
+    for kind, spacing, karras, pred, zsnr, betas in itertools.product(
+            KINDS, ("leading", "trailing", "linspace"), (False, True), psched.PREDICTION_TYPES,
+            (False, True), ("scaled_linear", "linear")):
+        kw = dict(timestep_spacing=spacing, use_karras_sigmas=karras, prediction_type=pred,
+                  rescale_betas_zero_snr=zsnr, beta_schedule=betas)
+        try:
+            ref = jsched.make(kind, steps, jsched.NoiseScheduleConfig(**kw))
+        except ValueError:
+            refused += 1
+            with pytest.raises(ValueError):
+                psched.make(kind, steps, psched.NoiseScheduleConfig(**kw))
+            continue
+        out = psched.make(kind, steps, psched.NoiseScheduleConfig(**kw))
+        assert (out.kind, out.init_noise_sigma) == (ref.kind, ref.init_noise_sigma)
+        np.testing.assert_array_equal(out.timesteps, np.asarray(ref.timesteps))
+        np.testing.assert_array_equal(out.sigmas, np.asarray(ref.sigmas))
+    assert refused == 3 * 3 * 2 * 2 * 3  # Karras on euler_a, ddim and lcm
 
 
 def test_euler_step_and_input_scaling():
-    """The port's step functions take each step's sigmas as 0-dim fp32
-    tensors, read from its ``scan_constants`` tables; Euler carries no
-    solver state, so the port's step is JAX's ``step_s`` without one."""
-    sched_j, sched_p = jsched.make("euler", 5), psched.make("euler", 5)
-    _, sigmas, sigmas_next = psched.scan_constants(sched_p)
-    lat, eps = randn(12, 2, 8, 8, 4) * 10, randn(13, 2, 8, 8, 4)
-    for i in range(5):
-        s, sn = sched_j.sigmas[i], sched_j.sigmas[i + 1]
-        ps, psn = sigmas[i], sigmas_next[i]
-        close(psched.scale_model_input_c("euler", ps, t(lat)),
-              jsched.scale_model_input_c("euler", s, jnp.asarray(lat)), rtol=1e-6, atol=1e-6)
-        out = psched.step_c("euler", ps, psn, t(eps), t(lat))
-        ref, _ = jsched.step_s("euler", s, sn, jnp.asarray(eps), jnp.asarray(lat), ())
-        close(out, ref, rtol=1e-6, atol=1e-5)
+    """The port's step functions take each step's constants as 0-dim fp32
+    tensors read from its ``scan_constants`` tables. For every kind and
+    prediction type (v-prediction at zero terminal SNR) on seeded fp32
+    inputs, over a 3-step chain, each side fed its own last output: the
+    input scaling, ``step_c`` and ``step_s`` against JAX's (DPM++'s history
+    through first-order, second-order and the final first-order step onto
+    sigma 0; Euler-a and LCM fed the z that JAX's key splitting draws), and
+    ``noise_to_level`` and ``img2img_init``."""
+    lat, noise = randn(12, 2, 8, 8, 4) * 10, randn(13, 2, 8, 8, 4)
+    for kind, pred in itertools.product(KINDS, psched.PREDICTION_TYPES):
+        kw = dict(prediction_type=pred, rescale_betas_zero_snr=pred == "v_prediction")
+        sched_j = jsched.make(kind, 3, jsched.NoiseScheduleConfig(**kw))
+        sched_p = psched.make(kind, 3, psched.NoiseScheduleConfig(**kw))
+        ts, sigmas, sigmas_next = psched.scan_constants(sched_p)
+        key = jax.random.PRNGKey(5) if kind in psched.STOCHASTIC else None
+        state_j = jsched.init_solver_state(kind, jnp.asarray(lat), key)
+        state_p = psched.init_solver_state(kind, t(lat))
+        x_j, x_p = jnp.asarray(lat), t(lat)
+        for i in range(3):
+            s, sn, tt = sched_j.sigmas[i], sched_j.sigmas[i + 1], sched_j.timesteps[i]
+            m = randn(20 + i, 2, 8, 8, 4)
+            close(psched.scale_model_input_c(kind, sigmas[i], x_p),
+                  jsched.scale_model_input_c(kind, s, x_j))
+            z = None
+            if key is not None:  # the draw JAX's step_s makes from its key
+                z = t(jax.random.normal(jax.random.split(state_j["key"])[1], x_j.shape))
+            if kind in ("euler", "ddim"):
+                close(psched.step_c(kind, sigmas[i], sigmas_next[i], t(m), x_p, pred),
+                      jsched.step_c(kind, s, sn, jnp.asarray(m), x_j, pred))
+            x_j, state_j = jsched.step_s(kind, s, sn, jnp.asarray(m), x_j, state_j, pred,
+                                         timestep=tt)
+            x_p, state_p = psched.step_s(kind, sigmas[i], sigmas_next[i], t(m), x_p, state_p,
+                                         pred, timestep=ts[i], z=z)
+            close(x_p, x_j)
+            if kind == "dpm++":
+                for k in ("x0", "lam", "valid"):
+                    close(state_p[k], state_j[k])
+        close(psched.noise_to_level(kind, sigmas[1], t(lat), t(noise)),
+              jsched.noise_to_level(kind, sched_j.sigmas[1], jnp.asarray(lat),
+                                    jnp.asarray(noise)))
+        close(psched.img2img_init(sched_p, t(lat), t(noise)),
+              jsched.img2img_init(sched_j, jnp.asarray(lat), jnp.asarray(noise)))
 
 
 def test_other_schedulers_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        psched.make("ddim", 10)
+    """Every sampler is ported now; what this holds is the schedule's cuts
+    against JAX's (the base/refiner split's denoising_end and
+    denoising_start, img2img's skipped steps) and the refusals: an unknown
+    kind, lcm with a split, a strength outside (0, 1], a missing draw."""
+    for kind, steps, end, start, strength in itertools.product(
+            KINDS, (5, 30), (None, 0.5, 0.8), (None, 0.8), (None, 0.3, 0.6, 1.0)):
+        skip = 0 if strength is None else jsched.img2img_skip_steps(steps, strength)
+        assert skip == (0 if strength is None else psched.img2img_skip_steps(steps, strength))
+        kw = dict(denoising_end=end, denoising_start=start, skip_steps=skip)
+        try:
+            ref = jsched.make(kind, steps, **kw)
+        except ValueError:
+            with pytest.raises(ValueError, match="lcm"):
+                psched.make(kind, steps, **kw)
+            continue
+        out = psched.make(kind, steps, **kw)
+        assert out.init_noise_sigma == ref.init_noise_sigma and out.kind == ref.kind
+        np.testing.assert_array_equal(out.timesteps, np.asarray(ref.timesteps))
+        np.testing.assert_array_equal(out.sigmas, np.asarray(ref.sigmas))
+        if end is not None:
+            assert psched.steps_for_denoising_end(steps, end) == \
+                jsched.steps_for_denoising_end(steps, end)
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        psched.make("heun", 10)
+    with pytest.raises(ValueError, match="strength"):
+        psched.img2img_skip_steps(10, 0.0)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="draw"):
+        psched.step_s("euler_a", one, one, torch.zeros(2), torch.zeros(2), None)
+    with pytest.raises(ValueError, match="multistep"):
+        psched.step_c("dpm++", one, one, torch.zeros(2), torch.zeros(2))

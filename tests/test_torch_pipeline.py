@@ -1,6 +1,9 @@
 """The ported slice as a whole, on the CPU: the port loaded with the JAX
 tiny pipeline's weights against the fp32 golden trajectory, the CFG-packed
-conditioning against JAX's, generate(), the tokenizer, io/from_jax, the
+conditioning against JAX's, generate() with the JAX one-call signature and
+the sampler zoo and edit features against the JAX package's generate() in
+grouped calls (every step and the output at cosine > 0.9999), the
+tokenizer with prompt weighting and textual inversion, io/from_jax, the
 checkpoint loader against JAX's on trees the JAX package wrote, and that
 the port runs without JAX."""
 
@@ -32,7 +35,7 @@ from imagharmony_tpu_torch.pipelines import components as pcomp
 from imagharmony_tpu_torch.pipelines import harmony_edit as phe
 from imagharmony_tpu_torch.schedulers import diffusion as psched
 from imagharmony_tpu_torch.utils import parity
-from torch_port_util import close
+from torch_port_util import close, edit_parity, tiny_pipes
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "goldens" / "tiny_edit_fp32.npz"
@@ -41,12 +44,7 @@ GOLDEN = REPO / "tests" / "goldens" / "tiny_edit_fp32.npz"
 @pytest.fixture(scope="module")
 def pipes():
     """(JAX tiny pipeline, the port over the same weights, fp32 on the CPU)."""
-    jpipe = JaxPipeline.random_tiny(seed=0)
-    jpipe.policy = jdt.FP32
-    params = jax.device_get(jpipe.params)
-    cfgs = pcomp.tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder))
-    port = phe.HarmonyPipeline.from_state_dict(from_jax.state_dict(params), cfgs, device="cpu")
-    return jpipe, port
+    return tiny_pipes()
 
 
 def _image():
@@ -68,6 +66,12 @@ def test_tiny_edit_matches_golden(pipes):
     img = port.generate(_image(), prompt="a dog", extra_text="six dogs", num_inference_steps=3,
                         height=32, width=32, noise=gold["noise"], output_type="raw")
     np.testing.assert_array_equal(img.numpy(), cap["image"])
+    # the base/refiner handoff: denoising_end returns JAX's latents, which
+    # denoising_start takes (each side a grouped call against JAX's)
+    jpipe, _ = pipes
+    _, lat = edit_parity(jpipe, port, _image(), steps=5, denoising_end=0.6)
+    assert lat.shape == (1, 16, 16, 4)
+    edit_parity(jpipe, port, _image(), steps=5, denoising_start=0.6, latents=lat)
 
 
 def test_build_conditioning_matches_jax(pipes):
@@ -88,11 +92,41 @@ def test_build_conditioning_matches_jax(pipes):
     for o, r in zip(out, ref):
         assert tuple(o.shape) == tuple(r.shape)
         close(o, r)
+    # prompt weights on both prompts, the micro-conditioning overrides with
+    # their negative rows, and no image: ip2 is None (text-to-image)
+    sizes = dict(original_size=(64, 48), crops_coords_top_left=(4, 8), target_size=(40, 32),
+                 negative_original_size=(16, 16), negative_crops_coords_top_left=(2, 0))
+    opts_j, opts_p = jhe.EditOptions(height=32, width=32, **sizes), \
+        phe.EditOptions(height=32, width=32, **sizes)
+    w = np.linspace(0.5, 1.5, ids_p["pos_l"].shape[1], dtype=np.float32)[None]
+    ids_j.update(pos_w=jnp.asarray(w), neg_w=jnp.asarray(w[:, ::-1]))
+    ids_p.update(pos_w=torch.as_tensor(w), neg_w=torch.as_tensor(w[:, ::-1].copy()))
+    ref = jax.jit(functools.partial(jhe.build_conditioning, cfgs=jpipe.cfgs, opts=opts_j,
+                                    num_samples=2, policy=jdt.FP32))(
+        jpipe.params, ids=ids_j, pixel_values=None)
+    with torch.no_grad():
+        out = phe.build_conditioning(port.components, opts_p, ids_p, None, num_samples=2)
+    assert out[3] is None and ref[3] is None
+    for o, r in zip(out[:3], ref[:3]):
+        close(o, r)
+    np.testing.assert_array_equal(phe.time_ids_rows(opts_p).numpy(),
+                                  [opts_j.time_ids(negative=True), opts_j.time_ids()])
+    # a grouped call: DPM++ 2M Karras, guidance_rescale, the overrides, a
+    # negative prompt and clip_skip 1, on three-layer text towers
+    jdeep, deep = tiny_pipes(3)
+    edit_parity(jdeep, deep, _image(), steps=4, scheduler="dpm++", use_karras_sigmas=True,
+                guidance_rescale=0.7, clip_skip=1, negative_prompt="ugly, blurry",
+                **{k: v for k, v in sizes.items() if k != "target_size"},
+                negative_target_size=(24, 24))
 
 
-def test_generate_tiny():
+def test_generate_tiny(pipes):
     """generate() end to end on the CPU: uint8 (1, H, W, 3), deterministic
-    for a seed, phase timings recorded on request."""
+    for a seed, phase timings recorded on request; the output types, seed
+    lists, text-to-image and pixel_values; the refusals (unported items
+    raise NotImplementedError, bad combinations ValueError, before any
+    work); and two grouped calls against the JAX package's generate():
+    Euler-a with inpainting, LCM with no CFG and no image."""
     pipe = phe.HarmonyPipeline.random_tiny(seed=0, device="cpu")
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=2, height=32,
               width=32, seed=3)
@@ -105,37 +139,150 @@ def test_generate_tiny():
     assert set(timings) == {"conditioning_s", "denoise_s", "decode_s"}
     with pytest.raises(ValueError, match="noise must be"):
         pipe.generate(_image(), noise=np.zeros((1, 8, 8, 4), np.float32), **kw)
+    pil = pipe.generate(_image(), output_type="pil", **kw)
+    assert len(pil) == 1 and pil[0].size == (32, 32)
+    np.testing.assert_array_equal(np.asarray(pil[0]), a[0])
+    lat = pipe.generate(_image(), output_type="latent", **kw)
+    assert lat.shape == (1, 16, 16, 4)
+    np.testing.assert_array_equal(phe.to_uint8(phe.decode(pipe.components, lat.permute(
+        0, 3, 1, 2))), a)
+    px = pipe._pixel_values(_image()).numpy()
+    np.testing.assert_array_equal(pipe.generate(pixel_values=px, **kw), a)
+    t2i = pipe.generate(None, output_type="raw", **kw)
+    assert torch.isfinite(t2i).all() and not torch.equal(t2i, raw)
+    # a seed list: one generator a sample, so sample i is a run of seed i
+    two = dict(kw, seed=[5, 3], num_samples=2)
+    call, one = pipe.prepare(_image(), **two), pipe.prepare(_image(), **kw)
+    assert torch.equal(call.noise[1:], one.noise)
+    out = pipe.generate(_image(), output_type="raw", **two)
+    torch.testing.assert_close(out[1:], raw, rtol=0, atol=1e-5)
+    refused = [(NotImplementedError, dict(control_image=_image())),
+               (NotImplementedError, dict(callback_on_step_end=lambda *a: None)),
+               (NotImplementedError, dict(chunk_steps=2)),
+               (NotImplementedError, dict(aesthetic_score=6.0)),
+               (ValueError, dict(mask_image=np.ones((32, 32), np.float32))),
+               (ValueError, dict(latents=np.zeros((1, 16, 16, 4), np.float32))),
+               (ValueError, dict(init_image=_image(), denoising_start=0.5)),
+               (ValueError, dict(init_image=_image(), strength=0.0)),
+               (ValueError, dict(scheduler="heun")),
+               (ValueError, dict(scheduler="ddim", use_karras_sigmas=True)),
+               (ValueError, dict(scheduler="lcm", denoising_end=0.5)),
+               (ValueError, dict(output_type="tensor")),
+               (ValueError, dict(prediction_type="x0")),
+               (ValueError, dict(encoder_interval=0)),
+               (ValueError, dict(clip_skip=1)),
+               (ValueError, dict(seed=[1, 2])),
+               (ValueError, dict(_step_noise=np.zeros((2, 1, 16, 16, 4), np.float32)))]
+    for err, extra in refused:
+        with pytest.raises(err):
+            pipe.prepare(_image(), **dict(kw, **extra))
+
+    jpipe, port = pipes
+    mask = np.zeros((32, 32), np.float32)
+    mask[8:24, 4:20] = 1.0
+    cap, _ = edit_parity(jpipe, port, _image(), scheduler="euler_a", init_image=_image(),
+                         mask_image=mask)
+    keep = phe.preprocess_mask(mask, 32, 32, 2)[0, :, :, 0] == 0
+    assert keep.any() and not keep.all()
+    edit_parity(jpipe, port, None, scheduler="lcm", guidance_scale=1.0)
 
 
-def test_ip_scale_schedule_and_time_ids_match_jax():
+def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
+    """The per-step IP scales, the micro-conditioning rows (with negative
+    overrides), the scan's five-row table (JAX's xs with the inpaint blend
+    levels), the schedule and IP scales an img2img or denoising_start call
+    runs (JAX's ``_edit_jit`` slicing), and a grouped call: DDIM with
+    trailing spacing, v-prediction and zero-SNR on an img2img at strength
+    0.6 with an IP window."""
     for start, end in [(0.0, 1.0), (0.2, 0.7)]:
         kw = dict(num_inference_steps=10, ip_scale=0.6, control_guidance_start=start,
                   control_guidance_end=end)
         np.testing.assert_array_equal(phe.ip_scale_schedule(phe.EditOptions(**kw)),
                                       jhe.ip_scale_schedule(jhe.EditOptions(**kw)))
     assert phe.EditOptions(height=768).time_ids() == jhe.EditOptions(height=768).time_ids()
-    # the scan's per-step tables: JAX's xs, scan_constants(schedule) + (ip_scales,)
-    for steps in (1, 30):
-        opts_p = phe.EditOptions(num_inference_steps=steps, ip_scale=0.6,
-                                 control_guidance_start=0.2, control_guidance_end=0.7)
-        opts_j = jhe.EditOptions(num_inference_steps=steps, ip_scale=0.6,
-                                 control_guidance_start=0.2, control_guidance_end=0.7)
-        sched_p, sched_j = psched.make("euler", steps), jsched.make("euler", steps)
+    sizes = dict(height=768, original_size=(512, 640), negative_target_size=(256, 256),
+                 negative_crops_coords_top_left=(3, 5))
+    for neg in (False, True):
+        assert phe.EditOptions(**sizes).time_ids(negative=neg) == \
+            jhe.EditOptions(**sizes).time_ids(negative=neg)
+    # the scan's per-step tables: JAX's xs, scan_constants(schedule) +
+    # (ip_scales, inpaint blend levels), for a cut schedule too
+    for kind, steps, extra in (("euler", 1, {}), ("euler", 30, {}), ("ddim", 30, {}),
+                               ("lcm", 4, {}), ("dpm++", 30, dict(img2img_skip=12)),
+                               ("euler_a", 30, dict(denoising_start=0.8)),
+                               ("euler", 30, dict(denoising_end=0.8))):
+        kw = dict(num_inference_steps=steps, ip_scale=0.6, scheduler=kind,
+                  control_guidance_start=0.2, control_guidance_end=0.7, **extra)
+        opts_p, opts_j = phe.EditOptions(**kw), jhe.EditOptions(**kw)
+        sched_p, ip_p = phe.schedule_for(opts_p)
+        cfg_j = jhe.sched_config(opts_j)
+        sched_j = jsched.make(kind, steps, cfg_j, denoising_end=opts_j.denoising_end,
+                              denoising_start=opts_j.denoising_start,
+                              skip_steps=opts_j.img2img_skip)
+        n_skip = opts_j.img2img_skip + (jsched.steps_for_denoising_end(
+            steps, opts_j.denoising_start, cfg_j) if opts_j.denoising_start else 0)
         ref = [np.asarray(x) for x in jsched.scan_constants(sched_j)]
+        ref += [jhe.ip_scale_schedule(opts_j)[n_skip: n_skip + sched_j.num_steps],
+                np.asarray(jhe._inpaint_blend_levels(sched_j))]
         for o, r in zip(psched.scan_constants(sched_p), ref):
-            assert o.dtype == torch.float32 and o.shape == (steps,)
+            assert o.dtype == torch.float32 and o.shape == (sched_j.num_steps,)
             np.testing.assert_array_equal(o.numpy(), r)
-        tables = phe.scan_tables(sched_p, phe.ip_scale_schedule(opts_p))
-        np.testing.assert_array_equal(tables.numpy(),
-                                      np.stack(ref + [jhe.ip_scale_schedule(opts_j)]))
+        np.testing.assert_array_equal(ip_p, ref[3])
+        tables = phe.scan_tables(sched_p, ip_p)
+        assert tables.shape == (phe.STEP_ROWS, sched_j.num_steps)
+        np.testing.assert_array_equal(tables.numpy(), np.stack(ref))
+
+    jpipe, port = pipes
+    edit_parity(jpipe, port, _image(), steps=5, scheduler="ddim", timestep_spacing="trailing",
+                prediction_type="v_prediction", rescale_zero_snr=True, init_image=_image(),
+                strength=0.6, control_guidance_start=0.2, control_guidance_end=0.8)
 
 
 @pytest.mark.parametrize("text", ["a dog", "a photo of eight sheep!", "", "Six   CATS, a dog"])
-def test_tokenizer_ids_match_jax(text):
+def test_tokenizer_ids_match_jax(text, pipes, tmp_path):
+    """The toy tokenizer's ids; the prompt-attention grammar and the
+    weighted tokenization (ids and weights) against JAX's; and textual
+    inversion from a synthesized dual-tower .safetensors file: the token
+    ids of a prompt holding the placeholder and the text conditioning
+    against JAX's, the base pipeline untouched."""
+    from imagharmony_tpu.io import safetensors_io
+    from imagharmony_tpu.utils import prompts as jprompts
+    from imagharmony_tpu_torch.utils import prompts as pprompts
+
     ours, theirs = ptok.build_toy_tokenizer(), jtok.build_toy_tokenizer()
     assert ours.encode(text) == theirs.encode(text)
     for a, b in zip(ptok.SDXLTokenizers(ours, ours)(text), jtok.SDXLTokenizers(theirs, theirs)(text)):
         np.testing.assert_array_equal(a, b)
+    jpipe, port = pipes
+    for prompt in (text, f"({text}:1.3), [red] (((sheep)))", f"\\({text}\\) [x:0.5]"):
+        assert pprompts.parse_prompt_attention(prompt) == jprompts.parse_prompt_attention(prompt)
+        ours, theirs = port._tokenize_weighted(prompt), jpipe._tokenize_weighted(prompt)
+        for a, b in zip(ours[:2], theirs[:2]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert (ours[2] is None) == (theirs[2] is None)
+        if ours[2] is not None:
+            np.testing.assert_array_equal(ours[2].numpy(), theirs[2])
+
+    rng = np.random.default_rng(len(text))
+    rows = {"clip_l": rng.standard_normal((2, port.cfgs.text_l.hidden_size)).astype(np.float32),
+            "clip_g": rng.standard_normal((2, port.cfgs.text_g.hidden_size)).astype(np.float32)}
+    path = tmp_path / "ti.safetensors"
+    safetensors_io.save(str(path), rows)
+    ti_p = port.with_textual_inversion(str(path), token="<cat-toy>")
+    ti_j = jpipe.with_textual_inversion(str(path), token="<cat-toy>")
+    assert ti_p.programs == {} and ti_p.components.unet is port.components.unet
+    assert port.cfgs.text_l.vocab_size == ti_p.cfgs.text_l.vocab_size - 2
+    prompt = f"{text} <cat-toy> dog"
+    ids_p, ids_j = ti_p._tokenize(prompt), ti_j._tokenize(prompt)
+    for a, b in zip(ids_p, ids_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with torch.no_grad():
+        ctx, pooled = phe.encode_texts(ti_p.components, *ids_p)
+    ref_ctx, ref_pooled = jhe.encode_texts(ti_j.params, ti_j.cfgs, *ids_j, policy=jdt.FP32)
+    close(ctx, ref_ctx)
+    close(pooled, ref_pooled)
+    assert port._tokenize(prompt)[0].shape == ids_p[0].shape  # the base tokenizer is as it was
+    assert "<cat-toy>" not in port.tokenizers.tok1.added_tokens
 
 
 def _write_jax_tree(root, params, cfgs, toy):

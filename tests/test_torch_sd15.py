@@ -354,7 +354,8 @@ def test_tiny_pipeline_matches_jax(kind):
     if kind == "sd15":
         assert port.components.harmony is None and port.components.text_encoder_2 is None
     noise = randn(11, 1, 8, 8, 4)
-    kw = dict(prompt="a dog", steps=3, height=32, width=32, noise=noise)
+    # the noise's size: the latents of a 16² image (VAE downscale 2)
+    kw = dict(prompt="a dog", steps=3, height=16, width=16, noise=noise)
     ref = jparity.run_capture(jpipe, _image(), **kw)
     cap = parity.run_capture(port, _image(), **kw)
     rep = parity.compare(cap, ref)
@@ -363,10 +364,13 @@ def test_tiny_pipeline_matches_jax(kind):
     assert rep["image_cosine"] > 0.9999, rep
 
 
-def test_sd15_conditioning_matches_jax():
+def test_sd15_conditioning_matches_jax(tmp_path):
     """CFG-packed SD1.5 conditioning with num_samples=2: the context is
     CLIP-L's last state, pooled and time ids are None, the unconditional IP
-    tokens come from a zeroed embedding."""
+    tokens come from a zeroed embedding. Then textual inversion from a
+    synthesized A1111 ``.pt`` file (``torch.save``; the token named in it),
+    read by the port's ``io/torch_zip``: the ids of a prompt holding the
+    placeholder and the text conditioning against JAX's."""
     import jax
     import jax.numpy as jnp
     from imagharmony_tpu import dtypes as jdt
@@ -389,6 +393,20 @@ def test_sd15_conditioning_matches_jax():
     for i in (0, 3):
         assert tuple(out[i].shape) == tuple(ref[i].shape)
         close(out[i], ref[i])
+
+    rows = np.random.default_rng(4).standard_normal((3, port.cfgs.text_l.hidden_size))
+    path = tmp_path / "concept.pt"
+    torch.save({"string_to_param": {"*": torch.as_tensor(rows, dtype=torch.float32)},
+                "name": "<sheep-toy>"}, path)
+    ti_p, ti_j = port.with_textual_inversion(str(path)), jpipe.with_textual_inversion(str(path))
+    prompt = "a <sheep-toy> on grass"
+    ids_p, ids_j = ti_p._tokenize(prompt), ti_j._tokenize(prompt)
+    for a, b in zip(ids_p, ids_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int((ids_p[0] >= port.cfgs.text_l.vocab_size).sum()) == 3
+    with torch.no_grad():
+        ctx, _ = phe.encode_texts(ti_p.components, *ids_p)
+    close(ctx, jhe.encode_texts(ti_j.params, ti_j.cfgs, *ids_j, policy=jdt.FP32)[0])
 
 
 def test_sd15_generate_and_scale():

@@ -9,6 +9,8 @@ matmul precision).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -66,3 +68,113 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_pipes(text_layers=2):
+    """(JAX tiny SDXL pipeline, the port over the same weights), fp32 on the
+    CPU, built once a process; ``text_layers``: the depth of both text
+    towers (clip_skip needs three)."""
+    import dataclasses
+
+    import jax
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.models import tokenizer as jtok
+    from imagharmony_tpu.pipelines import HarmonyPipeline as JaxPipeline
+    from imagharmony_tpu.pipelines import components as jcomp
+    from imagharmony_tpu_torch.pipelines import components as pcomp
+    from imagharmony_tpu_torch.pipelines import harmony_edit as phe
+
+    def deepen(cfgs):
+        return dataclasses.replace(
+            cfgs, text_l=dataclasses.replace(cfgs.text_l, num_layers=text_layers),
+            text_g=dataclasses.replace(cfgs.text_g, num_layers=text_layers))
+
+    if text_layers == 2:
+        jpipe = JaxPipeline.random_tiny(seed=0)
+    else:
+        toy = jtok.build_toy_tokenizer()
+        cfgs = deepen(jcomp.tiny_configs(vocab_size=len(toy.encoder)))
+        jpipe = JaxPipeline(jcomp.init_params(0, cfgs), cfgs, jtok.SDXLTokenizers(toy, toy))
+    jpipe.policy = jdt.FP32
+    cfgs = deepen(pcomp.tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder)))
+    port = phe.HarmonyPipeline.from_state_dict(
+        from_jax.state_dict(jax.device_get(jpipe.params)), cfgs, device="cpu")
+    return jpipe, port
+
+
+def jax_capture(jpipe, image, **kw):
+    """The JAX package's generate(image, **kw) with every step's latents
+    recorded: a debug callback on the scheduler step (on the inpaint blend,
+    where there is one) inside its one jitted program. -> (list of
+    (B, h, w, 4) step latents, the output as numpy)."""
+    import jax
+    from imagharmony_tpu.pipelines import harmony_edit as jhe
+    from imagharmony_tpu.schedulers import diffusion as jsched
+
+    steps, blends = [], []
+    step_s, blend = jsched.step_s, jhe._inpaint_blend
+
+    def recorded(fn, store):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            lat = out[0] if isinstance(out, tuple) else out
+            jax.debug.callback(lambda x: store.append(np.asarray(x, np.float32)), lat,
+                               ordered=True)
+            return out
+        return run
+
+    # a jit of its own, traced anew with the callbacks; the shared one's cache
+    # is left as it is
+    edit_jit = jhe._edit_jit
+    jhe._edit_jit = jax.jit(edit_jit.__wrapped__, static_argnames=(
+        "cfgs", "opts", "policy", "backend", "num_samples"))
+    jsched.step_s, jhe._inpaint_blend = recorded(step_s, steps), recorded(blend, blends)
+    try:
+        out = np.asarray(jpipe.generate(image, **kw), np.float32)
+    finally:
+        jsched.step_s, jhe._inpaint_blend, jhe._edit_jit = step_s, blend, edit_jit
+    return blends or steps, out
+
+
+def jax_step_draws(scheduler, seed, n, shape):
+    """The N(0, 1) draws the JAX package's stochastic samplers make in a
+    run of ``seed``: the ancestral key split once a step."""
+    import jax
+    import jax.numpy as jnp
+    from imagharmony_tpu.pipelines import harmony_edit as jhe
+
+    key, out = jhe.ancestral_key(scheduler, [seed]), []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
+    return np.stack(out)
+
+
+def edit_parity(jpipe, port, image, *, steps=3, seed=7, height=32, width=32, **kw):
+    """One grouped call: the JAX package's generate() and the port's eager
+    edit (``parity.run_capture``, the loop body generate()'s programs
+    capture) on JAX's initial noise (or the given handoff ``latents``) and,
+    for the stochastic samplers, JAX's per-step draws; every step's latents
+    and the output at cosine > 0.9999. Returns (port capture, JAX output)."""
+    import jax
+    import jax.numpy as jnp
+    from imagharmony_tpu_torch.utils import parity
+
+    kw = dict(dict(prompt="a dog", extra_text="six dogs", output_type="raw"), **kw)
+    j_steps, j_out = jax_capture(jpipe, image, num_inference_steps=steps, seed=seed,
+                                 height=height, width=width, **kw)
+    down = port.cfgs.vae.downscale
+    shape = (1, height // down, width // down, 4)
+    if kw.get("latents") is None:
+        kw["noise"] = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32))
+    if kw.get("scheduler") in ("euler_a", "lcm"):
+        kw["_step_noise"] = jax_step_draws(kw["scheduler"], seed, len(j_steps), shape)
+    cap = parity.run_capture(port, image, steps=steps, seed=seed, height=height, width=width,
+                             **kw)
+    rep = parity.compare(cap, {"latents": np.stack(j_steps), "image": j_out})
+    assert len(rep["per_step_cosine"]) == len(j_steps) == len(cap["latents"]) - 1, rep
+    assert cap["image"].shape == j_out.shape
+    assert rep["min_cosine"] > 0.9999, rep
+    assert rep["image_cosine"] > 0.9999, rep
+    return cap, j_out
