@@ -51,7 +51,10 @@ is non-zero:
    the text-only call's output bit for bit, and so does the weight given as
    a 0-dim fp32 tensor on the card (the kernel reads it from device memory,
    as a captured denoise step gives it), which at the shape's ip_scale
-   gives the float's output bit for bit;
+   gives the float's output bit for bit; a (B,) weight, one a row (the slot
+   engine's rows at different steps), matches the plain version under the
+   same gate, a vector of equal values gives the 0-dim weight's bits and a
+   row weighted 0 the text-only call's row;
 3e. K4's lse and K3 at head dims 40/80/160 against their plain versions at
    the SD1.5 training shapes, on views of a packed to_qkv tensor, K3 twice
    on the same inputs (bit-identical or fail), with timings of K3, the
@@ -182,7 +185,26 @@ is non-zero:
    gives (70 K1, K2 and K5 a UNet call, 46 on an encoder-reuse step, 16
    K4, K2 and K5 for SD1.5), its output finite; each with its wall time,
    per-step time, capture time and the memory its programs keep, dropped
-   before the next key's capture.
+   before the next key's capture;
+13. the serving path at full width on a fresh SDXL bf16 random_full(0)
+   (``phase_serve``): (a) ``generate_batch`` of four requests (their own
+   images, prompts, extra_texts and seeds), 30 steps, eagerly through the
+   module functions and through its captured programs (one capture, the
+   replay bit for bit the eager run, 2100 K1, K2 and K5 launches replayed
+   by kernel name, 300 K2 with the IP branch eagerly), each row against its
+   solo ``generate()`` (image cosine >= 0.999), with warm seconds, images/s
+   against four solo calls, peak memory and what the key keeps; then the
+   program cache's bound cut below its keys: the least recently used key
+   evicted and its memory returned; (b) the chunked runner
+   (``chunk_steps`` 5, a callback at each chunk) against generate() with
+   num_samples 2, bit for bit, 2100 of each kernel replayed; (c) a 4-slot
+   ``SlotEngine`` with a request admitted one chunk after another: its
+   latents and image bit for bit its solo engine run's, the chunk's
+   replayed launches (350 of each kernel), what the engine keeps; (d) both
+   workers through ``make_server`` on localhost, six requests of two batch
+   keys at 8 steps: every one answered, the packed worker packing, the
+   continuous one admitting mid-flight (``/status`` and ``admissions``),
+   ``pack_errors`` 0.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -212,6 +234,10 @@ step's (the wrappers' counts). "generate_loaded" is phase 11's warm
 ``generate()`` of the pipeline loaded from the tree, counted as
 "generate" is, and "generate_<tag>" phase 12's of each configuration
 (``feature_configs``' tags; "generate_sd15_dpmpp" the SD1.5 DPM++ edit).
+"generate_batch" is phase 13's replayed four-request ``generate_batch``
+("edit_eager_batch" its eager run's wrapper counts, "edit_eager_batch_ip"
+K2's with the IP branch), "generate_chunked" its replayed chunked runner,
+"engine_chunk" one replayed chunk (5 steps) of the 4-slot engine.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -252,6 +278,10 @@ SD15_SELF_ATTN_PER_UNET_CALL = 16  # SD1.5 at 512²: 5 + 5 + 5 + 1, see K4_SHAPE
 
 MAIN_SHAPES = [(4096, 10, 64), (1024, 20, 64)]
 EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
+# the serving path's UNet batch (phase 13): four requests' CFG pairs in
+# generate_batch, or a 4-slot engine's 2S rows. K1, K2 and K5 are held
+# against their plain versions at its shapes too (not timed)
+SERVE_BATCH = 8
 
 # K4, (B, S, H, D): the SD1.5 UNet's self-attentions at 512² with the CFG pair
 # on the batch axis (5, 5, 5 and 1 per UNet call), then an odd length
@@ -272,6 +302,13 @@ K2_SHAPES = [(2, 4096, 10, 64, 0, 1.0), (2, 1024, 20, 64, 0, 1.0), (2, 1024, 20,
              (2, 64, 8, 160, 4, 1.0)]
 K2_EDGES = [(2, 1024, 8, 80, 16, 0.7), (2, 256, 8, 160, 257, 0.7), (2, 1024, 8, 80, 4, 0.0),
             (2, 1000, 8, 40, 4, 0.5), (1, 256, 20, 64, 4, 1.0)]
+# K2 at the serving path's SDXL shapes, batch SERVE_BATCH
+K2_SERVE = [(SERVE_BATCH, sq, h, d, sk_ip, 1.0) for _, sq, h, d, sk_ip, _ in K2_SHAPES[:3]]
+# the per-row IP weights a check gives K2's first rows: distinct, row 1 zero,
+# within [0, 1] as the pipeline's are (0 or the IP scale, 1.0 by default;
+# a weight of 1.7 takes outputs to [4, 8), where one bf16 step is 0.03125,
+# past K1_MAX_ABS)
+K2_ROW_WEIGHTS = (0.75, 0.0, 1.0, 0.25, 0.9, 0.45, 0.6, 0.1)
 TEXT_KEYS = 77
 SDXL_CROSS_PER_UNET_CALL = 70
 SDXL_IP_CROSS_PER_UNET_CALL = 10  # down_blocks.2.attentions.1: 10 blocks at S=1024
@@ -307,6 +344,9 @@ CROSS_KERNEL = "cross_attn_wgmma_kernel"
 # K5_SPLIT, a long K whose tiles the tanh and no-gelu forms split along K
 # (the erf form keeps 64-column tiles whole there)
 K5_SPLIT = (2048, 5120, 1280)
+# the SDXL feed-forwards at the serving path's batch (4096 and 1024 tokens a
+# row at 1024²)
+K5_SERVE = [(SERVE_BATCH * 4096, 640, 2560), (SERVE_BATCH * 1024, 1280, 5120)]
 K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456), (4000, 200, 4104),
             K5_SPLIT]
 # K5 against the fp32 plain version on the same bf16 inputs: the bf16
@@ -516,8 +556,9 @@ def k2_bound(b, sq, h, d, sk_ip):
 def phase_k1(fa, split_heads):
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err, main_ms = 0.0, {}
-    for s, h, d in MAIN_SHAPES + EDGE_SHAPES:
-        qkv = torch.randn((2, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    for b, (s, h, d) in ([(2, shape) for shape in MAIN_SHAPES + EDGE_SHAPES]
+                         + [(SERVE_BATCH, shape) for shape in MAIN_SHAPES]):
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
         scale = d**-0.5
         out = fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d)
@@ -526,11 +567,13 @@ def phase_k1(fa, split_heads):
                                            scale=scale, head_dim=d)
         err = float((out.float() - ref).abs().max())
         cos = _cosine(out.float(), ref)
-        print(f"phase 3 K1 B=2 S={s} H={h} D={d}: max_abs={err:.3e} cosine={cos:.7f}", flush=True)
+        print(f"phase 3 K1 B={b} S={s} H={h} D={d}: max_abs={err:.3e} cosine={cos:.7f}",
+              flush=True)
         if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE):
-            raise AssertionError(f"K1 disagrees with its plain version at S={s} H={h} D={d}")
+            raise AssertionError(f"K1 disagrees with its plain version at B={b} S={s} H={h} "
+                                 f"D={d}")
         max_err = max(max_err, err)
-        if (s, h, d) in MAIN_SHAPES:
+        if b == 2 and (s, h, d) in MAIN_SHAPES:
             # the yardstick: one PyTorch call for the same function on the
             # same tensors viewed (B, H, S, D); the port never calls it
             qh, kh, vh = (x.view(2, s, h, d).transpose(1, 2) for x in (q, k, v))
@@ -693,7 +736,7 @@ def phase_k2(ca):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(4)
     max_err, times = 0.0, {}
-    for b, sq, h, d, sk_ip, ip_scale in K2_SHAPES + K2_EDGES:
+    for b, sq, h, d, sk_ip, ip_scale in K2_SHAPES + K2_SERVE + K2_EDGES:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
@@ -707,9 +750,10 @@ def phase_k2(ca):
         ref = ca.flash_cross_nhd_plain(*f32[:3], scale=d**-0.5, head_dim=d, k_ip=f32[3],
                                        v_ip=f32[4], ip_scale=ip_scale)
         err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+        out_err = err
         label = f"B={b} Sq={sq} H={h} D={d} IP keys={sk_ip} ip_scale={ip_scale}"
         same = "-"
-        if sk_ip and (b, sq, h, d, sk_ip, ip_scale) in K2_SHAPES:
+        if sk_ip and (b, sq, h, d, sk_ip, ip_scale) in K2_SHAPES + K2_SERVE:
             # ip_scale 0 adds exactly 0: the text-only call's output, bit for bit
             zero = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=0.0))
             text = ca.flash_cross_nhd(q, k, v, **dict(kw, k_ip=None, v_ip=None))
@@ -718,11 +762,29 @@ def phase_k2(ca):
             table = torch.tensor([0.0, ip_scale], device="cuda")
             zero_t = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=table[0]))
             live_t = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=table[1]))
+            # one weight a row (the slot engine's rows at different steps):
+            # equal values are the 0-dim weight's bits, a zero row the text
+            # branch's row, any weights the plain version's within the gate
+            equal = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=table[1].expand(b)
+                                                       .contiguous()))
+            rows = torch.tensor(K2_ROW_WEIGHTS[:b], device="cuda")
+            per_row = ca.flash_cross_nhd(q, k, v, **dict(kw, ip_scale=rows))
             torch.cuda.synchronize()
+            row_ref = ca.flash_cross_nhd_plain(*f32[:3], scale=d**-0.5, head_dim=d, k_ip=f32[3],
+                                               v_ip=f32[4], ip_scale=rows)
+            row_errs = (per_row.float() - row_ref).abs().flatten(1).amax(1).tolist()
+            row_err, row_cos = max(row_errs), _cosine(per_row.float(), row_ref)
+            err, cos = max(err, row_err), min(cos, row_cos)
             same = (torch.equal(zero, text) and torch.equal(zero_t, text)
-                    and torch.equal(live_t, out))
-        print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f}, ip_scale 0 bit-identical "
-              f"to text only and a device-tensor weight to the float {same}", flush=True)
+                    and torch.equal(live_t, out) and torch.equal(equal, out)
+                    and torch.equal(per_row[1], text[1]))
+        rows_msg = (f"; ip_scale {ip_scale} alone max_abs={out_err:.3e}, per-row weights "
+                    f"{[round(w, 2) for w in rows.tolist()]} max_abs by row "
+                    f"{[f'{e:.2e}' for e in row_errs]}" if same != "-" else "")
+        print(f"phase 3d K2 {label}: max_abs={err:.3e} cosine={cos:.7f} (with a per-row weight "
+              f"too{rows_msg}), ip_scale 0 bit-identical to text only, a device-tensor weight "
+              f"to the float, a per-row weight of equal values to the 0-dim one and its zero "
+              f"row to text only {same}", flush=True)
         if not (err <= K1_MAX_ABS and cos >= K1_MIN_COSINE and same is not False):
             raise AssertionError(f"K2 disagrees with its plain version at {label}")
         max_err = max(max_err, err)
@@ -828,7 +890,7 @@ def phase_k5(kg):
     linear = torch.nn.functional.linear
     gen = torch.Generator(device="cuda").manual_seed(7)
     max_err, times = 0.0, {}
-    for m, k, inner in K5_SHAPES + K5_EDGES:
+    for m, k, inner in K5_SHAPES + K5_SERVE + K5_EDGES:
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
@@ -1228,19 +1290,19 @@ def edit_modes(pipe, img, kw, fa, ca, kg, label, run_steps=None, first_call=None
     calls = []
     for _ in range(2):
         _reset_launches(fa, ca, kg)
-        before = len(pipe.programs)
+        before = pipe.programs.captures
         timings = {}
         out, wall = _timed(lambda: pipe.generate(img, timings=timings, **kw), dev)
-        calls.append((out, wall, timings, _launches(fa, ca, kg), len(pipe.programs) - before))
+        calls.append((out, wall, timings, _launches(fa, ca, kg), pipe.programs.captures - before))
         if len(calls) == 1:  # what the key's programs keep, and the call's output
             torch.cuda.empty_cache()
             kept = (torch.cuda.memory_reserved(dev) - reserved) / 2**30
     peak_graphs = torch.cuda.max_memory_allocated(dev) / 2**30
     (first, first_s, _, captured, n_first), (replay, replay_s, replay_t, replayed, n_second) = calls
     _reset_launches(fa, ca, kg)
-    before = len(pipe.programs)
+    before = pipe.programs.captures
     graph = replay_launches(lambda: _timed(lambda: pipe.generate(img, **kw), dev), label)
-    profiled, n_profiled = _launches(fa, ca, kg), len(pipe.programs) - before
+    profiled, n_profiled = _launches(fa, ca, kg), pipe.programs.captures - before
     expected = {"K1/K4": launches["K1"] + launches["K4"], "K2": launches["K2"],
                 "K5": launches["K5"]}
     capture_s = list(pipe.programs.values())[-1].capture_s
@@ -2230,6 +2292,358 @@ def phase_features(fa, ca, kg, HarmonyPipeline):
     return out
 
 
+SERVE_REQUESTS = 4
+SERVE_STEPS = 8  # (d)'s requests: the HTTP path, not the denoise depth, is its point
+SERVE_CHUNK = 5
+# (c)'s IP window: a row admitted a chunk after another runs steps off the
+# window while the other runs steps on it, so one replayed chunk gives K2
+# rows of weight 0 and of weight 1
+SERVE_IP_WINDOW = (0.1, 0.9)
+
+
+def _serve_requests(n):
+    """Phase 13's requests: 1024² images, prompts, extra_texts, seeds."""
+    rng = np.random.default_rng(13)
+    imgs = [rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8) for _ in range(n)]
+    prompts = ["a photo of six sheep on a meadow", "three red apples on a table",
+               "a photo of two dogs on a beach", "five birds on a wire"][:n]
+    extras = ["six sheep", "three apples", "two dogs", "five birds"][:n]
+    return imgs, prompts, extras, [11 + i for i in range(n)]
+
+
+def _reserved(dev):
+    """Bytes the allocator reserves on ``dev`` after empty_cache()."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def _kept(dev, reserved):
+    """GiB reserved since ``reserved`` (both after empty_cache())."""
+    return (_reserved(dev) - reserved) / 2**30
+
+
+def _drop_programs(pipe):
+    pipe.programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds):
+    """(a) generate_batch of the requests, eager and replayed."""
+    from imagharmony_tpu_torch.pipelines import harmony_edit as he
+
+    dev, n = pipe.device, len(imgs)
+    kw = dict(extra_texts=extras, seeds=seeds, num_inference_steps=FULL_STEPS)
+    _reset_launches(fa, ca, kg)
+    with torch.inference_mode():
+        eager, eager_s = _timed(lambda: he.edit(pipe.components, pipe.prepare_batch(
+            imgs, prompts, **kw)), dev)
+    eager_n = _launches(fa, ca, kg)
+    reserved = _reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = pipe.programs.captures
+    first, first_s = _timed(lambda: pipe.generate_batch(imgs, prompts, output_type="raw", **kw),
+                            dev)
+    kept = _kept(dev, reserved)
+    _reset_launches(fa, ca, kg)
+    timings = {}
+    replay, replay_s = _timed(lambda: pipe.generate_batch(imgs, prompts, output_type="raw",
+                                                          timings=timings, **kw), dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    wrapped = _launches(fa, ca, kg)
+    graph = replay_launches(lambda: _timed(lambda: pipe.generate_batch(
+        imgs, prompts, output_type="raw", **kw), dev), "phase 13a")
+    captures = pipe.programs.captures - before
+    # each request alone, on its own seed's noise: one warm-up call captures
+    # the solo key, then the four timed
+    solo_kw = dict(num_inference_steps=FULL_STEPS, output_type="raw")
+    pipe.generate(imgs[0], prompt=prompts[0], extra_text=extras[0], seed=[seeds[0]], **solo_kw)
+    solos, solo_s = [], 0.0
+    for i in range(n):
+        out, wall = _timed(lambda: pipe.generate(imgs[i], prompt=prompts[i], extra_text=extras[i],
+                                                 seed=[seeds[i]], **solo_kw), dev)
+        solos.append(out[0])
+        solo_s += wall
+    cos = [_cosine(replay[i].float(), solos[i].float()) for i in range(n)]
+    row = dict(requests=n, steps=FULL_STEPS, eager_s=eager_s, first_s=first_s, replay_s=replay_s,
+               replay_step_ms=timings["denoise_s"] / FULL_STEPS * 1e3,
+               decode_s=timings["decode_s"], images_per_s=n / replay_s,
+               solo_images_per_s=n / solo_s, solo_s=solo_s, peak_gib=peak, kept_gib=kept,
+               captures=captures, replay_equals_eager=torch.equal(replay, eager),
+               replay_equals_first=torch.equal(replay, first), row_cosine_vs_solo=cos,
+               launches_eager=eager_n, launches_replayed=graph)
+    print(f"phase 13a generate_batch of {n} requests at 1024², {FULL_STEPS} steps: "
+          f"{json.dumps(row)}", flush=True)
+    want = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    if tuple(replay.shape) != (n, 1024, 1024, 3) or not bool(torch.isfinite(replay).all()):
+        raise AssertionError(f"phase 13a: bad output {tuple(replay.shape)}")
+    if not (row["replay_equals_eager"] and row["replay_equals_first"]):
+        raise AssertionError("phase 13a: the replayed generate_batch differs from the eager run "
+                             "or from the first call")
+    if min(cos) < TINY_MIN_COSINE:
+        raise AssertionError(f"phase 13a: a packed row differs from its solo generate(): {cos}")
+    if graph != {"K1/K4": want, "K2": want, "K5": want} or any(wrapped.values()) \
+            or captures != 1 or eager_n["K2 IP"] != SDXL_IP_CROSS_PER_UNET_CALL * FULL_STEPS:
+        raise AssertionError(f"phase 13a: replayed launches {graph} (expected {want} each), "
+                             f"wrapper launches {wrapped}, captures {captures}, eager {eager_n}")
+    return row
+
+
+def _serve_lru(pipe):
+    """A key past the cache's bound is evicted and its memory returned."""
+    from imagharmony_tpu_torch.pipelines import programs
+
+    dev = pipe.device
+    n_keys = len(pipe.programs)
+    reserved = _reserved(dev)
+    evictions = pipe.programs.evictions
+    pipe.programs.resize(n_keys - 1)
+    freed = -_kept(dev, reserved)
+    pipe.programs.resize(programs.DEFAULT_CAPACITY)
+    row = dict(keys_before=n_keys, keys_after=len(pipe.programs),
+               evicted=pipe.programs.evictions - evictions, freed_gib=freed)
+    print(f"phase 13 cache bound {n_keys - 1}: {json.dumps(row)}", flush=True)
+    if row["evicted"] != 1 or row["keys_after"] != n_keys - 1 or freed <= 0.5:
+        raise AssertionError(f"phase 13: eviction did not return the key's memory: {row}")
+    return row
+
+
+def _serve_chunked(pipe, img, prompt, extra):
+    """(b) generate_chunked, 2 samples, chunk 5, against generate()."""
+    dev = pipe.device
+    kw = dict(prompt=prompt, extra_text=extra, num_samples=2, seed=0,
+              num_inference_steps=FULL_STEPS, output_type="raw")
+    reserved = _reserved(dev)
+    pipe.generate(img, **kw)  # captures the two-sample key
+    generate_kept = _kept(dev, reserved)
+    # timed twice: the first warm call follows the allocator's empty_cache()
+    ref, first_ref_s = _timed(lambda: pipe.generate(img, **kw), dev)
+    ref_again, ref_s = _timed(lambda: pipe.generate(img, **kw), dev)
+    reserved = _reserved(dev)
+    seen = []
+    first, first_s = _timed(lambda: pipe.generate(
+        img, chunk_steps=SERVE_CHUNK, callback_on_step_end=lambda i, _: seen.append(i), **kw),
+        dev)
+    kept = _kept(dev, reserved)
+    out, out_s = _timed(lambda: pipe.generate(img, chunk_steps=SERVE_CHUNK, **kw), dev)
+    graph = replay_launches(lambda: _timed(lambda: pipe.generate(
+        img, chunk_steps=SERVE_CHUNK, **kw), dev), "phase 13b")
+    diff = float((out.float() - ref.float()).abs().max())
+    row = dict(samples=2, chunk=SERVE_CHUNK, steps=FULL_STEPS, first_generate_s=first_ref_s,
+               generate_s=ref_s, generate_kept_gib=generate_kept, first_chunked_s=first_s,
+               chunked_s=out_s, kept_gib=kept, callback_steps=seen,
+               bit_identical=torch.equal(out, ref) and torch.equal(ref_again, ref),
+               max_abs=diff, image_cosine=_cosine(out.float(), ref.float()),
+               replays_equal=torch.equal(out, first), launches_replayed=graph)
+    print(f"phase 13b generate_chunked vs generate(num_samples=2): {json.dumps(row)}", flush=True)
+    want = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    if not (row["bit_identical"] and row["replays_equal"]):
+        raise AssertionError(f"phase 13b: the chunked runner differs from generate(): {row}")
+    if seen != list(range(SERVE_CHUNK, FULL_STEPS + 1, SERVE_CHUNK)) \
+            or graph != {"K1/K4": want, "K2": want, "K5": want}:
+        raise AssertionError(f"phase 13b: callback steps {seen}, launches {graph}")
+    return row
+
+
+def _engine_run(pipe, opts, jobs, admit_at):
+    """A 4-slot engine: ``jobs`` [(token, admit kwargs)], job j admitted
+    before chunk ``admit_at[j]``; until all are harvested. -> ({token:
+    (uint8 image, its final latents)}, [slot steps at each admission],
+    seconds a chunk, the engine)."""
+    from imagharmony_tpu_torch.pipelines import continuous
+
+    eng = continuous.SlotEngine(pipe, opts, slots=SERVE_REQUESTS, chunk=SERVE_CHUNK)
+    out, at_admit, chunk_s, slot_of = {}, [], [], {}
+    for c in range(4 * FULL_STEPS):
+        for (tok, kw), when in zip(jobs, admit_at):
+            if when == c:
+                at_admit.append(eng.progress().tolist())
+                slot_of[tok] = eng.admit(tok, **kw)
+        steps = eng.progress()
+        for tok, i in slot_of.items():  # the finished rows' latents, before harvest
+            if tok not in out and steps[i] >= eng.num_steps:
+                out[tok] = [None, eng.latents[i].clone()]
+        for tok, img in eng.harvest():
+            out[tok][0] = img
+        if len(out) == len(jobs) and all(v[0] is not None for v in out.values()):
+            break
+        _, wall = _timed(eng.run_chunk, pipe.device)
+        chunk_s.append(wall)
+    return out, at_admit, statistics.median(chunk_s[1:] or chunk_s), eng
+
+
+def _serve_engine(pipe, img, prompts, extras, seeds):
+    """(c) a 4-slot engine with a mid-flight admission, against B's solo
+    engine run, under an IP window that gives the rows of one chunk
+    different weights."""
+    from imagharmony_tpu_torch.pipelines import harmony_edit as he
+
+    dev = pipe.device
+    opts = he.EditOptions(num_inference_steps=FULL_STEPS, guidance_scale=5.0, use_harmony=True,
+                          control_guidance_start=SERVE_IP_WINDOW[0],
+                          control_guidance_end=SERVE_IP_WINDOW[1])
+    # the IP weight of each row at each step of the chunk the second row
+    # joins: the first row at steps 5-9, the second at 0-4
+    ip = he.schedule_for(opts)[1]
+    chunk_weights = [[float(ip[SERVE_CHUNK + j]), float(ip[j])] for j in range(SERVE_CHUNK)]
+    if all(a == b for a, b in chunk_weights):
+        raise AssertionError(f"phase 13c: the window gives both rows one weight: {chunk_weights}")
+    jobs = [(f"r{i}", dict(pil_image=img, prompt=prompts[i], extra_text=extras[i],
+                           seed=seeds[i])) for i in range(2)]
+    reserved = _reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    both, at_admit, chunk_s, eng = _engine_run(pipe, opts, jobs, [0, 1])
+    eng.close()
+    kept = _kept(dev, reserved)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    solo, _, _, solo_eng = _engine_run(pipe, opts, jobs[1:], [0])
+    # one chunk's replayed launches, every slot frozen
+    graph = replay_launches(lambda: _timed(solo_eng.run_chunk, dev), "phase 13c")
+    solo_eng.close()
+    b = jobs[1][0]
+    row = dict(slots=SERVE_REQUESTS, chunk=SERVE_CHUNK, steps=FULL_STEPS,
+               slot_steps_at_admission=at_admit, chunk_s=chunk_s,
+               step_ms=chunk_s / SERVE_CHUNK * 1e3, kept_gib=kept, peak_gib=peak,
+               ip_window=SERVE_IP_WINDOW, ip_weights_of_the_rows_in_chunk_1=chunk_weights,
+               latents_bit_identical=torch.equal(both[b][1], solo[b][1]),
+               image_bit_identical=bool(np.array_equal(both[b][0], solo[b][0])),
+               launches_per_chunk=graph)
+    print(f"phase 13c 4-slot engine, {b} admitted mid-flight vs its solo engine run: "
+          f"{json.dumps(row)}", flush=True)
+    want = SELF_ATTN_PER_UNET_CALL * SERVE_CHUNK
+    if not (row["latents_bit_identical"] and row["image_bit_identical"]):
+        raise AssertionError(f"phase 13c: the mid-flight row differs from its solo run: {row}")
+    if at_admit[1][0] != SERVE_CHUNK or graph != {"K1/K4": want, "K2": want, "K5": want}:
+        raise AssertionError(f"phase 13c: admission steps {at_admit}, launches {graph}")
+    return row
+
+
+def _serve_http(pipe, imgs, prompts, extras, seeds):
+    """(d) both workers through make_server on localhost: six requests of
+    two batch keys (guidance 5 and 4), SERVE_STEPS steps."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from imagharmony_tpu_torch.pipelines import serving
+
+    def b64(a):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    payloads = [dict(image=b64(imgs[i % 3]), prompt=prompts[i % 3], extra_text=extras[i % 3],
+                     seed=seeds[0] + i, steps=SERVE_STEPS, height=1024, width=1024,
+                     guidance_scale=5.0 if i < 3 else 4.0) for i in range(6)]
+    rows = {}
+    for mode in ("packed", "continuous"):
+        kw = dict(max_batch=SERVE_REQUESTS, chunk=2) if mode == "continuous" \
+            else dict(max_batch=SERVE_REQUESTS, max_wait_s=1.0)
+        srv = serving.make_server(pipe, 0, continuous=mode == "continuous", host="127.0.0.1",
+                                  **kw)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        results, statuses = [None] * 6, []
+
+        def post(i):
+            req = urllib.request.Request(url + "/edit", data=json.dumps(payloads[i]).encode(),
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    results[i] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                results[i] = (e.code, json.loads(e.read()))
+
+        def status():
+            with urllib.request.urlopen(url + "/status", timeout=60) as r:
+                return json.loads(r.read())
+
+        try:
+            t0 = time.perf_counter()
+            posts = [threading.Thread(target=post, args=(i,)) for i in range(6)]
+            if mode == "continuous":  # the first alone, the next once it is mid-flight
+                posts[0].start()
+                deadline = time.time() + 300
+                while time.time() < deadline:
+                    st = status()
+                    statuses.append(st)
+                    if any(s for s in st.get("slot_steps") or [] if s):
+                        break
+                    time.sleep(0.02)
+                for p in posts[1:]:
+                    p.start()
+            else:
+                for p in posts[:3]:
+                    p.start()
+                time.sleep(0.2)
+                for p in posts[3:]:
+                    p.start()
+            while any(p.is_alive() for p in posts):
+                statuses.append(status())
+                time.sleep(0.05)
+            wall = time.perf_counter() - t0
+            worker = srv.worker
+            rows[mode] = dict(requests=6, steps=SERVE_STEPS, wall_s=wall,
+                              answered=[r[0] for r in results],
+                              batched=[r[1].get("batched") for r in results],
+                              pack_errors=worker.pack_errors,
+                              mid_flight_statuses=[st["slot_steps"] for st in statuses
+                                                   if sum(s is not None for s in
+                                                          st.get("slot_steps") or []) > 1
+                                                   and any(st["slot_steps"])][:3],
+                              admissions=[m for _, m in getattr(worker, "admissions", [])])
+            sizes = {Image.open(io.BytesIO(base64.b64decode(r[1]["image"]))).size
+                     for r in results if r[0] == 200}
+        finally:
+            srv.shutdown()
+            srv.worker.stop(60)
+            srv.server_close()
+        print(f"phase 13d {mode} server: {json.dumps(rows[mode])}", flush=True)
+        if rows[mode]["answered"] != [200] * 6 or sizes != {(1024, 1024)} \
+                or rows[mode]["pack_errors"] or srv.worker.is_alive():
+            raise AssertionError(f"phase 13d {mode}: {rows[mode]}, sizes {sizes}")
+        if mode == "packed" and max(b or 1 for b in rows[mode]["batched"]) < 2:
+            raise AssertionError(f"phase 13d packed: no request was packed: {rows[mode]}")
+        if mode == "continuous" and (not rows[mode]["mid_flight_statuses"]
+                                     or not any(rows[mode]["admissions"])):
+            raise AssertionError(f"phase 13d continuous: no mid-flight admission: {rows[mode]}")
+    return rows
+
+
+def phase_serve(fa, ca, kg, HarmonyPipeline):
+    """Phase 13: the serving path at full width on a fresh SDXL bf16
+    random_full(0): (a) generate_batch of four requests, (b) the chunked
+    runner against generate(), (c) a 4-slot engine with a mid-flight
+    admission, (d) both workers through make_server on localhost; between
+    them the cache's eviction. Returns the replayed launches by path."""
+    t0 = time.perf_counter()
+    pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"phase 13 built random_full in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated(pipe.device) / 2**30:.3f} GiB allocated of the card's "
+          f"{torch.cuda.get_device_properties(pipe.device).total_memory / 2**30:.3f} GiB; the "
+          f"program cache keeps {pipe.programs.capacity} keys", flush=True)
+    imgs, prompts, extras, seeds = _serve_requests(SERVE_REQUESTS)
+    a = _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds)
+    lru = _serve_lru(pipe)
+    _drop_programs(pipe)
+    b = _serve_chunked(pipe, imgs[0], prompts[0], extras[0])
+    _drop_programs(pipe)
+    c = _serve_engine(pipe, imgs[0], prompts, extras, seeds)
+    _drop_programs(pipe)
+    d = _serve_http(pipe, imgs, prompts, extras, seeds)
+    print(f"phase 13 serving path in {time.perf_counter() - t0:.1f} s", flush=True)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=a, lru=lru, chunked=b, engine=c, http=d)
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -2291,6 +2705,11 @@ def main():
     loaded_gen = phase_load_full(fa, ca, kg, comp, trainer, sdxl_image, train_run)
     features = phase_features(fa, ca, kg, HarmonyPipeline)
     feature_paths = {f"generate_{tag}": g for tag, g in features.items()}
+    serve = phase_serve(fa, ca, kg, HarmonyPipeline)
+    serve_paths = {"generate_batch": serve["batch"]["launches_replayed"],
+                   "generate_chunked": serve["chunked"]["launches_replayed"],
+                   "engine_chunk": serve["engine"]["launches_per_chunk"]}
+    serve_eager = serve["batch"]["launches_eager"]
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -2323,7 +2742,9 @@ def main():
                              "train": train["K1/K4"], "train_eager": train_eager["K1/K4"],
                              "probes": probes["flash_attention_nhd"],
                              **{p: g["K1/K4"] for p, g in feature_paths.items()
-                                if p != "generate_sd15_dpmpp"}},
+                                if p != "generate_sd15_dpmpp"},
+                             **{p: g["K1/K4"] for p, g in serve_paths.items()},
+                             "edit_eager_batch": serve_eager["K1"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
@@ -2371,7 +2792,10 @@ def main():
                              "train_eager": train_eager["K2"],
                              "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
                              "sd15_unet_grad": k2_grad,
-                             **{p: g["K2"] for p, g in feature_paths.items()}},
+                             **{p: g["K2"] for p, g in feature_paths.items()},
+                             **{p: g["K2"] for p, g in serve_paths.items()},
+                             "edit_eager_batch": serve_eager["K2"],
+                             "edit_eager_batch_ip": serve_eager["K2 IP"]},
         "max_abs_err": k2_err,
         "shape": list(K2_SHAPES[0][:5]),
         **_line_times(k2, k2["bound"]),
@@ -2390,7 +2814,9 @@ def main():
                              "generate_sd15": sd15_gen["K5"],
                              "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,
                              "probes": probes["geglu"],
-                             **{p: g["K5"] for p, g in feature_paths.items()}},
+                             **{p: g["K5"] for p, g in feature_paths.items()},
+                             **{p: g["K5"] for p, g in serve_paths.items()},
+                             "edit_eager_batch": serve_eager["K5"]},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),
         **_line_times(k5, k5["bound"]),

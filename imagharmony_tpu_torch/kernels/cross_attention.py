@@ -20,7 +20,12 @@ v_ip, so 0.0 (``ip_scale_schedule``'s off steps) gives the text branch
 alone. The kernel reads ``ip_scale`` from device memory: a 0-dim fp32
 tensor on q's device is passed as it is (so a captured launch reads each
 step's weight from the table the denoise loop indexes), a float goes
-through a tensor kept per (device, value).
+through a tensor kept per (device, value), and a (B,) fp32 vector gives
+each batch row its own weight (the slot engine's rows sit at different
+steps of the schedule: the JAX chunk step's (2S, 1, 1, 1) ``ip_scale``,
+imagharmony_tpu/pipelines/continuous.py:96,119). A 0-dim weight launches
+the same kernel with a row stride of 0, so its bits are the vector's of
+equal values.
 
 When a gradient is needed the call goes through ``FlashCrossNHD``, whose
 backward is the plain-formula backward of each branch on either device: the
@@ -61,17 +66,25 @@ def _attend(qh, k, v, scale, head_dim):
     return torch.matmul(torch.softmax(logits, dim=-1), fa._split(v, head_dim))
 
 
+def _per_row(ip_scale, dims):
+    """``ip_scale`` shaped to multiply a (B, ...) tensor of ``dims`` axes:
+    a (B,) vector as (B, 1, ...), a float or 0-dim tensor as it is."""
+    if isinstance(ip_scale, torch.Tensor) and ip_scale.dim() == 1:
+        return ip_scale.view(-1, *(1,) * (dims - 1))
+    return ip_scale
+
+
 def flash_cross_nhd_plain(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=1.0):
     """K2's reference: fp32 logits, softmax and PV per branch, the IP branch
-    times ``ip_scale`` (a float or a 0-dim fp32 tensor) added in fp32, cast
-    to q's dtype.
+    times ``ip_scale`` (a float, a 0-dim fp32 tensor or a (B,) fp32 vector,
+    one weight a batch row) added in fp32, cast to q's dtype.
 
     q: (B, Sq, H*D); k, v: (B, Sk, H*D); k_ip, v_ip: (B, Sk_ip, H*D) or None
     -> (B, Sq, H*D)."""
     qh = fa._split(q, head_dim)
     out = _attend(qh, k, v, scale, head_dim)
     if k_ip is not None:
-        out = out + ip_scale * _attend(qh, k_ip, v_ip, scale, head_dim)
+        out = out + _per_row(ip_scale, 4) * _attend(qh, k_ip, v_ip, scale, head_dim)
     return fa._merge(out).to(q.dtype)
 
 
@@ -84,7 +97,8 @@ def flash_cross_nhd_bwd_plain(q, k, v, k_ip, v_ip, dout, *, scale, head_dim, ip_
     dq, dk, dv = fa.flash_attention_nhd_bwd_plain(q, k, v, dout, **kw)
     if k_ip is None:
         return dq, dk, dv, None, None
-    dq_ip, dk_ip, dv_ip = fa.flash_attention_nhd_bwd_plain(q, k_ip, v_ip, dout * ip_scale, **kw)
+    dq_ip, dk_ip, dv_ip = fa.flash_attention_nhd_bwd_plain(
+        q, k_ip, v_ip, dout * _per_row(ip_scale, dout.dim()), **kw)
     return dq + dq_ip, dk, dv, dk_ip, dv_ip
 
 
@@ -96,7 +110,7 @@ def _entry():
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # without argtypes ctypes passes Python ints as 32-bit C ints and cuts
     # the pointers
-    fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 18 + [f32, ptr, ptr]
+    fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 18 + [f32, ptr, i32, ptr]
     fn.restype = i32
     return fn
 
@@ -108,15 +122,27 @@ def _weight(device, value):
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
-def _ip_weight(ip_scale, device):
-    """The fp32 on ``device`` holding ``ip_scale`` (a float or a 0-dim
-    fp32 tensor there)."""
+def _check_ip_scale(ip_scale, device, batch):
+    """A tensor ``ip_scale`` must be fp32 on ``device``, 0-dim or one
+    weight a batch row, (``batch``,)."""
     if not isinstance(ip_scale, torch.Tensor):
-        return _weight(device, float(ip_scale))
-    if ip_scale.dim() != 0 or ip_scale.dtype != torch.float32 or ip_scale.device != device:
-        raise ValueError(f"flash_cross_nhd: a tensor ip_scale must be 0-dim fp32 on {device}, "
-                         f"got {tuple(ip_scale.shape)} {ip_scale.dtype} on {ip_scale.device}")
-    return ip_scale
+        return
+    if (ip_scale.dim() > 1 or ip_scale.dtype != torch.float32 or ip_scale.device != device
+            or (ip_scale.dim() == 1 and ip_scale.shape[0] != batch)):
+        raise ValueError(f"flash_cross_nhd: a tensor ip_scale must be 0-dim or ({batch},) fp32 "
+                         f"on {device}, got {tuple(ip_scale.shape)} {ip_scale.dtype} on "
+                         f"{ip_scale.device}")
+
+
+def _ip_weight(ip_scale, device, batch):
+    """(the fp32 weights on ``device`` holding ``ip_scale``, the elements
+    between two batch rows' weights): a float or a 0-dim fp32 tensor there
+    gives every row one weight (stride 0), a (``batch``,) fp32 vector there
+    one weight a row."""
+    if not isinstance(ip_scale, torch.Tensor):
+        return _weight(device, float(ip_scale)), 0
+    _check_ip_scale(ip_scale, device, batch)
+    return ip_scale, ip_scale.stride(0) if ip_scale.dim() == 1 else 0
 
 
 def _operands(q, k, v, k_ip, v_ip):
@@ -185,7 +211,7 @@ def _launch(q, k, v, k_ip, v_ip, *, scale, head_dim, ip_scale):
     def strides(x):  # batch, head, row
         return (x.stride(0), head_dim, x.stride(1)) if x is not None else (0, 0, 0)
 
-    weight = _ip_weight(ip_scale, q.device).data_ptr() if k_ip is not None else None
+    weight, ip_stride = _ip_weight(ip_scale, q.device, b) if k_ip is not None else (None, 0)
 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -193,7 +219,8 @@ def _launch(q, k, v, k_ip, v_ip, *, scale, head_dim, ip_scale):
             *(x.data_ptr() if x is not None else None for x in (q, k, v, k_ip, v_ip, out)),
             b, sq, k.shape[1], k_ip.shape[1] if k_ip is not None else 0, hd // head_dim,
             head_dim, *(st for x in (q, k, v, k_ip, v_ip, out) for st in strides(x)),
-            float(scale) * _LOG2E, weight, stream,
+            float(scale) * _LOG2E, None if weight is None else weight.data_ptr(), ip_stride,
+            stream,
         )
     fa._check_rc("flash_cross_nhd", rc)
     cross_launches += 1
@@ -235,8 +262,9 @@ def flash_cross_nhd(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=
     stride (k and v as column views of one packed to_kv output are taken as
     they are). Returns a contiguous (B, Sq, H*D) tensor.
 
-    ip_scale: a float, or a 0-dim fp32 tensor on q's device (read there by
-    the kernel, never by the host).
+    ip_scale: a float, a 0-dim fp32 tensor on q's device, or a (B,) fp32
+    vector there, one weight a batch row (a tensor is read there by the
+    kernel, never by the host).
 
     CPU tensors go to ``flash_cross_nhd_plain``. CUDA tensors must be bf16
     with head_dim in HEAD_DIMS; anything else raises. With grad mode on and
@@ -248,6 +276,8 @@ def flash_cross_nhd(q, k, v, *, scale, head_dim, k_ip=None, v_ip=None, ip_scale=
         raise ValueError("flash_cross_nhd: give both k_ip and v_ip, or neither")
     if not isinstance(ip_scale, torch.Tensor):
         ip_scale = float(ip_scale)
+    elif k_ip is not None:
+        _check_ip_scale(ip_scale, q.device, q.shape[0])
     kw = dict(scale=scale, head_dim=head_dim, ip_scale=ip_scale)
     ops = [x for x in (q, k, v, k_ip, v_ip) if x is not None]
     if torch.is_grad_enabled() and any(x.requires_grad for x in ops):

@@ -11,9 +11,10 @@
 // pads the keys to 128 on the host, computes exp2 in bf16 and wants v_ip
 // pre-scaled by ip_scale in device memory. This one computes what the port's
 // model computes: the exact fp32 softmax of each branch, each with its own
-// max and normaliser, ip_scale one fp32 in device memory that the kernel
-// reads (so one captured launch serves every step of a per-step IP scale
-// schedule, its 0.0 steps too), the ragged key edges (77 text
+// max and normaliser, ip_scale fp32 in device memory that the kernel
+// reads, one for the whole batch or one a batch row (so one captured launch
+// serves every step of a per-step IP scale schedule, its 0.0 steps too, and
+// rows at different steps of a schedule in one batch), the ragged key edges (77 text
 // keys; 4, 16 or 257 IP keys) and query rows masked here, nothing padded in
 // device memory.
 //
@@ -107,7 +108,8 @@ struct CrossArgs {
   int q_off;      // the stages' Q / output tiles
   int bar_off;
   float scale_log2;
-  const float* ip_scale;  // the IP branch's weight, in device memory
+  const float* ip_scale;  // the IP branch's weight, in device memory: one a batch row
+  int ip_stride;          // elements between two rows' weights; 0: one weight for all
 };
 
 __host__ __device__ inline int round16(int n) { return (n + kKeyBox - 1) / kKeyBox * kKeyBox; }
@@ -404,7 +406,7 @@ cross_attn_wgmma_kernel(const __grid_constant__ CrossMaps maps, const __grid_con
   }
 
   // ---- consumer warpgroup: one query tile after another ----
-  const float ip_weight = has_ip ? *a.ip_scale : 0.f;
+  const float ip_weight = has_ip ? a.ip_scale[(long long)b * a.ip_stride] : 0.f;
   if (resident) sm90::mbar_wait(kvbar, 0);
   uint32_t chunk_phase = 0;
   int i = 0;
@@ -492,11 +494,12 @@ int plan(CrossArgs* a, int sk, int sk_ip) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* k_ip, const void* v_ip,
            void* o, int batch, int sq, int sk, int sk_ip, int heads, const long long (&st)[6][3],
-           float scale_log2, const float* ip_scale, cudaStream_t stream) {
+           float scale_log2, const float* ip_scale, int ip_stride, cudaStream_t stream) {
   CrossArgs a{};
   a.text.keys = sk;
   a.ip.keys = sk_ip;
   a.ip_scale = ip_scale;
+  a.ip_stride = ip_stride;
   a.n_tiles = (sq + kRows - 1) / kRows;
   a.scale_log2 = scale_log2;
   const int bytes = plan<D>(&a, sk, sk_ip);
@@ -542,9 +545,10 @@ int launch(const void* q, const void* k, const void* v, const void* k_ip, const 
 
 // Plain C entry point (loaded with ctypes). Strides are in elements, three
 // per operand (batch, head, row); unit stride along D. k_ip and v_ip are
-// null with sk_ip = 0 for the text branch alone; ip_scale points to one
-// fp32 on the launch's device (read by the kernel, null without the IP
-// branch). Every base address and
+// null with sk_ip = 0 for the text branch alone; ip_scale points to fp32
+// weights on the launch's device (read by the kernel, null without the IP
+// branch), batch row b's at ip_scale[b * ip_stride]: ip_stride 0 gives every
+// row the one weight. Every base address and
 // stride must be a multiple of 16 bytes (the TMA's rule). Returns
 // cudaGetLastError() after the launch (0 on success); an operand whose
 // tensor map cuTensorMapEncodeTiled refuses returns
@@ -559,10 +563,10 @@ extern "C" int cross_attn_nhd_bf16(
     long long kip_batch, long long kip_head, long long kip_row,
     long long vip_batch, long long vip_head, long long vip_row,
     long long o_batch, long long o_head, long long o_row,
-    float scale_log2, const float* ip_scale, void* stream) {
+    float scale_log2, const float* ip_scale, int ip_stride, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535 ||
       sk_ip < 0 || (sk_ip > 0) != (k_ip != nullptr && v_ip != nullptr) ||
-      (sk_ip > 0 && ip_scale == nullptr)) {
+      (sk_ip > 0 && ip_scale == nullptr) || ip_stride < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const long long st[6][3] = {{q_batch, q_head, q_row},       {k_batch, k_head, k_row},
@@ -570,7 +574,8 @@ extern "C" int cross_attn_nhd_bf16(
                               {vip_batch, vip_head, vip_row}, {o_batch, o_head, o_row}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define K2_LAUNCH(D) \
-  return launch<D>(q, k, v, k_ip, v_ip, o, batch, sq, sk, sk_ip, heads, st, scale_log2, ip_scale, s)
+  return launch<D>(q, k, v, k_ip, v_ip, o, batch, sq, sk, sk_ip, heads, st, scale_log2, ip_scale, \
+                   ip_stride, s)
   switch (head_dim) {
     case 32: K2_LAUNCH(32);
     case 40: K2_LAUNCH(40);

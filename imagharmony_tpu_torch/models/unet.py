@@ -382,7 +382,9 @@ class UNet2DConditionModel(nn.Module):
                                None without an add-embedding (SD1.5)
         time_ids:              (B, 6) SDXL micro-conditioning; None likewise
         ip_tokens:             (B, num_ip_tokens, cross_attention_dim) or None
-        ip_scale:              IP branch weight
+        ip_scale:              IP branch weight: a float, a 0-dim fp32 tensor,
+                               or a (B,) fp32 vector, one weight a row (K2
+                               reads a tensor on the card)
 
         Encoder propagation (Faster Diffusion, arXiv 2312.09608), the JAX
         package's ``unet.apply`` interface:

@@ -95,7 +95,9 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None, ip_context=None, ip_scale=1.0):
         """context=None -> self-attention. ip_context: (B, S_ip, ctx_dim)
-        image-prompt tokens for the decoupled branch."""
+        image-prompt tokens for the decoupled branch, weighted by ip_scale:
+        a float, a 0-dim fp32 tensor, or a (B,) fp32 vector, one weight a
+        row (K2's ``ip_scale``)."""
         if context is None and hasattr(self, "to_qkv"):
             q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         elif context is not None and hasattr(self, "to_kv"):

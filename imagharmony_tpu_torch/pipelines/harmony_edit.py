@@ -32,15 +32,20 @@ The pipeline surface keeps the JAX layout: noise and latents are
 (B, h, w, 4) and images (B, H, W, 3) in [-1, 1]. Inside the models
 activations are NCHW.
 
-Not ported yet: ControlNet, LoRA, the refiner family, the chunked runner
-(callback_on_step_end, chunk_steps), and the batched and serving entry
-points; generate() raises on their arguments.
+Besides generate(): ``generate_batch`` packs B requests into one program
+(the CFG-packed UNet batch 2B), and ``callback_on_step_end`` /
+``chunk_steps`` run the chunked runner (``continuous.py``), whose step is
+``denoise_rows_step``: every row at its own step of the schedule.
+
+Not ported yet (ROADMAP A13): ControlNet, LoRA and the refiner family;
+generate() raises on their arguments.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import inspect
 import os
 import time
 from typing import Optional
@@ -383,6 +388,56 @@ def denoise_step(unet, latents, index, tables, scalars, cond, br: Branches, *, s
     return latents, state, encoder
 
 
+def denoise_rows_step(unet, latents, index, num_steps, tables, scalars, cond, br: Branches, *,
+                      state=None, encoder=None, want_encoder=False):
+    """One step of the chunked runner, every row at its own step of the
+    schedule (the JAX package's ``_chunk_jit`` body,
+    imagharmony_tpu/pipelines/continuous.py:60-150): what the slot engine
+    runs eagerly on the CPU and captures as its chunk step on a card.
+    Returns (latents, index, solver state, encoder features).
+
+    latents: (S, 4, h, w); ``index``: (S,) int64, each row's step; rows at
+    ``num_steps`` ((1,) int64) or beyond are frozen (finished or empty
+    slots): they compute but keep their latents and their DPM++ history
+    under one ``torch.where`` mask, and their index does not advance. The
+    index, clamped to num_steps - 1, gathers each row's column of
+    ``tables`` (``scan_tables``): its timestep, sigma, next sigma and IP
+    weight, as (S, 1, 1, 1) per-row constants, the timestep and the IP
+    weight as 2S rows in [uncond | cond] order (K2 reads a (2S,) weight).
+    The CFG pair always runs, as in ``_chunk_jit``; ``cond`` is
+    ``build_conditioning``'s 2S rows. Deterministic samplers only (the JAX
+    runner refuses Euler-a and LCM); no inpaint blend. Encoder propagation
+    as in ``denoise_step``."""
+    context, pooled, time_ids, ip_tokens = cond
+    live = index < num_steps
+    t, sigma, sigma_next, ip_scale, _ = tables.index_select(
+        1, torch.minimum(index, num_steps - 1)).unbind(0)
+
+    def rows(x):
+        return x.view(x.shape[0], 1, 1, 1)
+
+    def pair(x):
+        return torch.cat([x, x])
+
+    lat_in = sched.scale_model_input_c(br.kind, rows(pair(sigma)), pair(latents))
+    eps = unet(lat_in, pair(t), context, pooled_text_embeds=pooled, time_ids=time_ids,
+               ip_tokens=ip_tokens, ip_scale=pair(ip_scale), return_encoder=want_encoder,
+               encoder_override=encoder)
+    if want_encoder:
+        eps, encoder = eps
+    eps_u, eps_c = eps.chunk(2)
+    eps = eps_u + scalars[0] * (eps_c - eps_u)
+    if br.rescale:
+        eps = rescale_noise_cfg(eps, eps_c, scalars[1])
+    stepped, new_state = sched.step_s(br.kind, rows(sigma), rows(sigma_next), eps, latents,
+                                      state, br.prediction_type)
+    keep = rows(live)
+    latents = torch.where(keep, stepped, latents)
+    if state is not None:
+        state = {k: torch.where(keep, new_state[k], v) for k, v in state.items()}
+    return latents, index + live.long(), state, encoder
+
+
 def draw_step_noise(generator: torch.Generator, out: torch.Tensor) -> torch.Tensor:
     """One step's N(0, 1) draw for the stochastic samplers, into ``out`` (a
     captured program's static buffer, or a new tensor of the eager loop):
@@ -420,14 +475,23 @@ def decode(comps: comp.Components, latents):
     return comps.vae.decode(latents).permute(0, 2, 3, 1)
 
 
+# above this many rows the decode runs row by row: at 1024² the decoder's
+# activations grow with the batch (the JAX package's ``_edit_jit``,
+# imagharmony_tpu/pipelines/harmony_edit.py:654-660, on one device)
+BATCHED_DECODE_ROWS = 2
+
+
 def finish(comps: comp.Components, br: Branches, latents):
     """The edit's output from the loop's last latents: the latents
     (B, h, w, 4) when they are the output, else the images (B, H, W, 3),
-    tile by tile with ``tile_vae``."""
+    tile by tile with ``tile_vae``, one row at a time above
+    ``BATCHED_DECODE_ROWS`` rows."""
     if br.latent_output:
         return latents.permute(0, 2, 3, 1)
     if br.tile_vae:
         return comps.vae.decode_tiled(latents).permute(0, 2, 3, 1)
+    if latents.shape[0] > BATCHED_DECODE_ROWS:
+        return torch.cat([decode(comps, latents[i:i + 1]) for i in range(latents.shape[0])])
     return decode(comps, latents)
 
 
@@ -440,10 +504,11 @@ def to_uint8(images: torch.Tensor) -> np.ndarray:
 class EditCall:
     """One edit after the host's preprocessing, what the JAX package's
     ``_edit_jit`` takes, on the pipeline's device: the options; the token
-    ids (and prompt weights), keyed as ``build_conditioning`` reads them;
-    the CLIP pixels (1, H, W, 3) or None; the initial N(0, 1) noise, or the
-    handed-off latents, (B, 4, h, w) fp32; the micro-conditioning rows
-    (2, 6); the schedule and its per-step table (``scan_tables``); the
+    ids (and prompt weights), keyed as ``build_conditioning`` reads them,
+    one row a request; the CLIP pixels, one row a request (R, H, W, 3), or
+    None; the initial N(0, 1) noise, or the handed-off latents, (B, 4, h, w)
+    fp32, B = requests x samples, each request's samples in a row; the
+    micro-conditioning rows (2, 6); the schedule and its per-step table (``scan_tables``); the
     scalars (guidance scale, rescale, the first step's level, the initial
     sigma); the init image (1, 3, H, W) and the inpaint mask (1, 1, h, w),
     fp32, or None; the seed of the stochastic samplers' draws, and, for
@@ -463,8 +528,14 @@ class EditCall:
     step_noise: Optional[torch.Tensor] = None
 
     @property
-    def num_samples(self) -> int:
-        return self.noise.shape[0]
+    def requests(self) -> int:
+        """The requests the call packs: ``generate_batch``'s B, else 1."""
+        return self.ids["pos_l"].shape[0]
+
+    @property
+    def samples(self) -> int:
+        """The samples of each request (``num_samples``)."""
+        return self.noise.shape[0] // self.requests
 
     @property
     def branches(self) -> Branches:
@@ -504,10 +575,13 @@ class PhaseClock:
 def start(comps: comp.Components, br: Branches, opts: EditOptions, ids, pixel_values,
           init_pixels, noise, time_ids, scalars):
     """The edit's first part, what a captured program's conditioning graph
-    runs: the step's conditioning (``cfg_rows`` of ``build_conditioning``),
-    the loop's first latents and the init image's latents (or None)."""
+    runs: the step's conditioning (``cfg_rows`` of ``build_conditioning``,
+    each of the ids' requests repeated for its samples: the noise's rows
+    over the requests), the loop's first latents and the init image's
+    latents (or None)."""
     b = noise.shape[0]
-    cond = cfg_rows(build_conditioning(comps, opts, ids, pixel_values, num_samples=b,
+    cond = cfg_rows(build_conditioning(comps, opts, ids, pixel_values,
+                                       num_samples=b // ids["pos_l"].shape[0],
                                        time_ids=time_ids), br.cfg)
     img_lat = image_latents(comps, init_pixels, b) if br.init_image else None
     latents = initial_latents(br.kind, scalars, noise, img_lat if br.from_image else None,
@@ -589,21 +663,74 @@ def _pair(x):
     return tuple(x) if x else None
 
 
+def check_options(cfgs: comp.ComponentConfigs, *, prediction_type, encoder_interval, clip_skip):
+    """The option checks every entry point makes before any work."""
+    if prediction_type not in sched.PREDICTION_TYPES:
+        raise ValueError(f"prediction_type must be one of {sched.PREDICTION_TYPES}, got "
+                         f"{prediction_type!r}")
+    if int(encoder_interval) != encoder_interval or encoder_interval < 1:
+        raise ValueError(f"encoder_interval must be an int >= 1, got {encoder_interval}")
+    for tower in (cfgs.text_l, cfgs.text_g):
+        if tower is not None and not 0 <= clip_skip < tower.num_layers - 1:
+            raise ValueError(f"clip_skip must be in [0, {tower.num_layers - 2}], got {clip_skip}")
+
+
+def check_output_type(output_type):
+    if output_type not in OUTPUT_TYPES:
+        raise ValueError(f"output_type must be one of {OUTPUT_TYPES}, got {output_type!r}")
+
+
+# what the chunked runner cannot run, refused with the JAX package's
+# messages (imagharmony_tpu/pipelines/harmony_edit.py:1098-1125)
+CHUNKED_SAMPLERS_REFUSED = ("euler_a", "euler_ancestral", "lcm")
+
+
+def check_chunked(*, prompt_weighting=False, latents=None, denoising_start=None,
+                  scheduler="euler", init_image=None, mask_image=None, control_image=None,
+                  aesthetic_score=None, negative_aesthetic_score=None, **_):
+    """Raises for what ``callback_on_step_end`` / ``chunk_steps`` (the
+    chunked runner) does not run, before any work."""
+    if prompt_weighting:
+        raise ValueError("prompt_weighting is not supported on the chunked/continuous runner; "
+                         "use the one-jit path")
+    if latents is not None or denoising_start is not None:
+        raise ValueError("callback_on_step_end/chunk_steps does not support the refiner-stage "
+                         "inputs (latents=, denoising_start=); use the one-jit path for the "
+                         "handoff consumer")
+    if scheduler in CHUNKED_SAMPLERS_REFUSED:
+        raise ValueError(f"{scheduler} is not supported on the chunked/continuous runner (its "
+                         "rows sit at different schedule positions and cannot share one "
+                         "per-step noise key stream); use the one-jit path")
+    if init_image is not None or mask_image is not None:
+        raise ValueError("callback_on_step_end/chunk_steps does not support img2img/inpainting "
+                         "(init_image=/mask_image=); use the one-jit path")
+    if control_image is not None:
+        raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
+    if aesthetic_score is not None or negative_aesthetic_score is not None:
+        raise NotImplementedError("aesthetic_score / negative_aesthetic_score: the refiner "
+                                  "family is not ported yet (ROADMAP A13)")
+
+
 class HarmonyPipeline:
     """Host front end: tokenization and CLIP preprocessing, then the edit
     on the device the weights live on.
 
     generate(pil_image, prompt=..., extra_text=..., ...) mirrors the
     reference entry point (IPAdapterXL.generate) with the JAX package's
-    one-call signature (``prepare``'s arguments)."""
+    one-call signature (``prepare``'s arguments); ``generate_batch`` packs
+    several requests into one program, the serving path's
+    (``serving.py``)."""
 
     def __init__(self, components: comp.Components, tokenizers):
+        from imagharmony_tpu_torch.pipelines import programs
+
         self.components = components
         self.cfgs = components.cfgs
         self.tokenizers = tokenizers
         p = next(components.parameters())
         self.device, self.dtype = p.device, p.dtype
-        self.programs = {}  # the captured edit programs by key (programs.py)
+        # the captured programs by key, a bounded LRU (programs.py)
+        self.programs = programs.ProgramCache()
 
     # -- constructors ------------------------------------------------------
 
@@ -793,6 +920,12 @@ class HarmonyPipeline:
             ids["extra_l"], ids["extra_g"] = self._tokenize(extra_text)
         return ids
 
+    def set_scale(self, scale: float):
+        """Kept for API familiarity (the reference's ip_adapter.py:179-182),
+        as in the JAX package, which stores the value and reads it nowhere:
+        pass scale= to generate()."""
+        self._default_scale = scale
+
     def _noise(self, seed, num_samples, lat_shape):
         """The initial N(0, 1) noise (num_samples, h, w, 4) on the device:
         one generator a sample for a seed list, so that sample i of a list
@@ -854,26 +987,23 @@ class HarmonyPipeline:
         the seed's. ``_step_noise`` (tests only): the stochastic samplers'
         draws (num_steps, num_samples, h, w, 4).
 
-        ControlNet (control_image), the chunked runner
-        (callback_on_step_end, chunk_steps) and the refiner family
-        (aesthetic_score, negative_aesthetic_score) are not ported: they
-        raise NotImplementedError. Every refused combination raises before
+        ControlNet (control_image) and the refiner family (aesthetic_score,
+        negative_aesthetic_score) are not ported (ROADMAP A13): they raise
+        NotImplementedError. callback_on_step_end / chunk_steps run the
+        chunked runner, which generate() takes (``continuous.py``); this
+        one-call path refuses them. Every refused combination raises before
         any work."""
         if control_image is not None:
-            raise NotImplementedError("control_image: ControlNet is not ported yet")
+            raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
         if callback_on_step_end is not None or chunk_steps is not None:
-            raise NotImplementedError("callback_on_step_end / chunk_steps: the chunked runner "
-                                      "is not ported yet")
+            raise ValueError("callback_on_step_end / chunk_steps run the chunked runner: "
+                             "generate() takes them, prepare() is the one-call path's")
         if aesthetic_score is not None or negative_aesthetic_score is not None:
             raise NotImplementedError("aesthetic_score / negative_aesthetic_score: the refiner "
-                                      "family is not ported yet")
-        if output_type not in OUTPUT_TYPES:
-            raise ValueError(f"output_type must be one of {OUTPUT_TYPES}, got {output_type!r}")
-        if prediction_type not in sched.PREDICTION_TYPES:
-            raise ValueError(f"prediction_type must be one of {sched.PREDICTION_TYPES}, got "
-                             f"{prediction_type!r}")
-        if int(encoder_interval) != encoder_interval or encoder_interval < 1:
-            raise ValueError(f"encoder_interval must be an int >= 1, got {encoder_interval}")
+                                      "family is not ported yet (ROADMAP A13)")
+        check_output_type(output_type)
+        check_options(self.cfgs, prediction_type=prediction_type,
+                      encoder_interval=encoder_interval, clip_skip=clip_skip)
         if mask_image is not None and init_image is None:
             raise ValueError("mask_image= requires init_image= (the image whose unmasked "
                              "region is kept)")
@@ -908,10 +1038,6 @@ class HarmonyPipeline:
             rescale_zero_snr=rescale_zero_snr, clip_skip=clip_skip)
         schedule, ip_scales = schedule_for(opts)
         stochastic = schedule.kind in sched.STOCHASTIC
-        for tower in (self.cfgs.text_l, self.cfgs.text_g):
-            if tower is not None and not 0 <= clip_skip < tower.num_layers - 1:
-                raise ValueError(f"clip_skip must be in [0, {tower.num_layers - 2}], got "
-                                 f"{clip_skip}")
         if _step_noise is not None and (not stochastic or self.device.type == "cuda"):
             raise ValueError("_step_noise is for the stochastic samplers' eager loop on the "
                              "CPU (tests); a card's programs draw from the seed")
@@ -966,6 +1092,98 @@ class HarmonyPipeline:
                                 else [0 if seed is None else seed]) if stochastic else None,
             step_noise=step_noise)
 
+    def prepare_batch(self, images, prompts, *, extra_texts=None, negative_prompts=None,
+                      seeds=None, control_images=None, noise=None, **shared_kw) -> EditCall:
+        """``generate_batch``'s host work: B requests as one ``EditCall``
+        (ids, pixels and noise one row a request, num_samples 1). The
+        requests share every option; each brings its image (all or none:
+        none is text-to-image), prompt, extra_text (the HA fusion runs only
+        when every request has one), negative prompt and seed (default
+        ``range(B)``: one generator a seed, as a seed list draws).
+        ``shared_kw``: the JAX ``generate_batch``'s, ``EditOptions``' fields
+        with num_inference_steps, scheduler, guidance_scale, scale, height
+        and width (``controlnet_scale`` has nothing to weight without a
+        control image). ``noise`` (tests): the initial N(0, 1) noise (B, h,
+        w, 4) in place of the seeds'."""
+        if control_images is not None:
+            raise NotImplementedError("control_images: ControlNet is not ported yet (ROADMAP A13)")
+        b = len(images) if images is not None else len(prompts)
+        prompts = [p or DEFAULT_PROMPT for p in prompts]
+        negative_prompts = [n or DEFAULT_NEGATIVE for n in (negative_prompts or [None] * b)]
+        extra_texts = list(extra_texts) if extra_texts is not None else [None] * b
+        seeds = list(seeds) if seeds else list(range(b))
+        if any(len(x) != b for x in (prompts, negative_prompts, extra_texts, seeds)):
+            raise ValueError(f"generate_batch: {b} requests, but {len(prompts)} prompts, "
+                             f"{len(negative_prompts)} negative prompts, {len(extra_texts)} "
+                             f"extra_texts and {len(seeds)} seeds")
+        use_extra = all(e is not None for e in extra_texts)
+        pixel_values = None
+        if images is not None and any(im is not None for im in images):
+            if any(im is None for im in images):
+                raise ValueError("generate_batch: images must be all-or-none within a packed "
+                                 "batch (none is text-to-image)")
+            pixel_values = torch.as_tensor(np.concatenate([
+                clip_vision.preprocess_numpy(im, image_size=self.cfgs.vision.image_size)
+                for im in images]), device=self.device)
+
+        def rows(texts):
+            toks = [self._tokenize(t) for t in texts]
+            return torch.cat([x[0] for x in toks]), torch.cat([x[1] for x in toks])
+
+        ids = {}
+        ids["pos_l"], ids["pos_g"] = rows(prompts)
+        ids["neg_l"], ids["neg_g"] = rows(negative_prompts)
+        if use_extra:
+            ids["extra_l"], ids["extra_g"] = rows(extra_texts)
+        shared_kw.pop("controlnet_scale", None)
+        opts = EditOptions(
+            height=shared_kw.pop("height", 1024), width=shared_kw.pop("width", 1024),
+            num_inference_steps=shared_kw.pop("num_inference_steps", 30),
+            scheduler=shared_kw.pop("scheduler", "euler"),
+            guidance_scale=shared_kw.pop("guidance_scale", 5.0),
+            ip_scale=shared_kw.pop("scale", 1.0), use_harmony=use_extra, **shared_kw)
+        check_options(self.cfgs, prediction_type=opts.prediction_type,
+                      encoder_interval=opts.encoder_interval, clip_skip=opts.clip_skip)
+        schedule, ip_scales = schedule_for(opts)
+        down = self.cfgs.vae.downscale
+        lat_shape = (opts.height // down, opts.width // down, 4)
+        if noise is None:
+            noise = self._noise(seeds, b, lat_shape)
+        if not isinstance(noise, torch.Tensor):
+            noise = torch.from_numpy(np.array(noise, np.float32))
+        noise = noise.to(self.device, torch.float32)
+        if tuple(noise.shape) != (b,) + lat_shape:
+            raise ValueError(f"noise must be {(b,) + lat_shape}, got {tuple(noise.shape)}")
+        scalars = [opts.guidance_scale, opts.guidance_rescale, float(schedule.sigmas[0]),
+                   schedule.init_noise_sigma]
+        return EditCall(
+            opts=opts, ids=ids, pixel_values=pixel_values,
+            noise=noise.permute(0, 3, 1, 2).contiguous(),
+            time_ids=time_ids_rows(opts).to(self.device), schedule=schedule,
+            tables=scan_tables(schedule, ip_scales, self.device),
+            scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
+            step_seed=step_seed(seeds) if schedule.kind in sched.STOCHASTIC else None)
+
+    def _run(self, call: EditCall, clock: PhaseClock):
+        """The edit of a prepared call: its captured programs on a CUDA
+        device (``programs.py``), the eager module functions on the CPU."""
+        if self.device.type == "cuda":
+            from imagharmony_tpu_torch.pipelines import programs
+
+            return programs.run(self, call, clock)
+        return edit(self.components, call, clock)
+
+    @staticmethod
+    def _output(out, latent: bool, output_type: str):
+        if latent or output_type == "raw":
+            return out
+        arr = to_uint8(out)
+        if output_type == "pil":
+            from PIL import Image
+
+            return [Image.fromarray(a) for a in arr]
+        return arr
+
     @torch.inference_mode()
     def generate(self, pil_image=None, *, timings: Optional[dict] = None, **options):
         """Edit ``pil_image`` (a PIL image or HWC uint8 array; None:
@@ -982,24 +1200,80 @@ class HarmonyPipeline:
         On a CUDA device the edit runs as the captured programs of
         ``programs.py`` (captured at the first call of a key: the device,
         the shapes and the ``Branches``; replayed after); on the CPU it runs
-        ``edit``, the eager module functions. A pipeline keeps every key's
-        programs for its life, and one key's programs serve one call at a
-        time: two concurrent calls of a key on one pipeline would overwrite
-        each other's inputs."""
+        ``edit``, the eager module functions. The pipeline keeps a bounded
+        number of keys (``pipe.programs``, least recently used evicted),
+        and a key's programs serve one call at a time (a lock each).
+
+        callback_on_step_end / chunk_steps: the chunked runner
+        (``continuous.generate_chunked``: the same edit in chunks of
+        chunk_steps steps, 5 by default, ``callback_on_step_end(step,
+        latents)`` after each), with the JAX package's refusals: prompt
+        weighting, latents= / denoising_start, Euler-a and LCM, img2img and
+        inpainting."""
+        if options.get("callback_on_step_end") is not None \
+                or options.get("chunk_steps") is not None:
+            return self._chunked(pil_image, **options)
         clock = PhaseClock(timings, self.device, time.perf_counter())
         call = self.prepare(pil_image, **options)
-        if self.device.type == "cuda":
-            from imagharmony_tpu_torch.pipelines import programs
+        out = self._run(call, clock)
+        return self._output(out, call.branches.latent_output,
+                            options.get("output_type", "np"))
 
-            out = programs.run(self, call, clock)
-        else:
-            out = edit(self.components, call, clock)
-        output_type = options.get("output_type", "np")
-        if call.branches.latent_output or output_type == "raw":
-            return out
-        arr = to_uint8(out)
-        if output_type == "pil":
-            from PIL import Image
+    def _chunked(self, pil_image, *, pixel_values=None, prompt=None, negative_prompt=None,
+                 extra_text=None, seed=None, num_samples=1, chunk_steps=None,
+                 callback_on_step_end=None, output_type="np", scale=1.0,
+                 use_karras_sigmas=False, controlnet_conditioning_scale=1.0, noise=None,
+                 _step_noise=None, strength=None, original_size=None,
+                 crops_coords_top_left=(0, 0), target_size=None, negative_original_size=None,
+                 negative_crops_coords_top_left=None, negative_target_size=None, **options):
+        """generate() through the chunked runner, after its refusals (the
+        JAX package's ``generate``, harmony_edit.py:1098-1155)."""
+        from imagharmony_tpu_torch.pipelines import continuous
 
-            return [Image.fromarray(a) for a in arr]
-        return arr
+        unknown = set(options) - set(inspect.signature(HarmonyPipeline.prepare).parameters)
+        if unknown:
+            raise TypeError(f"generate() got unexpected keyword arguments {sorted(unknown)}")
+        check_chunked(**options)
+        check_output_type(output_type)
+        opts_kw = {k: options[k] for k in (
+            "guidance_scale", "num_inference_steps", "height", "width", "scheduler",
+            "control_guidance_start", "control_guidance_end", "tile_vae", "guidance_rescale",
+            "denoising_end", "encoder_interval", "prediction_type", "rescale_zero_snr",
+            "clip_skip", "timestep_spacing") if k in options}
+        return continuous.generate_chunked(
+            self, pil_image=pil_image, pixel_values=pixel_values, prompt=prompt,
+            negative_prompt=negative_prompt, extra_text=extra_text, seed=seed,
+            num_samples=num_samples, chunk_steps=chunk_steps or 5,
+            callback_on_step_end=callback_on_step_end, output_type=output_type, noise=noise,
+            scale=scale, use_karras=use_karras_sigmas, original_size=_pair(original_size),
+            crops_coords_top_left=tuple(crops_coords_top_left), target_size=_pair(target_size),
+            negative_original_size=_pair(negative_original_size),
+            negative_crops_coords_top_left=_pair(negative_crops_coords_top_left),
+            negative_target_size=_pair(negative_target_size), **opts_kw)
+
+    def edit(self, image, prompt, extra_text=None, **kw):
+        """generate(image, prompt=prompt, extra_text=extra_text, **kw): the
+        JAX package's alias."""
+        return self.generate(image, prompt=prompt, extra_text=extra_text, **kw)
+
+    @torch.inference_mode()
+    def generate_batch(self, images, prompts, *, extra_texts=None, negative_prompts=None,
+                       seeds=None, control_images=None, output_type="np",
+                       timings: Optional[dict] = None, noise=None, **shared_kw):
+        """Pack B independent edit requests into one program (the JAX
+        package's ``generate_batch``): the CFG-packed UNet batch becomes 2B
+        and the host's and the launches' cost is paid once. ``images``
+        (all or none), ``prompts`` and the keywords as ``prepare_batch``
+        takes them; every option is shared. Returns, by ``output_type``,
+        "np" uint8 (B, H, W, 3), "raw" the float images, "pil" a list.
+        Above two rows the decode runs row by row. On a CUDA device it runs
+        the key's captured programs (the key counts the requests), on the
+        CPU the eager module functions."""
+        check_output_type(output_type)
+        if output_type == "latent":
+            shared_kw["return_latents"] = True
+        clock = PhaseClock(timings, self.device, time.perf_counter())
+        call = self.prepare_batch(images, prompts, extra_texts=extra_texts,
+                                  negative_prompts=negative_prompts, seeds=seeds,
+                                  control_images=control_images, noise=noise, **shared_kw)
+        return self._output(self._run(call, clock), call.branches.latent_output, output_type)

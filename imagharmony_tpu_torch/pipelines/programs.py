@@ -2,10 +2,11 @@
 package's ``_edit_jit`` (imagharmony_tpu/pipelines/harmony_edit.py:556-560)
 and of its ``lax.scan`` denoise loop (:427).
 
-On a CUDA device ``HarmonyPipeline.generate()`` runs the edit as CUDA
-graphs, captured at the first call of a key into one memory pool. The key
-is the device, the output size, num_samples and the call's
-``harmony_edit.Branches``: what the code does (the sampler, the prediction
+On a CUDA device ``HarmonyPipeline.generate()`` and ``generate_batch()``
+run the edit as CUDA graphs, captured at the first call of a key into one
+memory pool. The key is the device, the output size, the requests the call
+packs, the samples of each and the call's ``harmony_edit.Branches``: what
+the code does (the sampler, the prediction
 type, CFG or not, the rescale, the image prompt, img2img, inpaint, latent
 output, clip_skip, encoder_interval, tile_vae, prompt weights), never a
 value and never the step count. The graphs:
@@ -37,8 +38,8 @@ times as it has steps, and (c), and returns a copy of the output. A capture
 or replay error raises; nothing falls back to the eager functions, which
 stay the reference (``harmony_edit.edit``) and the CPU path.
 
-Before the first capture of a key, one eager pass of each piece runs on the
-stream the capture uses, so that what the kernels' libraries do once per
+Each graph is a ``Piece``: before its capture, one eager pass of it runs on
+the stream the capture uses, so that what the kernels' libraries do once per
 thread, device or stream happens there and not under capture: the
 ``cudaFree(nullptr)`` and the shared-memory attributes of
 ``sm90_tiles.cuh``, K2's register count, the cached GEMM plans and the GEMM
@@ -50,15 +51,19 @@ The kernels' Python launch counters count the launches of the warm-up and
 of the capture, not those of replays; a replay's launches show only in a
 profiler trace, by kernel name.
 
-Two limits, left to the serving layer: a pipeline keeps every key's
-programs (``pipe.programs``: the graphs, their pool and the static
-buffers) for its life, with no eviction; and a key's static buffers make
-generate() non-reentrant for that key, so two concurrent calls of one key
-on one pipeline would overwrite each other's inputs.
+A pipeline keeps its programs in a ``ProgramCache`` (``pipe.programs``):
+at most ``capacity`` keys, the least recently used evicted first, which
+drops its graphs, their pool and its static buffers (the memory returns to
+the card at the allocator's next ``empty_cache()``). Each program has a
+lock, taken for the whole of a call, so two threads never run one key's
+buffers at once. A capture wants the device to itself: the serving
+workers run all device work on one thread (``serving.py``).
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
 
 import torch
@@ -69,17 +74,114 @@ from imagharmony_tpu_torch.schedulers import diffusion as sched
 # the longest denoise loop a program takes: leading spacing needs one
 # training timestep a step
 MAX_STEPS = 1000
+# keys a pipeline keeps. What a 1024² SDXL key keeps on one NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md §5): a one-request CFG key 4.74-4.76 GiB,
+# img2img 6.15-6.33, a 4-request generate_batch key 7.09, a 4-slot engine
+# 7.14, a 2-sample key or 2-slot engine with its 2-row decode 9.56-9.57;
+# the weights take 12.3 GiB and a call peaks at 15.6 GiB allocated. Six of
+# the largest (57.4 GiB) fit beside that in the card's 79.18 GiB.
+DEFAULT_CAPACITY = 6
+
+
+class ProgramCache(collections.OrderedDict):
+    """A pipeline's captured programs by key, least recently used first: at
+    most ``capacity`` of them. ``acquire`` builds a key's program when the
+    cache has none, evicting the least recently used unpinned ones first
+    (a slot engine pins its program while it holds slots); ``captures``
+    counts the programs built, ``evictions`` those dropped."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        super().__init__()
+        self.lock = threading.RLock()
+        self.captures = self.evictions = 0
+        self.resize(capacity)
+
+    def acquire(self, key, build):
+        """The program of ``key``, now the most recently used; ``build()``
+        makes it where the cache has none, after room is made for it."""
+        with self.lock:
+            prog = self.get(key)
+            if prog is not None:
+                self.move_to_end(key)
+                return prog
+            self._evict(self.capacity - 1)
+            prog = self[key] = build()
+            self.captures += 1
+            return prog
+
+    def resize(self, capacity: int):
+        """Sets the bound, evicting down to it now."""
+        if capacity < 1:
+            raise ValueError(f"a program cache keeps at least one key, got {capacity}")
+        with self.lock:
+            self.capacity = capacity
+            self._evict(capacity)
+
+    def _evict(self, keep: int):
+        """Drops the least recently used unpinned programs until ``keep``
+        are left (pinned ones stay, over the bound if they must), each once
+        a call of it running on another thread has ended."""
+        while len(self) > keep:
+            victim = next((k for k, p in self.items() if not p.pinned), None)
+            if victim is None:
+                return
+            with self.pop(victim).lock:
+                self.evictions += 1
 
 
 def _like(x):
     return None if x is None else torch.empty_like(x)
 
 
+class Piece:
+    """One piece of a program. Without a stream (the CPU) a call runs
+    ``fn``. With one, a call replays a CUDA graph of ``fn`` and returns
+    the tensors ``fn`` returned under capture; the graph is captured at
+    ``capture()`` or at the first call, after one eager run of ``fn`` on
+    the capture stream (the warm-up: ``fn`` writes only its own outputs,
+    or its caller resets what it moves).
+
+    The pieces of a program capture into one memory pool, ``pool``. A
+    later capture may place its temporaries and its outputs where an
+    earlier one's temporaries were, and never where a living output is.
+    So a piece's outputs stay valid while pieces captured after it replay,
+    and a replay of a piece captured before it may overwrite them: its
+    caller reads or copies them before then. Pieces captured lazily (a slot
+    engine's decodes and second conditioning) come after the steps: their
+    outputs are copied out at once."""
+
+    def __init__(self, fn, stream=None, pool=None):
+        self.fn, self.stream, self.pool = fn, stream, pool
+        self.graph = self.out = None
+
+    def capture(self):
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self.fn()
+        current.wait_stream(self.stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
+            self.out = self.fn()
+
+    def __call__(self):
+        if self.stream is None:
+            return self.fn()
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        return self.out
+
+
 class EditProgram:
-    """The graphs of one key and the static buffers they read and write."""
+    """The graphs of one key and the static buffers they read and write;
+    ``lock`` is held for the whole of a call."""
+
+    pinned = False
 
     def __init__(self, pipe, call: he.EditCall):
         t0 = time.perf_counter()
+        self.lock = threading.Lock()
         self.comps, self.device = pipe.components, pipe.device
         self.br = br = call.branches
         # the conditioning reads use_harmony and clip_skip, both in the key
@@ -100,31 +202,21 @@ class EditProgram:
         self.load(call)
         prop = br.encoder_interval > 1
 
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):  # the warm-up, on the capture stream
-            self.cond, self.img_lat = self._start()
-            self.encoder = self._step(key=True)
-            if prop:
-                self._step(key=False)
-            if not br.latent_output:
-                self._finish()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.load(call)  # the warm-up steps moved the latents, the state and the index
-
-        pool = torch.cuda.graph_pool_handle()
-
-        def capture(piece):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, stream=stream):
-                out = piece()
-            return g, out
-
-        self.conditioning, (self.cond, self.img_lat) = capture(self._start)
-        self.key_step, self.encoder = capture(lambda: self._step(key=True))
-        self.reuse_step = capture(lambda: self._step(key=False))[0] if prop else None
-        self.finish, self.out = capture(self._finish) if not br.latent_output else (None, None)
+        # each piece captured after its warm-up and replayed once, in the
+        # order a call runs them, so that every warm-up reads real inputs
+        stream, pool = torch.cuda.Stream(self.device), torch.cuda.graph_pool_handle()
+        self.conditioning = Piece(self._start, stream, pool)
+        self.cond, self.img_lat = self.conditioning()
+        self.key_step = Piece(lambda: self._step(key=True), stream, pool)
+        self.encoder = self.key_step()
+        self.reuse_step = Piece(lambda: self._step(key=False), stream, pool) if prop else None
+        if prop:
+            self.reuse_step()
+        self.finish = None if br.latent_output else Piece(self._finish, stream, pool)
+        if self.finish is not None:
+            self.finish()
         torch.cuda.synchronize(self.device)
+        self.load(call)  # the warm-ups and replays moved the latents, the state and the index
         self.capture_s = time.perf_counter() - t0  # the warm-up and the captures
 
     def _start(self):
@@ -183,19 +275,18 @@ class EditProgram:
         """The call's output by replays: images (B, H, W, 3) in [-1, 1], or
         latents (B, h, w, 4)."""
         self.load(call)
-        self.conditioning.replay()
+        self.conditioning()
         clock.mark("conditioning_s")
         k = self.br.encoder_interval
         for i in range(call.schedule.num_steps):
             if self.z is not None:
                 he.draw_step_noise(self.gen, self.z)
-            (self.key_step if i % k == 0 else self.reuse_step).replay()
+            (self.key_step if i % k == 0 else self.reuse_step)()
         clock.mark("denoise_s")
         if self.finish is None:
             out = self.latents.permute(0, 2, 3, 1).clone()
         else:
-            self.finish.replay()
-            out = self.out.clone()
+            out = self.finish().clone()
         clock.mark("decode_s")
         return out
 
@@ -203,9 +294,9 @@ class EditProgram:
 def run(pipe, call: he.EditCall, clock: he.PhaseClock):
     """The edit of ``call`` on ``pipe``'s CUDA device through the key's
     programs, captured first if the key has none."""
-    k = (pipe.device, call.opts.height, call.opts.width, call.num_samples, call.branches)
+    k = (pipe.device, call.opts.height, call.opts.width, call.requests, call.samples,
+         call.branches)
     with torch.cuda.device(pipe.device):
-        prog = pipe.programs.get(k)
-        if prog is None:
-            prog = pipe.programs[k] = EditProgram(pipe, call)
-        return prog.run(call, clock)
+        prog = pipe.programs.acquire(k, lambda: EditProgram(pipe, call))
+        with prog.lock:
+            return prog.run(call, clock)

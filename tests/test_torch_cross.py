@@ -114,8 +114,9 @@ def test_cross_attention_with_ip_matches_jax(d, sk_ip):
     """The port's cross ``Attention`` with the IP branch at the SD1.5 head
     dims and the IP key counts of ImageProj, Resampler and MLPProj, against
     the JAX ``attention.attention(..., context=, ip_context=, ip_scale=)``,
-    unpacked and packed (k, v as column views of ``to_kv``). fp32, the
-    per-module tolerance."""
+    unpacked and packed (k, v as column views of ``to_kv``); and with a
+    per-row weight, JAX's (B, 1, 1, 1) ``ip_scale`` (its chunk step's)
+    against the port's (B,) vector. fp32, the per-module tolerance."""
     import jax.numpy as jnp
     from imagharmony_tpu import dtypes as jdt
     from imagharmony_tpu.nn import attention as jattn
@@ -125,10 +126,16 @@ def test_cross_attention_with_ip_matches_jax(d, sk_ip):
     x, ctx, ipc = randn(13, 2, 40, 64), randn(14, 2, 77, 48), randn(15, 2, sk_ip, 48)
     ref = jattn.attention(jp, jnp.asarray(x), heads=2, context=jnp.asarray(ctx),
                           ip_context=jnp.asarray(ipc), ip_scale=0.7, policy=jdt.FP32)
+    rows = np.array([0.7, 0.25], np.float32)
+    ref_rows = jattn.attention(jp, jnp.asarray(x), heads=2, context=jnp.asarray(ctx),
+                               ip_context=jnp.asarray(ipc), ip_scale=jnp.asarray(rows)[:, None,
+                                                                                      None, None],
+                               policy=jdt.FP32)
     with torch.no_grad():
         close(port(t(x), context=t(ctx), ip_context=t(ipc), ip_scale=0.7), ref)
         pattn.pack_inference_params(port)
         close(port(t(x), context=t(ctx), ip_context=t(ipc), ip_scale=0.7), ref)
+        close(port(t(x), context=t(ctx), ip_context=t(ipc), ip_scale=t(rows)), ref_rows)
 
 
 # --- wiring and checks ----------------------------------------------------------
@@ -225,8 +232,9 @@ def test_k2_checks_name_k2():
 def test_k2_on_cpu_is_plain_and_ip_scale_zero_is_text():
     """CPU tensors take the plain version (no launch counted); ip_scale 0
     gives the text branch alone, and zero gradients to the IP keys; a 0-dim
-    fp32 tensor ip_scale gives what its float gives, bit for bit; without a
-    gradient request there is no Function."""
+    fp32 tensor ip_scale gives what its float gives, bit for bit, and so
+    does a (B,) vector of equal values, whose row weighted 0 is the text
+    branch's row; without a gradient request there is no Function."""
     q, k, v, k_ip, v_ip = (t(x) for x in _cross_case(30, 2, 70, 2, 40, 4))
     kw = dict(scale=40**-0.5, head_dim=40)
     before = ca.cross_launches
@@ -244,8 +252,19 @@ def test_k2_on_cpu_is_plain_and_ip_scale_zero_is_text():
     torch.testing.assert_close(as_tensor, as_float, rtol=0, atol=0)
     torch.testing.assert_close(zero_tensor, text, rtol=0, atol=0)
     assert not torch.equal(as_float, text)
-    with pytest.raises(ValueError, match="a tensor ip_scale must be 0-dim fp32"):
-        ca._ip_weight(torch.ones(1), torch.device("cpu"))
+    # one weight a row: equal values are the 0-dim weight's bits, a zero row
+    # the text branch's row
+    same = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=torch.full((2,), 0.7),
+                              **kw)
+    rows = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=torch.tensor([0.7, 0.0]),
+                              **kw)
+    torch.testing.assert_close(same, as_float, rtol=0, atol=0)
+    torch.testing.assert_close(rows[0], as_float[0], rtol=0, atol=0)
+    torch.testing.assert_close(rows[1], text[1], rtol=0, atol=0)
+    with pytest.raises(ValueError, match=r"a tensor ip_scale must be 0-dim or \(2,\) fp32"):
+        ca._ip_weight(torch.ones(1), torch.device("cpu"), 2)
+    with pytest.raises(ValueError, match=r"a tensor ip_scale must be 0-dim or \(2,\) fp32"):
+        ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=torch.ones(3), **kw)
     assert text.grad_fn is None and text.shape == (2, 70, 80) and text.is_contiguous()
     leaves = [x.clone().requires_grad_() for x in (k_ip, v_ip)]
     ca.flash_cross_nhd(q, k, v, k_ip=leaves[0], v_ip=leaves[1], ip_scale=0.0, **kw).sum().backward()
@@ -369,7 +388,11 @@ def test_cuda_k2_matches_plain(cuda):
     Then, at the UNets' IP shapes, ip_scale 0 with the IP keys gives the
     text-only call's output bit for bit, also as a 0-dim fp32 tensor on the
     card (the kernel reads the weight from device memory), where 0.7 gives
-    the float's output bit for bit; a tensor on another device raises."""
+    the float's output bit for bit; a tensor on another device raises. A
+    (B,) fp32 vector gives each row its own weight (the slot engine's rows
+    at different steps): it matches the plain version, a vector of equal
+    values is bit-identical to the 0-dim weight, and a row weighted 0 is
+    bit-identical to that row of the text-only call."""
     def check(q, k, v, k_ip, v_ip, ip_scale, what):
         d = what[3]
         kw = dict(scale=d**-0.5, head_dim=d, k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
@@ -419,7 +442,15 @@ def test_cuda_k2_matches_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(zero, text) and torch.equal(zero_t, text), (b, sq, heads, d, sk_ip)
         assert torch.equal(live_t, live) and not torch.equal(live, text), (b, sq, heads, d, sk_ip)
-    with pytest.raises(ValueError, match="a tensor ip_scale must be 0-dim fp32 on cuda"):
+        # one weight a row: rows 0.7 and 0.0 of a (B,) vector
+        rows = torch.tensor([0.7, 0.0] * (b // 2) + [0.3] * (b % 2), device=cuda)
+        per_row = check(q, k, v, k_ip, v_ip, rows, (b, sq, heads, d, sk_ip, "per row"))
+        same = ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=table[1].expand(b)
+                                  .contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(same, live) and torch.equal(per_row[1], text[1]), \
+            (b, sq, heads, d, sk_ip)
+    with pytest.raises(ValueError, match="a tensor ip_scale must be 0-dim or"):
         ca.flash_cross_nhd(q, k, v, k_ip=k_ip, v_ip=v_ip, ip_scale=table[1].cpu(), **kw)
 
 

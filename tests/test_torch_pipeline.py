@@ -4,15 +4,24 @@ conditioning against JAX's, generate() with the JAX one-call signature and
 the sampler zoo and edit features against the JAX package's generate() in
 grouped calls (every step and the output at cosine > 0.9999), the
 tokenizer with prompt weighting and textual inversion, io/from_jax, the
-checkpoint loader against JAX's on trees the JAX package wrote, and that
-the port runs without JAX."""
+checkpoint loader against JAX's on trees the JAX package wrote; the serving
+path: generate_batch against JAX's, the chunked runner and the slot engine
+bit for bit against the one-call path, both workers through make_server,
+the program cache, PNS's CLIP scores against JAX's; and that the port runs
+without JAX."""
 
+import base64
 import copy
 import dataclasses
 import functools
+import io
 import json
+import re
 import subprocess
 import sys
+import threading
+import time
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -31,8 +40,13 @@ from imagharmony_tpu_torch.io import checkpoints as pckpt
 from imagharmony_tpu_torch.io import hf_import as hf_import_torch
 from imagharmony_tpu_torch.io import from_jax
 from imagharmony_tpu_torch.models import tokenizer as ptok
+from imagharmony_tpu_torch.kernels import cross_attention as pca
 from imagharmony_tpu_torch.pipelines import components as pcomp
+from imagharmony_tpu_torch.pipelines import continuous as pcont
 from imagharmony_tpu_torch.pipelines import harmony_edit as phe
+from imagharmony_tpu_torch.pipelines import pns as ppns
+from imagharmony_tpu_torch.pipelines import programs as pprog
+from imagharmony_tpu_torch.pipelines import serving as pserving
 from imagharmony_tpu_torch.schedulers import diffusion as psched
 from imagharmony_tpu_torch.utils import parity
 from torch_port_util import close, edit_parity, tiny_pipes
@@ -54,7 +68,10 @@ def _image():
 def test_tiny_edit_matches_golden(pipes):
     """The call and thresholds of tests/test_golden.py, with the golden's
     initial noise handed to the port, through the denoise loop's body that
-    generate() runs; generate() gives the capture's image bit for bit."""
+    generate() runs; generate() gives the capture's image bit for bit. And
+    PNS: ``clip_scores`` (an antialiased bilinear resize into the bigG
+    joint space) against JAX's (abs <= 1e-5), and ``generate_with_pns``
+    keeping the argmax of K seeds' scores."""
     _, port = pipes
     gold = parity.load(GOLDEN)
     cap = parity.run_capture(port, _image(), prompt="a dog", extra_text="six dogs",
@@ -73,9 +90,31 @@ def test_tiny_edit_matches_golden(pipes):
     assert lat.shape == (1, 16, 16, 4)
     edit_parity(jpipe, port, _image(), steps=5, denoising_start=0.6, latents=lat)
 
+    # PNS: 64x48 images shrunk to the tiny tower's 28x28, where JAX's
+    # bilinear resize antialiases (F.interpolate's default would not: the
+    # scores then differ by ~1e-3)
+    from imagharmony_tpu.pipelines import pns as jpns
+
+    imgs = np.random.default_rng(1).uniform(-1, 1, (3, 64, 48, 3)).astype(np.float32)
+    ref = jpns.clip_scores(jpipe.params, jpipe.cfgs, jnp.asarray(imgs),
+                           jpipe._tokenize("a dog")[1], policy=jpipe.policy)
+    close(ppns.clip_scores(port.components, torch.as_tensor(imgs), port._tokenize("a dog")[1]),
+          ref, rtol=0, atol=1e-5)
+    best, images, scores = ppns.generate_with_pns(
+        port, _image(), num_seeds=3, prompt="a dog", extra_text="six dogs",
+        num_inference_steps=2, height=32, width=32, return_all=True, output_type="np")
+    assert len(images) == 3 and scores.shape == (3,) and np.abs(scores).max() <= 1.0 + 1e-5
+    np.testing.assert_array_equal(best, images[int(np.argmax(scores))])
+
 
 def test_build_conditioning_matches_jax(pipes):
-    """CFG-packed [uncond | cond] conditioning with num_samples=2."""
+    """CFG-packed [uncond | cond] conditioning with num_samples=2. Then
+    ``generate_batch``, whose B requests' ids are B rows: three requests
+    with their own images, prompts, extra_texts, negative prompts and seeds,
+    3 steps, on JAX's noise, against JAX's ``generate_batch`` (image cosine
+    > 0.9999 a row); without extra_texts at four rows (the decode row by
+    row), 2 steps, against the port's own generate() of each request (max
+    abs <= 1e-5)."""
     jpipe, port = pipes
     opts_j = jhe.EditOptions(height=32, width=32)
     opts_p = phe.EditOptions(height=32, width=32)
@@ -119,6 +158,30 @@ def test_build_conditioning_matches_jax(pipes):
                 **{k: v for k, v in sizes.items() if k != "target_size"},
                 negative_target_size=(24, 24))
 
+    rng = np.random.default_rng(2)
+    imgs = [rng.integers(0, 255, (40 + 8 * i, 48, 3), dtype=np.uint8) for i in range(4)]
+    reqs = dict(prompts=["a dog", "eight sheep", "a cat", "a bird"],
+                extras=["six dogs", "eight sheep", "two cats"],
+                negatives=["ugly", None, "blurry"], seeds=[3, 4, 5])
+    shared = dict(num_inference_steps=3, height=32, width=32)
+    ref = jpipe.generate_batch(imgs[:3], reqs["prompts"][:3], extra_texts=reqs["extras"],
+                               negative_prompts=reqs["negatives"], seeds=reqs["seeds"], **shared)
+    noise = np.concatenate([np.asarray(jax.random.normal(jax.random.PRNGKey(s), (1, 16, 16, 4),
+                                                         jnp.float32)) for s in reqs["seeds"]])
+    out = port.generate_batch(imgs[:3], reqs["prompts"][:3], extra_texts=reqs["extras"],
+                              negative_prompts=reqs["negatives"], seeds=reqs["seeds"],
+                              noise=noise, output_type="raw", **shared)
+    assert out.shape == ref.shape == (3, 32, 32, 3)
+    for got, want in zip(phe.to_uint8(out), ref):
+        assert parity.cosine(got, want) > 0.9999
+    shared["num_inference_steps"] = 2
+    four = port.generate_batch(imgs, reqs["prompts"], seeds=[1, 2, 3, 4], output_type="raw",
+                               **shared)
+    for i, (img, prompt) in enumerate(zip(imgs, reqs["prompts"])):
+        solo = port.generate(img, prompt=prompt, seed=[i + 1], output_type="raw", **shared)
+        torch.testing.assert_close(four[i:i + 1], solo, rtol=0, atol=1e-5)
+    assert not torch.equal(four[0], four[1])
+
 
 def test_generate_tiny(pipes):
     """generate() end to end on the CPU: uint8 (1, H, W, 3), deterministic
@@ -126,7 +189,12 @@ def test_generate_tiny(pipes):
     lists, text-to-image and pixel_values; the refusals (unported items
     raise NotImplementedError, bad combinations ValueError, before any
     work); and two grouped calls against the JAX package's generate():
-    Euler-a with inpainting, LCM with no CFG and no image."""
+    Euler-a with inpainting, LCM with no CFG and no image. The serving
+    entry points: ``edit`` and ``set_scale``; the chunked runner's refusals
+    with the JAX package's messages; both workers through ``make_server``
+    on a free port (two same-key requests packed, one of another key
+    answered, a request admitted mid-flight, a malformed payload refused,
+    ``/status``, no pack error); the program cache's bound and locks."""
     pipe = phe.HarmonyPipeline.random_tiny(seed=0, device="cpu")
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=2, height=32,
               width=32, seed=3)
@@ -157,8 +225,8 @@ def test_generate_tiny(pipes):
     out = pipe.generate(_image(), output_type="raw", **two)
     torch.testing.assert_close(out[1:], raw, rtol=0, atol=1e-5)
     refused = [(NotImplementedError, dict(control_image=_image())),
-               (NotImplementedError, dict(callback_on_step_end=lambda *a: None)),
-               (NotImplementedError, dict(chunk_steps=2)),
+               (ValueError, dict(callback_on_step_end=lambda *a: None)),
+               (ValueError, dict(chunk_steps=2)),
                (NotImplementedError, dict(aesthetic_score=6.0)),
                (ValueError, dict(mask_image=np.ones((32, 32), np.float32))),
                (ValueError, dict(latents=np.zeros((1, 16, 16, 4), np.float32))),
@@ -186,6 +254,185 @@ def test_generate_tiny(pipes):
     assert keep.any() and not keep.all()
     edit_parity(jpipe, port, None, scheduler="lcm", guidance_scale=1.0)
 
+    np.testing.assert_array_equal(pipe.edit(_image(), "a dog", "six dogs", **{
+        k: v for k, v in kw.items() if k not in ("prompt", "extra_text")}), a)
+    pipe.set_scale(0.5)
+    np.testing.assert_array_equal(pipe.generate(_image(), **kw), a)  # as JAX: stored only
+    # the chunked runner refuses what the JAX package's refuses, with its
+    # messages (imagharmony_tpu/pipelines/harmony_edit.py:1098-1125)
+    chunked = [(ValueError, "prompt_weighting is not supported", dict(prompt_weighting=True)),
+               (ValueError, "refiner-stage inputs", dict(denoising_start=0.5)),
+               (ValueError, "euler_a is not supported", dict(scheduler="euler_a")),
+               (ValueError, "lcm is not supported", dict(scheduler="lcm")),
+               (ValueError, "img2img/inpainting", dict(init_image=_image())),
+               (NotImplementedError, "ROADMAP A13", dict(control_image=_image())),
+               (TypeError, "unexpected keyword", dict(bogus=1))]
+    for err, msg, extra in chunked:
+        with pytest.raises(err, match=re.escape(msg)):
+            pipe.generate(_image(), chunk_steps=2, **dict(kw, **extra))
+        if err is ValueError:
+            with pytest.raises(err, match=re.escape(msg)):
+                jpipe.generate(_image(), chunk_steps=2, **dict(kw, **extra))
+    with pytest.raises(ValueError, match="chunk=3 must be a multiple of encoder_interval=2"):
+        pcont.SlotEngine(pipe, phe.EditOptions(encoder_interval=2), chunk=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        pipe.generate_batch([_image()], ["a dog"], control_images=[_image()], **{
+            k: v for k, v in kw.items() if k not in ("prompt", "extra_text", "seed")})
+
+    _serve_both_modes(pipe)
+    _program_cache_units()
+
+
+def _b64(arr):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _serve_both_modes(pipe):
+    """Both workers behind make_server on a free local port: two same-key
+    requests and one of another key, all answered; the packed worker packs
+    the two, the continuous one admits the second mid-flight (/status shows
+    two slots at different steps); a malformed payload gets 400; a weighted
+    prompt is answered by the packed worker and refused by the continuous
+    one (500); no pack error. The order is made deterministic, not timed: the packed worker
+    waits long for a second request of its key, and the continuous one's
+    engine lock is held while the later requests are submitted."""
+    for continuous in (False, True):
+        steps = 6 if continuous else 3
+        base = dict(image=_b64(_image()), prompt="a dog", extra_text="six dogs", steps=steps,
+                    height=32, width=32)
+        jobs = [dict(base, seed=1), dict(base, seed=2, prompt="a cat"),
+                dict(base, steps=2, seed=3)]
+        kw = dict(max_batch=2, chunk=1) if continuous else dict(max_batch=2, max_wait_s=60.0)
+        srv = pserving.make_server(pipe, 0, continuous=continuous, host="127.0.0.1", **kw)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        worker, submitted = srv.worker, threading.Semaphore(0)
+        submit = worker.submit
+
+        def counted(payload):
+            req = submit(payload)
+            submitted.release()
+            return req
+
+        worker.submit = counted  # the handlers call the worker's submit
+
+        def post(payload, body=None):
+            req = urllib.request.Request(url + "/edit", method="POST",
+                                         data=body or json.dumps(payload).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return json.loads(r.read())
+
+        results, statuses = [None] * 3, []
+        posts = [threading.Thread(target=lambda i=i: results.__setitem__(i, post(jobs[i])))
+                 for i in range(3)]
+        try:
+            posts[0].start()
+            if continuous:  # once the first is in flight, hold its engine
+                deadline = time.time() + 60
+                while not any(get("/status").get("slot_steps") or []) \
+                        and time.time() < deadline:
+                    time.sleep(0.01)
+                with worker._engine.prog.lock:
+                    posts[1].start()
+                    posts[2].start()
+                    for _ in range(3):
+                        assert submitted.acquire(timeout=60)
+            else:  # the two of one key make a group, then the other key alone
+                posts[1].start()
+                for p in posts[:2]:
+                    p.join(120)
+                worker.max_wait_s = 0.05
+                posts[2].start()
+            while any(p.is_alive() for p in posts):
+                statuses.append(get("/status"))
+                time.sleep(0.01)
+            bad = [post(None, body=b"not json"), post(dict(base, steps="x"))]
+            # the chunked runner refuses weighted prompts: an error, not another edit
+            weighted = post(dict(base, seed=4, prompt="a (dog:1.5)", prompt_weighting=True))
+            assert get("/healthz") == {"ok": True}
+        finally:
+            srv.shutdown()
+            worker.stop(30)
+            srv.server_close()
+        assert not worker.is_alive()
+        assert [r[0] for r in results] == [200] * 3, results
+        assert [b[0] for b in bad] == [400, 400]
+        assert worker.pack_errors == 0
+        if continuous:
+            assert weighted[0] == 500 and "prompt_weighting" in weighted[1]["error"], weighted
+        else:
+            assert weighted[0] == 200, weighted
+        if continuous:
+            assert all(r[1]["continuous"] for r in results)
+            assert any(sum(s is not None for s in st.get("slot_steps") or []) == 2
+                       and len({s for s in st["slot_steps"]}) == 2 for st in statuses), statuses
+            assert len(worker.admissions) == 3 and worker.admissions[1][1] > 0
+        else:
+            assert [r[1].get("batched") for r in results] == [2, 2, None]
+
+
+def _program_cache_units():
+    """ProgramCache: a bounded LRU that evicts the least recently used
+    unpinned program, waits for an evicted program's lock, and builds a key
+    once however many threads ask for it."""
+    class Prog:
+        def __init__(self, name):
+            self.name, self.pinned, self.lock = name, False, threading.Lock()
+
+    built = []
+
+    def build(name):
+        def make():
+            built.append(name)
+            time.sleep(0.01)
+            return Prog(name)
+        return make
+
+    cache = pprog.ProgramCache(2)
+    assert pprog.ProgramCache().capacity == pprog.DEFAULT_CAPACITY
+    a = cache.acquire("a", build("a"))
+    cache.acquire("b", build("b"))
+    assert cache.acquire("a", build("a")) is a and list(cache) == ["b", "a"]
+    cache.acquire("c", build("c"))  # b is the least recently used
+    assert list(cache) == ["a", "c"] and cache.evictions == 1 and cache.captures == 3
+    cache["a"].pinned = True
+    cache.acquire("d", build("d"))  # a is pinned: c goes
+    assert list(cache) == ["a", "d"]
+    cache.resize(1)
+    assert list(cache) == ["a"] and cache.evictions == 3
+    cache.resize(3)
+    with pytest.raises(ValueError, match="at least one key"):
+        cache.resize(0)
+    # an evicted program's running call ends first
+    e = cache.acquire("e", build("e"))
+    e.lock.acquire()
+    released = []
+    threading.Timer(0.05, lambda: (released.append(True), e.lock.release())).start()
+    cache.resize(1)
+    assert released and "e" not in cache
+    # many threads, one key: one build
+    cache, built[:] = pprog.ProgramCache(4), []
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(cache.acquire("k", build("k"))))
+               for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(10)
+    assert built == ["k"] and len(got) == 8 and all(g is got[0] for g in got)
+
 
 def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     """The per-step IP scales, the micro-conditioning rows (with negative
@@ -193,7 +440,14 @@ def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     levels), the schedule and IP scales an img2img or denoising_start call
     runs (JAX's ``_edit_jit`` slicing), and a grouped call: DDIM with
     trailing spacing, v-prediction and zero-SNR on an img2img at strength
-    0.6 with an IP window."""
+    0.6 with an IP window. Then the chunked runner, whose rows read their
+    own column of those tables: generate()'s ``chunk_steps`` bit for bit the
+    one-call path (as JAX's test_chunked_matches_one_jit asserts) with Euler
+    at chunks 2 and 3, encoder_interval 2, and DPM++ 2M on two samples of a
+    seed list, the callback at [2, 4]; the slot engine under DPM++ (whose
+    history resets at admission): a request admitted after one chunk equals
+    its solo engine run bit for bit, while under an IP window the mid-flight
+    rows carry different IP weights into K2 the same step."""
     for start, end in [(0.0, 1.0), (0.2, 0.7)]:
         kw = dict(num_inference_steps=10, ip_scale=0.6, control_guidance_start=start,
                   control_guidance_end=end)
@@ -236,6 +490,58 @@ def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     edit_parity(jpipe, port, _image(), steps=5, scheduler="ddim", timestep_spacing="trailing",
                 prediction_type="v_prediction", rescale_zero_snr=True, init_image=_image(),
                 strength=0.6, control_guidance_start=0.2, control_guidance_end=0.8)
+
+    kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=4, height=32,
+              width=32, seed=9, output_type="raw")
+    for extra, chunks in (({}, (2, 3)), (dict(encoder_interval=2), (2,)),
+                          (dict(num_samples=2, seed=[3, 4], scheduler="dpm++"), (2,))):
+        one = port.generate(_image(), **dict(kw, **extra))
+        for chunk in chunks:
+            seen = []
+            got = port.generate(_image(), chunk_steps=chunk, **dict(kw, **extra),
+                                callback_on_step_end=lambda i, lat: seen.append((i, lat.shape)))
+            torch.testing.assert_close(got, one, rtol=0, atol=0)
+            assert [i for i, _ in seen] == ([2, 4] if chunk == 2 else [3, 4])
+            assert seen[0][1] == (one.shape[0], 16, 16, 4)
+
+    def engine_run(opts, jobs):
+        eng = pcont.SlotEngine(port, opts, slots=2, chunk=1)
+        out, started = {}, []
+        for _ in range(12):
+            for tok, job in jobs:
+                if tok not in started and eng.free_slots():
+                    eng.admit(tok, pil_image=_image(), **job)
+                    started.append(tok)
+                    break  # one admission a chunk: the second joins mid-flight
+            eng.run_chunk()
+            out.update(eng.harvest())
+            if len(out) == len(jobs):
+                break
+        eng.close()
+        return out
+
+    jobs = [("A", dict(prompt="a dog", seed=1)),
+            ("B", dict(prompt="a cat", extra_text="two cats", seed=2))]
+    weights = []
+    k2 = pca.flash_cross_nhd
+
+    def record(q, k, v, **kw_):
+        if kw_.get("k_ip") is not None:
+            weights.append(kw_["ip_scale"].clone())
+        return k2(q, k, v, **kw_)
+
+    opts = phe.EditOptions(height=32, width=32, num_inference_steps=4, scheduler="dpm++",
+                           ip_scale=0.8, control_guidance_start=0.25, control_guidance_end=0.75)
+    pca.flash_cross_nhd = record
+    try:
+        both = engine_run(opts, jobs)
+    finally:
+        pca.flash_cross_nhd = k2
+    np.testing.assert_array_equal(both["B"], engine_run(opts, jobs[1:])["B"])
+    # A at step 1 of the window [1, 3), B at step 0: weights 0.8 and 0.0 on
+    # each half of the CFG pair, one (2S,) vector into K2
+    assert weights and all(w.shape == (4,) for w in weights)
+    assert any(torch.equal(w, torch.tensor([0.8, 0.0, 0.8, 0.0])) for w in weights)
 
 
 @pytest.mark.parametrize("text", ["a dog", "a photo of eight sheep!", "", "Six   CATS, a dog"])
@@ -464,7 +770,19 @@ def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without JAX or
-    the JAX package."""
+    the JAX package; and no line of their sources imports either, lazily
+    inside a function included (the JAX serving.main's
+    ``from imagharmony_tpu.cli import _merge_loras`` is such an import)."""
+    pattern = re.compile(r"^\s*(from\s+(jax|jaxlib|imagharmony_tpu)(\.|\s)"
+                         r"|import\s+(jax|jaxlib|imagharmony_tpu)(\.|\s|,|$))")
+    sources = sorted((REPO / "imagharmony_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [f"{path.relative_to(REPO)}:{n}: {line.strip()}" for path in sources
+           for n, line in enumerate(path.read_text().splitlines(), 1) if pattern.match(line)]
+    assert len(sources) > 40 and not bad, bad
+    assert pattern.match("    from imagharmony_tpu.cli import _merge_loras")
+    assert pattern.match("import jax.numpy as jnp") and pattern.match("  import jax")
+    assert not pattern.match("from imagharmony_tpu_torch.pipelines import serving")
+    assert not pattern.match("import imagharmony_tpu_torch")
     code = (
         "import importlib, pkgutil, sys\n"
         "import imagharmony_tpu_torch as pkg\n"
