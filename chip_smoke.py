@@ -27,7 +27,8 @@ is non-zero:
    memory K3's launches ask for;
 3. K1 against its plain PyTorch version on the card, bf16 inputs passed as
    strided column slices of one packed (B, S, 3*H*D) tensor, at the main
-   path's two shapes and two edge shapes (one of them B=2, S=1000: a
+   path's two shapes, the SDXL refiner's three (12 and 24 heads of 64) and
+   two edge shapes (one of them B=2, S=1000: a
    ragged last tile in each batch), with timings of K1, the plain version
    and, as a yardstick, F.scaled_dot_product_attention; and K4's entry
    point on head-split views of the same tensors timed around K1 in one
@@ -44,7 +45,8 @@ is non-zero:
    to_qkv tensor, with timings of K4, the plain version and SDPA, and K4 at
    d=64 on the first shape's sequence (what d=40's narrower head saves);
 3d. K2 against its plain version at every cross-attention shape of both
-   UNets (77 text keys; 4, 16 and 257 IP keys; ip_scale 0; an odd length),
+   UNets and of the SDXL refiner (77 text keys; 4, 16 and 257 IP keys;
+   ip_scale 0; an odd length),
    k and v as views of one packed to_kv tensor, with timings of K2, the
    plain version and, as a yardstick, SDPA on the text branch plus SDPA on
    the IP branch; at every IP shape of the UNets, K2 with ip_scale 0 gives
@@ -67,7 +69,8 @@ is non-zero:
    kept per device (as in phase 4); with one card, one line that says so;
 3g. K5 against its plain version computed in fp32 from the same bf16
    inputs, with each gelu (tanh, erf, none), at the UNet feed-forward
-   shapes of both families and of training (with the bias), at ragged
+   shapes of both families, of the SDXL refiner (widths 768 and 1536) and
+   of training (with the bias), at ragged
    M, K and inner (one with more tiles than SMs, so a CTA walks several)
    and at a long K whose tiles are split along K,
    two calls on the same inputs bit-identical, with each timed shape's
@@ -172,7 +175,8 @@ is non-zero:
    7's captured run bit for bit), with the write and read times and the
    peak host RSS;
 12. the sampler zoo and the edit's features at full width, on phase 5's
-   SDXL bf16 pipeline (``feature_configs``): DPM++ 2M Karras with
+   SDXL bf16 pipeline (``feature_configs``), at FEATURE_STEPS (15) steps,
+   a depth cut from 30 that the phase prints: DPM++ 2M Karras with
    guidance_rescale, micro-conditioning overrides, a negative prompt and
    clip_skip; Euler-a; DDIM with trailing spacing, v-prediction and
    zero-SNR; LCM at 4 steps with no CFG and no image; img2img at strength
@@ -183,28 +187,52 @@ is non-zero:
    functions, one capture then none, the replayed launches by kernel name
    equal to the eager run's), its launches against what the UNet config
    gives (70 K1, K2 and K5 a UNet call, 46 on an encoder-reuse step, 16
-   K4, K2 and K5 for SD1.5), its output finite; each with its wall time,
+   K4, K2 and K5 for SD1.5) over the steps its schedule runs, its output
+   finite; each with its wall time,
    per-step time, capture time and the memory its programs keep, dropped
    before the next key's capture;
 13. the serving path at full width on a fresh SDXL bf16 random_full(0)
    (``phase_serve``): (a) ``generate_batch`` of four requests (their own
-   images, prompts, extra_texts and seeds), 30 steps, eagerly through the
+   images, prompts, extra_texts and seeds), SERVE_DEPTH (15) steps in
+   (a)-(c), a depth cut from 30 that the phase prints, eagerly through the
    module functions and through its captured programs (one capture, the
-   replay bit for bit the eager run, 2100 K1, K2 and K5 launches replayed
-   by kernel name, 300 K2 with the IP branch eagerly), each row against its
+   replay bit for bit the eager run, 1050 K1, K2 and K5 launches replayed
+   by kernel name, 150 K2 with the IP branch eagerly), each row against its
    solo ``generate()`` (image cosine >= 0.999), with warm seconds, images/s
    against four solo calls, peak memory and what the key keeps; then the
    program cache's bound cut below its keys: the least recently used key
    evicted and its memory returned; (b) the chunked runner
    (``chunk_steps`` 5, a callback at each chunk) against generate() with
-   num_samples 2, bit for bit, 2100 of each kernel replayed; (c) a 4-slot
+   num_samples 2, bit for bit, 1050 of each kernel replayed; (c) a 4-slot
    ``SlotEngine`` with a request admitted one chunk after another: its
    latents and image bit for bit its solo engine run's, the chunk's
    replayed launches (350 of each kernel), what the engine keeps; (d) both
    workers through ``make_server`` on localhost, six requests of two batch
    keys at 8 steps: every one answered, the packed worker packing, the
    continuous one admitting mid-flight (``/status`` and ``admissions``),
-   ``pack_errors`` 0.
+   ``pack_errors`` 0;
+14. the variants and the CLI (``phase_variants``, ``phase_cli``) at full
+   width, random bf16 weights from seed 0: (a) the base -> refiner
+   ensemble, ``random_full()`` to denoising_end 0.8 and
+   ``random_full_refiner()`` (SDXL-refiner-1.0's widths) from its latents,
+   1024², 30 Euler steps, CFG 5.0, each run as phase 5's edit
+   (``edit_modes``), their eager launches the configs' (``blocks_per_call``:
+   70 and 44 a UNet call), what each key keeps and the two caches' bound;
+   (b) a ControlNet at the base's widths, its output convs drawn (a fresh
+   one is a no-op), with a 1024² control image: 30 x (70 + 34) launches of
+   each kernel, 300 K2 with the IP branch, the image moved against the same
+   call without it, and a two-request ``generate_batch`` with control
+   images bit for bit its eager run; (c) a rank-64 LoRA with B drawn,
+   merged by ``with_lora``: every merged weight W + (alpha/r)·A·B in fp32
+   to bf16 rounding, the merged edit as phase 5's; (d) the qformer, mlp and
+   gated-attention HA fusions at the shipped dims swapped in: the image
+   prompt's tokens bf16 on the card against fp32 on the CPU (cosine >=
+   0.999), a 4-step edit each as phase 5's; (e), run inside phase 11 on its
+   tree before the tree is removed: the CLI (``cli.main``), one ``edit``
+   with a LoRA, a ControlNet directory, a control image, ``--refiner-dir``
+   (a random refiner written as a tree) and ``--attn-maps``, ``demo`` and
+   ``serve --lora``'s server answering one request, each exiting 0 with its
+   files written, its wall time (loads included) printed.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -238,6 +266,9 @@ step's (the wrappers' counts). "generate_loaded" is phase 11's warm
 ("edit_eager_batch" its eager run's wrapper counts, "edit_eager_batch_ip"
 K2's with the IP branch), "generate_chunked" its replayed chunked runner,
 "engine_chunk" one replayed chunk (5 steps) of the 4-slot engine.
+"generate_ensemble_base" and "generate_refiner" are phase 14a's replayed
+calls, "generate_controlnet", "generate_lora" and "generate_ha_<fusion>"
+14b-d's.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -272,11 +303,21 @@ K1_MIN_COSINE = 0.9999
 # comparison run bf16 vs fp32 on the CPU)
 TINY_MIN_COSINE = 0.999
 FULL_STEPS = 30
+# the denoise depth of phases 12 and 13, cut from FULL_STEPS (phases 5, 9, 11
+# and 14 run the 30-step edits) to keep the whole script within its time
+# (986 s of command time with them at 30 on one H100, where hosts have
+# differed by 30%; PERF.md §6); each phase prints the cut
+FEATURE_STEPS = 15
+SERVE_DEPTH = 15
 SELF_ATTN_PER_UNET_CALL = 70  # SDXL at 1024²: 10 at S=4096 + 60 at S=1024
 
 SD15_SELF_ATTN_PER_UNET_CALL = 16  # SD1.5 at 512²: 5 + 5 + 5 + 1, see K4_SHAPES
 
 MAIN_SHAPES = [(4096, 10, 64), (1024, 20, 64)]
+# the SDXL refiner's self-attentions at 1024² with the CFG pair (phase 14):
+# 16 at S=4096 with 12 heads, 16 at S=1024 and 4 (the mid block) at S=256
+# with 24 heads, per UNet call; checked and timed as MAIN_SHAPES are
+REFINER_SHAPES = [(4096, 12, 64), (1024, 24, 64), (256, 24, 64)]
 EDGE_SHAPES = [(1000, 2, 64), (64, 4, 32)]
 # the serving path's UNet batch (phase 13): four requests' CFG pairs in
 # generate_batch, or a 4-slot engine's 2S rows. K1, K2 and K5 are held
@@ -300,6 +341,10 @@ K4_WIDER = (2, 4096, 8, 64)
 K2_SHAPES = [(2, 4096, 10, 64, 0, 1.0), (2, 1024, 20, 64, 0, 1.0), (2, 1024, 20, 64, 4, 1.0),
              (2, 4096, 8, 40, 4, 1.0), (2, 1024, 8, 80, 4, 1.0), (2, 256, 8, 160, 4, 1.0),
              (2, 64, 8, 160, 4, 1.0)]
+# the SDXL refiner's cross-attentions at 1024² (phase 14), text only (77
+# keys of bigG's 1280 context projected to 768 or 1536): 16 at S=4096 with
+# 12 heads, 28 at S=1024 and S=256 with 24 heads per UNet call; timed too
+K2_SHAPES += [(2, 4096, 12, 64, 0, 1.0), (2, 1024, 24, 64, 0, 1.0), (2, 256, 24, 64, 0, 1.0)]
 K2_EDGES = [(2, 1024, 8, 80, 16, 0.7), (2, 256, 8, 160, 257, 0.7), (2, 1024, 8, 80, 4, 0.0),
             (2, 1000, 8, 40, 4, 0.5), (1, 256, 20, 64, 4, 1.0)]
 # K2 at the serving path's SDXL shapes, batch SERVE_BATCH
@@ -347,6 +392,10 @@ K5_SPLIT = (2048, 5120, 1280)
 # the SDXL feed-forwards at the serving path's batch (4096 and 1024 tokens a
 # row at 1024²)
 K5_SERVE = [(SERVE_BATCH * 4096, 640, 2560), (SERVE_BATCH * 1024, 1280, 5120)]
+# the SDXL refiner's feed-forwards at 1024² with the CFG pair (phase 14): 16
+# at 64² (width 768), 16 at 32² and 4 at 16² (width 1536) per UNet call;
+# checked and timed as K5_SHAPES are
+K5_REFINER = [(8192, 768, 3072), (2048, 1536, 6144), (512, 1536, 6144)]
 K5_EDGES = [(1024, 640, 2560), (256, 1280, 5120), (300, 200, 456), (4000, 200, 4104),
             K5_SPLIT]
 # K5 against the fp32 plain version on the same bf16 inputs: the bf16
@@ -556,7 +605,7 @@ def k2_bound(b, sq, h, d, sk_ip):
 def phase_k1(fa, split_heads):
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err, main_ms = 0.0, {}
-    for b, (s, h, d) in ([(2, shape) for shape in MAIN_SHAPES + EDGE_SHAPES]
+    for b, (s, h, d) in ([(2, shape) for shape in MAIN_SHAPES + REFINER_SHAPES + EDGE_SHAPES]
                          + [(SERVE_BATCH, shape) for shape in MAIN_SHAPES]):
         qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
@@ -573,7 +622,7 @@ def phase_k1(fa, split_heads):
             raise AssertionError(f"K1 disagrees with its plain version at B={b} S={s} H={h} "
                                  f"D={d}")
         max_err = max(max_err, err)
-        if b == 2 and (s, h, d) in MAIN_SHAPES:
+        if b == 2 and (s, h, d) in MAIN_SHAPES + REFINER_SHAPES:
             # the yardstick: one PyTorch call for the same function on the
             # same tensors viewed (B, H, S, D); the port never calls it
             qh, kh, vh = (x.view(2, s, h, d).transpose(1, 2) for x in (q, k, v))
@@ -890,7 +939,7 @@ def phase_k5(kg):
     linear = torch.nn.functional.linear
     gen = torch.Generator(device="cuda").manual_seed(7)
     max_err, times = 0.0, {}
-    for m, k, inner in K5_SHAPES + K5_SERVE + K5_EDGES:
+    for m, k, inner in K5_SHAPES + K5_REFINER + K5_SERVE + K5_EDGES:
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
@@ -916,7 +965,7 @@ def phase_k5(kg):
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at M={m} K={k} "
                                  f"inner={inner}")
-        if (m, k, inner) not in K5_SHAPES:
+        if (m, k, inner) not in K5_SHAPES + K5_REFINER:
             continue
         t = _timings({
             "kernel": lambda: kg.geglu(x, w, b, gelu="tanh"),
@@ -2033,7 +2082,7 @@ def _peak_rss_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
 
 
-def phase_load_full(fa, ca, kg, comp, trainer, image5, run7):
+def phase_load_full(fa, ca, kg, comp, trainer, image5, run7, during=None):
     """Checkpoint IO at full width: the bundle of phases 5 and 7 (the
     weights ``random_full()`` and the trainer's ``--full_random`` build from
     seed 0, bf16) written as a diffusers tree with the port's writer (the
@@ -2050,8 +2099,10 @@ def phase_load_full(fa, ca, kg, comp, trainer, image5, run7):
     EOS: the edit's comparison takes ``random_full()``'s tokenizers, after
     the tree's are checked. Prints the tree's bytes, the write time, each
     component's read time and rate, and the process's peak host RSS; the
-    tree is removed afterwards, whatever the outcome. Returns the loaded
-    edit's replayed launches by kernel name."""
+    tree is removed afterwards, whatever the outcome; before that,
+    ``during(tree, ip_adapter.bin)`` runs if given (phase 14e, the CLI).
+    Returns the loaded edit's replayed launches by kernel name and what
+    ``during`` returned."""
     from imagharmony_tpu_torch.io import checkpoints as ckpt_io
     from imagharmony_tpu_torch.models import tokenizer as tok_lib
     from imagharmony_tpu_torch.nn.attention import pack_inference_params
@@ -2162,9 +2213,13 @@ def phase_load_full(fa, ca, kg, comp, trainer, image5, run7):
         if ours != theirs or not params_same:
             raise AssertionError(f"{label}: the trainer from the tree differs from phase 7's run: "
                                  f"{ours} vs {theirs}, parameters equal {params_same}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = during(root, adapters["bin"]) if during is not None else None
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return loaded_gen
+    return loaded_gen, extra
 
 
 # phase 12: a reuse step of encoder propagation runs the mid block and the
@@ -2175,41 +2230,32 @@ SDXL_REUSE_PER_UNET_CALL = 46
 
 def feature_configs(init, mask):
     """Phase 12's SDXL keys: (tag, what it runs, generate() arguments over
-    phase 5's, the steps it runs, K1/K2/K5 launches a run, K2 launches with
-    the IP branch a run). ``init``: the img2img and inpaint init image;
-    ``mask``: the inpaint mask. The denoising_start key takes the
-    denoising_end key's latents (``latents=None`` here)."""
-    full, ip = SELF_ATTN_PER_UNET_CALL, SDXL_IP_CROSS_PER_UNET_CALL
-    half = FULL_STEPS // 2
+    phase 5's at FEATURE_STEPS steps, whether the IP branch is live). The
+    steps a key runs and its launches follow from its schedule
+    (``_steps_of``) and the UNet config. ``init``: the img2img and inpaint
+    init image; ``mask``: the inpaint mask. The denoising_start key takes
+    the denoising_end key's latents (``latents=None`` here)."""
     return [
         ("dpmpp_karras", "DPM++ 2M Karras, guidance_rescale 0.7, micro-conditioning overrides, "
          "negative prompt, clip_skip 1",
          dict(scheduler="dpm++", use_karras_sigmas=True, guidance_rescale=0.7,
               original_size=(768, 1024), crops_coords_top_left=(64, 0),
               negative_original_size=(512, 512), negative_target_size=(1024, 1024),
-              negative_prompt="blurry, lowres", clip_skip=1),
-         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
-        ("euler_a", "Euler-a, seed 3", dict(scheduler="euler_a", seed=3),
-         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+              negative_prompt="blurry, lowres", clip_skip=1), True),
+        ("euler_a", "Euler-a, seed 3", dict(scheduler="euler_a", seed=3), True),
         ("ddim_vpred_zsnr", "DDIM, trailing spacing, v-prediction, zero-SNR",
          dict(scheduler="ddim", timestep_spacing="trailing", prediction_type="v_prediction",
-              rescale_zero_snr=True),
-         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
+              rescale_zero_snr=True), True),
         ("lcm_t2i", "LCM 4 steps, guidance_scale 1.0 (no CFG: batch 1), no image",
-         dict(scheduler="lcm", num_inference_steps=4, guidance_scale=1.0, image=None),
-         4, full * 4, 0),
-        ("img2img", "img2img at strength 0.6", dict(init_image=init, strength=0.6),
-         18, full * 18, ip * 18),
-        ("inpaint", "inpaint, Euler", dict(init_image=init, mask_image=mask),
-         FULL_STEPS, full * FULL_STEPS, ip * FULL_STEPS),
-        ("denoising_end", "denoising_end 0.8, latents out", dict(denoising_end=0.8),
-         23, full * 23, ip * 23),
+         dict(scheduler="lcm", num_inference_steps=4, guidance_scale=1.0, image=None), False),
+        ("img2img", "img2img at strength 0.6", dict(init_image=init, strength=0.6), True),
+        ("inpaint", "inpaint, Euler", dict(init_image=init, mask_image=mask), True),
+        ("denoising_end", "denoising_end 0.8, latents out", dict(denoising_end=0.8), True),
         ("denoising_start", "denoising_start 0.8 from those latents",
-         dict(denoising_start=0.8, latents=None), 7, full * 7, ip * 7),
+         dict(denoising_start=0.8, latents=None), True),
         ("encoder_prop", "encoder_interval 2, prompt weighting, tile_vae",
          dict(encoder_interval=2, prompt_weighting=True, tile_vae=True,
-              prompt="a photo of (six sheep:1.3) on a [meadow]"),
-         FULL_STEPS, half * (full + SDXL_REUSE_PER_UNET_CALL), ip * half),
+              prompt="a photo of (six sheep:1.3) on a [meadow]"), True),
     ]
 
 
@@ -2226,8 +2272,11 @@ def phase_features(fa, ca, kg, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    print(f"phase 12 built random_full in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 12 built random_full in {time.perf_counter() - t0:.1f} s; its keys run "
+          f"{FEATURE_STEPS} steps, not {FULL_STEPS}: the path's depth is cut to keep the script "
+          f"within its time", flush=True)
     img, base = _full_edit()
+    base["num_inference_steps"] = FEATURE_STEPS
     init = np.random.default_rng(12).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
     mask = np.zeros((1024, 1024), np.uint8)
     mask[256:768, 256:768] = 255
@@ -2266,12 +2315,18 @@ def phase_features(fa, ca, kg, HarmonyPipeline):
         torch.cuda.empty_cache()
         return res
 
-    for tag, what, extra, steps, per_run, ip_per_run in feature_configs(init, mask):
+    full, ip = SELF_ATTN_PER_UNET_CALL, SDXL_IP_CROSS_PER_UNET_CALL
+    for tag, what, extra, ip_live in feature_configs(init, mask):
         kw = dict(base, **extra)
         image = kw.pop("image", img)
         if tag == "denoising_start":
             kw["latents"] = handoff
-        res = run(pipe, tag, what, kw, image, steps, per_run, ip_per_run)
+        steps = _steps_of(pipe, image, kw)
+        # encoder propagation: a key step every encoder_interval-th, the
+        # others reuse its encoder (SDXL_REUSE_PER_UNET_CALL blocks)
+        keys = -(-steps // kw.get("encoder_interval", 1))
+        per_run = keys * full + (steps - keys) * SDXL_REUSE_PER_UNET_CALL
+        res = run(pipe, tag, what, kw, image, steps, per_run, keys * ip if ip_live else 0)
         if tag == "denoising_end":
             handoff = res
     del pipe
@@ -2281,10 +2336,10 @@ def phase_features(fa, ca, kg, HarmonyPipeline):
     pipe = HarmonyPipeline.random_full_sd15(seed=0, device="cuda", dtype=torch.bfloat16)
     img15 = np.random.default_rng(0).integers(0, 255, (512, 512, 3), dtype=np.uint8)
     kw = dict(prompt="a photo of six sheep on a meadow", num_samples=1, seed=0,
-              guidance_scale=5.0, height=512, width=512, num_inference_steps=FULL_STEPS,
+              guidance_scale=5.0, height=512, width=512, num_inference_steps=FEATURE_STEPS,
               output_type="raw", scheduler="dpm++")
-    per_run = SD15_SELF_ATTN_PER_UNET_CALL * FULL_STEPS
-    run(pipe, "sd15_dpmpp", "SD1.5 512², DPM++ 2M", kw, img15, FULL_STEPS, per_run, per_run,
+    per_run = SD15_SELF_ATTN_PER_UNET_CALL * FEATURE_STEPS
+    run(pipe, "sd15_dpmpp", "SD1.5 512², DPM++ 2M", kw, img15, FEATURE_STEPS, per_run, per_run,
         k_self="K4", size=512)
     del pipe
     gc.collect()
@@ -2334,7 +2389,7 @@ def _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds):
     from imagharmony_tpu_torch.pipelines import harmony_edit as he
 
     dev, n = pipe.device, len(imgs)
-    kw = dict(extra_texts=extras, seeds=seeds, num_inference_steps=FULL_STEPS)
+    kw = dict(extra_texts=extras, seeds=seeds, num_inference_steps=SERVE_DEPTH)
     _reset_launches(fa, ca, kg)
     with torch.inference_mode():
         eager, eager_s = _timed(lambda: he.edit(pipe.components, pipe.prepare_batch(
@@ -2357,7 +2412,7 @@ def _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds):
     captures = pipe.programs.captures - before
     # each request alone, on its own seed's noise: one warm-up call captures
     # the solo key, then the four timed
-    solo_kw = dict(num_inference_steps=FULL_STEPS, output_type="raw")
+    solo_kw = dict(num_inference_steps=SERVE_DEPTH, output_type="raw")
     pipe.generate(imgs[0], prompt=prompts[0], extra_text=extras[0], seed=[seeds[0]], **solo_kw)
     solos, solo_s = [], 0.0
     for i in range(n):
@@ -2366,16 +2421,16 @@ def _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds):
         solos.append(out[0])
         solo_s += wall
     cos = [_cosine(replay[i].float(), solos[i].float()) for i in range(n)]
-    row = dict(requests=n, steps=FULL_STEPS, eager_s=eager_s, first_s=first_s, replay_s=replay_s,
-               replay_step_ms=timings["denoise_s"] / FULL_STEPS * 1e3,
+    row = dict(requests=n, steps=SERVE_DEPTH, eager_s=eager_s, first_s=first_s, replay_s=replay_s,
+               replay_step_ms=timings["denoise_s"] / SERVE_DEPTH * 1e3,
                decode_s=timings["decode_s"], images_per_s=n / replay_s,
                solo_images_per_s=n / solo_s, solo_s=solo_s, peak_gib=peak, kept_gib=kept,
                captures=captures, replay_equals_eager=torch.equal(replay, eager),
                replay_equals_first=torch.equal(replay, first), row_cosine_vs_solo=cos,
                launches_eager=eager_n, launches_replayed=graph)
-    print(f"phase 13a generate_batch of {n} requests at 1024², {FULL_STEPS} steps: "
+    print(f"phase 13a generate_batch of {n} requests at 1024², {SERVE_DEPTH} steps: "
           f"{json.dumps(row)}", flush=True)
-    want = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    want = SELF_ATTN_PER_UNET_CALL * SERVE_DEPTH
     if tuple(replay.shape) != (n, 1024, 1024, 3) or not bool(torch.isfinite(replay).all()):
         raise AssertionError(f"phase 13a: bad output {tuple(replay.shape)}")
     if not (row["replay_equals_eager"] and row["replay_equals_first"]):
@@ -2384,7 +2439,7 @@ def _serve_batch(pipe, fa, ca, kg, imgs, prompts, extras, seeds):
     if min(cos) < TINY_MIN_COSINE:
         raise AssertionError(f"phase 13a: a packed row differs from its solo generate(): {cos}")
     if graph != {"K1/K4": want, "K2": want, "K5": want} or any(wrapped.values()) \
-            or captures != 1 or eager_n["K2 IP"] != SDXL_IP_CROSS_PER_UNET_CALL * FULL_STEPS:
+            or captures != 1 or eager_n["K2 IP"] != SDXL_IP_CROSS_PER_UNET_CALL * SERVE_DEPTH:
         raise AssertionError(f"phase 13a: replayed launches {graph} (expected {want} each), "
                              f"wrapper launches {wrapped}, captures {captures}, eager {eager_n}")
     return row
@@ -2413,7 +2468,7 @@ def _serve_chunked(pipe, img, prompt, extra):
     """(b) generate_chunked, 2 samples, chunk 5, against generate()."""
     dev = pipe.device
     kw = dict(prompt=prompt, extra_text=extra, num_samples=2, seed=0,
-              num_inference_steps=FULL_STEPS, output_type="raw")
+              num_inference_steps=SERVE_DEPTH, output_type="raw")
     reserved = _reserved(dev)
     pipe.generate(img, **kw)  # captures the two-sample key
     generate_kept = _kept(dev, reserved)
@@ -2430,17 +2485,17 @@ def _serve_chunked(pipe, img, prompt, extra):
     graph = replay_launches(lambda: _timed(lambda: pipe.generate(
         img, chunk_steps=SERVE_CHUNK, **kw), dev), "phase 13b")
     diff = float((out.float() - ref.float()).abs().max())
-    row = dict(samples=2, chunk=SERVE_CHUNK, steps=FULL_STEPS, first_generate_s=first_ref_s,
+    row = dict(samples=2, chunk=SERVE_CHUNK, steps=SERVE_DEPTH, first_generate_s=first_ref_s,
                generate_s=ref_s, generate_kept_gib=generate_kept, first_chunked_s=first_s,
                chunked_s=out_s, kept_gib=kept, callback_steps=seen,
                bit_identical=torch.equal(out, ref) and torch.equal(ref_again, ref),
                max_abs=diff, image_cosine=_cosine(out.float(), ref.float()),
                replays_equal=torch.equal(out, first), launches_replayed=graph)
     print(f"phase 13b generate_chunked vs generate(num_samples=2): {json.dumps(row)}", flush=True)
-    want = SELF_ATTN_PER_UNET_CALL * FULL_STEPS
+    want = SELF_ATTN_PER_UNET_CALL * SERVE_DEPTH
     if not (row["bit_identical"] and row["replays_equal"]):
         raise AssertionError(f"phase 13b: the chunked runner differs from generate(): {row}")
-    if seen != list(range(SERVE_CHUNK, FULL_STEPS + 1, SERVE_CHUNK)) \
+    if seen != list(range(SERVE_CHUNK, SERVE_DEPTH + 1, SERVE_CHUNK)) \
             or graph != {"K1/K4": want, "K2": want, "K5": want}:
         raise AssertionError(f"phase 13b: callback steps {seen}, launches {graph}")
     return row
@@ -2455,7 +2510,7 @@ def _engine_run(pipe, opts, jobs, admit_at):
 
     eng = continuous.SlotEngine(pipe, opts, slots=SERVE_REQUESTS, chunk=SERVE_CHUNK)
     out, at_admit, chunk_s, slot_of = {}, [], [], {}
-    for c in range(4 * FULL_STEPS):
+    for c in range(4 * SERVE_DEPTH):
         for (tok, kw), when in zip(jobs, admit_at):
             if when == c:
                 at_admit.append(eng.progress().tolist())
@@ -2480,7 +2535,7 @@ def _serve_engine(pipe, img, prompts, extras, seeds):
     from imagharmony_tpu_torch.pipelines import harmony_edit as he
 
     dev = pipe.device
-    opts = he.EditOptions(num_inference_steps=FULL_STEPS, guidance_scale=5.0, use_harmony=True,
+    opts = he.EditOptions(num_inference_steps=SERVE_DEPTH, guidance_scale=5.0, use_harmony=True,
                           control_guidance_start=SERVE_IP_WINDOW[0],
                           control_guidance_end=SERVE_IP_WINDOW[1])
     # the IP weight of each row at each step of the chunk the second row
@@ -2502,7 +2557,7 @@ def _serve_engine(pipe, img, prompts, extras, seeds):
     graph = replay_launches(lambda: _timed(solo_eng.run_chunk, dev), "phase 13c")
     solo_eng.close()
     b = jobs[1][0]
-    row = dict(slots=SERVE_REQUESTS, chunk=SERVE_CHUNK, steps=FULL_STEPS,
+    row = dict(slots=SERVE_REQUESTS, chunk=SERVE_CHUNK, steps=SERVE_DEPTH,
                slot_steps_at_admission=at_admit, chunk_s=chunk_s,
                step_ms=chunk_s / SERVE_CHUNK * 1e3, kept_gib=kept, peak_gib=peak,
                ip_window=SERVE_IP_WINDOW, ip_weights_of_the_rows_in_chunk_1=chunk_weights,
@@ -2624,6 +2679,8 @@ def phase_serve(fa, ca, kg, HarmonyPipeline):
     t0 = time.perf_counter()
     pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    print(f"phase 13 runs (a)-(c) at {SERVE_DEPTH} steps, not {FULL_STEPS}: the path's depth is "
+          f"cut to keep the script within its time", flush=True)
     print(f"phase 13 built random_full in {time.perf_counter() - t0:.1f} s: "
           f"{torch.cuda.memory_allocated(pipe.device) / 2**30:.3f} GiB allocated of the card's "
           f"{torch.cuda.get_device_properties(pipe.device).total_memory / 2**30:.3f} GiB; the "
@@ -2644,6 +2701,365 @@ def phase_serve(fa, ca, kg, HarmonyPipeline):
     return dict(batch=a, lru=lru, chunked=b, engine=c, http=d)
 
 
+# phase 14: the variants at full width and the CLI
+ENSEMBLE_END = 0.8  # the base's denoising_end, the refiner's denoising_start
+BATCH_CN_STEPS = 10  # (b)'s two-request generate_batch with control images
+FUSION_STEPS = 2  # (d)'s replayed edit with each HA fusion
+FUSION_MIN_COSINE = 0.999  # (d): bf16 conditioning on the card vs fp32 on the CPU
+LORA_RANK = 64
+CLI_STEPS = 10  # (e)'s edits: the CLI path, not the denoise depth, is its point
+
+
+def blocks_per_call(ucfg, encoder_only=False):
+    """Transformer blocks (a self-attention, a cross-attention and a
+    feed-forward each: one K1, one K2 and one K5 launch) in one call of a
+    UNet of ``ucfg``, or of its encoder and mid block alone (a
+    ControlNet's)."""
+    tl = ucfg.transformer_layers_per_block
+    n = tl[-1]  # the mid block
+    for i, kind in enumerate(ucfg.down_block_types):
+        n += ucfg.layers_per_block * tl[i] if kind == "CrossAttnDownBlock2D" else 0
+    if not encoder_only:
+        for i, kind in enumerate(ucfg.up_block_types):
+            if kind == "CrossAttnUpBlock2D":
+                n += (ucfg.layers_per_block + 1) * tl[len(ucfg.block_out_channels) - 1 - i]
+    return n
+
+
+def _steps_of(pipe, img, kw):
+    """The denoise steps generate(img, **kw) runs (the handoff cuts them)."""
+    with torch.inference_mode():
+        return pipe.prepare(img, **kw).schedule.num_steps
+
+
+def _weights_gib(module):
+    return sum(p.numel() * p.element_size() for p in module.parameters()) / 2**30
+
+
+def _eager_counts(r, steps, blocks, ip_blocks, label):
+    """Fails unless the eager run launched ``blocks`` K1, K2 and K5 a step
+    (``ip_blocks`` of the K2 with the IP branch) and no K4."""
+    want = {"K1": steps * blocks, "K4": 0, "K2": steps * blocks, "K2 IP": steps * ip_blocks,
+            "K5": steps * blocks}
+    if r["launches"] != want:
+        raise AssertionError(f"{label}: the eager run launched {r['launches']}, the configs give "
+                             f"{want}")
+
+
+def _random_controlnet(comp, ucfg, seed):
+    """A ControlNet on ``ucfg`` in bf16 on the card, random from ``seed``,
+    its output convs drawn too (a fresh one is an exact no-op)."""
+    from imagharmony_tpu_torch.models import controlnet as cn_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("meta"):
+        cn = cn_lib.ControlNetModel(cn_lib.ControlNetConfig(base=ucfg), dtype=torch.bfloat16)
+    cn = comp.init_weights_(cn.to_empty(device="cuda"), gen)
+    with torch.no_grad():
+        for conv in cn.output_convs():
+            bound = conv.weight[0].numel() ** -0.5
+            conv.weight.uniform_(-bound, bound, generator=gen)
+            conv.bias.uniform_(-bound, bound, generator=gen)
+    return cn
+
+
+def _random_lora(unet, seed, lora_lib):
+    """Rank-64 factors on every to_q, to_k, to_v and to_out of ``unet``,
+    B drawn N(0, 0.1²) (a fresh LoRA's B is zero: an exact no-op)."""
+    cfg = lora_lib.LoRAConfig(rank=LORA_RANK, alpha=LORA_RANK / 2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    factors = lora_lib.init_lora(gen, unet, cfg)
+    for k, v in factors.items():
+        if k.endswith(".lora_b"):
+            v.normal_(0.0, 0.1, generator=gen)
+    return factors, cfg
+
+
+def phase_variants(fa, ca, kg, comp, HarmonyPipeline):
+    """Phase 14 (a)-(d): the ensemble, ControlNet, LoRA and the HA fusions at
+    full width on a fresh SDXL bf16 random_full(0). Returns the replayed
+    launches by path and what was measured."""
+    from imagharmony_tpu_torch.adapters import harmony as ha_lib
+    from imagharmony_tpu_torch.adapters import lora as lora_lib
+    from imagharmony_tpu_torch.pipelines import harmony_edit as he
+    from imagharmony_tpu_torch.pipelines import programs
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    base = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
+    refiner = HarmonyPipeline.random_full_refiner(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_base, w_ref = _weights_gib(base.components), _weights_gib(refiner.components)
+    print(f"phase 14a built random_full and random_full_refiner in {time.perf_counter() - t0:.1f} "
+          f"s: weights {w_base:.3f} GiB and {w_ref:.3f} GiB ({refiner.cfgs.unet.block_out_channels}"
+          f", heads {refiner.cfgs.unet.num_attention_heads}, context "
+          f"{refiner.cfgs.unet.cross_attention_dim}, add-embedding "
+          f"{refiner.cfgs.unet.projection_class_embeddings_input_dim})", flush=True)
+    out = {}
+    img, kw = _full_edit()
+    sdxl_blocks = blocks_per_call(base.cfgs.unet)
+    ref_blocks = blocks_per_call(refiner.cfgs.unet)
+
+    # (a) the ensemble: the base to denoising_end, the refiner from its latents
+    bkw = dict(kw, denoising_end=ENSEMBLE_END)
+    steps_b = _steps_of(base, img, bkw)
+    # one eager run a key, which the replay must equal bit for bit (phase 5
+    # shows two agree), as in phase 12
+    rb = edit_modes(base, img, bkw, fa, ca, kg, "phase 14a ensemble base", run_steps=steps_b,
+                    eager_runs=1)
+    _eager_counts(rb, steps_b, sdxl_blocks, SDXL_IP_CROSS_PER_UNET_CALL, "phase 14a base")
+    lat = rb["replay"]
+    rkw = dict(prompt=kw["prompt"], num_inference_steps=FULL_STEPS, guidance_scale=5.0, seed=0,
+               latents=lat, denoising_start=ENSEMBLE_END, output_type="raw")
+    steps_r = _steps_of(refiner, None, rkw)
+    rr = edit_modes(refiner, None, rkw, fa, ca, kg, "phase 14a ensemble refiner",
+                    run_steps=steps_r, eager_runs=1)
+    _eager_counts(rr, steps_r, ref_blocks, 0, "phase 14a refiner")
+    image = rr["replay"]
+    if tuple(image.shape) != (1, 1024, 1024, 3) or not torch.isfinite(image).all():
+        raise AssertionError(f"phase 14a: the refiner's image is {tuple(image.shape)}, finite "
+                             f"{bool(torch.isfinite(image).all())}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    budget = peak + programs.ENSEMBLE_CAPACITY * (rb["kept_gib"] + rr["kept_gib"])
+    print(f"phase 14a ensemble 1024², {FULL_STEPS} Euler steps, CFG 5.0, handoff at "
+          f"{ENSEMBLE_END}: base {steps_b} steps {rb['replay_step_ms']:.3f} ms a step replayed, "
+          f"its key keeps {rb['kept_gib']:.3f} GiB; refiner {steps_r} steps "
+          f"{rr['replay_step_ms']:.3f} ms a step ({ref_blocks} transformer blocks a UNet call), "
+          f"its key keeps {rr['kept_gib']:.3f} GiB; replayed launches base {rb['generate']}, "
+          f"refiner {rr['generate']}; peak allocated {peak:.2f} GiB with both pipelines; both "
+          f"caches at programs.ENSEMBLE_CAPACITY={programs.ENSEMBLE_CAPACITY} keys of these: "
+          f"{budget:.2f} GiB of the card's "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB", flush=True)
+    out["ensemble_base"], out["ensemble_refiner"] = rb["generate"], rr["generate"]
+    out["refiner_step_ms"], out["refiner_kept_gib"] = rr["replay_step_ms"], rr["kept_gib"]
+    _drop_programs(refiner)
+    del refiner, rr, lat, image
+    _drop_programs(base)
+
+    # (b) ControlNet at the base's widths: its residuals in every step
+    cn = _random_controlnet(comp, base.cfgs.unet, 1)
+    cpipe = base.with_controlnet(cn)
+    cn_blocks = blocks_per_call(base.cfgs.unet, encoder_only=True)
+    rng = np.random.default_rng(14)
+    ctrl = rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+    ckw = dict(kw, control_image=ctrl)
+    rc = edit_modes(cpipe, img, ckw, fa, ca, kg, "phase 14b ControlNet", eager_runs=1)
+    _eager_counts(rc, FULL_STEPS, sdxl_blocks + cn_blocks, SDXL_IP_CROSS_PER_UNET_CALL,
+                  "phase 14b ControlNet")
+    with torch.inference_mode():
+        plain = cpipe.generate(img, **kw)  # the same call without a control image
+    moved = float((plain.float() - rc["replay"].float()).abs().mean())
+    _drop_programs(cpipe)
+    imgs = [img, rng.integers(0, 255, (768, 1024, 3), dtype=np.uint8)]
+    ctrls = [ctrl, rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)]
+    bkw2 = dict(num_inference_steps=BATCH_CN_STEPS, seeds=[1, 2], control_images=ctrls,
+                extra_texts=["six sheep", "two dogs"])
+    prompts = [kw["prompt"], "two dogs on a sofa"]
+    with torch.inference_mode():
+        eager = he.edit(cpipe.components, cpipe.prepare_batch(imgs, prompts, **bkw2))
+    first, first_s = _timed(lambda: cpipe.generate_batch(imgs, prompts, output_type="raw",
+                                                         **bkw2), dev)
+    again, again_s = _timed(lambda: cpipe.generate_batch(imgs, prompts, output_type="raw",
+                                                         **bkw2), dev)
+    batch_same = torch.equal(first, again) and torch.equal(again, eager)
+    print(f"phase 14b ControlNet ({cn_blocks} transformer blocks, weights "
+          f"{_weights_gib(cn):.3f} GiB, output convs drawn): replayed launches {rc['generate']}, "
+          f"{rc['replay_step_ms']:.3f} ms a step replayed, its key keeps {rc['kept_gib']:.3f} GiB; "
+          f"the control image moves the image by {moved:.4f} mean abs; a 2-request "
+          f"generate_batch with control images, {BATCH_CN_STEPS} steps: first call (capture) "
+          f"{first_s:.2f} s, replay {again_s:.2f} s, bit-identical to its eager run "
+          f"{batch_same}", flush=True)
+    if moved < 1e-3:
+        raise AssertionError(f"phase 14b: the ControlNet's residuals do not change the image "
+                             f"({moved})")
+    if not batch_same:
+        raise AssertionError("phase 14b: generate_batch with control images does not replay its "
+                             "eager run bit for bit")
+    out["controlnet"], out["cn_step_ms"], out["cn_kept_gib"] = (
+        rc["generate"], rc["replay_step_ms"], rc["kept_gib"])
+    _drop_programs(cpipe)
+    del cpipe, cn, rc, plain, eager, first, again
+
+    # (c) LoRA merged into the base's UNet
+    factors, lcfg = _random_lora(base.components.unet, 2, lora_lib)
+    lpipe = base.with_lora(factors, lora_cfg=lcfg)
+    worst, n = 0.0, 0
+    for key in sorted(k[: -len(".lora_a")] for k in factors if k.endswith(".lora_a")):
+        path = key.split(".")
+        old, rows = lora_lib._row_slice(base.components.unet.get_submodule(
+            ".".join(path[:-2])), path[-2])
+        new, _ = lora_lib._row_slice(lpipe.components.unet.get_submodule(
+            ".".join(path[:-2])), path[-2])
+        want = old.weight[rows].float() + lcfg.scale * (
+            factors[key + ".lora_a"] @ factors[key + ".lora_b"]).T
+        err = (new.weight[rows].float() - want).abs()
+        # one bf16 rounding of the fp32 sum: within 2^-8 of it, relative
+        # (bf16 keeps 8 significant bits)
+        if not bool((err <= 2 ** -8 * want.abs()).all()):
+            raise AssertionError(f"phase 14c: the merged {key} is not W + (alpha/r)·A·B in fp32 "
+                                 f"to bf16 rounding")
+        worst = max(worst, float((err / want.abs().clamp_min(2 ** -126)).max()))
+        n += 1
+        if new.weight is old.weight:
+            raise AssertionError(f"phase 14c: {key} merged into the base's own tensor")
+    rl = edit_modes(lpipe, img, kw, fa, ca, kg, "phase 14c LoRA", eager_runs=1)
+    _eager_counts(rl, FULL_STEPS, sdxl_blocks, SDXL_IP_CROSS_PER_UNET_CALL, "phase 14c LoRA")
+    print(f"phase 14c LoRA rank {LORA_RANK}, alpha {lcfg.alpha} on {n} projections "
+          f"({lora_lib.num_params(factors) / 1e6:.1f} M factors): merged weights against "
+          f"W + (alpha/r)·A·B in fp32, worst relative error {worst:.3e} (bf16 rounding "
+          f"{2 ** -8:.3e}); replayed launches {rl['generate']}", flush=True)
+    if n != 4 * 2 * sdxl_blocks:
+        raise AssertionError(f"phase 14c: {n} projections merged, the config has "
+                             f"{4 * 2 * sdxl_blocks}")
+    out["lora"] = rl["generate"]
+    _drop_programs(lpipe)
+    del lpipe, factors, rl
+
+    # (d) the HA fusions, each swapped into the base at the shipped dims
+    fkw = dict(kw, num_inference_steps=FUSION_STEPS)
+    with torch.inference_mode():
+        ids = base._ids(kw["prompt"], kw["extra_text"])
+        ctx, _ = he.encode_texts(base.components, ids["extra_l"], ids["extra_g"])
+        emb = base.components.image_encoder(base._pixel_values(img))["projected"]
+    proj_cpu = copy.deepcopy(base.components.image_proj).to(device="cpu", dtype=torch.float32)
+    out["fusions"] = {}
+    for i, fusion in enumerate(("qformer", "mlp", "gated-attention")):
+        hcfg = dataclasses.replace(base.cfgs.harmony, fusion_method=fusion)
+        with torch.device("meta"):
+            ha = ha_lib.HarmonyAttention(hcfg, dtype=torch.float32)
+        ha = comp.init_weights_(ha.to_empty(device="cpu"), torch.Generator().manual_seed(i))
+        ha_card = copy.deepcopy(ha).to(device="cuda", dtype=torch.bfloat16).eval()
+        with torch.inference_mode():
+            card = base.components.image_proj(ha_lib.fuse_image_embeds(ha_card, ctx, emb))
+            cpu = proj_cpu(ha_lib.fuse_image_embeds(ha, ctx.float().cpu(), emb.float().cpu()))
+        cos = _cosine(card.float().cpu(), cpu)
+        fpipe = base._clone(dataclasses.replace(base.cfgs, harmony=hcfg),
+                            harmony=ha_card.requires_grad_(False))
+        rf = edit_modes(fpipe, img, fkw, fa, ca, kg, f"phase 14d HA {fusion}", eager_runs=1)
+        print(f"phase 14d HA {fusion} (flattened {hcfg.flattened_dim}, "
+              f"{sum(p.numel() for p in ha.parameters()) / 1e6:.2f} M parameters): the image "
+              f"prompt's tokens bf16 on the card vs fp32 on the CPU cosine {cos:.6f}; replayed "
+              f"{FUSION_STEPS}-step edit {rf['generate']}", flush=True)
+        if cos < FUSION_MIN_COSINE:
+            raise AssertionError(f"phase 14d: the {fusion} fusion's conditioning on the card "
+                                 f"disagrees with the CPU's ({cos})")
+        out["fusions"][fusion] = rf["generate"]
+        _drop_programs(fpipe)
+        del fpipe, ha_card, rf
+    print(f"phase 14a-d variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli(root, adapter, comp, HarmonyPipeline):
+    """Phase 14 (e): the CLI (``imagharmony_tpu_torch.cli.main``) on phase
+    11's tree before it is removed: one ``edit`` with a rank-64 LoRA, a
+    ControlNet directory, a control image, ``--refiner-dir`` (a full-width
+    random refiner written as a tree: the ensemble) and the IP attention
+    maps; ``demo``; ``serve --lora``'s arguments through the server
+    ``serving.main`` runs (``build_server``) answering one request. Each command must
+    exit 0 and write its files; prints each one's wall time, its loads
+    included."""
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from imagharmony_tpu_torch import cli
+    from imagharmony_tpu_torch.adapters import lora as lora_lib
+    from imagharmony_tpu_torch.io import checkpoints as ckpt_io
+    from imagharmony_tpu_torch.models import tokenizer as tok_lib
+    from imagharmony_tpu_torch.models import unet as unet_lib
+    from imagharmony_tpu_torch.pipelines import serving
+
+    label = "phase 14e CLI"
+    work = os.path.join(root, "cli")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    cfgs = comp.sdxl_configs()
+    rng = np.random.default_rng(15)
+    inp, ctrl = os.path.join(work, "in.png"), os.path.join(work, "ctrl.png")
+    Image.fromarray(rng.integers(0, 255, (768, 768, 3), dtype=np.uint8)).save(inp)
+    Image.fromarray(rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)).save(ctrl)
+    cn_dir = os.path.join(work, "controlnet")
+    cn_bytes = ckpt_io.save_controlnet(cn_dir, _random_controlnet(comp, cfgs.unet, 3))
+    with torch.device("meta"):
+        meta_unet = unet_lib.UNet2DConditionModel(cfgs.unet)
+    factors, lcfg = _random_lora(meta_unet, 4, lora_lib)
+    lora = os.path.join(work, "lora.safetensors")
+    lora_lib.save_lora(lora, factors, lcfg)
+    del factors
+    rroot = os.path.join(work, "refiner")
+    refiner = comp.init_params(torch.Generator(device="cuda").manual_seed(5),
+                               comp.sdxl_refiner_configs(), dtype=torch.bfloat16, device="cuda")
+    toy = tok_lib.build_toy_tokenizer()
+    r_bytes = ckpt_io.save_tree(rroot, refiner, tokenizers=tok_lib.SDXLTokenizers(toy, toy))
+    del refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: wrote a ControlNet directory ({cn_bytes / 2**30:.3f} GiB), a rank-"
+          f"{LORA_RANK} LoRA ({os.path.getsize(lora) / 2**30:.3f} GiB) and a refiner tree "
+          f"({r_bytes / 2**30:.3f} GiB) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(argv, files):
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t
+        missing = [f for f in files if not os.path.exists(f)]
+        print(f"{label}: {' '.join(a if not a.startswith(root) else os.path.basename(a) for a in argv)}"
+              f" -> exit {rc} in {wall:.2f} s (its loads included); files written "
+              f"{[os.path.basename(f) for f in files]}, missing {missing}", flush=True)
+        if rc != 0 or missing:
+            raise AssertionError(f"{label}: {argv[0]} exited {rc}, missing {missing}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return wall
+
+    # one edit takes every flag (each tree load is ~12 s): the base with the
+    # merged LoRA and the ControlNet to denoising_end, the refiner from its
+    # latents, the maps from the base
+    walls = {}
+    maps, out1 = os.path.join(work, "maps"), os.path.join(work, "edit.png")
+    walls["edit"] = run(["edit", "--input", inp, "--model-dir", root, "--adapter-ckpt", adapter,
+                         "--extra-text", "six sheep", "--steps", str(CLI_STEPS), "--lora",
+                         f"{lora}:0.8", "--controlnet-dir", cn_dir, "--control-image", ctrl,
+                         "--refiner-dir", rroot, "--attn-maps", maps, "--output", out1],
+                        [out1] + [os.path.join(maps, f"ip_token_{i}.png")
+                                  for i in range(cfgs.num_ip_tokens)])
+    if Image.open(out1).size != (1024, 1024):
+        raise AssertionError(f"{label}: {out1} is {Image.open(out1).size}")
+    out3 = os.path.join(work, "demo.png")
+    walls["demo"] = run(["demo", "--output", out3], [out3])
+
+    t = time.perf_counter()
+    args = cli.build_parser().parse_args(["serve", "--port", "0", "--host", "127.0.0.1",
+                                          "--model-dir", root, "--adapter-ckpt", adapter,
+                                          "--lora", lora])
+    srv = serving.build_server(args)  # what ``cli serve`` runs until interrupted
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = dict(prompt="a photo of six sheep", extra_text="six sheep", steps=4, seed=1)
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/edit",
+                                     method="POST", data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, answer = r.status, json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.worker.stop(60)
+    walls["serve"] = time.perf_counter() - t
+    print(f"{label}: serve --lora (its load and merge included) answered one 4-step 1024² request "
+          f"with {status} in {walls['serve']:.2f} s", flush=True)
+    if status != 200 or "image" not in answer:
+        raise AssertionError(f"{label}: serve answered {status}: {str(answer)[:200]}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return walls
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -2656,6 +3072,13 @@ def _line_times(t, bound):
         "library_ms": t["library"][0],
         "event_ms": {k: t[k][1] for k in ("kernel", "plain", "library")},
     }
+
+
+T0 = time.perf_counter()
+
+
+def _mark(phase):
+    print(f"{phase} done, {time.perf_counter() - T0:.1f} s since the script started", flush=True)
 
 
 def main():
@@ -2675,6 +3098,7 @@ def main():
 
     phase_device()
     phase_build(fa, ca, kg, pm, pa, build)
+    _mark("phase 2")
     max_err, main_ms = phase_k1(fa, split_heads)
     k3_err, k3_times, k1_train_times = phase_k3(fa)
     k4_err, k4_times = phase_k4(fa)
@@ -2685,6 +3109,7 @@ def main():
     probes = _probe_main("probe_pallas_matmul", fa, kg, pm, pa, ps)
     p2_err, p2_times = phase_p2(pa, fa)
     p5_errs, p5_times = phase_p5(ps, pa, fa)
+    _mark("phases 3-3j")
     for tool in ("probe_attn_kblock", "probe_attn_lanegroup", "probe_softmax_nomax",
                  "probe_softmax_tricks"):
         got = _probe_main(tool, fa, kg, pm, pa, ps)
@@ -2695,21 +3120,38 @@ def main():
                              f"of {probes}")
     p1_launches = probes["probe_mm"]
     phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
+    _mark("phase 3f")
     phase_tiny(fa, ca, kg, HarmonyPipeline)
     sdxl, sdxl_gen, sdxl_image = phase_full(fa, ca, kg, HarmonyPipeline)
+    _mark("phases 4-5")
     phase_train_tiny(fa, ca, kg, comp, step_lib, trainer)
     train, train_eager, train_run = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
+    _mark("phases 6-7")
     phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline)
     sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
-    loaded_gen = phase_load_full(fa, ca, kg, comp, trainer, sdxl_image, train_run)
+    _mark("phases 8-10")
+    loaded_gen, cli_walls = phase_load_full(
+        fa, ca, kg, comp, trainer, sdxl_image, train_run,
+        during=lambda root, adapter: phase_cli(root, adapter, comp, HarmonyPipeline))
+    _mark("phase 11 and 14e")
     features = phase_features(fa, ca, kg, HarmonyPipeline)
+    _mark("phase 12")
     feature_paths = {f"generate_{tag}": g for tag, g in features.items()}
     serve = phase_serve(fa, ca, kg, HarmonyPipeline)
+    _mark("phase 13")
     serve_paths = {"generate_batch": serve["batch"]["launches_replayed"],
                    "generate_chunked": serve["chunked"]["launches_replayed"],
                    "engine_chunk": serve["engine"]["launches_per_chunk"]}
     serve_eager = serve["batch"]["launches_eager"]
+    variants = phase_variants(fa, ca, kg, comp, HarmonyPipeline)
+    variant_paths = {"generate_ensemble_base": variants["ensemble_base"],
+                     "generate_refiner": variants["ensemble_refiner"],
+                     "generate_controlnet": variants["controlnet"],
+                     "generate_lora": variants["lora"],
+                     **{f"generate_ha_{f}": g for f, g in variants["fusions"].items()}}
+    print(f"phase 14 CLI wall times (s): {cli_walls}", flush=True)
+    _mark("phase 14")
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -2744,6 +3186,7 @@ def main():
                              **{p: g["K1/K4"] for p, g in feature_paths.items()
                                 if p != "generate_sd15_dpmpp"},
                              **{p: g["K1/K4"] for p, g in serve_paths.items()},
+                             **{p: g["K1/K4"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K1"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
@@ -2794,6 +3237,7 @@ def main():
                              "sd15_unet_grad": k2_grad,
                              **{p: g["K2"] for p, g in feature_paths.items()},
                              **{p: g["K2"] for p, g in serve_paths.items()},
+                             **{p: g["K2"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K2"],
                              "edit_eager_batch_ip": serve_eager["K2 IP"]},
         "max_abs_err": k2_err,
@@ -2816,6 +3260,7 @@ def main():
                              "probes": probes["geglu"],
                              **{p: g["K5"] for p, g in feature_paths.items()},
                              **{p: g["K5"] for p, g in serve_paths.items()},
+                             **{p: g["K5"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K5"]},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),

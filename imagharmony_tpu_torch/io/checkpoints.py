@@ -1,10 +1,11 @@
 """Checkpoint IO (port of imagharmony_tpu/io/checkpoints.py): diffusers trees,
 the 3-dict adapter checkpoint, training-run conversion.
 
-* **Bases**: a diffusers SDXL or SD1.5 directory (a ``config.json`` and
-  ``.safetensors`` or ``.bin`` weights per component, index-sharded or
-  not, ``tokenizer/`` and ``tokenizer_2/``) -> ``load_pipeline`` /
-  ``load_components``. ``.safetensors`` goes through ``io/safetensors.py``
+* **Bases**: a diffusers SDXL, SDXL-refiner or SD1.5 directory (a
+  ``config.json`` and ``.safetensors`` or ``.bin`` weights per component,
+  index-sharded or not, ``tokenizer/`` and ``tokenizer_2/``) ->
+  ``load_pipeline`` / ``load_components``; a diffusers ControlNetModel
+  directory beside it (``controlnet_dir``). ``.safetensors`` goes through ``io/safetensors.py``
   and ``.bin`` through ``io/torch_zip.py``, neither of which runs code from
   the file.
 * **Adapters**: the 3-dict ``{"image_proj", "ip_adapter",
@@ -19,9 +20,6 @@ The ``ip_adapter`` keys are ``<N>.to_k_ip.weight`` where N indexes
 diffusers' ``unet.attn_processors`` enumeration (attn1 and attn2 processors
 of every transformer block in registration order: down_blocks, up_blocks,
 mid_block). The reference's weights are (out, in), as torch's.
-
-Families other than ``sdxl`` and ``sd15`` and ControlNet are not ported
-(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ from torch import nn
 from imagharmony_tpu_torch import dtypes
 from imagharmony_tpu_torch.adapters.harmony import HarmonyConfig
 from imagharmony_tpu_torch.io import hf_import, safetensors, torch_zip
-from imagharmony_tpu_torch.models import clip_text, clip_vision, unet, vae
+from imagharmony_tpu_torch.models import clip_text, clip_vision, controlnet, unet, vae
 from imagharmony_tpu_torch.models import tokenizer as tok_lib
 from imagharmony_tpu_torch.models.unet import UNetConfig
 from imagharmony_tpu_torch.pipelines import components as comp
@@ -182,8 +180,8 @@ def import_harmony(module: nn.Module, composed_flat: Dict[str, torch.Tensor]) ->
 
 
 def harmony_config_from_json(s: str) -> HarmonyConfig:
-    """The ``harmony_config`` string of an adapter file; fields of the
-    fusions that are not ported (the JAX package writes them) are dropped."""
+    """The ``harmony_config`` string of an adapter file (every fusion's
+    fields); keys this config does not know are dropped."""
     names = {f.name for f in dataclasses.fields(HarmonyConfig)}
     return HarmonyConfig(**{k: v for k, v in json.loads(s).items() if k in names})
 
@@ -313,7 +311,7 @@ def _apply_component_configs(cfgs: comp.ComponentConfigs, model_dir, image_encod
     if d is not None:
         rep["vae"] = vae.config_from_diffusers(d)
     d = _read_json(os.path.join(model_dir, "text_encoder", "config.json"))
-    if d is not None:
+    if d is not None and cfgs.text_l is not None:
         rep["text_l"] = clip_text.config_from_transformers(d)
     if cfgs.text_g is not None:
         d = _read_json(os.path.join(model_dir, "text_encoder_2", "config.json"))
@@ -321,7 +319,7 @@ def _apply_component_configs(cfgs: comp.ComponentConfigs, model_dir, image_encod
             rep["text_g"] = clip_text.config_from_transformers(d, with_projection=True)
     d = _read_json(os.path.join(image_encoder_dir or os.path.join(model_dir, "image_encoder"),
                                 "config.json"))
-    if d is not None:
+    if d is not None and cfgs.vision is not None:
         rep["vision"] = clip_vision.config_from_transformers(d)
     return dataclasses.replace(cfgs, **rep) if rep else cfgs
 
@@ -329,21 +327,43 @@ def _apply_component_configs(cfgs: comp.ComponentConfigs, model_dir, image_encod
 def _parts(cfgs: comp.ComponentConfigs, model_dir, image_encoder_dir=None):
     """(component, its directory, import keywords) of the tree, in load order."""
     parts = [("unet", os.path.join(model_dir, "unet"), {}),
-             ("vae", os.path.join(model_dir, "vae"), {}),
-             ("text_encoder", os.path.join(model_dir, "text_encoder"),
-              dict(prefix=hf_import.TEXT_PREFIX))]
+             ("vae", os.path.join(model_dir, "vae"), {})]
+    if cfgs.text_l is not None:
+        parts.append(("text_encoder", os.path.join(model_dir, "text_encoder"),
+                      dict(prefix=hf_import.TEXT_PREFIX)))
     if cfgs.text_g is not None:
         parts.append(("text_encoder_2", os.path.join(model_dir, "text_encoder_2"),
                       dict(prefix=hf_import.TEXT_PREFIX, key_map=hf_import.text_key_map)))
-    parts.append(("image_encoder", image_encoder_dir or os.path.join(model_dir, "image_encoder"),
-                  dict(prefix=hf_import.VISION_PREFIX, key_map=hf_import.vision_key_map)))
+    if cfgs.vision is not None:
+        parts.append(("image_encoder",
+                      image_encoder_dir or os.path.join(model_dir, "image_encoder"),
+                      dict(prefix=hf_import.VISION_PREFIX, key_map=hf_import.vision_key_map)))
     return parts
 
 
-def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None, *, cfgs=None,
-                    device="cuda", dtype=dtypes.COMPUTE_DTYPE, timings=None):
+FAMILY_CONFIGS = {"sdxl": comp.sdxl_configs, "sdxl_refiner": comp.sdxl_refiner_configs,
+                  "sd15": comp.sd15_configs}
+
+
+def controlnet_config(controlnet_dir, base: UNetConfig) -> controlnet.ControlNetConfig:
+    """A ControlNet directory's config on ``base`` (a diffusers
+    ControlNetModel copies its UNet's encoder; the conditioning embedder's
+    widths come from its ``config.json`` where it has them)."""
+    kw = {}
+    d = _read_json(os.path.join(controlnet_dir, "config.json")) or {}
+    if "conditioning_embedding_out_channels" in d:
+        kw["conditioning_embedding_channels"] = tuple(d["conditioning_embedding_out_channels"])
+    if "conditioning_channels" in d:
+        kw["conditioning_channels"] = int(d["conditioning_channels"])
+    return controlnet.ControlNetConfig(base=base, **kw)
+
+
+def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None,
+                    controlnet_dir=None, *, cfgs=None, device="cuda",
+                    dtype=dtypes.COMPUTE_DTYPE, timings=None):
     """(cfgs, Components, tokenizers) from a diffusers tree, the adapter
-    checkpoint if given, and the tree's tokenizers. The modules are built on
+    checkpoint and the ControlNet directory if given, and the tree's
+    tokenizers. The modules are built on
     the meta device, allocated on ``device`` in ``dtype``, and each
     component's file is read and copied in before the next is read, so the
     host holds one component at a time. Without an adapter ``image_proj``
@@ -358,11 +378,13 @@ def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None, *
                          "HarmonyPipeline.random_tiny() or random_full()")
     t = time.perf_counter()
     if cfgs is None:
-        family = detect_family(model_dir)
-        if family not in ("sdxl", "sd15"):
-            raise NotImplementedError(f"the {family} family is not ported yet (ROADMAP A13)")
-        cfgs = comp.sdxl_configs() if family == "sdxl" else comp.sd15_configs()
+        cfgs = FAMILY_CONFIGS[detect_family(model_dir)]()
         cfgs = _apply_component_configs(cfgs, model_dir, image_encoder_dir)
+    if controlnet_dir and cfgs.controlnet is None:
+        cfgs = dataclasses.replace(cfgs, controlnet=controlnet_config(controlnet_dir, cfgs.unet))
+    if adapter_ckpt and cfgs.proj_kind == "none":
+        raise ValueError("adapter_ckpt does not apply to the refiner family (no image prompt; "
+                         "the IP-Adapter conditions the base stage)")
     adapter = load_adapter_checkpoint(adapter_ckpt) if adapter_ckpt else None
     if adapter is not None and adapter[3] is not None and adapter[3] != cfgs.harmony:
         cfgs = dataclasses.replace(cfgs, harmony=adapter[3])
@@ -372,19 +394,20 @@ def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None, *
         comps = comp.Components(cfgs, dtype=dtype)
     comps = comps.to_empty(device=device)
     t = _lap(timings, "modules", t, device)
-    for name, path, kw in _parts(cfgs, model_dir, image_encoder_dir):
+    parts = _parts(cfgs, model_dir, image_encoder_dir)
+    if controlnet_dir:
+        parts.append(("controlnet", controlnet_dir, {}))
+    for name, path, kw in parts:
         flat = load_sharded_dir(path)
         nbytes = sum(v.numel() * v.element_size() for v in flat.values() if torch.is_tensor(v))
-        if name == "unet":
+        if name in ("unet", "controlnet"):
             flat = seed_ip_weights(flat)
         hf_import.import_state(getattr(comps, name), flat, **kw)
         del flat
         t = _lap(timings, name, t, device, bytes=nbytes)
     with torch.no_grad():
-        for p in comps.image_proj.parameters():
-            p.zero_()
-        if comps.harmony is not None:
-            for p in comps.harmony.parameters():
+        for m in (comps.image_proj, comps.harmony):
+            for p in m.parameters() if m is not None else ():
                 p.zero_()
     if adapter is not None:
         image_proj_flat, ip_flat, composed_flat, _ = adapter
@@ -394,7 +417,13 @@ def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None, *
             import_harmony(comps.harmony, composed_flat)
     t = _lap(timings, "adapter_apply", t, device)
 
-    if cfgs.text_g is not None:
+    if cfgs.family == "sdxl_refiner":
+        # the refiner ships tokenizer_2 alone; both streams see it (the
+        # second alone reaches bigG)
+        t2 = tok_lib.CLIPTokenizer.from_pretrained_dir(os.path.join(model_dir, "tokenizer_2"),
+                                                      pad_token="!")
+        tokenizers = tok_lib.SDXLTokenizers(t2, t2)
+    elif cfgs.text_g is not None:
         tokenizers = tok_lib.SDXLTokenizers.from_pretrained_dir(model_dir)
     else:
         # SD1.5: one tokenizer, which the dual front end sees twice
@@ -418,16 +447,16 @@ def _lap(timings, name, t0, device, **extra):
 def load_pipeline(model_dir=None, adapter_ckpt=None, image_encoder_dir=None,
                   controlnet_dir=None, *, cfgs=None, device="cuda",
                   dtype=dtypes.COMPUTE_DTYPE, timings=None):
-    """A HarmonyPipeline from a diffusers SDXL or SD1.5 tree, the 3-dict
-    adapter checkpoint and the tree's tokenizers (reference test.py:66-104);
-    the family comes from ``model_index.json`` (``detect_family``). See
-    ``load_components`` for the arguments."""
+    """A HarmonyPipeline from a diffusers SDXL, SDXL-refiner or SD1.5 tree,
+    the 3-dict adapter checkpoint, a diffusers ControlNetModel directory and
+    the tree's tokenizers (reference test.py:66-104); the family comes from
+    ``model_index.json`` (``detect_family``). See ``load_components`` for
+    the arguments."""
     from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
 
-    if model_dir is not None and controlnet_dir:
-        raise NotImplementedError("ControlNet is not ported yet (ROADMAP A13)")
-    _, comps, tokenizers = load_components(model_dir, adapter_ckpt, image_encoder_dir, cfgs=cfgs,
-                                           device=device, dtype=dtype, timings=timings)
+    _, comps, tokenizers = load_components(model_dir, adapter_ckpt, image_encoder_dir,
+                                           controlnet_dir, cfgs=cfgs, device=device,
+                                           dtype=dtype, timings=timings)
     t = time.perf_counter()
     pipe = HarmonyPipeline._build(comps, tokenizers)
     _lap(timings, "pack", t, device)
@@ -444,13 +473,14 @@ def save_tree(root, comps: comp.Components, *, tokenizers=None) -> int:
     cfgs = comps.cfgs
     os.makedirs(root, exist_ok=True)
     with open(os.path.join(root, "model_index.json"), "w") as f:
-        json.dump({"_class_name": "StableDiffusionXLPipeline" if cfgs.family == "sdxl"
-                   else "StableDiffusionPipeline"}, f)
+        json.dump({"_class_name": {"sdxl": "StableDiffusionXLPipeline",
+                                   "sdxl_refiner": "StableDiffusionXLImg2ImgPipeline",
+                                   "sd15": "StableDiffusionPipeline"}[cfgs.family]}, f)
     configs = {"unet": unet.config_to_diffusers(cfgs.unet),
                "vae": vae.config_to_diffusers(cfgs.vae),
-               "text_encoder": clip_text.config_to_transformers(cfgs.text_l),
+               "text_encoder": cfgs.text_l and clip_text.config_to_transformers(cfgs.text_l),
                "text_encoder_2": cfgs.text_g and clip_text.config_to_transformers(cfgs.text_g),
-               "image_encoder": clip_vision.config_to_transformers(cfgs.vision)}
+               "image_encoder": cfgs.vision and clip_vision.config_to_transformers(cfgs.vision)}
     written = 0
     for name, path, kw in _parts(cfgs, root):
         flat = hf_import.export_state(getattr(comps, name), **kw)
@@ -464,8 +494,27 @@ def save_tree(root, comps: comp.Components, *, tokenizers=None) -> int:
         fname = "diffusion_pytorch_model" if name in ("unet", "vae") else "model"
         written += safetensors.save(os.path.join(path, f"{fname}.safetensors"), flat)
     if tokenizers is not None:
-        tokenizers.tok1.save_pretrained_dir(os.path.join(root, "tokenizer"))
+        if cfgs.text_l is not None:
+            tokenizers.tok1.save_pretrained_dir(os.path.join(root, "tokenizer"))
         if cfgs.text_g is not None:
             tokenizers.tok2.save_pretrained_dir(os.path.join(root, "tokenizer_2"))
     return written
+
+
+def save_controlnet(path, module: nn.Module) -> int:
+    """Write a ControlNetModel as a diffusers ControlNet directory: its
+    ``config.json`` (the trunk's UNet config and the embedder's widths) and
+    one ``.safetensors`` without IP projections. ``module`` must be
+    unpacked. Returns the bytes written."""
+    cfg = module.cn_cfg
+    os.makedirs(path, exist_ok=True)
+    d = dict(unet.config_to_diffusers(cfg.base), _class_name="ControlNetModel",
+             conditioning_channels=cfg.conditioning_channels,
+             conditioning_embedding_out_channels=list(cfg.conditioning_embedding_channels))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(d, f, indent=1)
+    flat = {k: v for k, v in hf_import.export_state(module).items() if "_ip." not in k}
+    if any(".to_qkv." in k or ".to_kv." in k for k in flat):
+        raise ValueError("save_controlnet needs an unpacked module (to_q/to_k/to_v)")
+    return safetensors.save(os.path.join(path, "diffusion_pytorch_model.safetensors"), flat)
 

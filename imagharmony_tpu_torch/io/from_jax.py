@@ -17,7 +17,11 @@ port never imports the JAX package):
 * None leaves (absent submodules) are skipped.
 
 The input is nested dicts/lists of numpy arrays (or anything np.asarray
-takes); the output maps each key to a torch tensor on the CPU.
+takes); the output maps each key to a torch tensor on the CPU. A bundle
+with a ControlNet gives its ``controlnet.*`` keys (the embedder's
+``controlnet_cond_embedding.blocks.N``, the 1x1 ``controlnet_down_blocks.N``)
+and a LoRA factor tree gives ``adapters/lora.py``'s flat factors
+(``....to_q.weight.lora_a``, not transposed) by the same rules.
 """
 
 from __future__ import annotations

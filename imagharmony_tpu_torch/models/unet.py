@@ -118,6 +118,30 @@ def sd15_config(**overrides) -> UNetConfig:
     return UNetConfig(**base)
 
 
+def sdxl_refiner_config(**overrides) -> UNetConfig:
+    """SDXL-refiner-1.0 UNet (diffusers stable-diffusion-xl-refiner-1.0
+    unet/config.json): four stages of width 384/768/1536/1536, cross-attention
+    on the middle two only, four transformer layers a block, heads of 64,
+    conditioned on the bigG tower alone (1280) with the aesthetic-score
+    micro-conditioning (5 time ids x 256 + 1280 pooled = 2560). No IP
+    branch: the image prompt conditions the base."""
+    base = dict(
+        sample_size=128,
+        block_out_channels=(384, 768, 1536, 1536),
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                          "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+        transformer_layers_per_block=(4, 4, 4, 4),
+        num_attention_heads=(6, 12, 24, 24),
+        attention_head_dim=None,
+        cross_attention_dim=1280,
+        projection_class_embeddings_input_dim=2560,
+        ip_layers=(),
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
 def config_from_diffusers(d: dict, **overrides) -> UNetConfig:
     """A UNetConfig from a diffusers UNet2DConditionModel ``config.json``
     dict; raises on architecture options this UNet does not implement.
@@ -300,7 +324,10 @@ class MidBlock2D(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, cfg: UNetConfig, *, device=None, dtype=None):
+    """``encoder_only``: conv_in, the embeddings, the down blocks and the mid
+    block alone (a ControlNet's trunk)."""
+
+    def __init__(self, cfg: UNetConfig, *, encoder_only=False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -346,6 +373,8 @@ class UNet2DConditionModel(nn.Module):
              ResnetBlock2D(mid_c, mid_c, temb_dim, groups=g, **kw)],
             [transformer(len(ch) - 1, mid_c, "mid_block.attentions.0")],
         )
+        if encoder_only:
+            return
 
         self.up_blocks = nn.ModuleList()
         rev_ch = list(reversed(ch))
@@ -370,34 +399,13 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(g, ch[0], **kw)
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1, **kw)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, *, pooled_text_embeds=None,
-                time_ids=None, ip_tokens=None, ip_scale=1.0,
-                return_encoder: bool = False, encoder_override=None):
-        """Predict noise.
-
-        sample:                (B, 4, H, W) NCHW latents
-        timesteps:             (B,) or scalar
-        encoder_hidden_states: (B, S_text, cross_attention_dim)
-        pooled_text_embeds:    (B, 1280) pooled text embedding (tower 2);
-                               None without an add-embedding (SD1.5)
-        time_ids:              (B, 6) SDXL micro-conditioning; None likewise
-        ip_tokens:             (B, num_ip_tokens, cross_attention_dim) or None
-        ip_scale:              IP branch weight: a float, a 0-dim fp32 tensor,
-                               or a (B,) fp32 vector, one weight a row (K2
-                               reads a tensor on the card)
-
-        Encoder propagation (Faster Diffusion, arXiv 2312.09608), the JAX
-        package's ``unet.apply`` interface:
-        return_encoder:   also return ``(skip stack, mid block input)``;
-        encoder_override: such a pair from an earlier call: conv_in and the
-                          down blocks are skipped, the mid block and the
-                          decoder run on it.
-        """
+    def embed(self, timesteps, batch, pooled_text_embeds=None, time_ids=None):
+        """The time embedding (B, 4 * C0), with the add-embedding of the
+        pooled text and the micro-conditioning where the config has one."""
         cfg = self.cfg
-        ts = torch.as_tensor(timesteps, device=sample.device)
+        ts = torch.as_tensor(timesteps, device=self.conv_in.weight.device)
         if ts.dim() == 0:
-            ts = ts.expand(sample.shape[0])
-
+            ts = ts.expand(batch)
         temb = self.time_embedding(layers.timestep_embedding(ts, cfg.block_out_channels[0]))
         if self.add_embedding is not None:
             tid_emb = layers.timestep_embedding(
@@ -405,37 +413,88 @@ class UNet2DConditionModel(nn.Module):
             ).reshape(ts.shape[0], -1)
             add_embeds = torch.cat([pooled_text_embeds.float(), tid_emb], dim=-1)
             temb = temb + self.add_embedding(add_embeds)
+        return temb
 
+    def encode(self, h, temb, ctx, ip=None, ip_scale=1.0, collect_ip_probs=None):
+        """The down blocks from conv_in's output ``h``: (the skip stack, one
+        skip a resnet and a downsampler and conv_in's, the mid block's
+        input)."""
+        res_stack = [h]
+        for block in self.down_blocks:
+            for j, res in enumerate(block.resnets):
+                h = res(h, temb)
+                if len(block.attentions):
+                    h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale,
+                                            collect_ip_probs=collect_ip_probs)
+                res_stack.append(h)
+            if block.downsamplers is not None:
+                h = block.downsamplers[0](h)
+                res_stack.append(h)
+        return res_stack, h
+
+    def mid(self, h, temb, ctx, ip=None, ip_scale=1.0, collect_ip_probs=None):
+        mid = self.mid_block
+        h = mid.resnets[0](h, temb)
+        h = mid.attentions[0](h, ctx, ip_context=ip, ip_scale=ip_scale,
+                              collect_ip_probs=collect_ip_probs)
+        return mid.resnets[1](h, temb)
+
+    def forward(self, sample, timesteps, encoder_hidden_states, *, pooled_text_embeds=None,
+                time_ids=None, ip_tokens=None, ip_scale=1.0,
+                down_block_additional_residuals=None, mid_block_additional_residual=None,
+                return_encoder: bool = False, encoder_override=None, collect_ip_probs=None):
+        """Predict noise.
+
+        sample:                (B, 4, H, W) NCHW latents
+        timesteps:             (B,) or scalar
+        encoder_hidden_states: (B, S_text, cross_attention_dim)
+        pooled_text_embeds:    (B, 1280) pooled text embedding (tower 2);
+                               None without an add-embedding (SD1.5)
+        time_ids:              (B, 6) SDXL micro-conditioning ((B, 5) with
+                               the refiner's aesthetic score); None likewise
+        ip_tokens:             (B, num_ip_tokens, cross_attention_dim) or None
+        ip_scale:              IP branch weight: a float, a 0-dim fp32 tensor,
+                               or a (B,) fp32 vector, one weight a row (K2
+                               reads a tensor on the card)
+        down_block_additional_residuals / mid_block_additional_residual:
+                               a ControlNet's residuals, added to the skip
+                               stack and to the mid block's output
+        collect_ip_probs:      a list: each live IP layer's attention
+                               probabilities (B, heads, Sq, S_ip), fp32, are
+                               appended to it (``utils/attn_maps.py``)
+
+        Encoder propagation (Faster Diffusion, arXiv 2312.09608), the JAX
+        package's ``unet.apply`` interface:
+        return_encoder:   also return ``(skip stack, mid block input)``, the
+                          stack with the ControlNet residuals added;
+        encoder_override: such a pair from an earlier call: conv_in and the
+                          down blocks are skipped, the mid block and the
+                          decoder run on it.
+        """
+        cfg = self.cfg
+        temb = self.embed(timesteps, sample.shape[0], pooled_text_embeds, time_ids)
         dt = self.conv_in.weight.dtype
         ctx = encoder_hidden_states.to(dt)
         ip = ip_tokens.to(dt) if ip_tokens is not None else None
+        probs = dict(collect_ip_probs=collect_ip_probs)
 
         if encoder_override is not None:
             res_stack, h = list(encoder_override[0]), encoder_override[1]
         else:
-            h = self.conv_in(sample)
-            res_stack = [h]
-            for block in self.down_blocks:
-                for j, res in enumerate(block.resnets):
-                    h = res(h, temb)
-                    if len(block.attentions):
-                        h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale)
-                    res_stack.append(h)
-                if block.downsamplers is not None:
-                    h = block.downsamplers[0](h)
-                    res_stack.append(h)
+            res_stack, h = self.encode(self.conv_in(sample), temb, ctx, ip, ip_scale, **probs)
+            if down_block_additional_residuals is not None:
+                res_stack = [s + r for s, r in zip(res_stack, down_block_additional_residuals)]
         encoder_feats = (tuple(res_stack), h)
 
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, ctx, ip_context=ip, ip_scale=ip_scale)
-        h = mid.resnets[1](h, temb)
+        h = self.mid(h, temb, ctx, ip, ip_scale, **probs)
+        if mid_block_additional_residual is not None:
+            h = h + mid_block_additional_residual
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
                 h = res(torch.cat([h, res_stack.pop()], dim=1), temb)
                 if len(block.attentions):
-                    h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale)
+                    h = block.attentions[j](h, ctx, ip_context=ip, ip_scale=ip_scale, **probs)
             if block.upsamplers is not None:
                 h = block.upsamplers[0](h)
 

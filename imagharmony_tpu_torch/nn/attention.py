@@ -93,11 +93,14 @@ class Attention(nn.Module):
             self.to_k_ip = Linear(ctx, inner, bias=False, **kw)
             self.to_v_ip = Linear(ctx, inner, bias=False, **kw)
 
-    def forward(self, x, context=None, ip_context=None, ip_scale=1.0):
+    def forward(self, x, context=None, ip_context=None, ip_scale=1.0, collect_ip_probs=None):
         """context=None -> self-attention. ip_context: (B, S_ip, ctx_dim)
         image-prompt tokens for the decoupled branch, weighted by ip_scale:
         a float, a 0-dim fp32 tensor, or a (B,) fp32 vector, one weight a
-        row (K2's ``ip_scale``)."""
+        row (K2's ``ip_scale``). ``collect_ip_probs``: a list to which the
+        IP branch's probabilities softmax(q k_ip^T / sqrt(D)) (B, heads,
+        Sq, S_ip), fp32, are appended: computed apart in plain torch, as
+        K2 never forms them (the attention-map probe's)."""
         if context is None and hasattr(self, "to_qkv"):
             q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         elif context is not None and hasattr(self, "to_kv"):
@@ -114,6 +117,11 @@ class Attention(nn.Module):
         k_ip = v_ip = None
         if ip_context is not None:
             k_ip, v_ip = self.to_k_ip(ip_context), self.to_v_ip(ip_context)
+            if collect_ip_probs is not None:
+                f32 = dtypes.SOFTMAX_DTYPE
+                logits = torch.matmul(split_heads(q, self.heads).to(f32),
+                                      split_heads(k_ip, self.heads).to(f32).transpose(-1, -2))
+                collect_ip_probs.append(torch.softmax(logits * head_dim**-0.5, dim=-1))
         out = cross_attention.flash_cross_nhd(q, k, v, scale=head_dim**-0.5, head_dim=head_dim,
                                               k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
         return self.to_out[0](out)

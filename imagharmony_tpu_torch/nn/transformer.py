@@ -41,10 +41,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, **kw)
         self.ff = FeedForward(dim, **kw)
 
-    def forward(self, x, context, ip_context=None, ip_scale=1.0):
+    def forward(self, x, context, ip_context=None, ip_scale=1.0, collect_ip_probs=None):
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
-                           ip_scale=ip_scale)
+                           ip_scale=ip_scale, collect_ip_probs=collect_ip_probs)
         return x + self.ff(self.norm3(x))
 
 
@@ -71,12 +71,13 @@ class Transformer2DModel(nn.Module):
         ])
         self.proj_out = Linear(inner, in_channels, **kw)
 
-    def forward(self, x, context, ip_context=None, ip_scale=1.0):
+    def forward(self, x, context, ip_context=None, ip_scale=1.0, collect_ip_probs=None):
         b, c, hgt, wid = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hgt * wid, c)
         h = self.proj_in(h)
         ip = ip_context if self.ip_active else None
         for block in self.transformer_blocks:
-            h = block(h, context, ip_context=ip, ip_scale=ip_scale)
+            h = block(h, context, ip_context=ip, ip_scale=ip_scale,
+                      collect_ip_probs=collect_ip_probs if ip is not None else None)
         h = self.proj_out(h)
         return h.reshape(b, hgt, wid, c).permute(0, 3, 1, 2) + x

@@ -1,13 +1,15 @@
 """The model bundle a pipeline runs (port of
 imagharmony_tpu/pipelines/components.py): the SDXL family with the HA head,
-and the SD1.5 family (single text tower, vanilla IP-Adapter on every
+the SD1.5 family (single text tower, vanilla IP-Adapter on every
 cross-attention), each with the ``image_proj``, ``resampler`` (Plus) or
-``mlp_proj`` (Full) image-prompt head.
+``mlp_proj`` (Full) image-prompt head, and the SDXL refiner (the bigG tower
+alone, no image prompt: ``proj_kind`` "none"); any of them with an
+optional ControlNet.
 
 ``Components`` holds every sub-model the family has as one ``nn.Module``; its
 state_dict keys are the JAX bundle's keys in diffusers form (``unet.*``,
 ``vae.*``, ``text_encoder.*``, ``text_encoder_2.*``, ``image_encoder.*``,
-``harmony.*``, ``image_proj.*``).
+``harmony.*``, ``image_proj.*``, ``controlnet.*``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from imagharmony_tpu_torch.adapters import harmony, resampler
 from imagharmony_tpu_torch.adapters.projections import ImageProjModel, MLPProjModel
-from imagharmony_tpu_torch.models import clip_text, clip_vision, unet, vae
+from imagharmony_tpu_torch.models import clip_text, clip_vision, controlnet, unet, vae
 from imagharmony_tpu_torch.nn.layers import GroupNorm, LayerNorm
 
 
@@ -29,19 +31,24 @@ from imagharmony_tpu_torch.nn.layers import GroupNorm, LayerNorm
 class ComponentConfigs:
     unet: unet.UNetConfig
     vae: vae.VAEConfig
-    text_l: clip_text.CLIPTextConfig
-    # the second tower is SDXL-only; None for the SD1.5 family
+    # CLIP-L; None for the refiner
+    text_l: Optional[clip_text.CLIPTextConfig]
+    # the second tower (bigG) is SDXL-only; None for the SD1.5 family
     text_g: Optional[clip_text.CLIPTextConfig]
-    vision: clip_vision.CLIPVisionConfig
+    # the image encoder; None for the refiner (no image prompt)
+    vision: Optional[clip_vision.CLIPVisionConfig]
     # the HA module is the SDXL QL-Edit head; None for the SD1.5 family
     harmony: Optional[harmony.HarmonyConfig]
-    # "image_proj" (IPAdapter/XL), "resampler" (IPAdapterPlus/PlusXL) or
-    # "mlp_proj" (IPAdapterFull)
+    # "image_proj" (IPAdapter/XL), "resampler" (IPAdapterPlus/PlusXL),
+    # "mlp_proj" (IPAdapterFull) or "none" (the refiner)
     proj_kind: str = "image_proj"
     resampler: Optional[resampler.ResamplerConfig] = None
     num_ip_tokens: int = 4
-    # "sdxl" (dual towers, micro-conditioning) or "sd15" (single tower)
+    # "sdxl" (dual towers, micro-conditioning), "sd15" (single tower) or
+    # "sdxl_refiner" (bigG alone, aesthetic-score micro-conditioning)
     family: str = "sdxl"
+    # an optional ControlNet branch
+    controlnet: Optional[controlnet.ControlNetConfig] = None
 
 
 def sdxl_configs(harmony_cfg: harmony.HarmonyConfig | None = None) -> ComponentConfigs:
@@ -55,6 +62,31 @@ def sdxl_configs(harmony_cfg: harmony.HarmonyConfig | None = None) -> ComponentC
         vision=clip_vision.CLIPVisionConfig(),
         harmony=harmony_cfg or harmony.HarmonyConfig(),
     )
+
+
+def sdxl_refiner_configs() -> ComponentConfigs:
+    """SDXL-refiner-1.0: the low-noise specialist of the SDXL mixture of
+    denoisers (it takes a base run's denoising_end latents through
+    generate(latents=..., denoising_start=...), or an img2img init image):
+    the bigG tower alone, the aesthetic-score micro-conditioning, no image
+    prompt and no HA head."""
+    return ComponentConfigs(unet=unet.sdxl_refiner_config(), vae=vae.VAEConfig(), text_l=None,
+                            text_g=clip_text.clip_bigg_config(), vision=None, harmony=None,
+                            proj_kind="none", family="sdxl_refiner")
+
+
+def sdxl_refiner_tiny_configs(vocab_size=1000) -> ComponentConfigs:
+    """A miniature refiner with its topology (four stages, cross-attention on
+    the middle two, aesthetic time ids), the JAX package's."""
+    u = unet.sdxl_refiner_config(
+        sample_size=8, block_out_channels=(16, 32, 64, 64),
+        transformer_layers_per_block=(1, 1, 2, 2), num_attention_heads=(1, 2, 4, 4),
+        attention_head_dim=16, cross_attention_dim=40, norm_num_groups=8,
+        addition_time_embed_dim=16, projection_class_embeddings_input_dim=16 * 5 + 40)
+    tg = clip_text.tiny_config(vocab_size=vocab_size, hidden_size=40, num_heads=4,
+                               projection_dim=40)
+    return ComponentConfigs(unet=u, vae=vae.tiny_config(), text_l=None, text_g=tg, vision=None,
+                            harmony=None, proj_kind="none", family="sdxl_refiner")
 
 
 def sd15_configs() -> ComponentConfigs:
@@ -110,7 +142,9 @@ def tiny_configs(vocab_size=1000, *, proj_kind="image_proj") -> ComponentConfigs
     )
 
 
-def _image_proj(cfgs: ComponentConfigs, **kw) -> nn.Module:
+def _image_proj(cfgs: ComponentConfigs, **kw) -> Optional[nn.Module]:
+    if cfgs.proj_kind == "none":
+        return None
     if cfgs.proj_kind == "image_proj":
         return ImageProjModel(
             clip_embed_dim=cfgs.vision.projection_dim,
@@ -126,8 +160,9 @@ def _image_proj(cfgs: ComponentConfigs, **kw) -> nn.Module:
 
 
 class Components(nn.Module):
-    """The sub-models of one family; ``text_encoder_2`` and ``harmony`` are
-    None where the family has none."""
+    """The sub-models of one family; ``text_encoder``, ``text_encoder_2``,
+    ``image_encoder``, ``harmony``, ``image_proj`` and ``controlnet`` are
+    None where the family or the config has none."""
 
     def __init__(self, cfgs: ComponentConfigs, *, device=None, dtype=None):
         super().__init__()
@@ -135,13 +170,17 @@ class Components(nn.Module):
         self.cfgs = cfgs
         self.unet = unet.UNet2DConditionModel(cfgs.unet, **kw)
         self.vae = vae.AutoencoderKL(cfgs.vae, **kw)
-        self.text_encoder = clip_text.CLIPTextModel(cfgs.text_l, **kw)
+        self.text_encoder = (clip_text.CLIPTextModel(cfgs.text_l, **kw)
+                             if cfgs.text_l is not None else None)
         self.text_encoder_2 = (clip_text.CLIPTextModel(cfgs.text_g, **kw)
                                if cfgs.text_g is not None else None)
-        self.image_encoder = clip_vision.CLIPVisionModelWithProjection(cfgs.vision, **kw)
+        self.image_encoder = (clip_vision.CLIPVisionModelWithProjection(cfgs.vision, **kw)
+                              if cfgs.vision is not None else None)
         self.harmony = (harmony.HarmonyAttention(cfgs.harmony, **kw)
                         if cfgs.harmony is not None else None)
         self.image_proj = _image_proj(cfgs, **kw)
+        self.controlnet = (controlnet.ControlNetModel(cfgs.controlnet, **kw)
+                           if cfgs.controlnet is not None else None)
 
     def project_image_embeds(self, vision_out):
         """CLIP vision output -> image-prompt tokens: ``image_proj`` takes the
@@ -168,8 +207,10 @@ def init_weights_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's init scales, in place: Linear/Conv weights and
     biases uniform in ±1/sqrt(fan_in) (nn/layers.py:38), norms ones/zeros,
     embedding tables N(0, 1), the CLIP vision class embedding N(0, 1), its
-    patch conv N(0, 0.02²) and the resampler's latents N(0, 1/dim). These
-    keep random full-size bf16 activations finite."""
+    patch conv N(0, 0.02²), the resampler's latents N(0, 1/dim), the HA
+    qformer's queries N(0, 1) and a ControlNet's output convs zero (a fresh
+    ControlNet changes nothing). These keep random full-size bf16
+    activations finite."""
     for m in root.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
@@ -187,6 +228,10 @@ def init_weights_(root: nn.Module, generator: torch.Generator) -> nn.Module:
             m.patch_embedding.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, resampler.Resampler):
             m.latents.normal_(0.0, m.cfg.dim**-0.5, generator=generator)
+        elif isinstance(m, harmony.QFormer):
+            m.query_tokens.normal_(generator=generator)
+        elif isinstance(m, controlnet.ControlNetModel):
+            m.zero_outputs_()
     return root
 
 

@@ -33,8 +33,10 @@ the row's device index, so the graphs serve every schedule of their key;
 pipeline's ``ProgramCache`` under ("engine", device, size, slots,
 Branches) and pinned while an engine holds it.
 
-ControlNet (``use_controlnet``, ``control_image``) is not ported (ROADMAP
-A13) and raises.
+With a ControlNet (``use_controlnet``, by default whether the pipeline has
+one) every row's control image is part of its conditioning rows and the
+chunk step runs the ControlNet on them; a request admitted without one
+runs on an all-zero image, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,29 +56,32 @@ from imagharmony_tpu_torch.pipelines.programs import Piece
 from imagharmony_tpu_torch.schedulers import diffusion as sched
 
 
-def engine_branches(opts: he.EditOptions, kind: str) -> he.Branches:
+def engine_branches(opts: he.EditOptions, kind: str, controlnet: bool = False) -> he.Branches:
     """What an engine's code does: the CFG pair and an image prompt always
     (a request without an image takes a black one, as in the JAX package),
     no init image, the per-request HA fusion decided by its conditioning
-    graph."""
+    graph, the ControlNet or not."""
     return he.Branches(
         kind=kind, prediction_type=opts.prediction_type, cfg=True,
         rescale=opts.guidance_rescale > 0.0, image_prompt=True, harmony=False,
         weights=(False, False), init_image=False, from_image=False, inpaint=False,
         latent_output=opts.return_latents or opts.denoising_end is not None,
-        tile_vae=opts.tile_vae, clip_skip=opts.clip_skip, encoder_interval=opts.encoder_interval)
+        tile_vae=opts.tile_vae, clip_skip=opts.clip_skip, encoder_interval=opts.encoder_interval,
+        controlnet=controlnet)
 
 
 @dataclasses.dataclass
 class Request:
     """One request after the host's work, on the device: the token ids (one
     row each), the CLIP pixels (1, H, W, 3), the initial noise (1, 4, h, w)
-    fp32 and the micro-conditioning rows (2, 6)."""
+    fp32, the micro-conditioning rows (2, 6) and, with a ControlNet, the
+    control image (1, 3, Hc, Wc) in [0, 1]."""
 
     ids: dict
     pixel_values: torch.Tensor
     noise: torch.Tensor
     time_ids: torch.Tensor
+    control: Optional[torch.Tensor] = None
 
 
 def device_scope(device):
@@ -104,7 +109,7 @@ class EngineProgram:
         self.pool = torch.cuda.graph_pool_handle() if graphs else None
         dev = dict(device=self.device)
         self.tables = torch.zeros((he.STEP_ROWS, programs.MAX_STEPS), dtype=torch.float32, **dev)
-        self.scalars = torch.zeros(4, dtype=torch.float32, **dev)
+        self.scalars = torch.zeros(5, dtype=torch.float32, **dev)
         self.num_steps = torch.ones(1, dtype=torch.long, **dev)
         self.index = torch.ones(slots, dtype=torch.long, **dev)
         self.latents = torch.zeros((slots,) + tuple(req.noise.shape[1:]), dtype=pipe.dtype, **dev)
@@ -153,13 +158,14 @@ class EngineProgram:
             static = Request(ids={k: torch.empty_like(v) for k, v in req.ids.items()},
                              pixel_values=torch.empty_like(req.pixel_values),
                              noise=torch.empty_like(req.noise),
-                             time_ids=torch.empty_like(req.time_ids))
+                             time_ids=torch.empty_like(req.time_ids),
+                             control=programs._like(req.control))
             br = dataclasses.replace(self.br, harmony=harmony)
 
             def start():
                 cond, latents, _ = he.start(self.comps, br, self.opts, static.ids,
                                             static.pixel_values, None, static.noise,
-                                            static.time_ids, self.scalars)
+                                            static.time_ids, self.scalars, static.control)
                 return cond, latents
 
             self._conds[harmony] = (static, Piece(start, self.stream, self.pool))
@@ -167,8 +173,9 @@ class EngineProgram:
         for k, buf in static.ids.items():
             buf.copy_(req.ids[k])
         for buf, x in ((static.pixel_values, req.pixel_values), (static.noise, req.noise),
-                       (static.time_ids, req.time_ids)):
-            buf.copy_(x)
+                       (static.time_ids, req.time_ids), (static.control, req.control)):
+            if buf is not None:
+                buf.copy_(x)
         return piece()
 
     def write_slot(self, i: int, req: Request):
@@ -193,7 +200,7 @@ class EngineProgram:
         latents, index, state, encoder = he.denoise_rows_step(
             self.comps.unet, self.latents, self.index, self.num_steps, self.tables, self.scalars,
             self.bundle, br, state=self.state, encoder=None if key else self.encoder,
-            want_encoder=key and br.encoder_interval > 1)
+            want_encoder=key and br.encoder_interval > 1, controlnet=self.comps.controlnet)
         self.latents.copy_(latents)
         self.index.copy_(index)
         for k, buf in (self.state or {}).items():
@@ -240,9 +247,16 @@ class SlotEngine:
     program back to the pipeline's cache."""
 
     def __init__(self, pipe, opts: he.EditOptions, *, slots: int = 4, chunk: int = 5,
-                 use_controlnet: Optional[bool] = None):
-        if use_controlnet:
-            raise NotImplementedError("use_controlnet: ControlNet is not ported yet (ROADMAP A13)")
+                 use_controlnet: Optional[bool] = None, controlnet_scale: float = 1.0):
+        # a static choice of the engine: a static batch cannot skip the
+        # branch row by row
+        self.use_controlnet = (pipe.cfgs.controlnet is not None if use_controlnet is None
+                               else use_controlnet)
+        if self.use_controlnet and pipe.cfgs.controlnet is None:
+            raise ValueError("use_controlnet=True but the pipeline has no ControlNet")
+        if pipe.cfgs.vision is None:
+            raise ValueError(f"the chunked runner takes an image prompt; this pipeline has no "
+                             f"image encoder (family={pipe.cfgs.family})")
         he.check_options(pipe.cfgs, prediction_type=opts.prediction_type,
                          encoder_interval=opts.encoder_interval, clip_skip=opts.clip_skip)
         he.check_chunked(scheduler=opts.scheduler)
@@ -257,11 +271,11 @@ class SlotEngine:
         if self.num_steps > programs.MAX_STEPS:
             raise ValueError(f"num_inference_steps {self.num_steps} > {programs.MAX_STEPS}, the "
                              f"longest loop an engine takes")
-        self.br = engine_branches(opts, schedule.kind)
+        self.br = engine_branches(opts, schedule.kind, self.use_controlnet)
         self.tables = he.scan_tables(schedule, ip_scales, pipe.device)
         self.scalars = torch.tensor([opts.guidance_scale, opts.guidance_rescale,
-                                     float(schedule.sigmas[0]), schedule.init_noise_sigma],
-                                    dtype=torch.float32, device=pipe.device)
+                                     float(schedule.sigmas[0]), schedule.init_noise_sigma,
+                                     controlnet_scale], dtype=torch.float32, device=pipe.device)
         self.time_ids = he.time_ids_rows(opts).to(pipe.device)
         self.key = ("engine", pipe.device, opts.height, opts.width, slots, self.br)
         self.slots: List[_Slot] = [_Slot() for _ in range(slots)]
@@ -274,12 +288,23 @@ class SlotEngine:
     def prepare(self, *, pil_image=None, pixel_values=None, prompt=None, negative_prompt=None,
                 extra_text=None, seed=0, control_image=None, noise=None) -> Request:
         """The host's work for one request. No image: a black one, as the
-        JAX engine takes. ``noise``: a (1, h, w, 4) initial-noise row in
-        place of ``seed``'s (``generate_chunked`` gives the one-call path's
-        draw)."""
-        if control_image is not None:
-            raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
+        JAX engine takes; with the ControlNet and no control image, an
+        all-zero one. ``noise``: a (1, h, w, 4) initial-noise row in place of
+        ``seed``'s (``generate_chunked`` gives the one-call path's draw)."""
         pipe, opts = self.pipe, self.opts
+        control = None
+        if self.use_controlnet:
+            if control_image is None:
+                up, d = pipe.cfgs.controlnet.cond_upscale, pipe.cfgs.vae.downscale
+                control = np.zeros((1, opts.height // d * up, opts.width // d * up, 3),
+                                   np.float32)
+            else:
+                control = he.preprocess_control(pipe.cfgs, control_image, opts.height,
+                                                opts.width)
+            control = torch.as_tensor(control, device=pipe.device).permute(0, 3, 1, 2)
+            control = control.contiguous()
+        elif control_image is not None:
+            raise ValueError("control_image given, but this engine runs no ControlNet")
         if pixel_values is None:
             pixel_values = pipe._pixel_values(
                 np.zeros((64, 64, 3), np.uint8) if pil_image is None else pil_image)
@@ -299,7 +324,8 @@ class SlotEngine:
         if tuple(noise.shape) != shape:
             raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
         return Request(ids=ids, pixel_values=pixel_values,
-                       noise=noise.permute(0, 3, 1, 2).contiguous(), time_ids=self.time_ids)
+                       noise=noise.permute(0, 3, 1, 2).contiguous(), time_ids=self.time_ids,
+                       control=control)
 
     def free_slots(self) -> List[int]:
         return [i for i, sl in enumerate(self.slots) if sl.request is None]
@@ -414,16 +440,16 @@ class SlotEngine:
 def generate_chunked(pipe, *, pil_image=None, pixel_values=None, prompt=None,
                      negative_prompt=None, extra_text=None, seed=0, num_samples=1,
                      chunk_steps=5, callback_on_step_end: Optional[Callable] = None,
-                     output_type="np", control_image=None, noise=None, **opts_kw):
+                     output_type="np", control_image=None, controlnet_scale=1.0, noise=None,
+                     **opts_kw):
     """generate() through the chunked runner: the one-call path's edit, with
     ``callback_on_step_end(step, latents)`` after every chunk (the step all
     rows have reached, the (S, h, w, 4) latents: a view of the engine's
     buffer) - the reference's per-step progress callback. The initial noise
     is the one-call path's draw (``seed`` an int or a list, or ``noise``).
-    ``opts_kw``: ``EditOptions``' fields, with scale and
-    num_inference_steps."""
-    if control_image is not None:
-        raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
+    ``control_image``: every row's, through the pipeline's ControlNet at
+    ``controlnet_scale``. ``opts_kw``: ``EditOptions``' fields, with scale
+    and num_inference_steps."""
     he.check_output_type(output_type)
     opts = he.EditOptions(use_harmony=extra_text is not None,
                           ip_scale=opts_kw.pop("scale", 1.0),
@@ -434,7 +460,10 @@ def generate_chunked(pipe, *, pil_image=None, pixel_values=None, prompt=None,
         # round the chunk up to the key-step quantum: the chunking changes
         # no output
         chunk_steps += k - chunk_steps % k
-    eng = SlotEngine(pipe, opts, slots=num_samples, chunk=chunk_steps)
+    if control_image is not None and pipe.cfgs.controlnet is None:
+        raise ValueError("control_image given, but the pipeline has no ControlNet")
+    eng = SlotEngine(pipe, opts, slots=num_samples, chunk=chunk_steps,
+                     use_controlnet=control_image is not None, controlnet_scale=controlnet_scale)
     try:
         down = pipe.cfgs.vae.downscale
         row = (opts.height // down, opts.width // down, 4)
@@ -447,7 +476,7 @@ def generate_chunked(pipe, *, pil_image=None, pixel_values=None, prompt=None,
         for i in range(num_samples):
             eng.admit(i, pil_image=pil_image, pixel_values=pixel_values, prompt=prompt,
                       negative_prompt=negative_prompt, extra_text=extra_text,
-                      noise=noise[i:i + 1])
+                      control_image=control_image, noise=noise[i:i + 1])
         done = 0
         while done < eng.num_steps:
             eng.run_chunk()

@@ -21,12 +21,22 @@ handoff (denoising_end / denoising_start), SDXL micro-conditioning
 overrides, clip_skip, prompt weighting, textual inversion, encoder
 propagation (encoder_interval) and a tiled VAE decode.
 
-Two families run it. SDXL: both text towers, micro-conditioning, the HA
-fusion with extra_text. SD1.5 (``cfgs.family == "sd15"``): CLIP-L's last
-hidden state alone as the context, no pooled embedding and no time ids, no
-HA head, the IP branch on every cross-attention. Either takes the
-``image_proj`` head or, from the penultimate patch features, the
-``resampler`` (Plus) or ``mlp_proj`` (Full) head.
+Three families run it. SDXL: both text towers, micro-conditioning, the HA
+fusion with extra_text (any of its four fusions). SD1.5
+(``cfgs.family == "sd15"``): CLIP-L's last hidden state alone as the
+context, no pooled embedding and no time ids, no HA head, the IP branch on
+every cross-attention. Either takes the ``image_proj`` head or, from the
+penultimate patch features, the ``resampler`` (Plus) or ``mlp_proj``
+(Full) head. The SDXL refiner (``"sdxl_refiner"``): bigG's penultimate
+state and projected pooled embedding alone, the aesthetic-score
+micro-conditioning (5 time ids), no image prompt; it finishes a base run
+from its ``denoising_end`` latents (``generate(latents=...,
+denoising_start=...)``) or refines an init image.
+
+Any family may carry a ControlNet (``cfgs.controlnet``): with a
+``control_image`` its residuals, computed each step on the CFG-packed text
+conditioning (no image prompt), feed the UNet's skips and mid block.
+``with_lora`` merges LoRA factors into a copy of the UNet.
 
 The pipeline surface keeps the JAX layout: noise and latents are
 (B, h, w, 4) and images (B, H, W, 3) in [-1, 1]. Inside the models
@@ -36,9 +46,6 @@ Besides generate(): ``generate_batch`` packs B requests into one program
 (the CFG-packed UNet batch 2B), and ``callback_on_step_end`` /
 ``chunk_steps`` run the chunked runner (``continuous.py``), whose step is
 ``denoise_rows_step``: every row at its own step of the schedule.
-
-Not ported yet (ROADMAP A13): ControlNet, LoRA and the refiner family;
-generate() raises on their arguments.
 """
 
 from __future__ import annotations
@@ -75,8 +82,8 @@ STEP_NOISE_TAG = 0xA9CE57
 
 @dataclasses.dataclass(frozen=True)
 class EditOptions:
-    """Knobs of one edit call (the JAX package's, but the refiner's
-    aesthetic scores)."""
+    """Knobs of one edit call (the JAX package's; ``controlnet_scale`` is a
+    value of the call, ``EditCall.scalars``)."""
 
     height: int = 1024
     width: int = 1024
@@ -122,10 +129,16 @@ class EditOptions:
     rescale_zero_snr: bool = False
     # condition on an earlier text-encoder layer (diffusers clip_skip)
     clip_skip: int = 0
+    # the refiner's aesthetic-score micro-conditioning (diffusers XLImg2Img
+    # defaults)
+    aesthetic_score: float = 6.0
+    negative_aesthetic_score: float = 2.5
 
-    def time_ids(self, negative=False):
+    def time_ids(self, negative=False, aesthetic=False):
         """SDXL micro-conditioning: original size, crop (top, left), target
-        size; the negative row takes its own overrides where given."""
+        size; the negative row takes its own overrides where given. The
+        refiner's (``aesthetic``): original size, crop and the aesthetic
+        score, no target size."""
         osz = self.original_size or (self.height, self.width)
         tsz = self.target_size or (self.height, self.width)
         crop = self.crops_coords_top_left
@@ -133,8 +146,11 @@ class EditOptions:
             osz = self.negative_original_size or osz
             tsz = self.negative_target_size or tsz
             crop = self.negative_crops_coords_top_left or crop
-        return [float(osz[0]), float(osz[1]), float(crop[0]), float(crop[1]),
-                float(tsz[0]), float(tsz[1])]
+        head = [float(osz[0]), float(osz[1]), float(crop[0]), float(crop[1])]
+        if aesthetic:
+            return head + [float(self.negative_aesthetic_score if negative
+                                 else self.aesthetic_score)]
+        return head + [float(tsz[0]), float(tsz[1])]
 
 
 def rescale_noise_cfg(eps_cfg, eps_text, rescale):
@@ -183,9 +199,14 @@ def schedule_for(opts: EditOptions):
 
 def encode_texts(comps: comp.Components, ids_l, ids_g, clip_skip: int = 0):
     """Text conditioning (context, pooled): the dual-tower concatenation for
-    SDXL; CLIP-L's last hidden state alone, with pooled None, for SD1.5."""
+    SDXL; CLIP-L's last hidden state alone, with pooled None, for SD1.5;
+    bigG's penultimate state and projected pooled embedding for the
+    refiner."""
     if comps.cfgs.family == "sd15":
         return comps.text_encoder(ids_l, clip_skip=clip_skip)["last"], None
+    if comps.cfgs.family == "sdxl_refiner":
+        out = comps.text_encoder_2(ids_g, clip_skip=clip_skip)
+        return out["penultimate"], out["projected"]
     return clip_text.encode_for_sdxl(comps.text_encoder, comps.text_encoder_2, ids_l, ids_g,
                                      clip_skip=clip_skip)
 
@@ -223,10 +244,12 @@ def apply_prompt_weights(ctx, w):
     return (z * ratio).to(ctx.dtype)
 
 
-def time_ids_rows(opts: EditOptions) -> torch.Tensor:
+def time_ids_rows(opts: EditOptions, family: str = "sdxl") -> torch.Tensor:
     """The (2, 6) fp32 micro-conditioning rows [negative, positive] on the
-    CPU."""
-    return torch.tensor([opts.time_ids(negative=True), opts.time_ids()], dtype=torch.float32)
+    CPU; (2, 5) with the refiner's aesthetic score."""
+    aes = family == "sdxl_refiner"
+    return torch.tensor([opts.time_ids(negative=True, aesthetic=aes),
+                         opts.time_ids(aesthetic=aes)], dtype=torch.float32)
 
 
 def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_values, *,
@@ -235,13 +258,13 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
     [uncond | cond] row order for B requests (the rows of ``ids``):
     (context2, pooled2, time_ids2, ip2). pooled2 and time_ids2 are None for
     the SD1.5 family, ip2 when ``pixel_values`` is None (text-to-image, the
-    IP branch off).
+    IP branch off, and always for the refiner).
 
     ``ids``: token ids keyed pos_l/pos_g/neg_l/neg_g (extra_l/extra_g with
     an extra_text), and pos_w/neg_w (B, S) fp32 prompt weights where a
     prompt carries weights. ``time_ids``: the (2, 6) fp32 rows [negative,
-    positive] on the device (a captured program's buffer), else made from
-    ``opts``."""
+    positive] on the device (a captured program's buffer; (2, 5) for the
+    refiner), else made from ``opts``."""
     breq = ids["pos_l"].shape[0]
     ids_l = torch.cat([ids["neg_l"], ids["pos_l"]])
     ids_g = torch.cat([ids["neg_g"], ids["pos_g"]])
@@ -262,7 +285,7 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
         return _repeat_rows(x, num_samples)
 
     ip2 = None
-    if pixel_values is not None:
+    if pixel_values is not None and comps.cfgs.proj_kind != "none":
         ip_cond, ip_uncond = image_prompt_tokens(comps, pixel_values, extra_ctx)
         ip2 = torch.cat([rep(ip_uncond), rep(ip_cond)])
     context2 = torch.cat([rep(neg_ctx), rep(pos_ctx)])
@@ -270,7 +293,7 @@ def build_conditioning(comps: comp.Components, opts: EditOptions, ids, pixel_val
         return context2, None, None, ip2
     pooled2 = torch.cat([rep(pooled[:breq]), rep(pooled[breq:])])
     if time_ids is None:
-        time_ids = time_ids_rows(opts).to(context.device)
+        time_ids = time_ids_rows(opts, comps.cfgs.family).to(context.device)
     tid_neg, tid_pos = (time_ids[i:i + 1].expand(breq, -1) for i in range(2))
     return context2, pooled2, torch.cat([rep(tid_neg), rep(tid_pos)]), ip2
 
@@ -315,11 +338,14 @@ class Branches:
     tile_vae: bool
     clip_skip: int
     encoder_interval: int
+    controlnet: bool = False  # a control image through the pipeline's ControlNet
+    family: str = "sdxl"      # the conditioning's form (ComponentConfigs.family)
 
 
 def cfg_rows(cond, use_cfg):
-    """The conditioning a step takes: the CFG-packed rows, or without CFG
-    the conditional half alone."""
+    """The conditioning a step takes: the CFG-packed rows (context, pooled,
+    time ids, IP tokens, control images), or without CFG the conditional
+    half alone."""
     if use_cfg:
         return cond
     return tuple(None if x is None else x[x.shape[0] // 2:] for x in cond)
@@ -348,8 +374,23 @@ def inpaint_blend(kind, level, latents, inpaint):
     return (mask * latents.float() + (1.0 - mask) * keep).to(latents.dtype)
 
 
+def controlnet_residuals(controlnet, lat_in, t, cond, scalars, encoder):
+    """(down residuals, mid residual) of ``controlnet`` on the step's UNet
+    input and the text conditioning (``cond``'s control rows), times the
+    conditioning scale ``scalars[4]``; or (None, the key step's mid
+    residual) on an encoder-propagation reuse step, whose kept skips hold
+    the down residuals already. (None, None) without a control image."""
+    context, pooled, time_ids, _, control = cond
+    if control is None:
+        return None, None
+    if encoder is not None:
+        return None, encoder[2]
+    return controlnet(lat_in, t, context, control, pooled_text_embeds=pooled,
+                      time_ids=time_ids, conditioning_scale=scalars[4])
+
+
 def denoise_step(unet, latents, index, tables, scalars, cond, br: Branches, *, state=None,
-                 z=None, inpaint=None, encoder=None, want_encoder=False):
+                 z=None, inpaint=None, encoder=None, want_encoder=False, controlnet=None):
     """One step of the denoise loop, the body of the JAX package's scan: the
     UNet call on [latents | latents] (or on the latents alone without CFG)
     against ``cond`` (``cfg_rows``' output), classifier-free guidance and
@@ -366,16 +407,22 @@ def denoise_step(unet, latents, index, tables, scalars, cond, br: Branches, *, s
     (mask (1, 1, h, w), image latents, noise), fp32. Encoder propagation:
     ``want_encoder`` (a key step) returns this call's encoder features,
     ``encoder`` (a reuse step) runs the mid block and the decoder on given
-    ones. So one captured step serves every step of its kind."""
-    context, pooled, time_ids, ip_tokens = cond
+    ones. ``controlnet``: the ControlNet that ``cond``'s control rows go
+    through (``controlnet_residuals``); its mid residual is kept with the
+    encoder features. So one captured step serves every step of its kind."""
+    context, pooled, time_ids, ip_tokens, _ = cond
     t, sigma, sigma_next, ip_scale, level = tables.index_select(1, index).view(STEP_ROWS).unbind(0)
     lat_in = torch.cat([latents, latents]) if br.cfg else latents
     lat_in = sched.scale_model_input_c(br.kind, sigma, lat_in)
-    eps = unet(lat_in, t.expand(lat_in.shape[0]), context, pooled_text_embeds=pooled,
+    ts = t.expand(lat_in.shape[0])
+    down_res, mid_res = controlnet_residuals(controlnet, lat_in, ts, cond, scalars, encoder)
+    eps = unet(lat_in, ts, context, pooled_text_embeds=pooled,
                time_ids=time_ids, ip_tokens=ip_tokens, ip_scale=ip_scale,
+               down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res,
                return_encoder=want_encoder, encoder_override=encoder)
     if want_encoder:
         eps, encoder = eps
+        encoder = encoder + (mid_res,)
     if br.cfg:
         eps_u, eps_c = eps.chunk(2)
         eps = eps_u + scalars[0] * (eps_c - eps_u)
@@ -389,7 +436,7 @@ def denoise_step(unet, latents, index, tables, scalars, cond, br: Branches, *, s
 
 
 def denoise_rows_step(unet, latents, index, num_steps, tables, scalars, cond, br: Branches, *,
-                      state=None, encoder=None, want_encoder=False):
+                      state=None, encoder=None, want_encoder=False, controlnet=None):
     """One step of the chunked runner, every row at its own step of the
     schedule (the JAX package's ``_chunk_jit`` body,
     imagharmony_tpu/pipelines/continuous.py:60-150): what the slot engine
@@ -405,10 +452,10 @@ def denoise_rows_step(unet, latents, index, num_steps, tables, scalars, cond, br
     weight, as (S, 1, 1, 1) per-row constants, the timestep and the IP
     weight as 2S rows in [uncond | cond] order (K2 reads a (2S,) weight).
     The CFG pair always runs, as in ``_chunk_jit``; ``cond`` is
-    ``build_conditioning``'s 2S rows. Deterministic samplers only (the JAX
-    runner refuses Euler-a and LCM); no inpaint blend. Encoder propagation
-    as in ``denoise_step``."""
-    context, pooled, time_ids, ip_tokens = cond
+    ``start``'s 2S rows. Deterministic samplers only (the JAX runner
+    refuses Euler-a and LCM); no inpaint blend. Encoder propagation and the
+    ControlNet as in ``denoise_step``."""
+    context, pooled, time_ids, ip_tokens, _ = cond
     live = index < num_steps
     t, sigma, sigma_next, ip_scale, _ = tables.index_select(
         1, torch.minimum(index, num_steps - 1)).unbind(0)
@@ -420,11 +467,14 @@ def denoise_rows_step(unet, latents, index, num_steps, tables, scalars, cond, br
         return torch.cat([x, x])
 
     lat_in = sched.scale_model_input_c(br.kind, rows(pair(sigma)), pair(latents))
+    down_res, mid_res = controlnet_residuals(controlnet, lat_in, pair(t), cond, scalars, encoder)
     eps = unet(lat_in, pair(t), context, pooled_text_embeds=pooled, time_ids=time_ids,
-               ip_tokens=ip_tokens, ip_scale=pair(ip_scale), return_encoder=want_encoder,
-               encoder_override=encoder)
+               ip_tokens=ip_tokens, ip_scale=pair(ip_scale),
+               down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res,
+               return_encoder=want_encoder, encoder_override=encoder)
     if want_encoder:
         eps, encoder = eps
+        encoder = encoder + (mid_res,)
     eps_u, eps_c = eps.chunk(2)
     eps = eps_u + scalars[0] * (eps_c - eps_u)
     if br.rescale:
@@ -446,7 +496,7 @@ def draw_step_noise(generator: torch.Generator, out: torch.Tensor) -> torch.Tens
 
 
 def denoise(unet, latents, cond, tables, scalars, br: Branches, *, inpaint=None,
-            step_noise=None, on_step=None):
+            step_noise=None, on_step=None, controlnet=None):
     """The denoise loop, eagerly: ``denoise_step`` once per step (a column
     of ``tables``), the step index advanced on the device. latents
     (B, 4, h, w); ``cond`` from ``cfg_rows``. With encoder propagation every
@@ -464,7 +514,7 @@ def denoise(unet, latents, cond, tables, scalars, br: Branches, *, inpaint=None,
         latents, state, encoder = denoise_step(
             unet, latents, index, tables, scalars, cond, br, state=state,
             z=step_noise(i) if step_noise is not None else None, inpaint=inpaint,
-            encoder=None if key else encoder, want_encoder=prop and key)
+            encoder=None if key else encoder, want_encoder=prop and key, controlnet=controlnet)
         index += 1
         on_step(latents)
     return latents
@@ -512,7 +562,10 @@ class EditCall:
     scalars (guidance scale, rescale, the first step's level, the initial
     sigma); the init image (1, 3, H, W) and the inpaint mask (1, 1, h, w),
     fp32, or None; the seed of the stochastic samplers' draws, and, for
-    tests only, the draws themselves (num_steps, B, 4, h, w)."""
+    tests only, the draws themselves (num_steps, B, 4, h, w); the control
+    images, one row a request (R, 3, Hc, Wc) in [0, 1], or None; the
+    pipeline's family. ``scalars`` holds the ControlNet's conditioning
+    scale fifth."""
 
     opts: EditOptions
     ids: dict
@@ -526,6 +579,8 @@ class EditCall:
     mask: Optional[torch.Tensor] = None
     step_seed: Optional[int] = None
     step_noise: Optional[torch.Tensor] = None
+    control: Optional[torch.Tensor] = None
+    family: str = "sdxl"
 
     @property
     def requests(self) -> int:
@@ -553,7 +608,8 @@ class EditCall:
             and not (self.mask is not None and o.img2img_skip == 0),
             inpaint=self.mask is not None,
             latent_output=o.return_latents or o.denoising_end is not None,
-            tile_vae=o.tile_vae, clip_skip=o.clip_skip, encoder_interval=o.encoder_interval)
+            tile_vae=o.tile_vae, clip_skip=o.clip_skip, encoder_interval=o.encoder_interval,
+            controlnet=self.control is not None, family=self.family)
 
 
 class PhaseClock:
@@ -573,16 +629,21 @@ class PhaseClock:
 
 
 def start(comps: comp.Components, br: Branches, opts: EditOptions, ids, pixel_values,
-          init_pixels, noise, time_ids, scalars):
+          init_pixels, noise, time_ids, scalars, control=None):
     """The edit's first part, what a captured program's conditioning graph
-    runs: the step's conditioning (``cfg_rows`` of ``build_conditioning``,
-    each of the ids' requests repeated for its samples: the noise's rows
-    over the requests), the loop's first latents and the init image's
-    latents (or None)."""
+    runs: the step's conditioning (``cfg_rows`` of ``build_conditioning``
+    and, with ``br.controlnet``, the control images (R, 3, Hc, Wc) in the
+    weights' dtype, each of the ids' requests repeated for its samples:
+    the noise's rows over the requests), the loop's first latents and the
+    init image's latents (or None)."""
     b = noise.shape[0]
-    cond = cfg_rows(build_conditioning(comps, opts, ids, pixel_values,
-                                       num_samples=b // ids["pos_l"].shape[0],
-                                       time_ids=time_ids), br.cfg)
+    n = b // ids["pos_l"].shape[0]
+    cond = build_conditioning(comps, opts, ids, pixel_values, num_samples=n, time_ids=time_ids)
+    ctrl = None
+    if br.controlnet:
+        ctrl = _repeat_rows(control.to(comps.unet.conv_in.weight.dtype), n)
+        ctrl = torch.cat([ctrl, ctrl])
+    cond = cfg_rows(cond + (ctrl,), br.cfg)
     img_lat = image_latents(comps, init_pixels, b) if br.init_image else None
     latents = initial_latents(br.kind, scalars, noise, img_lat if br.from_image else None,
                               comps.unet.conv_in.weight.dtype)
@@ -612,15 +673,33 @@ def edit(comps: comp.Components, call: EditCall, clock: Optional[PhaseClock] = N
     clock = clock or PhaseClock(None, None, 0.0)
     br = call.branches
     cond, latents, img_lat = start(comps, br, call.opts, call.ids, call.pixel_values,
-                                   call.init_pixels, call.noise, call.time_ids, call.scalars)
+                                   call.init_pixels, call.noise, call.time_ids, call.scalars,
+                                   call.control)
     clock.mark("conditioning_s")
     inpaint = (call.mask, img_lat, call.noise) if br.inpaint else None
     latents = denoise(comps.unet, latents, cond, call.tables, call.scalars, br, inpaint=inpaint,
-                      step_noise=step_noise_of(call, latents), on_step=on_step)
+                      step_noise=step_noise_of(call, latents), on_step=on_step,
+                      controlnet=comps.controlnet)
     clock.mark("denoise_s")
     out = finish(comps, br, latents)
     clock.mark("decode_s")
     return out
+
+
+def preprocess_control(cfgs: comp.ComponentConfigs, control_image, height, width):
+    """One control image (PIL or HWC uint8 array) resized to the ControlNet's
+    input size (the latents' size times ``cond_upscale``: the output size
+    for SDXL's embedder), (1, Hc, Wc, 3) float32 in [0, 1]."""
+    from PIL import Image
+
+    if cfgs.controlnet is None:
+        raise ValueError("control_image given, but the pipeline has no ControlNet (load one "
+                         "with load_pipeline(..., controlnet_dir=...) or with_controlnet)")
+    if isinstance(control_image, np.ndarray):
+        control_image = Image.fromarray(control_image.astype(np.uint8))
+    up, down = cfgs.controlnet.cond_upscale, cfgs.vae.downscale
+    ch, cw = (height // down) * up, (width // down) * up
+    return (np.asarray(control_image.convert("RGB").resize((cw, ch)), np.float32) / 255.0)[None]
 
 
 def preprocess_init_image(image, height, width):
@@ -686,8 +765,7 @@ CHUNKED_SAMPLERS_REFUSED = ("euler_a", "euler_ancestral", "lcm")
 
 
 def check_chunked(*, prompt_weighting=False, latents=None, denoising_start=None,
-                  scheduler="euler", init_image=None, mask_image=None, control_image=None,
-                  aesthetic_score=None, negative_aesthetic_score=None, **_):
+                  scheduler="euler", init_image=None, mask_image=None, **_):
     """Raises for what ``callback_on_step_end`` / ``chunk_steps`` (the
     chunked runner) does not run, before any work."""
     if prompt_weighting:
@@ -704,11 +782,6 @@ def check_chunked(*, prompt_weighting=False, latents=None, denoising_start=None,
     if init_image is not None or mask_image is not None:
         raise ValueError("callback_on_step_end/chunk_steps does not support img2img/inpainting "
                          "(init_image=/mask_image=); use the one-jit path")
-    if control_image is not None:
-        raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
-    if aesthetic_score is not None or negative_aesthetic_score is not None:
-        raise NotImplementedError("aesthetic_score / negative_aesthetic_score: the refiner "
-                                  "family is not ported yet (ROADMAP A13)")
 
 
 class HarmonyPipeline:
@@ -741,6 +814,8 @@ class HarmonyPipeline:
         # inference packing: one to_qkv per self-attention, so K1 and K4 get
         # q/k/v as strided column views of a single projection output
         pack_inference_params(comps.unet)
+        if comps.controlnet is not None:
+            pack_inference_params(comps.controlnet)
         if tokenizers is None:
             toy = tok_lib.build_toy_tokenizer()
             tokenizers = tok_lib.SDXLTokenizers(toy, toy)
@@ -775,6 +850,20 @@ class HarmonyPipeline:
         return cls.random(comp.sdxl_configs(), seed, device=device, dtype=dtype)
 
     @classmethod
+    def random_tiny_refiner(cls, seed=0, *, device="cuda", dtype=torch.float32):
+        """Random-weight miniature SDXL-refiner pipeline (the bigG tower
+        alone, aesthetic-score micro-conditioning, no image prompt)."""
+        cfgs = comp.sdxl_refiner_tiny_configs(
+            vocab_size=len(tok_lib.build_toy_tokenizer().encoder))
+        return cls.random(cfgs, seed, device=device, dtype=dtype)
+
+    @classmethod
+    def random_full_refiner(cls, seed=0, *, device="cuda", dtype=dtypes.COMPUTE_DTYPE):
+        """Full-size random-weight SDXL-refiner-1.0 pipeline (widths
+        384/768/1536/1536, four transformer layers a block, bigG)."""
+        return cls.random(comp.sdxl_refiner_configs(), seed, device=device, dtype=dtype)
+
+    @classmethod
     def random_full_sd15(cls, seed=0, *, device="cuda", dtype=dtypes.COMPUTE_DTYPE):
         """Full-size random-weight SD1.5 pipeline (CLIP-L, ViT-H, 4 tokens)."""
         return cls.random(comp.sd15_configs(), seed, device=device, dtype=dtype)
@@ -791,6 +880,49 @@ class HarmonyPipeline:
         comps = comps.to_empty(device=device)
         return cls._build(comp.load_state_dict_(comps, state_dict))
 
+    def _clone(self, cfgs=None, tokenizers=None, **modules):
+        """A new pipeline over this one's components with ``modules``
+        replaced (every other weight shared), ``cfgs`` and ``tokenizers`` if
+        given, and no captured programs: a graph captured on the old weights
+        never runs on the new ones."""
+        comps = copy.copy(self.components)
+        comps._modules = dict(comps._modules)
+        for name, m in modules.items():
+            setattr(comps, name, m)
+        if cfgs is not None:
+            comps.cfgs = cfgs
+        return HarmonyPipeline(comps, self.tokenizers if tokenizers is None else tokenizers)
+
+    def with_lora(self, lora, *, scale=1.0, lora_cfg=None):
+        """A new pipeline whose UNet has LoRA factors merged in:
+        ``W + scale * (alpha/r) * A @ B`` at every factored projection, in
+        fp32 (``adapters/lora.apply_lora``; no cost a step after). ``lora``:
+        a ``save_lora`` or community ``.safetensors`` path, or a factor dict
+        with ``lora_cfg``. Every other weight is shared with this pipeline,
+        which is left as it was; the new one starts with no captured
+        programs. Repeatable: merges add."""
+        from imagharmony_tpu_torch.adapters import lora as lora_lib
+
+        if isinstance(lora, (str, bytes, os.PathLike)):
+            lora, lora_cfg = lora_lib.load_lora(os.fsdecode(lora))
+        elif lora_cfg is None:
+            raise ValueError("pass lora_cfg when giving a factor dict")
+        return self._clone(unet=lora_lib.apply_lora(self.components.unet, lora, lora_cfg,
+                                                    scale=scale))
+
+    def with_controlnet(self, controlnet):
+        """A new pipeline with ``controlnet`` (a ``models/controlnet``
+        ControlNetModel on this pipeline's device, built on its UNet's
+        config) as its ControlNet branch; every other weight shared, no
+        captured programs."""
+        from imagharmony_tpu_torch.nn.attention import pack_inference_params
+
+        if controlnet.cn_cfg.base != self.cfgs.unet:
+            raise ValueError("the ControlNet's base config is not this pipeline's UNet's")
+        return self._clone(dataclasses.replace(self.cfgs, controlnet=controlnet.cn_cfg),
+                           controlnet=pack_inference_params(
+                               controlnet.eval().requires_grad_(False)))
+
     def with_textual_inversion(self, source, token=None):
         """A new pipeline with a learned textual-inversion embedding
         installed (diffusers load_textual_inversion role): the placeholder
@@ -804,8 +936,8 @@ class HarmonyPipeline:
         (``{"string_to_param": {"*": rows}, "name": ...}`` or a bare
         ``{token: rows}``), or a ``{key: (n, D) rows}`` dict. SDXL takes the
         dual-tower ``{"clip_l": ..., "clip_g": ...}``; SD1.5 one entry whose
-        key is the token name (or ``token=``). Chainable: once per
-        concept."""
+        key is the token name (or ``token=``), as does the refiner (bigG's
+        rows: ``clip_g`` of a dual file). Chainable: once per concept."""
         from imagharmony_tpu_torch.io import safetensors, torch_zip
 
         if isinstance(source, (str, bytes, os.PathLike)):
@@ -833,6 +965,9 @@ class HarmonyPipeline:
         token = token.lower()
         if self.cfgs.family == "sd15":
             jobs = [("text_encoder", "text_l", "tok1", tensors[next(iter(tensors))])]
+        elif self.cfgs.family == "sdxl_refiner":
+            rows = tensors["clip_g"] if dual else tensors[next(iter(tensors))]
+            jobs = [("text_encoder_2", "text_g", "tok2", rows)]
         elif dual:
             jobs = [("text_encoder", "text_l", "tok1", tensors["clip_l"]),
                     ("text_encoder_2", "text_g", "tok2", tensors["clip_g"])]
@@ -840,29 +975,28 @@ class HarmonyPipeline:
             raise ValueError("SDXL textual inversion needs the dual-tower format "
                              "{'clip_l': (n, 768), 'clip_g': (n, 1280)}")
 
-        comps = copy.copy(self.components)
-        comps._modules = dict(comps._modules)
         toks = {"tok1": copy.copy(self.tokenizers.tok1), "tok2": copy.copy(self.tokenizers.tok2)}
         for t in toks.values():  # their own added tokens, even where tok1 is tok2
             t.added_tokens = dict(t.added_tokens)
-        cfgs, n_vec = self.cfgs, None
+        cfgs, n_vec, towers = self.cfgs, None, {}
         for attr, field, tok, rows in jobs:
             rows = torch.atleast_2d(torch.as_tensor(np.asarray(rows, np.float32)))
             if n_vec is not None and rows.shape[0] != n_vec:
                 raise ValueError("clip_l/clip_g vector counts differ")
             n_vec = rows.shape[0]
-            tower, first = getattr(self.components, attr).with_token_rows(rows)
-            setattr(comps, attr, tower)
-            cfgs = dataclasses.replace(cfgs, **{field: tower.cfg})
+            towers[attr], first = getattr(self.components, attr).with_token_rows(rows)
+            cfgs = dataclasses.replace(cfgs, **{field: towers[attr].cfg})
             toks[tok].add_token(token, range(first, first + n_vec))
-        comps.cfgs = cfgs
-        return HarmonyPipeline(comps, tok_lib.SDXLTokenizers(toks["tok1"], toks["tok2"]))
+        return self._clone(cfgs, tok_lib.SDXLTokenizers(toks["tok1"], toks["tok2"]), **towers)
 
     # -- pieces ------------------------------------------------------------
 
+    def _max_len(self):
+        return (self.cfgs.text_l or self.cfgs.text_g).max_position_embeddings
+
     def _tokenize(self, text):
         ids1, ids2 = self.tokenizers(text or "")
-        max_l = self.cfgs.text_l.max_position_embeddings
+        max_l = self._max_len()
         as_t = lambda a: torch.as_tensor(np.asarray(a)[:, :max_l], dtype=torch.long,
                                          device=self.device)
         return as_t(ids1), as_t(ids2)
@@ -878,7 +1012,7 @@ class HarmonyPipeline:
         frags = prompts.parse_prompt_attention(text or "")
         if not prompts.is_weighted(frags):
             return self._tokenize(prompts.plain_text(frags)) + (None,)
-        max_l = self.cfgs.text_l.max_position_embeddings
+        max_l = self._max_len()
 
         def build(tok):
             toks, ws = [], []
@@ -958,9 +1092,9 @@ class HarmonyPipeline:
                 output_type: str = "np", callback_on_step_end=None,
                 chunk_steps: Optional[int] = None, encoder_interval: int = 1,
                 prediction_type: str = "epsilon", rescale_zero_snr: bool = False,
-                aesthetic_score: Optional[float] = None,
-                negative_aesthetic_score: Optional[float] = None, clip_skip: int = 0,
-                prompt_weighting: bool = False, noise=None, _step_noise=None) -> EditCall:
+                aesthetic_score: float = 6.0, negative_aesthetic_score: float = 2.5,
+                clip_skip: int = 0, prompt_weighting: bool = False, noise=None,
+                _step_noise=None) -> EditCall:
         """The host's part of generate(): checks, CLIP preprocessing,
         tokenization, the schedule and its table, the initial noise, the
         init image and mask, on the pipeline's device. The arguments are the
@@ -987,20 +1121,22 @@ class HarmonyPipeline:
         the seed's. ``_step_noise`` (tests only): the stochastic samplers'
         draws (num_steps, num_samples, h, w, 4).
 
-        ControlNet (control_image) and the refiner family (aesthetic_score,
-        negative_aesthetic_score) are not ported (ROADMAP A13): they raise
-        NotImplementedError. callback_on_step_end / chunk_steps run the
-        chunked runner, which generate() takes (``continuous.py``); this
-        one-call path refuses them. Every refused combination raises before
-        any work."""
-        if control_image is not None:
-            raise NotImplementedError("control_image: ControlNet is not ported yet (ROADMAP A13)")
+        control_image (PIL or HWC uint8) runs the pipeline's ControlNet at
+        controlnet_conditioning_scale. aesthetic_score and
+        negative_aesthetic_score are the refiner's micro-conditioning (read
+        by that family only); the refiner takes no image prompt.
+        callback_on_step_end / chunk_steps run the chunked runner, which
+        generate() takes (``continuous.py``); this one-call path refuses
+        them. Every refused combination raises before any work."""
         if callback_on_step_end is not None or chunk_steps is not None:
             raise ValueError("callback_on_step_end / chunk_steps run the chunked runner: "
                              "generate() takes them, prepare() is the one-call path's")
-        if aesthetic_score is not None or negative_aesthetic_score is not None:
-            raise NotImplementedError("aesthetic_score / negative_aesthetic_score: the refiner "
-                                      "family is not ported yet (ROADMAP A13)")
+        if self.cfgs.vision is None and (pil_image is not None or pixel_values is not None):
+            raise ValueError(f"this pipeline has no image encoder (family={self.cfgs.family}); "
+                             "pass init_image=/latents= to refine an image, not pil_image=")
+        control = None
+        if control_image is not None:
+            control = preprocess_control(self.cfgs, control_image, height, width)
         check_output_type(output_type)
         check_options(self.cfgs, prediction_type=prediction_type,
                       encoder_interval=encoder_interval, clip_skip=clip_skip)
@@ -1035,7 +1171,8 @@ class HarmonyPipeline:
             negative_crops_coords_top_left=_pair(negative_crops_coords_top_left),
             negative_target_size=_pair(negative_target_size),
             encoder_interval=int(encoder_interval), prediction_type=prediction_type,
-            rescale_zero_snr=rescale_zero_snr, clip_skip=clip_skip)
+            rescale_zero_snr=rescale_zero_snr, clip_skip=clip_skip,
+            aesthetic_score=aesthetic_score, negative_aesthetic_score=negative_aesthetic_score)
         schedule, ip_scales = schedule_for(opts)
         stochastic = schedule.kind in sched.STOCHASTIC
         if _step_noise is not None and (not stochastic or self.device.type == "cuda"):
@@ -1071,7 +1208,7 @@ class HarmonyPipeline:
             return x.permute(0, 3, 1, 2).contiguous() if nhwc_to_nchw else x
 
         scalars = [guidance_scale, guidance_rescale, float(schedule.sigmas[0]),
-                   schedule.init_noise_sigma]
+                   schedule.init_noise_sigma, controlnet_conditioning_scale]
         step_noise = None
         if _step_noise is not None:
             want = (schedule.num_steps, num_samples) + lat_shape
@@ -1081,9 +1218,11 @@ class HarmonyPipeline:
         return EditCall(
             opts=opts, ids=ids, pixel_values=pixel_values,
             noise=noise.permute(0, 3, 1, 2).contiguous(),
-            time_ids=time_ids_rows(opts).to(self.device), schedule=schedule,
+            time_ids=time_ids_rows(opts, self.cfgs.family).to(self.device), schedule=schedule,
             tables=scan_tables(schedule, ip_scales, self.device),
             scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
+            control=None if control is None else on_device(control),
+            family=self.cfgs.family,
             init_pixels=None if init_image is None
             else on_device(preprocess_init_image(init_image, height, width)),
             mask=None if mask_image is None
@@ -1102,11 +1241,10 @@ class HarmonyPipeline:
         ``range(B)``: one generator a seed, as a seed list draws).
         ``shared_kw``: the JAX ``generate_batch``'s, ``EditOptions``' fields
         with num_inference_steps, scheduler, guidance_scale, scale, height
-        and width (``controlnet_scale`` has nothing to weight without a
-        control image). ``noise`` (tests): the initial N(0, 1) noise (B, h,
-        w, 4) in place of the seeds'."""
-        if control_images is not None:
-            raise NotImplementedError("control_images: ControlNet is not ported yet (ROADMAP A13)")
+        and width, and ``controlnet_scale``. ``control_images``: one a
+        request (all or none) for the pipeline's ControlNet. ``noise``
+        (tests): the initial N(0, 1) noise (B, h, w, 4) in place of the
+        seeds'."""
         b = len(images) if images is not None else len(prompts)
         prompts = [p or DEFAULT_PROMPT for p in prompts]
         negative_prompts = [n or DEFAULT_NEGATIVE for n in (negative_prompts or [None] * b)]
@@ -1119,6 +1257,9 @@ class HarmonyPipeline:
         use_extra = all(e is not None for e in extra_texts)
         pixel_values = None
         if images is not None and any(im is not None for im in images):
+            if self.cfgs.vision is None:
+                raise ValueError(f"this pipeline has no image encoder (family="
+                                 f"{self.cfgs.family}); pass images=None")
             if any(im is None for im in images):
                 raise ValueError("generate_batch: images must be all-or-none within a packed "
                                  "batch (none is text-to-image)")
@@ -1135,7 +1276,7 @@ class HarmonyPipeline:
         ids["neg_l"], ids["neg_g"] = rows(negative_prompts)
         if use_extra:
             ids["extra_l"], ids["extra_g"] = rows(extra_texts)
-        shared_kw.pop("controlnet_scale", None)
+        cn_scale = shared_kw.pop("controlnet_scale", 1.0)
         opts = EditOptions(
             height=shared_kw.pop("height", 1024), width=shared_kw.pop("width", 1024),
             num_inference_steps=shared_kw.pop("num_inference_steps", 30),
@@ -1154,15 +1295,23 @@ class HarmonyPipeline:
         noise = noise.to(self.device, torch.float32)
         if tuple(noise.shape) != (b,) + lat_shape:
             raise ValueError(f"noise must be {(b,) + lat_shape}, got {tuple(noise.shape)}")
+        control = None
+        if control_images is not None:
+            if any(c is None for c in control_images):
+                raise ValueError("control_images must be all-or-none within a packed batch")
+            control = torch.as_tensor(np.concatenate([
+                preprocess_control(self.cfgs, c, opts.height, opts.width)
+                for c in control_images]), device=self.device).permute(0, 3, 1, 2).contiguous()
         scalars = [opts.guidance_scale, opts.guidance_rescale, float(schedule.sigmas[0]),
-                   schedule.init_noise_sigma]
+                   schedule.init_noise_sigma, cn_scale]
         return EditCall(
             opts=opts, ids=ids, pixel_values=pixel_values,
             noise=noise.permute(0, 3, 1, 2).contiguous(),
-            time_ids=time_ids_rows(opts).to(self.device), schedule=schedule,
+            time_ids=time_ids_rows(opts, self.cfgs.family).to(self.device), schedule=schedule,
             tables=scan_tables(schedule, ip_scales, self.device),
             scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
-            step_seed=step_seed(seeds) if schedule.kind in sched.STOCHASTIC else None)
+            step_seed=step_seed(seeds) if schedule.kind in sched.STOCHASTIC else None,
+            control=control, family=self.cfgs.family)
 
     def _run(self, call: EditCall, clock: PhaseClock):
         """The edit of a prepared call: its captured programs on a CUDA
@@ -1223,6 +1372,7 @@ class HarmonyPipeline:
                  extra_text=None, seed=None, num_samples=1, chunk_steps=None,
                  callback_on_step_end=None, output_type="np", scale=1.0,
                  use_karras_sigmas=False, controlnet_conditioning_scale=1.0, noise=None,
+                 control_image=None, aesthetic_score=6.0, negative_aesthetic_score=2.5,
                  _step_noise=None, strength=None, original_size=None,
                  crops_coords_top_left=(0, 0), target_size=None, negative_original_size=None,
                  negative_crops_coords_top_left=None, negative_target_size=None, **options):
@@ -1249,7 +1399,8 @@ class HarmonyPipeline:
             crops_coords_top_left=tuple(crops_coords_top_left), target_size=_pair(target_size),
             negative_original_size=_pair(negative_original_size),
             negative_crops_coords_top_left=_pair(negative_crops_coords_top_left),
-            negative_target_size=_pair(negative_target_size), **opts_kw)
+            negative_target_size=_pair(negative_target_size), control_image=control_image,
+            controlnet_scale=controlnet_conditioning_scale, **opts_kw)
 
     def edit(self, image, prompt, extra_text=None, **kw):
         """generate(image, prompt=prompt, extra_text=extra_text, **kw): the

@@ -12,12 +12,14 @@ output, clip_skip, encoder_interval, tile_vae, prompt weights), never a
 value and never the step count. The graphs:
 
 (a) conditioning (``harmony_edit.start``): static token-id, weight,
-    pixel, init-image, noise, time-id and scalar buffers to the step's
-    conditioning, the init image's latents and the first latents;
+    pixel, control-image, init-image, noise, time-id and scalar buffers to
+    the step's conditioning, the init image's latents and the first
+    latents;
 (b) one denoise step (``harmony_edit.denoise_step``) on the static latents,
     the static (STEP_ROWS, MAX_STEPS) table of per-step constants and a
     static step index that the graph itself advances, so the loop is
-    ``num_steps`` replays with no per-step host read. With encoder
+    ``num_steps`` replays with no per-step host read; with a control image
+    the ControlNet's residuals are computed inside the step graph. With encoder
     propagation there are two: a key step, which writes the encoder
     features the program keeps, and a reuse step, which reads them; the
     host replays one or the other by the step index (``i % k == 0``),
@@ -81,6 +83,13 @@ MAX_STEPS = 1000
 # the weights take 12.3 GiB and a call peaks at 15.6 GiB allocated. Six of
 # the largest (57.4 GiB) fit beside that in the card's 79.18 GiB.
 DEFAULT_CAPACITY = 6
+# keys each of two pipelines keeps when both hold programs on one card (the
+# base -> refiner ensemble of the CLI). On the same card (PERF.md §2): with
+# SDXL's and the refiner's weights and a refiner call, 21.78 GiB allocated at
+# the peak; a one-sample refiner key keeps 4.82-4.86 GiB, a two-sample one
+# about twice that (9.6, not measured). Two keys each of the largest, 2 x
+# (9.57 + 9.6), fit beside the peak (60.1 GiB); three (79.3) would not.
+ENSEMBLE_CAPACITY = 2
 
 
 class ProgramCache(collections.OrderedDict):
@@ -188,8 +197,9 @@ class EditProgram:
         self.opts = he.EditOptions(height=call.opts.height, width=call.opts.width,
                                    use_harmony=br.harmony, clip_skip=br.clip_skip)
         self.ids = {k: torch.empty_like(v) for k, v in call.ids.items()}
-        self.pixel_values, self.init_pixels, self.mask = (
-            _like(call.pixel_values), _like(call.init_pixels), _like(call.mask))
+        self.pixel_values, self.init_pixels, self.mask, self.control = (
+            _like(call.pixel_values), _like(call.init_pixels), _like(call.mask),
+            _like(call.control))
         self.noise, self.time_ids = torch.empty_like(call.noise), torch.empty_like(call.time_ids)
         self.tables = torch.zeros((he.STEP_ROWS, MAX_STEPS), dtype=torch.float32,
                                   device=self.device)
@@ -222,7 +232,7 @@ class EditProgram:
     def _start(self):
         cond, latents, img_lat = he.start(self.comps, self.br, self.opts, self.ids,
                                           self.pixel_values, self.init_pixels, self.noise,
-                                          self.time_ids, self.scalars)
+                                          self.time_ids, self.scalars, self.control)
         self.latents.copy_(latents)
         return cond, img_lat
 
@@ -235,7 +245,7 @@ class EditProgram:
         nxt, state, encoder = he.denoise_step(
             self.comps.unet, self.latents, self.index, self.tables, self.scalars, self.cond, br,
             state=self.state, z=self.z, inpaint=inpaint, encoder=None if key else self.encoder,
-            want_encoder=key and br.encoder_interval > 1)
+            want_encoder=key and br.encoder_interval > 1, controlnet=self.comps.controlnet)
         self.latents.copy_(nxt)
         if self.state is not None:
             for k, buf in self.state.items():
@@ -256,7 +266,8 @@ class EditProgram:
         for k, buf in self.ids.items():
             buf.copy_(call.ids[k])
         for buf, x in ((self.pixel_values, call.pixel_values),
-                       (self.init_pixels, call.init_pixels), (self.mask, call.mask)):
+                       (self.init_pixels, call.init_pixels), (self.mask, call.mask),
+                       (self.control, call.control)):
             if buf is not None:
                 buf.copy_(x)
         self.noise.copy_(call.noise)

@@ -291,8 +291,8 @@ def _payload_image(p):
 
 
 def _payload_control(p):
-    """The optional control_image field -> RGB array (ControlNet is not
-    ported: a request that carries one is refused by the pipeline)."""
+    """The optional control_image field -> RGB array (for the pipeline's
+    ControlNet)."""
     img = _payload_b64_image(p.get("control_image"))
     return None if img is None else np.asarray(img.convert("RGB"))
 
@@ -360,7 +360,8 @@ class ContinuousWorker(threading.Thread):
         if opts.encoder_interval > 1 and chunk % opts.encoder_interval:
             chunk += opts.encoder_interval - chunk % opts.encoder_interval
         return continuous.SlotEngine(self.pipe, opts, slots=self.max_batch, chunk=chunk,
-                                     use_controlnet=bool(p.get("control_image")))
+                                     use_controlnet=bool(p.get("control_image")),
+                                     controlnet_scale=float(p.get("controlnet_scale", 1.0)))
 
     def _admit(self, engine, req):
         p = req.payload
@@ -553,15 +554,15 @@ def make_server(pipe, port=7860, *, continuous=False, payload_defaults=None, hos
     return server
 
 
-def main(args):
-    """Serve a pipeline: the tree of ``--model-dir`` with ``--adapter-ckpt``,
-    or without one the random tiny pipeline (demo mode), on
-    ``args.device``."""
+def build_server(args):
+    """The server ``main`` runs, not yet serving: a pipeline (the tree of
+    ``--model-dir`` with ``--adapter-ckpt``, or without one the random tiny
+    pipeline, demo mode) on ``args.device``, with every ``--lora
+    PATH[:SCALE]`` merged into its UNet and every ``--textual-inversion``
+    installed, behind ``make_server``."""
+    from imagharmony_tpu_torch.adapters import lora as lora_lib
     from imagharmony_tpu_torch.io import checkpoints
 
-    if getattr(args, "lora", None):
-        raise NotImplementedError("--lora: LoRA (adapters/lora.py) is not ported yet "
-                                  "(ROADMAP A13)")
     device = getattr(args, "device", "cuda")
     if getattr(args, "model_dir", None):
         pipe = checkpoints.load_pipeline(model_dir=args.model_dir,
@@ -569,6 +570,10 @@ def main(args):
     else:
         print("no --model-dir: serving the random tiny pipeline (demo mode)")
         pipe = HarmonyPipeline.random_tiny(device=device)
+    for spec in getattr(args, "lora", None) or []:
+        path, scale = lora_lib.parse_spec(spec, default_scale=getattr(args, "lora_scale", 1.0))
+        pipe = pipe.with_lora(path, scale=scale)
+        print(f"merged LoRA {path} (scale {scale})")
     for spec in getattr(args, "textual_inversion", None) or []:
         path, token = spec, None
         if ":" in spec and not spec.endswith((".pt", ".bin", ".safetensors")):
@@ -583,6 +588,12 @@ def main(args):
                          payload_defaults=defaults, host=getattr(args, "host", "0.0.0.0"))
     print(f"serving on http://{server.server_address[0]}:{server.server_address[1]} "
           f"({'continuous' if continuous else 'packed'} batching)")
+    return server
+
+
+def main(args):
+    """Serve ``build_server(args)`` until interrupted."""
+    server = build_server(args)
     try:
         server.serve_forever()
     finally:
@@ -597,7 +608,9 @@ def build_parser():
     p.add_argument("--adapter-ckpt", default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--lora", action="append", default=None, metavar="PATH[:SCALE]",
-                   help="not ported yet (ROADMAP A13): raises")
+                   help="lora-N.safetensors merged into the UNet at startup (repeatable; "
+                        ":SCALE suffix per adapter)")
+    p.add_argument("--lora-scale", type=float, default=1.0)
     p.add_argument("--textual-inversion", action="append", default=None,
                    metavar="PATH[:TOKEN]", help="embedding(s) installed at startup")
     p.add_argument("--continuous", action="store_true",

@@ -175,7 +175,8 @@ class TrainState:
     def __init__(self, comps: comp.Components, cfg: TrainConfig):
         if cfg.lora_rank:
             raise NotImplementedError(
-                "LoRA training (adapters/lora.py) is not ported yet (ROADMAP A13)")
+                "LoRA training is not ported yet: the next slice (ROADMAP A13's training "
+                "half); adapters/lora.py merges trained factors for inference")
         self.trainable = tree_util.set_trainable(comps, cfg.predicate())
         device = next(iter(self.trainable.values())).device
         self.lr_table = lr_table(cfg, device)

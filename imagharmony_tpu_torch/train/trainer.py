@@ -21,8 +21,10 @@ counterpart of the JAX trainer's donated ``jax.jit`` step); the CPU runs
   (``io/checkpoints.load_components``, with ``--pretrained_ip_adapter_path``
   and ``--image_encoder_path``); the HA head's widths come from the tree's
   towers, its other sizes from the ``--composed_*`` flags;
-* not ported yet: ``--cache_encoders`` (train/cache.py) and
-  ``--lora_rank`` (ROADMAP A13); each raises.
+* ``--fusion_method`` takes each of the HA head's four fusions;
+* not ported yet: ``--lora_rank`` (LoRA training, the next slice, ROADMAP
+  A13) and ``--cache_encoders`` (train/cache.py, the slice after, ROADMAP
+  A11); each raises.
 
 Metrics go to ``metrics.jsonl`` with the JAX trainer's keys, and every
 ``--save_steps`` (and at ``--max_steps``) the adapters are exported as
@@ -164,8 +166,14 @@ def _pretrained_components(args, dtype):
         comps.harmony = comp.init_weights_(fresh.to_empty(device=args.device), gen)
         comp.init_weights_(comps.image_proj, gen)
         comp.seed_ip_from_unet(comps.unet)
-    elif ha_cfg != cfgs.harmony:
-        raise ValueError(f"the adapter's HA config {cfgs.harmony} is not the flags' {ha_cfg}")
+    else:
+        # the fusions' own sizes have no flag: the adapter's stand
+        ha_cfg = dataclasses.replace(ha_cfg, **{f: getattr(cfgs.harmony, f) for f in (
+            "scale", "qformer_queries", "qformer_layers", "qformer_ff_dim", "mlp_tokens",
+            "gate_hidden_dim")})
+        if ha_cfg != cfgs.harmony:
+            raise ValueError(f"the adapter's HA config {cfgs.harmony} is not the flags' "
+                             f"{ha_cfg}")
     cfgs = dataclasses.replace(cfgs, harmony=ha_cfg)
     comps.cfgs = cfgs
     return cfgs, comps, toks
@@ -224,7 +232,8 @@ def main(argv=None):
         raise SystemExit("--lr_scheduler cosine needs --max_steps (the decay horizon)")
     if args.cache_encoders and not args.synthetic_data:
         raise NotImplementedError(
-            "--cache_encoders (train/cache.py) is not ported yet (ROADMAP A11)")
+            "--cache_encoders (train/cache.py) is not ported yet: the slice after LoRA "
+            "training (ROADMAP A11)")
     os.makedirs(args.output_dir, exist_ok=True)
 
     cfgs, comps, tokenizers = build_components(args)

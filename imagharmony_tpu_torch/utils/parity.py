@@ -71,6 +71,20 @@ def compare(capture_a, capture_b):
     }
 
 
+def save(path, capture):
+    np.savez_compressed(path, **capture)
+
+
 def load(path):
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def reference_capture_script() -> str:
+    """The text of the repo's diffusers-side capture script,
+    ``tools/capture_reference.py``."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with open(os.path.join(root, "tools", "capture_reference.py")) as f:
+        return f.read()

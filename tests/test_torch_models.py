@@ -1,11 +1,13 @@
 """Port (imagharmony_tpu_torch.models/adapters/schedulers) vs JAX on the
-CPU at the tiny configs, fp32 on both sides: the UNet forward and its
-encoder propagation, the VAE encode and decode (tiled too), both CLIP text
-towers (with clip_skip), the CLIP vision tower, the HA ``cross_attention``
-fusion with ImageProjModel, every sampler's schedule and step, and the
-training forward process."""
+CPU at the tiny configs, fp32 on both sides: the UNet forward (the SDXL
+base and the refiner) and its encoder propagation, the ControlNet's
+residuals, the VAE encode and decode (tiled too), both CLIP text towers
+(with clip_skip), the CLIP vision tower, the four HA fusions with
+ImageProjModel and their adapter files, every sampler's schedule and step,
+and the training forward process."""
 
 import copy
+import dataclasses
 import functools
 import itertools
 
@@ -18,6 +20,7 @@ import torch
 from imagharmony_tpu import dtypes as jdt
 from imagharmony_tpu.adapters import harmony as jha
 from imagharmony_tpu.adapters import projections as jproj
+from imagharmony_tpu.models import controlnet as jcn
 from imagharmony_tpu.models import clip_text as jct
 from imagharmony_tpu.models import clip_vision as jcv
 from imagharmony_tpu.models import unet as junet
@@ -27,11 +30,13 @@ from imagharmony_tpu_torch.adapters import harmony as pha
 from imagharmony_tpu_torch.adapters.projections import ImageProjModel
 from imagharmony_tpu_torch.models import clip_text as pct
 from imagharmony_tpu_torch.models import clip_vision as pcv
+from imagharmony_tpu_torch.models import controlnet as pcn
 from imagharmony_tpu_torch.models import unet as punet
 from imagharmony_tpu_torch.models import vae as pvae
 from imagharmony_tpu_torch.nn.attention import pack_inference_params
 from imagharmony_tpu_torch.schedulers import diffusion as psched
-from torch_port_util import close, edit_parity, load, nchw, nhwc, randn, t, tiny_pipes
+from torch_port_util import (close, edit_parity, load, nchw, nhwc, nonzero_controlnet_outputs,
+                             randn, t, tiny_pipes)
 
 FP32 = jdt.FP32
 
@@ -56,7 +61,10 @@ def unet_case():
 def test_unet_forward(unet_case, packed):
     """The tiny SDXL UNet (text_time micro-conditioning, IP live on
     down_blocks.2.attentions.1, ip_scale != 1); packed = the inference
-    packing the pipeline runs."""
+    packing the pipeline runs. Unpacked, also the tiny refiner UNet (four
+    stages, the aesthetic time ids, no IP); packed, also the ControlNet's
+    residuals (its output convs non-zero, conditioning scale 0.7; through
+    the UNet in the pipeline tests' ControlNet edit)."""
     jp, x, ref = unet_case
     port = load(punet.UNet2DConditionModel(punet.tiny_config()), jp)
     if packed:
@@ -66,6 +74,45 @@ def test_unet_forward(unet_case, packed):
                    pooled_text_embeds=t(x["pooled_text_embeds"]), time_ids=t(x["time_ids"]),
                    ip_tokens=t(x["ip_tokens"]), ip_scale=0.7)
     close(nhwc(out), ref)
+    if not packed:
+        from imagharmony_tpu.pipelines import components as jcomp
+        from imagharmony_tpu_torch.pipelines import components as pcomp
+
+        rcfg = jcomp.sdxl_refiner_tiny_configs().unet
+        assert dataclasses.asdict(rcfg) == dataclasses.asdict(
+            pcomp.sdxl_refiner_tiny_configs().unet)
+        jr = junet.init(0, rcfg)
+        inp = dict(sample=randn(40, 2, 16, 16, 4), timesteps=x["timesteps"],
+                   encoder_hidden_states=randn(41, 2, 5, 40),
+                   pooled_text_embeds=randn(42, 2, 40),
+                   time_ids=np.tile(np.array([[32, 32, 0, 0, 6]], np.float32), (2, 1)))
+        ref = jax.jit(functools.partial(junet.apply, cfg=rcfg, policy=FP32))(
+            jr, **{k: jnp.asarray(v) for k, v in inp.items()})
+        refiner = load(punet.UNet2DConditionModel(pcomp.sdxl_refiner_tiny_configs().unet), jr)
+        with torch.no_grad():
+            out = refiner(nchw(inp["sample"]), t(inp["timesteps"]),
+                          t(inp["encoder_hidden_states"]),
+                          pooled_text_embeds=t(inp["pooled_text_embeds"]),
+                          time_ids=t(inp["time_ids"]))
+        close(nhwc(out), ref)
+        return
+    ccfg = jcn.tiny_config()
+    jc = nonzero_controlnet_outputs(jcn.init(0, ccfg), 5)
+    cn = pack_inference_params(load(pcn.ControlNetModel(pcn.tiny_config()), jc))
+    cond = np.random.default_rng(6).random((2, 16, 16, 3)).astype(np.float32)
+    args = [x[k] for k in ("sample", "timesteps", "encoder_hidden_states")] + [cond]
+    kw = {k: x[k] for k in ("pooled_text_embeds", "time_ids")}
+    ref_down, ref_mid = jax.jit(lambda p, a, k: jcn.apply(
+        p, ccfg, *a, conditioning_scale=0.7, policy=FP32, **k))(
+        jc, [jnp.asarray(a) for a in args], {k: jnp.asarray(v) for k, v in kw.items()})
+    with torch.no_grad():
+        down, mid = cn(nchw(args[0]), t(args[1]), t(args[2]), nchw(cond),
+                       conditioning_scale=0.7, **{k: t(v) for k, v in kw.items()})
+    assert len(down) == len(ref_down) == len(pcn.skip_channels(ccfg.base))
+    for a, b in zip(down, ref_down):
+        close(nhwc(a), b)
+    close(nhwc(mid), ref_mid)
+    assert float(nhwc(mid).std()) > 0.1  # the residuals are not zero
 
 
 def test_unet_encoder_propagation_not_ported(unet_case):
@@ -277,9 +324,45 @@ def test_harmony_cross_attention_and_image_proj():
     assert tuple(tokens.shape) == (2, 4, 64)
 
 
-def test_harmony_other_fusions_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        pha.HarmonyAttention(pha.tiny_config(fusion_method="qformer"))
+def test_harmony_other_fusions_not_ported(tmp_path):
+    """The other three HA fusions, now ported: ``qformer``, ``mlp`` and
+    ``gated-attention`` against JAX ``fuse_image_embeds`` (max abs <= 2e-5),
+    their LN/fc2 widths the fusion's own; each in an adapter file the JAX
+    writer writes (.bin and .safetensors), read by the port's reader into
+    its config and weights, bit for bit; an unknown fusion raises."""
+    from imagharmony_tpu.io import checkpoints as jckpt
+    from imagharmony_tpu.models import unet as junet_
+    from imagharmony_tpu_torch.io import checkpoints as pckpt
+
+    text, img = randn(10, 2, 16, 64), randn(11, 2, 32)
+    ucfg = junet_.tiny_config()
+    junet_params = junet_.init(0, ucfg)
+    jp_proj = jproj.image_proj_init(1, clip_embed_dim=32, cross_attention_dim=64, num_tokens=4)
+    for i, fusion in enumerate(("qformer", "mlp", "gated-attention")):
+        jcfg = jha.tiny_config(image_hidden_size=32, text_context_dim=64, fusion_method=fusion,
+                               qformer_queries=6, mlp_tokens=5)
+        pcfg = pha.tiny_config(image_hidden_size=32, text_context_dim=64, fusion_method=fusion,
+                               qformer_queries=6, mlp_tokens=5)
+        assert pcfg.flattened_dim == jcfg.flattened_dim != jcfg.cross_heads * \
+            jcfg.cross_value_dim * jcfg.reshape_blocks
+        jp_ha = jha.init(i, jcfg)
+        ha = load(pha.HarmonyAttention(pcfg), jp_ha)
+        ref = jax.jit(functools.partial(jha.fuse_image_embeds, cfg=jcfg, policy=FP32))(
+            jp_ha, text_embeds=jnp.asarray(text), image_embeds=jnp.asarray(img))
+        with torch.no_grad():
+            close(pha.fuse_image_embeds(ha, t(text), t(img)), ref)
+        for ext in (".bin", ".safetensors"):
+            path = str(tmp_path / f"{fusion}{ext}")
+            jckpt.save_adapter_checkpoint(path, unet_params=junet_params, unet_cfg=ucfg,
+                                          image_proj_params=jp_proj, harmony_params=jp_ha,
+                                          harmony_cfg=jcfg)
+            _, _, composed, cfg = pckpt.load_adapter_checkpoint(path)
+            assert cfg == pcfg
+            got = pckpt.import_harmony(pha.HarmonyAttention(cfg), composed).state_dict()
+            for k, v in ha.state_dict().items():
+                torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+    with pytest.raises(ValueError, match="unknown fusion_method"):
+        pha.HarmonyAttention(pha.tiny_config(fusion_method="concat"))
 
 
 KINDS = ("euler", "euler_a", "ddim", "dpm++", "lcm")

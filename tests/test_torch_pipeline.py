@@ -4,10 +4,13 @@ conditioning against JAX's, generate() with the JAX one-call signature and
 the sampler zoo and edit features against the JAX package's generate() in
 grouped calls (every step and the output at cosine > 0.9999), the
 tokenizer with prompt weighting and textual inversion, io/from_jax, the
-checkpoint loader against JAX's on trees the JAX package wrote; the serving
-path: generate_batch against JAX's, the chunked runner and the slot engine
-bit for bit against the one-call path, both workers through make_server,
-the program cache, PNS's CLIP scores against JAX's; and that the port runs
+checkpoint loader against JAX's on trees the JAX package wrote (SDXL,
+SD1.5, the refiner, a ControlNet directory); the serving path:
+generate_batch against JAX's, the chunked runner and the slot engine bit
+for bit against the one-call path, both workers through make_server, the
+program cache, PNS's CLIP scores against JAX's; the variants: ControlNet,
+LoRA (ingestion and merge), the refiner and the base -> refiner handoff,
+the IP attention maps; the CLI against the JAX CLI; and that the port runs
 without JAX."""
 
 import base64
@@ -49,7 +52,8 @@ from imagharmony_tpu_torch.pipelines import programs as pprog
 from imagharmony_tpu_torch.pipelines import serving as pserving
 from imagharmony_tpu_torch.schedulers import diffusion as psched
 from imagharmony_tpu_torch.utils import parity
-from torch_port_util import close, edit_parity, tiny_pipes
+from torch_port_util import (close, controlnet_pipes, edit_parity, nonzero_controlnet_outputs,
+                             refiner_pipes, tiny_pipes)
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "goldens" / "tiny_edit_fp32.npz"
@@ -114,8 +118,12 @@ def test_build_conditioning_matches_jax(pipes):
     3 steps, on JAX's noise, against JAX's ``generate_batch`` (image cosine
     > 0.9999 a row); without extra_texts at four rows (the decode row by
     row), 2 steps, against the port's own generate() of each request (max
-    abs <= 1e-5)."""
+    abs <= 1e-5). And the IP attention-map probe: every live IP layer's
+    probabilities against JAX ``_probe_jit`` on the same numpy noise, then
+    ``postprocess_ip_probs`` (both compositions) and ``heatmap_to_pil``
+    against JAX's."""
     jpipe, port = pipes
+    _attn_maps(jpipe, port)
     opts_j = jhe.EditOptions(height=32, width=32)
     opts_p = phe.EditOptions(height=32, width=32)
     ids_j, ids_p = {}, {}
@@ -183,7 +191,38 @@ def test_build_conditioning_matches_jax(pipes):
     assert not torch.equal(four[0], four[1])
 
 
-def test_generate_tiny(pipes):
+def _attn_maps(jpipe, port):
+    from PIL import Image
+
+    from imagharmony_tpu.utils import attn_maps as jam
+    from imagharmony_tpu_torch.utils import attn_maps as pam
+
+    ids_j, ids_p = {}, {}
+    for name, text in (("pos", "a dog"), ("extra", "six dogs")):
+        ids_j[f"{name}_l"], ids_j[f"{name}_g"] = jpipe._tokenize(text)
+        ids_p[f"{name}_l"], ids_p[f"{name}_g"] = port._tokenize(text)
+    px = port._pixel_values(_image())
+    noise = np.random.default_rng(8).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    ref = jam._probe_jit(jpipe.params, jpipe.cfgs, ids_j, jnp.asarray(px.numpy()),
+                         jnp.asarray(noise), timestep=500, latent_size=8, policy=jdt.FP32)
+    got = pam.probe(port, ids_p, px, torch.as_tensor(noise).permute(0, 3, 1, 2), timestep=500,
+                    latent_size=8)
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == tuple(r.shape)
+        close(g, r)
+    probs = [np.asarray(r)[0] for r in ref]
+    for kw in (dict(), dict(token_softmax=True, minmax=False)):
+        np.testing.assert_allclose(pam.postprocess_ip_probs(probs, 64, **kw),
+                                   jam.postprocess_ip_probs(probs, 64, **kw), rtol=0, atol=1e-5)
+    maps = jam.postprocess_ip_probs(probs, 64)
+    base = Image.fromarray(_image())
+    for a, b in zip(pam.heatmap_to_pil(maps, base_image=base),
+                    jam.heatmap_to_pil(maps, base_image=base)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_generate_tiny(pipes, tmp_path):
     """generate() end to end on the CPU: uint8 (1, H, W, 3), deterministic
     for a seed, phase timings recorded on request; the output types, seed
     lists, text-to-image and pixel_values; the refusals (unported items
@@ -194,7 +233,8 @@ def test_generate_tiny(pipes):
     with the JAX package's messages; both workers through ``make_server``
     on a free port (two same-key requests packed, one of another key
     answered, a request admitted mid-flight, a malformed payload refused,
-    ``/status``, no pack error); the program cache's bound and locks."""
+    ``/status``, no pack error); the program cache's bound and locks. Then
+    ControlNet and LoRA (``_controlnet_and_lora``)."""
     pipe = phe.HarmonyPipeline.random_tiny(seed=0, device="cpu")
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=2, height=32,
               width=32, seed=3)
@@ -224,10 +264,9 @@ def test_generate_tiny(pipes):
     assert torch.equal(call.noise[1:], one.noise)
     out = pipe.generate(_image(), output_type="raw", **two)
     torch.testing.assert_close(out[1:], raw, rtol=0, atol=1e-5)
-    refused = [(NotImplementedError, dict(control_image=_image())),
+    refused = [(ValueError, dict(control_image=_image())),  # no ControlNet on this pipeline
                (ValueError, dict(callback_on_step_end=lambda *a: None)),
                (ValueError, dict(chunk_steps=2)),
-               (NotImplementedError, dict(aesthetic_score=6.0)),
                (ValueError, dict(mask_image=np.ones((32, 32), np.float32))),
                (ValueError, dict(latents=np.zeros((1, 16, 16, 4), np.float32))),
                (ValueError, dict(init_image=_image(), denoising_start=0.5)),
@@ -254,6 +293,8 @@ def test_generate_tiny(pipes):
     assert keep.any() and not keep.all()
     edit_parity(jpipe, port, None, scheduler="lcm", guidance_scale=1.0)
 
+    # the refiner's micro-conditioning: read by that family only, as in JAX
+    np.testing.assert_array_equal(pipe.generate(_image(), aesthetic_score=9.0, **kw), a)
     np.testing.assert_array_equal(pipe.edit(_image(), "a dog", "six dogs", **{
         k: v for k, v in kw.items() if k not in ("prompt", "extra_text")}), a)
     pipe.set_scale(0.5)
@@ -265,7 +306,7 @@ def test_generate_tiny(pipes):
                (ValueError, "euler_a is not supported", dict(scheduler="euler_a")),
                (ValueError, "lcm is not supported", dict(scheduler="lcm")),
                (ValueError, "img2img/inpainting", dict(init_image=_image())),
-               (NotImplementedError, "ROADMAP A13", dict(control_image=_image())),
+               (ValueError, "but the pipeline has no ControlNet", dict(control_image=_image())),
                (TypeError, "unexpected keyword", dict(bogus=1))]
     for err, msg, extra in chunked:
         with pytest.raises(err, match=re.escape(msg)):
@@ -275,12 +316,122 @@ def test_generate_tiny(pipes):
                 jpipe.generate(_image(), chunk_steps=2, **dict(kw, **extra))
     with pytest.raises(ValueError, match="chunk=3 must be a multiple of encoder_interval=2"):
         pcont.SlotEngine(pipe, phe.EditOptions(encoder_interval=2), chunk=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(ValueError, match="no ControlNet"):
         pipe.generate_batch([_image()], ["a dog"], control_images=[_image()], **{
             k: v for k, v in kw.items() if k not in ("prompt", "extra_text", "seed")})
 
     _serve_both_modes(pipe)
     _program_cache_units()
+    _controlnet_and_lora(tmp_path)
+
+
+def _lora_files(tmp_path, jpipe):
+    """Two LoRA files the JAX package writes (``save_lora``) on ``jpipe``'s
+    UNet, their B drawn non-zero (a fresh LoRA is an exact no-op): rank 4,
+    alpha 2 on every projection; rank 2 on attn2's to_q and to_out. And the
+    first as kohya- and peft-keyed community files (alpha 3 in kohya's).
+    -> ([(path, flat JAX factors, LoRAConfig)], {format: path})."""
+    from imagharmony_tpu.adapters import lora as jlora
+    from imagharmony_tpu.io import safetensors_io
+
+    rng = np.random.default_rng(11)
+    out = []
+    for i, cfg in enumerate((jlora.LoRAConfig(rank=4, alpha=2.0),
+                             jlora.LoRAConfig(rank=2, targets=("to_q", "to_out"),
+                                              attn=("attn2",)))):
+        flat = {k: (0.3 * rng.standard_normal(v.shape)).astype(np.float32)
+                if k.endswith("lora_b") else v
+                for k, v in jlora.flatten(jlora.init_lora(i, jpipe.params["unet"], cfg)).items()}
+        path = str(tmp_path / f"lora{i}.safetensors")
+        jlora.save_lora(path, jlora.unflatten(flat), cfg)
+        out.append((path, flat, cfg))
+    kohya, peft = {"lora_te1_text_model_skipped.alpha": np.ones((), np.float32)}, {}
+    for k, a in out[0][1].items():
+        if k.endswith(".lora_a"):
+            base, b = k[: -len(".weight.lora_a")], out[0][1][k[:-1] + "b"]
+            kname = "lora_unet_" + base.replace(".to_out", ".to_out_0").replace(".", "_")
+            kohya.update({kname + ".lora_down.weight": a.T.copy(),
+                          kname + ".lora_up.weight": b.T.copy(),
+                          kname + ".alpha": np.array(3.0, np.float32)})
+            pname = "unet." + base.replace(".to_out", ".to_out.0")
+            peft.update({pname + ".lora_A.weight": a.T.copy(),
+                         pname + ".lora_B.weight": b.T.copy()})
+    community = {}
+    for name, d in (("kohya", kohya), ("peft", peft)):
+        community[name] = str(tmp_path / f"{name}.safetensors")
+        safetensors_io.save(community[name], d)
+    return out, community
+
+
+def _controlnet_and_lora(tmp_path):
+    """LoRA: ``load_lora`` of two JAX ``save_lora`` files and
+    ``load_community_lora`` of kohya- and peft-keyed files give JAX's
+    factors and configs; ``with_lora`` of both (the first at scale 0.7)
+    merges into the packed UNet exactly what ``from_jax`` of JAX's
+    ``apply_lora`` gives (to 1e-6), and leaves the source pipeline as it was.
+    ControlNet (a tiny one, its output convs non-zero): that pipeline
+    edits with a control image at conditioning scale 0.8 and
+    encoder_interval 2 (the key steps' mid residual reused) against JAX's
+    ``with_lora`` pipeline, every step and the image at cosine > 0.9999; the
+    residuals change the image; ``generate_batch`` with two control images
+    equals each request's solo run, and the slot engine's rows (generate()
+    through ``chunk_steps``) the one-call path, bit for bit."""
+    from imagharmony_tpu.adapters import lora as jlora
+    from imagharmony_tpu_torch.adapters import lora as plora
+
+    jc, pc = controlnet_pipes()
+    files, community = _lora_files(tmp_path, jc)
+    for path, flat, _ in files:
+        got, got_cfg = plora.load_lora(path)
+        tree = from_jax.state_dict(jlora.unflatten(flat))  # the factor tree crosses too
+        assert set(got) == set(flat) == set(tree)
+        assert all(torch.equal(tree[k], got[k]) for k in flat)
+        assert dataclasses.asdict(got_cfg) == dataclasses.asdict(jlora.load_lora(path)[1])
+        for k, v in flat.items():
+            np.testing.assert_array_equal(got[k].numpy(), v)
+    for path in community.values():
+        jtree, jcfg = jlora.load_lora(path)
+        got, got_cfg = plora.load_lora(path)
+        want = jlora.flatten(jtree)
+        assert set(got) == set(want) and (got_cfg.rank, got_cfg.scale) == (jcfg.rank, jcfg.scale)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-6, atol=1e-7)
+    assert plora.parse_spec(f"{files[0][0]}:0.5") == (files[0][0], 0.5)
+    assert plora.parse_spec(files[0][0], 0.3) == (files[0][0], 0.3)
+    before = {k: v.clone() for k, v in pc.components.unet.state_dict().items()}
+    jm = jc.with_lora(files[0][0], scale=0.7).with_lora(files[1][0])
+    pm = pc.with_lora(files[0][0], scale=0.7).with_lora(files[1][0])
+    want = phe.HarmonyPipeline.from_state_dict(from_jax.state_dict(jax.device_get(jm.params)),
+                                               pc.cfgs, device="cpu").components.unet
+    got, changed = pm.components.unet.state_dict(), 0
+    for k, v in want.state_dict().items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=1e-6, msg=k)
+        changed += not torch.equal(v, before[k])
+    assert changed and len(pm.programs) == 0
+    for k, v in pc.components.unet.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+    ctrl = np.random.default_rng(3).integers(0, 255, (40, 40, 3), dtype=np.uint8)
+    # encoder propagation: steps 0 and 2 run the ControlNet and the whole
+    # UNet, steps 1 and 3 reuse their skips and mid residual
+    cap, _ = edit_parity(jm, pm, _image(), steps=4, control_image=ctrl,
+                         controlnet_conditioning_scale=0.8, encoder_interval=2)
+    kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=4, height=32, width=32,
+              seed=7, output_type="raw", encoder_interval=2)
+    no_cn = pm.generate(_image(), **kw)
+    assert float((no_cn.numpy() - cap["image"]).std()) > 1e-2
+    ctrls = [ctrl, np.random.default_rng(4).integers(0, 255, (32, 32, 3), dtype=np.uint8)]
+    shared = dict(num_inference_steps=2, height=32, width=32, output_type="raw")
+    two = pc.generate_batch([_image(), _image()[::-1]], ["a dog", "a cat"], seeds=[1, 2],
+                            control_images=ctrls, controlnet_scale=0.6, **shared)
+    for i, (img, prompt) in enumerate(((_image(), "a dog"), (_image()[::-1], "a cat"))):
+        solo = pc.generate(img, prompt=prompt, seed=[i + 1], control_image=ctrls[i],
+                           controlnet_conditioning_scale=0.6, **shared)
+        torch.testing.assert_close(two[i:i + 1], solo, rtol=0, atol=1e-5)
+    one = pc.generate(_image(), control_image=ctrl, **dict(kw, encoder_interval=1))
+    rows = pc.generate(_image(), control_image=ctrl, chunk_steps=2,
+                       **dict(kw, encoder_interval=1))
+    torch.testing.assert_close(rows, one, rtol=0, atol=0)
 
 
 def _b64(arr):
@@ -447,7 +598,12 @@ def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     seed list, the callback at [2, 4]; the slot engine under DPM++ (whose
     history resets at admission): a request admitted after one chunk equals
     its solo engine run bit for bit, while under an IP window the mid-flight
-    rows carry different IP weights into K2 the same step."""
+    rows carry different IP weights into K2 the same step. The refiner
+    family: its aesthetic-score time ids, its refusal of an image prompt,
+    and against JAX's refiner an img2img at strength 0.6 with its own
+    aesthetic scores and the handoff (given latents from
+    denoising_start 0.5), every step and the output at cosine > 0.9999; a
+    random tiny refiner refines an image."""
     for start, end in [(0.0, 1.0), (0.2, 0.7)]:
         kw = dict(num_inference_steps=10, ip_scale=0.6, control_guidance_start=start,
                   control_guidance_end=end)
@@ -459,6 +615,9 @@ def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     for neg in (False, True):
         assert phe.EditOptions(**sizes).time_ids(negative=neg) == \
             jhe.EditOptions(**sizes).time_ids(negative=neg)
+        aes = dict(sizes, aesthetic_score=7.5, negative_aesthetic_score=1.5)
+        assert phe.EditOptions(**aes).time_ids(negative=neg, aesthetic=True) == \
+            jhe.EditOptions(**aes).time_ids(negative=neg, aesthetic=True)
     # the scan's per-step tables: JAX's xs, scan_constants(schedule) +
     # (ip_scales, inpaint blend levels), for a cut schedule too
     for kind, steps, extra in (("euler", 1, {}), ("euler", 30, {}), ("ddim", 30, {}),
@@ -490,6 +649,19 @@ def test_ip_scale_schedule_and_time_ids_match_jax(pipes):
     edit_parity(jpipe, port, _image(), steps=5, scheduler="ddim", timestep_spacing="trailing",
                 prediction_type="v_prediction", rescale_zero_snr=True, init_image=_image(),
                 strength=0.6, control_guidance_start=0.2, control_guidance_end=0.8)
+    jr, pr = refiner_pipes()
+    with pytest.raises(ValueError, match="no image encoder"):
+        pr.prepare(_image(), height=32, width=32)
+    assert pr.prepare(None, height=32, width=32).time_ids.shape == (2, 5)
+    edit_parity(jr, pr, None, steps=4, extra_text=None, init_image=_image(), strength=0.6,
+                aesthetic_score=7.0, negative_aesthetic_score=2.0)
+    # the handoff's latents (the base's side is test_tiny_edit_matches_golden's)
+    lat = 2.0 * np.random.default_rng(9).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    edit_parity(jr, pr, None, steps=4, extra_text=None, latents=lat, denoising_start=0.5)
+    tiny = phe.HarmonyPipeline.random_tiny_refiner(device="cpu")
+    out = tiny.generate(init_image=_image(), strength=0.5, num_inference_steps=2, height=32,
+                        width=32, output_type="raw")
+    assert tiny.cfgs.family == "sdxl_refiner" and torch.isfinite(out).all()
 
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=4, height=32,
               width=32, seed=9, output_type="raw")
@@ -646,6 +818,150 @@ def _write_jax_tree(root, params, cfgs, toy):
     return str(root)
 
 
+def _write_jax_refiner_tree(root, params, cfgs, toy):
+    """A refiner tree as tests/test_refiner.py writes one with the JAX
+    package's writers: XLImg2Img's model_index, unet/, vae/ and
+    text_encoder_2/ with their config.json files, tokenizer_2/."""
+    from imagharmony_tpu.io import safetensors_io
+
+    u, v, tg = cfgs.unet, cfgs.vae, cfgs.text_g
+    parts = {
+        "unet": (hf_import.export_tree(params["unet"]), dict(
+            sample_size=u.sample_size, block_out_channels=list(u.block_out_channels),
+            down_block_types=list(u.down_block_types), up_block_types=list(u.up_block_types),
+            layers_per_block=u.layers_per_block,
+            transformer_layers_per_block=list(u.transformer_layers_per_block),
+            num_attention_heads=list(u.num_attention_heads),
+            attention_head_dim=u.attention_head_dim,
+            cross_attention_dim=u.cross_attention_dim, norm_num_groups=u.norm_num_groups,
+            addition_embed_type="text_time", addition_time_embed_dim=u.addition_time_embed_dim,
+            projection_class_embeddings_input_dim=u.projection_class_embeddings_input_dim)),
+        "vae": (hf_import.export_tree(params["vae"]), dict(
+            block_out_channels=list(v.block_out_channels), layers_per_block=v.layers_per_block,
+            norm_num_groups=v.norm_num_groups, scaling_factor=v.scaling_factor,
+            latent_channels=v.latent_channels)),
+        "text_encoder_2": ({k.replace("text_model.text_projection", "text_projection"): x
+                            for k, x in hf_import.export_tree(
+                                params["text_encoder_2"], prefix="text_model.").items()}, dict(
+            vocab_size=tg.vocab_size, hidden_size=tg.hidden_size,
+            num_hidden_layers=tg.num_layers, num_attention_heads=tg.num_heads,
+            intermediate_size=tg.intermediate_size,
+            max_position_embeddings=tg.max_position_embeddings, hidden_act=tg.hidden_act,
+            projection_dim=tg.projection_dim, eos_token_id=tg.eos_token_id,
+            architectures=["CLIPTextModelWithProjection"]))}
+    for sub, (flat, config) in parts.items():
+        (root / sub).mkdir(parents=True)
+        name = "model.safetensors" if sub.startswith("text") else \
+            "diffusion_pytorch_model.safetensors"
+        safetensors_io.save(root / sub / name, flat)
+        (root / sub / "config.json").write_text(json.dumps(config))
+    (root / "tokenizer_2").mkdir()
+    (root / "tokenizer_2" / "vocab.json").write_text(json.dumps(toy.encoder))
+    merges = sorted(toy.bpe_ranks, key=toy.bpe_ranks.get)
+    (root / "tokenizer_2" / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    (root / "model_index.json").write_text(json.dumps(
+        {"_class_name": "StableDiffusionXLImg2ImgPipeline", "requires_aesthetics_score": True}))
+    return str(root)
+
+
+def _write_jax_controlnet(path, params, ccfg):
+    """A diffusers ControlNetModel directory of a JAX ControlNet tree: its
+    weights without IP projections and the embedder's widths in config.json."""
+    from imagharmony_tpu.io import safetensors_io
+
+    path.mkdir()
+    safetensors_io.save(path / "diffusion_pytorch_model.safetensors",
+                        {k: v for k, v in hf_import.export_tree(params).items() if "_ip." not in k})
+    (path / "config.json").write_text(json.dumps(dict(
+        _class_name="ControlNetModel", conditioning_channels=ccfg.conditioning_channels,
+        conditioning_embedding_out_channels=list(ccfg.conditioning_embedding_channels))))
+    return str(path)
+
+
+def _cli(tmp_path, jpipe, root, cn_dir, monkeypatch):
+    """The port's CLI (``cli.main``, ``--device cpu``) against the JAX
+    CLI: ``edit`` on the tiny tree with its adapter, a LoRA at :0.7 and the
+    ControlNet with a control image, the PNGs at uint8 cosine > 0.9999 (the
+    JAX CLI computes in bf16 on the CPU, the port in fp32); ``demo`` with
+    attention maps (one PNG an IP token); ``convert`` writing JAX's
+    ``ip_adapter.bin``; ``parity --save`` then ``--ours --theirs`` of that
+    capture (min cosine 1, pass); ``serve --lora``'s arguments through the
+    server ``serving.main`` runs (``build_server``: ``make_server`` over the
+    merged pipeline) answering one request. ``edit`` of the refiner family and the
+    ensemble run in ``test_from_jax_keys_and_shapes_match_export_tree``.
+    The tiny tree has no config.json files, so both loaders take the tiny
+    configs as the SDXL family's defaults here, and the port draws the JAX
+    package's initial noise for the seed."""
+    from PIL import Image
+
+    from imagharmony_tpu import cli as jcli
+    from imagharmony_tpu.io import torch_pickle
+    from imagharmony_tpu.pipelines import components as jcomp
+    from imagharmony_tpu_torch import cli as pcli
+
+    vocab = len(jpipe.tokenizers.tok1.encoder)
+    monkeypatch.setattr(jcomp, "sdxl_configs", lambda *a, **k: jpipe.cfgs)
+    monkeypatch.setitem(pckpt.FAMILY_CONFIGS, "sdxl", lambda: pcomp.tiny_configs(vocab))
+    monkeypatch.setattr(phe.HarmonyPipeline, "_noise", lambda self, seed, n, shape: torch.tensor(
+        np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (n,) + shape, jnp.float32))))
+
+    lora = _lora_files(tmp_path, jpipe)[0][0][0]
+    inp, ctrl = str(tmp_path / "in.png"), str(tmp_path / "ctrl.png")
+    Image.fromarray(_image()).save(inp)
+    Image.fromarray(np.random.default_rng(3).integers(0, 255, (40, 40, 3), np.uint8)).save(ctrl)
+    argv = ["edit", "--input", inp, "--model-dir", root, "--adapter-ckpt", f"{root}/ip_adapter.bin",
+            "--lora", f"{lora}:0.7", "--controlnet-dir", cn_dir, "--control-image", ctrl,
+            "--extra-text", "six dogs", "--steps", "3", "--height", "32", "--width", "32"]
+    out_j, out_p = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
+    assert jcli.main(argv + ["--output", out_j]) == 0
+    assert pcli.main(argv + ["--output", out_p, "--device", "cpu"]) == 0
+    a, b = (np.asarray(Image.open(p)) for p in (out_p, out_j))
+    assert a.shape == b.shape == (32, 32, 3) and parity.cosine(a, b) > 0.9999
+
+    maps = tmp_path / "maps"
+    assert pcli.main(["demo", "--device", "cpu", "--output", str(tmp_path / "demo.png"),
+                      "--attn-maps", str(maps)]) == 0
+    assert Image.open(tmp_path / "demo.png").size == (32, 32)
+    assert sorted(p.name for p in maps.iterdir()) == [f"ip_token_{i}.png" for i in range(4)]
+
+    sd = {f"{head}x.weight": np.full((2, 3), i, np.float32) for i, head in enumerate(
+        ("image_proj_model.", "adapter_modules.0.to_k_ip.", "composed_modules.fc1."))}
+    for run in ("jax", "port"):
+        (tmp_path / run / "checkpoint-5").mkdir(parents=True)
+        torch_pickle.save(str(tmp_path / run / "checkpoint-5" / "pytorch_model.bin"), sd)
+    jcli.main(["convert", "--log-dir", str(tmp_path / "jax")])
+    assert pcli.main(["convert", "--log-dir", str(tmp_path / "port")]) == 0
+    got, want = (pckpt.flatten_nested(torch_pickle.load(str(
+        tmp_path / run / "checkpoint-5" / "ip_adapter.bin"))) for run in ("port", "jax"))
+    assert set(got) == set(want) and len(want) == 3
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+
+    cap = str(tmp_path / "cap.npz")
+    assert pcli.main(["parity", "--device", "cpu", "--input", inp, "--steps", "2", "--size",
+                      "32", "--save", cap]) == 0
+    rep = pcli.cmd_parity(pcli.build_parser().parse_args(
+        ["parity", "--ours", cap, "--theirs", cap]))
+    assert rep["pass"] and rep["min_cosine"] > 0.999999 and len(rep["per_step_cosine"]) == 3
+    assert parity.load(cap)["latents"].shape == (3, 1, 16, 16, 4)
+
+    args = pcli.build_parser().parse_args(["serve", "--port", "0", "--host", "127.0.0.1",
+                                           "--device", "cpu", "--lora", f"{lora}:0.5"])
+    srv = pserving.build_server(args)  # what ``serve`` runs until interrupted
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = dict(image=_b64(_image()), prompt="a dog", steps=2, height=32, width=32, seed=1)
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/edit",
+                                     method="POST", data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200 and "image" in json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.worker.stop(30)
+
+
 # published config.json values (stabilityai/stable-diffusion-xl-base-1.0,
 # runwayml/stable-diffusion-v1-5), the keys the importers read and some
 # they ignore
@@ -682,13 +998,18 @@ _CLIP_G = dict(_CLIP_L, architectures=["CLIPTextModelWithProjection"], hidden_ac
                num_hidden_layers=32, projection_dim=1280)
 
 
-def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path):
+def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path, monkeypatch):
     """io/from_jax gives export_tree's keys and shapes, and the port's
     modules have exactly those keys. The port's loader on trees the JAX
     package wrote (SDXL and SD1.5, with and without the adapter) gives
     exactly from_jax.state_dict of the JAX load_pipeline's params, the same
-    token ids and family; the config importers equal the JAX ones on the
-    published SDXL and SD1.5 configs."""
+    token ids and family, on a refiner tree too (written as
+    tests/test_refiner.py writes one) and with a ControlNet directory; the
+    config importers equal the JAX ones on the published SDXL and SD1.5
+    configs. Then the CLI (``_cli``) on the SDXL tree, and the port CLI's
+    ``edit`` of the refiner tree (img2img of ``--input``) and of the
+    base -> refiner ensemble (``--refiner-dir``), each a PNG of the size
+    asked for."""
     from imagharmony_tpu.io import checkpoints as jckpt
     from imagharmony_tpu.models import clip_text as jclip
     from imagharmony_tpu.models import unet as junet
@@ -740,6 +1061,46 @@ def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path):
         for text in ("a dog", "a photo of eight sheep!", ""):
             for a, b in zip(port.tokenizers(text), jaxp.tokenizers(text)):
                 np.testing.assert_array_equal(a, b)
+
+    from imagharmony_tpu.models import controlnet as jcn
+
+    rcfgs = jcomp.sdxl_refiner_tiny_configs(vocab_size=len(toy.encoder))
+    rroot = _write_jax_refiner_tree(tmp_path / "refiner", jax.device_get(
+        jcomp.init_params(1, rcfgs)), rcfgs, toy)
+    ccfg = jcn.ControlNetConfig(base=jpipe.cfgs.unet, conditioning_embedding_channels=(8, 16))
+    cn_dir = _write_jax_controlnet(tmp_path / "controlnet", nonzero_controlnet_outputs(
+        jax.device_get(jcn.init(2, ccfg)), 5), ccfg)
+    sdxl_root = str(tmp_path / "sdxl")
+    for root, cn, cfgs_j in ((rroot, None, None), (sdxl_root, cn_dir, jpipe.cfgs)):
+        assert pckpt.detect_family(root) == jckpt.detect_family(root)
+        jaxp = jckpt.load_pipeline(model_dir=root, controlnet_dir=cn, cfgs=cfgs_j)
+        want = from_jax.state_dict(jaxp.params)
+        cfgs_p = None if cfgs_j is None else pcomp.tiny_configs(vocab_size=len(toy.encoder))
+        got_cfgs, got, toks = pckpt.load_components(root, None, None, cn, cfgs=cfgs_p,
+                                                    device="cpu", dtype=torch.float32)
+        assert got_cfgs.family == jaxp.cfgs.family
+        assert (got_cfgs.controlnet is None) == (cn is None)
+        got = got.state_dict()
+        # the adapter's weights are zeros on both sides without an adapter
+        assert set(got) == set(want), sorted(set(got) ^ set(want))[:5]
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+        for a, b in zip(toks("a dog"), jaxp.tokenizers("a dog")):
+            np.testing.assert_array_equal(a, b)
+
+    _cli(tmp_path, jpipe, sdxl_root, cn_dir, monkeypatch)
+    from PIL import Image
+
+    from imagharmony_tpu_torch import cli as pcli
+
+    common = ["--input", str(tmp_path / "in.png"), "--steps", "4", "--height", "32", "--width",
+              "32", "--device", "cpu"]
+    for extra in (["--model-dir", rroot], ["--model-dir", sdxl_root, "--refiner-dir", rroot,
+                                           "--extra-text", "six dogs"]):
+        out = tmp_path / "refined.png"
+        assert pcli.main(["edit", *common, *extra, "--output", str(out)]) == 0
+        assert Image.open(out).size == (32, 32)
+        out.unlink()
 
     sd15_vae = dict(_VAE, sample_size=512, scaling_factor=0.18215)
     for d in (_SDXL_UNET, _SD15_UNET):

@@ -40,6 +40,12 @@ def case():
     loss and gradients are what make_train_step computes (its
     value_and_grad(loss_fn)); JAX's remat is off here (it changes no value
     and doubles the compile), the port's checkpointing stays on."""
+    return _case()
+
+
+def _case(fusion_method="cross_attention"):
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
     import optax
@@ -49,6 +55,8 @@ def case():
     from imagharmony_tpu.train import step as jstep
 
     jcfgs = jcomp.tiny_configs()
+    jcfgs = dataclasses.replace(jcfgs, harmony=dataclasses.replace(
+        jcfgs.harmony, fusion_method=fusion_method))
     params = jax.device_get(jcomp.init_params(jax.random.PRNGKey(0), jcfgs))
     tcfg_j = jstep.TrainConfig(unet_cfg=jcfgs.unet, gradient_checkpoint=False)
     state, frozen = jstep.init_state(params, tcfg_j)
@@ -66,6 +74,8 @@ def case():
         latent_eps=torch.tensor(np.asarray(jax.random.normal(r_lat, shape, jnp.float32))),
     )
     pcfgs = pcomp.tiny_configs()
+    pcfgs = dataclasses.replace(pcfgs, harmony=dataclasses.replace(
+        pcfgs.harmony, fusion_method=fusion_method))
     comps = pcomp.Components(pcfgs)
     pcomp.load_state_dict_(comps, from_jax.state_dict(params))
     return dict(jcfgs=jcfgs, params=params, pcfgs=pcfgs, comps=comps, batch=batch,
@@ -79,7 +89,13 @@ def test_train_step_loss_and_gradients_match_jax(case):
     (with a floor of 1e-9: a leaf whose gradient is zero in exact arithmetic,
     such as the HA cross-attention's to_k bias, carries only ~1e-12 of fp32
     noise on both sides). Inert IP projections have no gradient in the port
-    and exact zeros in JAX."""
+    and exact zeros in JAX. Then the same with the HA head's ``qformer``
+    fusion (the trainer's ``--fusion_method qformer``)."""
+    _check_loss_and_gradients(case)
+    _check_loss_and_gradients(_case("qformer"))
+
+
+def _check_loss_and_gradients(case):
     comps = copy.deepcopy(case["comps"])
     tcfg = pstep.TrainConfig(unet_cfg=case["pcfgs"].unet)
     state = pstep.init_state(comps, tcfg)
@@ -90,6 +106,7 @@ def test_train_step_loss_and_gradients_match_jax(case):
     assert set(ref) == set(state.trainable)
     norm = pstep.global_norm([p.grad for p in state.trainable.values()])
     assert abs(float(norm) - case["grad_norm"]) <= 1e-5 * case["grad_norm"]
+    assert case["pcfgs"].harmony.fusion_method == case["jcfgs"].harmony.fusion_method
     n_live = 0
     for name, p in state.trainable.items():
         r = ref[name].numpy()
@@ -477,6 +494,16 @@ def test_trainer_json_data_one_step(tmp_path):
 
 
 def test_trainer_refuses_unported_modes(tmp_path):
+    """LoRA training and cached-encoder batches still raise, naming the next
+    slice; a missing tree raises. And the CLI's ``train`` passes its
+    arguments through to the trainer: two tiny steps with the qformer
+    fusion, their metrics written."""
+    from imagharmony_tpu_torch import cli as pcli
+
+    assert pcli.main(["train", *_tiny_args(tmp_path / "cli", "--max_steps", "2",
+                                           "--fusion_method", "qformer")]) == 0
+    lines = (tmp_path / "cli" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(x)["step"] for x in lines] == [1, 2]
     with pytest.raises(NotImplementedError, match="A13"):
         ptrainer.main(_tiny_args(tmp_path, "--lora_rank", "2", "--max_steps", "1"))
     # a missing tree raises, as the JAX load_pipeline does

@@ -103,6 +103,72 @@ def tiny_pipes(text_layers=2):
     return jpipe, port
 
 
+def nonzero_controlnet_outputs(tree, seed):
+    """A JAX ControlNet tree with its zero-initialized output convs drawn
+    N(0, 0.2²), in place: a fresh ControlNet is an exact no-op and would
+    prove nothing."""
+    rng = np.random.default_rng(seed)
+
+    def draw(conv):
+        return {k: (0.2 * rng.standard_normal(np.shape(v))).astype(np.float32)
+                for k, v in conv.items()}
+
+    tree["controlnet_cond_embedding"]["conv_out"] = draw(
+        tree["controlnet_cond_embedding"]["conv_out"])
+    tree["controlnet_down_blocks"] = [draw(c) for c in tree["controlnet_down_blocks"]]
+    tree["controlnet_mid_block"] = draw(tree["controlnet_mid_block"])
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def controlnet_pipes():
+    """(JAX tiny SDXL pipeline with a tiny ControlNet whose output convs are
+    non-zero, the port over the same weights), fp32 on the CPU."""
+    import dataclasses
+
+    import jax
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.models import controlnet as jcn
+    from imagharmony_tpu.models import tokenizer as jtok
+    from imagharmony_tpu.pipelines import HarmonyPipeline as JaxPipeline
+    from imagharmony_tpu.pipelines import components as jcomp
+    from imagharmony_tpu_torch.models import controlnet as pcn
+    from imagharmony_tpu_torch.pipelines import components as pcomp
+    from imagharmony_tpu_torch.pipelines import harmony_edit as phe
+
+    toy = jtok.build_toy_tokenizer()
+    cfgs = jcomp.tiny_configs(vocab_size=len(toy.encoder))
+    cfgs = dataclasses.replace(cfgs, controlnet=jcn.ControlNetConfig(
+        base=cfgs.unet, conditioning_embedding_channels=(8, 16)))
+    params = jax.device_get(jcomp.init_params(0, cfgs))
+    nonzero_controlnet_outputs(params["controlnet"], 5)
+    jpipe = JaxPipeline(params, cfgs, jtok.SDXLTokenizers(toy, toy))
+    jpipe.policy = jdt.FP32
+    pcfgs = pcomp.tiny_configs(vocab_size=len(toy.encoder))
+    pcfgs = dataclasses.replace(pcfgs, controlnet=pcn.ControlNetConfig(
+        base=pcfgs.unet, conditioning_embedding_channels=(8, 16)))
+    port = phe.HarmonyPipeline.from_state_dict(from_jax.state_dict(params), pcfgs, device="cpu")
+    return jpipe, port
+
+
+@functools.lru_cache(maxsize=None)
+def refiner_pipes():
+    """(JAX tiny SDXL-refiner pipeline, the port over the same weights),
+    fp32 on the CPU."""
+    import jax
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.pipelines import HarmonyPipeline as JaxPipeline
+    from imagharmony_tpu_torch.pipelines import components as pcomp
+    from imagharmony_tpu_torch.pipelines import harmony_edit as phe
+
+    jpipe = JaxPipeline.random_tiny_refiner(seed=1)
+    jpipe.policy = jdt.FP32
+    cfgs = pcomp.sdxl_refiner_tiny_configs(vocab_size=len(jpipe.tokenizers.tok1.encoder))
+    port = phe.HarmonyPipeline.from_state_dict(
+        from_jax.state_dict(jax.device_get(jpipe.params)), cfgs, device="cpu")
+    return jpipe, port
+
+
 def jax_capture(jpipe, image, **kw):
     """The JAX package's generate(image, **kw) with every step's latents
     recorded: a debug callback on the scheduler step (on the inpaint blend,
