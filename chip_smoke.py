@@ -217,7 +217,8 @@ is non-zero:
    ``random_full_refiner()`` (SDXL-refiner-1.0's widths) from its latents,
    1024², 30 Euler steps, CFG 5.0, each run as phase 5's edit
    (``edit_modes``), their eager launches the configs' (``blocks_per_call``:
-   70 and 44 a UNet call), what each key keeps and the two caches' bound;
+   70 and 44 a UNet call), what each key keeps, and the memory with the
+   one key a pipeline that the CLI's ensemble keeps;
    (b) a ControlNet at the base's widths, its output convs drawn (a fresh
    one is a no-op), with a 1024² control image: 30 x (70 + 34) launches of
    each kernel, 300 K2 with the IP branch, the image moved against the same
@@ -227,7 +228,7 @@ is non-zero:
    to bf16 rounding, the merged edit as phase 5's; (d) the qformer, mlp and
    gated-attention HA fusions at the shipped dims swapped in: the image
    prompt's tokens bf16 on the card against fp32 on the CPU (cosine >=
-   0.999), a 4-step edit each as phase 5's; (e), run inside phase 11 on its
+   0.999), a FUSION_STEPS (2)-step edit each as phase 5's; (e), run inside phase 11 on its
    tree before the tree is removed: the CLI (``cli.main``), one ``edit``
    with a LoRA, a ControlNet directory, a control image, ``--refiner-dir``
    (a random refiner written as a tree) and ``--attn-maps``, ``demo`` and
@@ -2782,7 +2783,6 @@ def phase_variants(fa, ca, kg, comp, HarmonyPipeline):
     from imagharmony_tpu_torch.adapters import harmony as ha_lib
     from imagharmony_tpu_torch.adapters import lora as lora_lib
     from imagharmony_tpu_torch.pipelines import harmony_edit as he
-    from imagharmony_tpu_torch.pipelines import programs
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -2820,15 +2820,15 @@ def phase_variants(fa, ca, kg, comp, HarmonyPipeline):
         raise AssertionError(f"phase 14a: the refiner's image is {tuple(image.shape)}, finite "
                              f"{bool(torch.isfinite(image).all())}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    budget = peak + programs.ENSEMBLE_CAPACITY * (rb["kept_gib"] + rr["kept_gib"])
+    # the CLI's ensemble makes one call a pipeline: one key in each cache
+    budget = peak + rb["kept_gib"] + rr["kept_gib"]
     print(f"phase 14a ensemble 1024², {FULL_STEPS} Euler steps, CFG 5.0, handoff at "
           f"{ENSEMBLE_END}: base {steps_b} steps {rb['replay_step_ms']:.3f} ms a step replayed, "
           f"its key keeps {rb['kept_gib']:.3f} GiB; refiner {steps_r} steps "
           f"{rr['replay_step_ms']:.3f} ms a step ({ref_blocks} transformer blocks a UNet call), "
           f"its key keeps {rr['kept_gib']:.3f} GiB; replayed launches base {rb['generate']}, "
-          f"refiner {rr['generate']}; peak allocated {peak:.2f} GiB with both pipelines; both "
-          f"caches at programs.ENSEMBLE_CAPACITY={programs.ENSEMBLE_CAPACITY} keys of these: "
-          f"{budget:.2f} GiB of the card's "
+          f"refiner {rr['generate']}; peak allocated {peak:.2f} GiB with both pipelines; with "
+          f"the one key each that the CLI's ensemble keeps: {budget:.2f} GiB of the card's "
           f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB", flush=True)
     out["ensemble_base"], out["ensemble_refiner"] = rb["generate"], rr["generate"]
     out["refiner_step_ms"], out["refiner_kept_gib"] = rr["replay_step_ms"], rr["kept_gib"]

@@ -24,9 +24,6 @@ from torch import nn
 from imagharmony_tpu_torch.nn.attention import merge_heads, sdpa, split_heads
 from imagharmony_tpu_torch.nn.layers import LayerNorm, Linear
 
-FUSION_METHODS = ("cross_attention", "qformer", "mlp", "gated-attention")
-
-
 @dataclasses.dataclass(frozen=True)
 class HarmonyConfig:
     """Defaults = the shipped training config."""
@@ -203,7 +200,7 @@ FUSIONS = {"cross_attention": CrossAttention, "qformer": QFormer, "mlp": MLPFusi
 class HarmonyAttention(nn.Module):
     def __init__(self, cfg: HarmonyConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.fusion_method not in FUSION_METHODS:
+        if cfg.fusion_method not in FUSIONS:
             raise ValueError(f"unknown fusion_method {cfg.fusion_method!r}")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg

@@ -31,10 +31,10 @@ def _add_device(p):
                    help="torch device: cuda (default; bf16 weights) or cpu (fp32)")
 
 
-def _dtype(args):
+def _dtype(device):
     import torch
 
-    return torch.bfloat16 if torch.device(args.device).type == "cuda" else torch.float32
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
 def _add_edit_args(p):
@@ -144,12 +144,11 @@ def _merge_loras(pipe, args):
 
 def cmd_edit(args):
     from imagharmony_tpu_torch.io import checkpoints
-    from imagharmony_tpu_torch.pipelines import programs
 
     pipe = checkpoints.load_pipeline(model_dir=args.model_dir, adapter_ckpt=args.adapter_ckpt,
                                      image_encoder_dir=args.image_encoder_dir,
                                      controlnet_dir=args.controlnet_dir, device=args.device,
-                                     dtype=_dtype(args))
+                                     dtype=_dtype(args.device))
     pipe = _merge_loras(pipe, args)
     image = _open(args.input).resize((512, 512))
     steps, spacing = args.steps, args.timestep_spacing or "leading"
@@ -184,9 +183,7 @@ def cmd_edit(args):
         end = args.denoising_end or 0.8
         lat = pipe.generate(pil_image=image, denoising_end=end, **kw)
         refiner = checkpoints.load_pipeline(model_dir=args.refiner_dir, device=args.device,
-                                            dtype=_dtype(args))
-        for p in (pipe, refiner):  # two pipelines' programs share the card
-            p.programs.resize(programs.ENSEMBLE_CAPACITY)
+                                            dtype=_dtype(args.device))
         rkw = {k: kw[k] for k in ("prompt", "negative_prompt", "guidance_scale",
                                   "num_inference_steps", "timestep_spacing", "use_karras_sigmas",
                                   "seed", "num_samples", "height", "width", "scheduler",
@@ -218,7 +215,7 @@ def cmd_demo(args):
 
     from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
 
-    pipe = HarmonyPipeline.random_tiny(seed=0, device=args.device, dtype=_dtype(args))
+    pipe = HarmonyPipeline.random_tiny(seed=0, device=args.device, dtype=_dtype(args.device))
     if args.input:
         ref = np.asarray(Image.open(args.input).convert("RGB"))
     else:
@@ -266,12 +263,12 @@ def cmd_parity(args):
 
         pipe = checkpoints.load_pipeline(model_dir=args.model_dir, adapter_ckpt=args.adapter_ckpt,
                                          image_encoder_dir=args.image_encoder_dir,
-                                         device=args.device, dtype=_dtype(args))
+                                         device=args.device, dtype=_dtype(args.device))
     else:
         from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
 
         print("no --model-dir: capturing from the random tiny pipeline")
-        pipe = HarmonyPipeline.random_tiny(device=args.device, dtype=_dtype(args))
+        pipe = HarmonyPipeline.random_tiny(device=args.device, dtype=_dtype(args.device))
     img = _open(args.input) if args.input else np.zeros((64, 64, 3), np.uint8)
     size = int(meta.get("size", args.size))
     cap = parity.run_capture(

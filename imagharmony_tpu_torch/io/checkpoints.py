@@ -400,7 +400,7 @@ def load_components(model_dir=None, adapter_ckpt=None, image_encoder_dir=None,
     for name, path, kw in parts:
         flat = load_sharded_dir(path)
         nbytes = sum(v.numel() * v.element_size() for v in flat.values() if torch.is_tensor(v))
-        if name in ("unet", "controlnet"):
+        if name == "unet":
             flat = seed_ip_weights(flat)
         hf_import.import_state(getattr(comps, name), flat, **kw)
         del flat
@@ -504,8 +504,8 @@ def save_tree(root, comps: comp.Components, *, tokenizers=None) -> int:
 def save_controlnet(path, module: nn.Module) -> int:
     """Write a ControlNetModel as a diffusers ControlNet directory: its
     ``config.json`` (the trunk's UNet config and the embedder's widths) and
-    one ``.safetensors`` without IP projections. ``module`` must be
-    unpacked. Returns the bytes written."""
+    one ``.safetensors``. ``module`` must be unpacked. Returns the bytes
+    written."""
     cfg = module.cn_cfg
     os.makedirs(path, exist_ok=True)
     d = dict(unet.config_to_diffusers(cfg.base), _class_name="ControlNetModel",
@@ -513,7 +513,7 @@ def save_controlnet(path, module: nn.Module) -> int:
              conditioning_embedding_out_channels=list(cfg.conditioning_embedding_channels))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(d, f, indent=1)
-    flat = {k: v for k, v in hf_import.export_state(module).items() if "_ip." not in k}
+    flat = hf_import.export_state(module)
     if any(".to_qkv." in k or ".to_kv." in k for k in flat):
         raise ValueError("save_controlnet needs an unpacked module (to_q/to_k/to_v)")
     return safetensors.save(os.path.join(path, "diffusion_pytorch_model.safetensors"), flat)

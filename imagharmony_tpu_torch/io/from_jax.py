@@ -20,7 +20,8 @@ The input is nested dicts/lists of numpy arrays (or anything np.asarray
 takes); the output maps each key to a torch tensor on the CPU. A bundle
 with a ControlNet gives its ``controlnet.*`` keys (the embedder's
 ``controlnet_cond_embedding.blocks.N``, the 1x1 ``controlnet_down_blocks.N``)
-and a LoRA factor tree gives ``adapters/lora.py``'s flat factors
+without the IP projections the JAX ControlNet carries unused (the port's
+ControlNet has none: its cross-attention is text only), and a LoRA factor tree gives ``adapters/lora.py``'s flat factors
 (``....to_q.weight.lora_a``, not transposed) by the same rules.
 """
 
@@ -63,7 +64,16 @@ def to_torch_layout(path, arr) -> np.ndarray:
     return a
 
 
+def _controlnet_ip(tree, path) -> bool:
+    """Whether ``path`` is an IP projection of a ControlNet: of the tree
+    itself or of its ``controlnet`` entry."""
+    if len(path) < 2 or path[-2] not in ("to_k_ip", "to_v_ip"):
+        return False
+    return isinstance(tree, dict) and ("controlnet_cond_embedding" in tree
+                                       or path[0] == "controlnet")
+
+
 def state_dict(tree) -> dict:
     """Flat {diffusers key: torch tensor} for a JAX parameter tree."""
     return {key_for(path): torch.tensor(to_torch_layout(path, leaf))
-            for path, leaf in _leaves(tree)}
+            for path, leaf in _leaves(tree) if not _controlnet_ip(tree, path)}

@@ -7,8 +7,8 @@ names), a conditioning-image embedder (a stride-2 conv pyramid down to the
 latent size, added to conv_in's output) and one zero-initialized 1x1 output
 conv a skip and one for the mid block: a fresh ControlNet is an exact no-op
 on the base model. Its cross-attentions see the text alone, never the
-image-prompt tokens (the reference's CNAttnProcessor contract), so its K2
-launches take no IP keys. The outputs feed the UNet's
+image-prompt tokens (the reference's CNAttnProcessor contract), so they have
+no IP projections and its K2 launches take no IP keys. The outputs feed the UNet's
 ``down_block_additional_residuals`` / ``mid_block_additional_residual``.
 """
 
@@ -76,7 +76,7 @@ def skip_channels(u: unet_lib.UNetConfig):
 
 class ControlNetModel(unet_lib.UNet2DConditionModel):
     def __init__(self, cfg: ControlNetConfig, *, device=None, dtype=None):
-        super().__init__(cfg.base, encoder_only=True, device=device, dtype=dtype)
+        super().__init__(cfg.base, encoder_only=True, with_ip=False, device=device, dtype=dtype)
         kw = dict(device=device, dtype=dtype)
         self.cn_cfg = cfg
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(cfg, **kw)

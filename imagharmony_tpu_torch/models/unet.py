@@ -325,9 +325,11 @@ class MidBlock2D(nn.Module):
 
 class UNet2DConditionModel(nn.Module):
     """``encoder_only``: conv_in, the embeddings, the down blocks and the mid
-    block alone (a ControlNet's trunk)."""
+    block alone (a ControlNet's trunk). ``with_ip=False``: cross-attentions
+    without IP projections (a ControlNet's, which sees the text alone)."""
 
-    def __init__(self, cfg: UNetConfig, *, encoder_only=False, device=None, dtype=None):
+    def __init__(self, cfg: UNetConfig, *, encoder_only=False, with_ip=True, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -348,7 +350,8 @@ class UNet2DConditionModel(nn.Module):
                 heads=cfg.heads_for(block_idx),
                 head_dim=cfg.head_dim_for(block_idx),
                 context_dim=cfg.cross_attention_dim,
-                ip_active=cfg.is_ip_active(name),
+                ip_active=with_ip and cfg.is_ip_active(name),
+                with_ip=with_ip,
                 **kw,
             )
 

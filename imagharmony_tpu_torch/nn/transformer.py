@@ -52,11 +52,11 @@ class Transformer2DModel(nn.Module):
     """GN -> linear in -> blocks -> linear out -> residual, on NCHW input.
 
     ``ip_active``: feed the IP tokens to this layer's cross-attentions. The
-    IP projections exist on every layer (checkpoint parity) but are used
-    only where this is set."""
+    IP projections exist on every layer where ``with_ip`` (checkpoint
+    parity) but are used only where ``ip_active`` is set."""
 
     def __init__(self, in_channels, *, num_layers, heads, head_dim, context_dim,
-                 ip_active=False, device=None, dtype=None):
+                 ip_active=False, with_ip=True, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         inner = heads * head_dim
@@ -66,7 +66,7 @@ class Transformer2DModel(nn.Module):
         self.proj_in = Linear(in_channels, inner, **kw)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads=heads, head_dim=head_dim,
-                                  context_dim=context_dim, with_ip=True, **kw)
+                                  context_dim=context_dim, with_ip=with_ip, **kw)
             for _ in range(num_layers)
         ])
         self.proj_out = Linear(inner, in_channels, **kw)

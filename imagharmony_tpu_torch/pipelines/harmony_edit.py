@@ -339,7 +339,6 @@ class Branches:
     clip_skip: int
     encoder_interval: int
     controlnet: bool = False  # a control image through the pipeline's ControlNet
-    family: str = "sdxl"      # the conditioning's form (ComponentConfigs.family)
 
 
 def cfg_rows(cond, use_cfg):
@@ -563,9 +562,8 @@ class EditCall:
     sigma); the init image (1, 3, H, W) and the inpaint mask (1, 1, h, w),
     fp32, or None; the seed of the stochastic samplers' draws, and, for
     tests only, the draws themselves (num_steps, B, 4, h, w); the control
-    images, one row a request (R, 3, Hc, Wc) in [0, 1], or None; the
-    pipeline's family. ``scalars`` holds the ControlNet's conditioning
-    scale fifth."""
+    images, one row a request (R, 3, Hc, Wc) in [0, 1], or None.
+    ``scalars`` holds the ControlNet's conditioning scale fifth."""
 
     opts: EditOptions
     ids: dict
@@ -580,7 +578,6 @@ class EditCall:
     step_seed: Optional[int] = None
     step_noise: Optional[torch.Tensor] = None
     control: Optional[torch.Tensor] = None
-    family: str = "sdxl"
 
     @property
     def requests(self) -> int:
@@ -609,7 +606,7 @@ class EditCall:
             inpaint=self.mask is not None,
             latent_output=o.return_latents or o.denoising_end is not None,
             tile_vae=o.tile_vae, clip_skip=o.clip_skip, encoder_interval=o.encoder_interval,
-            controlnet=self.control is not None, family=self.family)
+            controlnet=self.control is not None)
 
 
 class PhaseClock:
@@ -1222,7 +1219,6 @@ class HarmonyPipeline:
             tables=scan_tables(schedule, ip_scales, self.device),
             scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
             control=None if control is None else on_device(control),
-            family=self.cfgs.family,
             init_pixels=None if init_image is None
             else on_device(preprocess_init_image(init_image, height, width)),
             mask=None if mask_image is None
@@ -1311,7 +1307,7 @@ class HarmonyPipeline:
             tables=scan_tables(schedule, ip_scales, self.device),
             scalars=torch.tensor(scalars, dtype=torch.float32, device=self.device),
             step_seed=step_seed(seeds) if schedule.kind in sched.STOCHASTIC else None,
-            control=control, family=self.cfgs.family)
+            control=control)
 
     def _run(self, call: EditCall, clock: PhaseClock):
         """The edit of a prepared call: its captured programs on a CUDA

@@ -83,13 +83,6 @@ MAX_STEPS = 1000
 # the weights take 12.3 GiB and a call peaks at 15.6 GiB allocated. Six of
 # the largest (57.4 GiB) fit beside that in the card's 79.18 GiB.
 DEFAULT_CAPACITY = 6
-# keys each of two pipelines keeps when both hold programs on one card (the
-# base -> refiner ensemble of the CLI). On the same card (PERF.md §2): with
-# SDXL's and the refiner's weights and a refiner call, 21.78 GiB allocated at
-# the peak; a one-sample refiner key keeps 4.82-4.86 GiB, a two-sample one
-# about twice that (9.6, not measured). Two keys each of the largest, 2 x
-# (9.57 + 9.6), fit beside the peak (60.1 GiB); three (79.3) would not.
-ENSEMBLE_CAPACITY = 2
 
 
 class ProgramCache(collections.OrderedDict):

@@ -557,29 +557,21 @@ def make_server(pipe, port=7860, *, continuous=False, payload_defaults=None, hos
 def build_server(args):
     """The server ``main`` runs, not yet serving: a pipeline (the tree of
     ``--model-dir`` with ``--adapter-ckpt``, or without one the random tiny
-    pipeline, demo mode) on ``args.device``, with every ``--lora
-    PATH[:SCALE]`` merged into its UNet and every ``--textual-inversion``
-    installed, behind ``make_server``."""
-    from imagharmony_tpu_torch.adapters import lora as lora_lib
+    pipeline, demo mode) on ``args.device`` in the CLI's dtype for it, with
+    the CLI's ``--lora`` merges and ``--textual-inversion`` installs
+    (``cli._merge_loras``), behind ``make_server``."""
+    from imagharmony_tpu_torch.cli import _dtype, _merge_loras
     from imagharmony_tpu_torch.io import checkpoints
 
     device = getattr(args, "device", "cuda")
+    dtype = _dtype(device)
     if getattr(args, "model_dir", None):
-        pipe = checkpoints.load_pipeline(model_dir=args.model_dir,
-                                         adapter_ckpt=args.adapter_ckpt, device=device)
+        pipe = checkpoints.load_pipeline(model_dir=args.model_dir, adapter_ckpt=args.adapter_ckpt,
+                                         device=device, dtype=dtype)
     else:
         print("no --model-dir: serving the random tiny pipeline (demo mode)")
-        pipe = HarmonyPipeline.random_tiny(device=device)
-    for spec in getattr(args, "lora", None) or []:
-        path, scale = lora_lib.parse_spec(spec, default_scale=getattr(args, "lora_scale", 1.0))
-        pipe = pipe.with_lora(path, scale=scale)
-        print(f"merged LoRA {path} (scale {scale})")
-    for spec in getattr(args, "textual_inversion", None) or []:
-        path, token = spec, None
-        if ":" in spec and not spec.endswith((".pt", ".bin", ".safetensors")):
-            path, token = spec.rsplit(":", 1)
-        pipe = pipe.with_textual_inversion(path, token=token)
-        print(f"installed textual inversion {path}" + (f" as {token}" if token else ""))
+        pipe = HarmonyPipeline.random_tiny(device=device, dtype=dtype)
+    pipe = _merge_loras(pipe, args)
     # encoder propagation by default: changes outputs; a request's own
     # encoder_interval overrides it
     defaults = {"encoder_interval": 2} if getattr(args, "turbo", False) else {}

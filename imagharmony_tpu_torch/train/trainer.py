@@ -49,7 +49,6 @@ from imagharmony_tpu_torch.pipelines import components as comp
 from imagharmony_tpu_torch.train import programs as train_programs
 from imagharmony_tpu_torch.train import step as step_lib
 
-FUSION_METHODS = ("cross_attention", "qformer", "mlp", "gated-attention")
 KEEP_CHECKPOINTS = 3
 
 
@@ -99,7 +98,8 @@ def parse_args(argv=None):
     p.add_argument("--composed_cross_heads", type=int, default=8)
     p.add_argument("--composed_reshape_blocks", type=int, default=8)
     p.add_argument("--composed_cross_value_dim", type=int, default=64)
-    p.add_argument("--fusion_method", default="cross_attention", choices=list(FUSION_METHODS))
+    p.add_argument("--fusion_method", default="cross_attention",
+                   choices=list(harmony_lib.FUSIONS))
     p.add_argument("--train_image_proj", action="store_true")
     p.add_argument("--tiny", action="store_true", help="random tiny bundle (no checkpoints needed)")
     p.add_argument("--full_random", action="store_true",
