@@ -175,7 +175,7 @@ is non-zero:
    7's captured run bit for bit), with the write and read times and the
    peak host RSS;
 12. the sampler zoo and the edit's features at full width, on phase 5's
-   SDXL bf16 pipeline (``feature_configs``), at FEATURE_STEPS (15) steps,
+   SDXL bf16 pipeline (``feature_configs``), at FEATURE_STEPS (10) steps,
    a depth cut from 30 that the phase prints: DPM++ 2M Karras with
    guidance_rescale, micro-conditioning overrides, a negative prompt and
    clip_skip; Euler-a; DDIM with trailing spacing, v-prediction and
@@ -193,17 +193,17 @@ is non-zero:
    before the next key's capture;
 13. the serving path at full width on a fresh SDXL bf16 random_full(0)
    (``phase_serve``): (a) ``generate_batch`` of four requests (their own
-   images, prompts, extra_texts and seeds), SERVE_DEPTH (15) steps in
+   images, prompts, extra_texts and seeds), SERVE_DEPTH (10) steps in
    (a)-(c), a depth cut from 30 that the phase prints, eagerly through the
    module functions and through its captured programs (one capture, the
-   replay bit for bit the eager run, 1050 K1, K2 and K5 launches replayed
-   by kernel name, 150 K2 with the IP branch eagerly), each row against its
+   replay bit for bit the eager run, 700 K1, K2 and K5 launches replayed
+   by kernel name, 100 K2 with the IP branch eagerly), each row against its
    solo ``generate()`` (image cosine >= 0.999), with warm seconds, images/s
    against four solo calls, peak memory and what the key keeps; then the
    program cache's bound cut below its keys: the least recently used key
    evicted and its memory returned; (b) the chunked runner
    (``chunk_steps`` 5, a callback at each chunk) against generate() with
-   num_samples 2, bit for bit, 1050 of each kernel replayed; (c) a 4-slot
+   num_samples 2, bit for bit, 700 of each kernel replayed; (c) a 4-slot
    ``SlotEngine`` with a request admitted one chunk after another: its
    latents and image bit for bit its solo engine run's, the chunk's
    replayed launches (350 of each kernel), what the engine keeps; (d) both
@@ -233,7 +233,25 @@ is non-zero:
    with a LoRA, a ControlNet directory, a control image, ``--refiner-dir``
    (a random refiner written as a tree) and ``--attn-maps``, ``demo`` and
    ``serve --lora``'s server answering one request, each exiting 0 with its
-   files written, its wall time (loads included) printed.
+   files written, its wall time (loads included) printed;
+15. the training variants at full width (``phase_training_variants``):
+   (a) the trainer with ``--lora_rank`` 8 (``--full_random``, 512², batch
+   1, bf16, gradient checkpointing) as phase 7 runs it: the replays bit for
+   bit the eager steps, 140 K1, K2 and K5 launches a step and the K3
+   launches ``expected_k3_per_step`` derives with the LoRA targets (70:
+   every attn1's q needs a gradient; the derivation first checked against
+   counted launches at tiny size for four target sets), dA exactly 0 and
+   dB nonzero at step 1 and both nonzero later, the exported
+   ``lora-N.safetensors`` read back bit for bit, the merged weights' and
+   the factors' sizes, the step times and what the program keeps; (b) the
+   trainer with ``--cache_encoders`` on a JSON dataset of 8 random
+   1024x768 PNGs at 512² (resize and centre crop through the image-ops
+   binding): the precompute's seconds, the memory allocated before and
+   after the four towers are dropped (the fall is their bytes), the
+   replays bit for bit the eager steps, phase 7's launches; (c) the
+   image-ops binding (host C++) on those 8 images: built, its threads bit
+   for bit, within ``tests/test_native.py``'s tolerance of PIL, its host
+   time against PIL's on a line of its own.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -269,7 +287,9 @@ K2's with the IP branch), "generate_chunked" its replayed chunked runner,
 "engine_chunk" one replayed chunk (5 steps) of the 4-slot engine.
 "generate_ensemble_base" and "generate_refiner" are phase 14a's replayed
 calls, "generate_controlnet", "generate_lora" and "generate_ha_<fusion>"
-14b-d's.
+14b-d's. "train_lora" and "train_cached" are one replayed train step's of
+phases 15a and 15b (by kernel name), "train_lora_eager" and
+"train_cached_eager" an eager step's (the wrappers' counts).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -307,9 +327,10 @@ FULL_STEPS = 30
 # the denoise depth of phases 12 and 13, cut from FULL_STEPS (phases 5, 9, 11
 # and 14 run the 30-step edits) to keep the whole script within its time
 # (986 s of command time with them at 30 on one H100, where hosts have
-# differed by 30%; PERF.md §6); each phase prints the cut
-FEATURE_STEPS = 15
-SERVE_DEPTH = 15
+# differed by 30%; 15 until phase 15 came; PERF.md §6); each phase prints
+# the cut
+FEATURE_STEPS = 10
+SERVE_DEPTH = 10
 SELF_ATTN_PER_UNET_CALL = 70  # SDXL at 1024²: 10 at S=4096 + 60 at S=1024
 
 SD15_SELF_ATTN_PER_UNET_CALL = 16  # SD1.5 at 512²: 5 + 5 + 5 + 1, see K4_SHAPES
@@ -1611,24 +1632,26 @@ def _agrees(label, replayed, eager, eager_again):
 
 
 def eager_train(argv, steps, fa, ca, kg, step_lib, trainer):
-    """The steps ``trainer.main(argv)`` takes on its synthetic data, through
-    the eager ``step_lib.train_step`` called directly: the trainer's
-    components, config, seed, batches and generator. Per step the loss and
-    grad norm, the wrappers' launch counts, the largest |gradient| of the
-    live IP projections and of the HA head, and the host time of the
+    """The steps ``trainer.main(argv)`` takes on its data, through the eager
+    ``step_lib.train_step`` called directly: the trainer's components,
+    config, seed, batches (``trainer.make_batches``: with
+    ``--cache_encoders`` the precompute and the towers' drop) and
+    generator. Per step the loss and grad norm, the wrappers' launch
+    counts, the largest |gradient| of the live IP projections, of the HA
+    head and of the LoRA factors A and B, and the host time of the
     synchronized step; then the trainable parameters after the last step
     and the peak memory allocated."""
     args = trainer.parse_args(argv)
-    cfgs, comps, _ = trainer.build_components(args)
+    cfgs, comps, toks = trainer.build_components(args)
     tcfg = trainer.train_config(args, cfgs)
-    state = step_lib.init_state(comps, tcfg)
+    state = step_lib.init_state(comps, tcfg, seed=args.seed)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     rows = args.train_batch_size * max(args.grad_accum, 1)
+    batches = trainer.make_batches(args, cfgs, comps, toks)
     torch.cuda.reset_peak_memory_stats()
     out = []
-    for i in range(steps):
-        batch = step_lib.to_device(step_lib.dummy_batch(cfgs, rows, args.resolution, rng=i),
-                                   args.device)
+    for _ in range(steps):
+        batch = step_lib.to_device(next(batches), args.device)
         _reset_train_launches(fa, ca, kg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1639,7 +1662,9 @@ def eager_train(argv, steps, fa, ca, kg, step_lib, trainer):
                     "grad_norm": float(m["grad_norm"]), "launches": _train_launches(fa, ca, kg),
                     "ip": _max_grad(state, lambda n: "down_blocks.2.attentions.1." in n
                                     and "_ip." in n),
-                    "harmony": _max_grad(state, lambda n: n.startswith("harmony."))})
+                    "harmony": _max_grad(state, lambda n: n.startswith("harmony.")),
+                    "lora_a": _max_grad(state, lambda n: n.endswith(".lora_a")),
+                    "lora_b": _max_grad(state, lambda n: n.endswith(".lora_b"))})
     trained = {n: p.detach().clone() for n, p in state.trainable.items()}
     return out, trained, torch.cuda.max_memory_allocated() / 2**30
 
@@ -1654,7 +1679,9 @@ def captured_train(argv, profile_from, fa, ca, kg, trainer):
     through no wrapper) and, from step ``profile_from`` on, its profiler
     trace (``profiling.profiled``: those steps' host times carry the
     profiler). Returns them with the logged metrics, the trainable
-    parameters of the last checkpoint and the peak memory allocated."""
+    parameters of the last checkpoint, the peak memory allocated and, with
+    LoRA, the exported ``lora-N.safetensors`` read back (``load_lora``)."""
+    from imagharmony_tpu_torch.adapters import lora as lora_lib
     from imagharmony_tpu_torch.train import programs
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1697,11 +1724,13 @@ def captured_train(argv, profile_from, fa, ca, kg, trainer):
             metrics = [json.loads(line) for line in f]
         trained = torch.load(os.path.join(out_dir, "checkpoints", f"step-{final}.pt"),
                              map_location="cuda", weights_only=True)["trainable"]
+        lora_path = os.path.join(out_dir, f"lora-{final}.safetensors")
+        lora_file = lora_lib.load_lora(lora_path) if os.path.exists(lora_path) else None
     finally:
         programs.TrainProgram.__init__, programs.TrainProgram.run = init, run
         shutil.rmtree(out_dir, ignore_errors=True)
     return dict(final=final, metrics=metrics, trained=trained, peak=peak, captures=captures,
-                replays=replays)
+                replays=replays, lora_file=lora_file)
 
 
 def train_modes(argv, steps, profile_from, fa, ca, kg, step_lib, trainer, label):
@@ -1864,10 +1893,13 @@ def phase_train_tiny(fa, ca, kg, comp, step_lib, trainer):
     _branch_programs(comp, step_lib, "phase 6 tiny")
 
 
-def expected_k3_per_step(ucfg):
-    """Self-attentions that need a gradient in one UNet backward: those
-    downstream of the first IP-active cross-attention (in forward order, a
-    transformer block runs attn1 then attn2)."""
+def expected_k3_per_step(ucfg, lcfg=None):
+    """Self-attentions that need a gradient in one UNet backward: those whose
+    q, k or v needs one. In forward order (a transformer block runs attn1
+    then attn2) the residual stream needs a gradient from the first
+    trainable thing on: an IP-active cross-attention, or with the LoRA
+    config ``lcfg`` the first factored projection; an attn1 whose own
+    to_q, to_k or to_v is factored needs one wherever it is."""
     layers = []
     for i, btype in enumerate(ucfg.down_block_types):
         if btype == "CrossAttnDownBlock2D":
@@ -1880,11 +1912,18 @@ def expected_k3_per_step(ucfg):
             layers += [(f"up_blocks.{i}.attentions.{j}",
                         ucfg.transformer_layers_per_block[last - i])
                        for j in range(ucfg.layers_per_block + 1)]
+
+    def factored(attn, projs):
+        return lcfg is not None and attn in lcfg.attn and any(p in lcfg.targets for p in projs)
+
+    qkv1 = factored("attn1", ("to_q", "to_k", "to_v"))
+    any1 = factored("attn1", ("to_q", "to_k", "to_v", "to_out"))
+    any2 = factored("attn2", ("to_q", "to_k", "to_v", "to_out"))
     count, live = 0, False
     for name, n_blocks in layers:
         for _ in range(n_blocks):
-            count += live  # this block's attn1
-            live = live or ucfg.is_ip_active(name)  # its attn2
+            count += live or qkv1  # this block's attn1
+            live = live or any1 or any2 or ucfg.is_ip_active(name)  # after its attn1, attn2
     return count
 
 
@@ -3060,6 +3099,279 @@ def phase_cli(root, adapter, comp, HarmonyPipeline):
     return walls
 
 
+LORA_TRAIN_RANK = 8  # phase 15a's --lora_rank
+CACHE_RECORDS = 8  # phase 15b's synthetic records, 15c's batch
+CACHE_IMAGE_HW = (768, 1024)  # their size: the resize and the centre crop both work at 512²
+TOWERS_SLACK = 1 << 20  # what else a collection may free beside the towers' blocks
+
+
+def _lora_sizes(ucfg, lcfg, lora_lib, unet_mod):
+    """(factored projections, their weights' elements, the factors'
+    elements) of the UNet of ``ucfg`` under ``lcfg``, from a UNet on the
+    meta device."""
+    with torch.device("meta"):
+        u = unet_mod.UNet2DConditionModel(ucfg)
+    rows = lora_lib._targets(u, lcfg)
+    return (len(rows), sum(i * o for *_, (i, o) in rows),
+            sum((i + o) * lcfg.rank for *_, (i, o) in rows))
+
+
+def _k3_derivation(comp, step_lib, fa, label):
+    """``expected_k3_per_step`` against the K3 launches of one tiny loss
+    backward on the card (bf16), plain and with LoRA on each target set."""
+    cfgs = comp.tiny_configs()
+    base = comp.init_params(torch.Generator(device="cuda").manual_seed(0), cfgs,
+                            dtype=torch.bfloat16, device="cuda")
+    batch = step_lib.to_device(step_lib.dummy_batch(cfgs, 2, 32), "cuda")
+    got = {}
+    for targets in (None, "to_q,to_k,to_v,to_out", "to_out", "to_v"):
+        kw = {} if targets is None else dict(lora_rank=2, lora_targets=targets)
+        tcfg = step_lib.TrainConfig(unet_cfg=cfgs.unet, **kw)
+        comps = copy.deepcopy(base)
+        state = step_lib.init_state(comps, tcfg)
+        draws = step_lib.draw(torch.Generator(device="cuda").manual_seed(1), cfgs, tcfg, 2, 32)
+        fa.bwd_launches = 0
+        step_lib.loss_fn(comps, tcfg, batch, draws, state.factors).backward()
+        torch.cuda.synchronize()
+        got[targets] = (fa.bwd_launches, expected_k3_per_step(cfgs.unet, tcfg.lora_config()))
+    print(f"{label}: K3 launches of a tiny loss backward by LoRA targets (counted, derived): "
+          f"{got}", flush=True)
+    if any(n != want for n, want in got.values()):
+        raise AssertionError(f"{label}: K3 launches differ from expected_k3_per_step: {got}")
+
+
+def phase_train_lora(fa, ca, kg, comp, step_lib, trainer):
+    """15a: the trainer with ``--lora_rank`` LORA_TRAIN_RANK at full width
+    (``--full_random``: 512², batch 1, bf16, gradient checkpointing) as
+    phase 7 runs it (``train_modes``: eager and captured, the replays bit
+    for bit the eager steps). K1, K2 and K5 140 launches a step, K3 as
+    ``expected_k3_per_step`` derives with the targets (first checked
+    against the counted launches at tiny size); dA exactly 0 and dB nonzero
+    at step 1 (B starts at 0), both nonzero from step 2; the exported
+    ``lora-N.safetensors`` read back bit for bit the trained factors. Prints
+    the merged weights' size, the factors', the step times and what the
+    program keeps. Returns the replayed step's launches by name and an eager
+    step's by wrapper."""
+    from imagharmony_tpu_torch.adapters import lora as lora_lib
+    from imagharmony_tpu_torch.models import unet as unet_mod
+
+    label = "phase 15a LoRA trainer"
+    _k3_derivation(comp, step_lib, fa, label)
+    argv = ["--full_random", "--synthetic_data", str(TRAIN_STEPS), "--lora_rank",
+            str(LORA_TRAIN_RANK)]
+    cfgs = comp.sdxl_configs()
+    lcfg = trainer.train_config(trainer.parse_args(argv), cfgs).lora_config()
+    n_proj, n_merged, n_factors = _lora_sizes(cfgs.unet, lcfg, lora_lib, unet_mod)
+    expected = {"K1/K4": 2 * SELF_ATTN_PER_UNET_CALL, "K2": 2 * SDXL_CROSS_PER_UNET_CALL,
+                "K5": 2 * SELF_ATTN_PER_UNET_CALL,
+                "K3": expected_k3_per_step(cfgs.unet, lcfg)}
+    torch.backends.cudnn.allow_tf32 = True  # the trainer's own setting, as in phase 7
+    try:
+        r = train_modes(argv, TRAIN_STEPS, TRAIN_STEPS - TRAIN_PROFILED + 1, fa, ca, kg,
+                        step_lib, trainer, label)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    _print_train_modes(r, label)
+    grads = [(e["lora_a"], e["lora_b"]) for e in r["eager"]]
+    print(f"{label}: {n_proj} factored projections, merged weights {n_merged} elements "
+          f"({n_merged * 2 / 2**30:.3f} GiB in bf16), factors {n_factors} elements "
+          f"({n_factors * 4 / 2**20:.1f} MiB in fp32, the same again for each AdamW moment); "
+          f"max |dA|, |dB| per eager step {[(f'{a:.3e}', f'{b:.3e}') for a, b in grads]}; "
+          f"launches expected {expected}", flush=True)
+    for e in r["eager"]:
+        if not (abs(e["loss"]) < float("inf") and e["grad_norm"] > 0 and e["ip"] > 0):
+            raise AssertionError(f"{label}: a non-finite loss or a zero gradient: {e}")
+    if not (grads[0][0] == 0 and grads[0][1] > 0 and all(a > 0 and b > 0 for a, b in grads[1:])):
+        raise AssertionError(f"{label}: expected dA = 0 and dB != 0 at step 1, both nonzero "
+                             f"later: {grads}")
+    if r["eager"][-1]["launches"] != expected or r["replayed"] != expected:
+        raise AssertionError(f"{label}: an eager step launched {r['eager'][-1]['launches']}, a "
+                             f"replayed one {r['replayed']}, expected {expected}")
+    factors, fcfg = r["lora_file"]
+    trained = {n[len("lora."):]: p for n, p in r["trained"].items() if n.startswith("lora.")}
+    if ((fcfg.rank, fcfg.scale, fcfg.targets) != (lcfg.rank, lcfg.scale, lcfg.targets)
+            or set(factors) != set(trained) or len(factors) != 2 * n_proj
+            or any(not torch.equal(factors[k], trained[k].cpu()) for k in factors)):
+        raise AssertionError(f"{label}: the exported factors are not the trained ones bit for "
+                             f"bit ({fcfg} vs {lcfg})")
+    print(f"{label}: lora-{r['final']}.safetensors read back bit for bit the trained factors "
+          f"({len(factors)} tensors)", flush=True)
+    return r["replayed"], r["eager"][-1]["launches"]
+
+
+def _cache_records(root, n=CACHE_RECORDS):
+    """``n`` random PNGs of CACHE_IMAGE_HW and their JSON records under
+    ``root``; returns the JSON's path and the images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    images, records = [], []
+    for i in range(n):
+        img = rng.integers(0, 255, (*CACHE_IMAGE_HW, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, f"{i}.png"))
+        images.append(img)
+        records.append({"image_file": f"{i}.png", "text": f"a photo of {i + 2} sheep",
+                        "extra_text": f"{i + 2} sheep"})
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(records, f)
+    return path, images
+
+
+def phase_train_cached(fa, ca, kg, comp, step_lib, trainer, path, root):
+    """15b: the trainer with ``--cache_encoders`` on ``path``, a JSON dataset
+    of CACHE_RECORDS PNGs under ``root`` (CACHE_IMAGE_HW, resized and
+    centre-cropped to 512²) at full width, as phase 7 runs it
+    (``train_modes``, each run precomputing the cache and dropping the four
+    towers): the precompute's seconds; the memory allocated before and
+    after the drop, whose fall must be at least the towers' bytes from
+    their numel and dtype and, to TOWERS_SLACK, the allocator's blocks
+    that hold them (each rounded to 512 B; a large one keeps the rest of
+    its segment when that is under 1 MiB); the replays
+    bit for bit the eager steps; phase 7's launches (140 K1, K2, K5; K3 as
+    the UNet config gives). Returns the replayed step's launches by name and
+    an eager step's by wrapper."""
+    from imagharmony_tpu_torch.train import cache as cache_lib
+
+    label = "phase 15b cached-encoder trainer"
+    argv = ["--full_random", "--data_json_file", path, "--data_root_path", root,
+            "--cache_encoders"]
+    expected = {"K1/K4": 2 * SELF_ATTN_PER_UNET_CALL, "K2": 2 * SDXL_CROSS_PER_UNET_CALL,
+                "K5": 2 * SELF_ATTN_PER_UNET_CALL,
+                "K3": expected_k3_per_step(comp.sdxl_configs().unet)}
+    watched = []
+    precompute, drop = cache_lib.precompute, cache_lib.drop_towers
+
+    def precompute_watched(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = precompute(*a, **kw)
+        torch.cuda.synchronize()
+        watched.append({"precompute_s": time.perf_counter() - t0})
+        return out
+
+    def drop_watched(comps):
+        gc.collect()
+        torch.cuda.synchronize()
+        ptrs = {t.untyped_storage().data_ptr() for name in cache_lib.TOWERS
+                for m in [getattr(comps, name)] for t in [*m.parameters(), *m.buffers()]}
+        blocks = _block_bytes(ptrs)
+        before = torch.cuda.memory_allocated()
+        freed = drop(comps)
+        gc.collect()
+        torch.cuda.synchronize()
+        watched[-1].update(before=before, after=torch.cuda.memory_allocated(), towers=freed,
+                           blocks=sum(blocks.values()), missing=len(ptrs) - len(blocks))
+        return freed
+
+    cache_lib.precompute, cache_lib.drop_towers = precompute_watched, drop_watched
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        r = train_modes(argv, TRAIN_STEPS, TRAIN_STEPS - TRAIN_PROFILED + 1, fa, ca, kg,
+                        step_lib, trainer, label)
+    finally:
+        cache_lib.precompute, cache_lib.drop_towers = precompute, drop
+        torch.backends.cudnn.allow_tf32 = False
+    _print_train_modes(r, label)
+    for w in watched:
+        fell = w["before"] - w["after"]
+        print(f"{label}: precompute of {CACHE_RECORDS} records {w['precompute_s']:.3f} s; "
+              f"allocated before the drop {w['before'] / 2**30:.3f} GiB, after "
+              f"{w['after'] / 2**30:.3f} GiB, fell {fell} bytes ({fell / 2**30:.4f} GiB); the "
+              f"towers {w['towers']} bytes by numel ({w['towers'] / 2**30:.4f} GiB), "
+              f"{w['blocks']} bytes in the allocator's blocks (fall - blocks "
+              f"{fell - w['blocks']} bytes, blocks - numel bytes "
+              f"{w['blocks'] - w['towers']})", flush=True)
+        if w["missing"] or fell < w["towers"] or not 0 <= fell - w["blocks"] <= TOWERS_SLACK:
+            raise AssertionError(f"{label}: the drop freed {fell} bytes, the towers hold "
+                                 f"{w['towers']} in {w['blocks']} bytes of blocks "
+                                 f"({w['missing']} storages not found)")
+    if len(watched) < 2:
+        raise AssertionError(f"{label}: {len(watched)} precomputes, expected one a run")
+    for e in r["eager"]:
+        if not (abs(e["loss"]) < float("inf") and e["grad_norm"] > 0 and e["ip"] > 0
+                and e["harmony"] > 0):
+            raise AssertionError(f"{label}: a non-finite loss or a zero gradient: {e}")
+    if r["eager"][-1]["launches"] != expected or r["replayed"] != expected:
+        raise AssertionError(f"{label}: an eager step launched {r['eager'][-1]['launches']}, a "
+                             f"replayed one {r['replayed']}, expected {expected}")
+    return r["replayed"], r["eager"][-1]["launches"]
+
+
+def _block_bytes(ptrs):
+    """{address: size} of the caching allocator's blocks that start at one
+    of ``ptrs`` (``torch.cuda.memory_snapshot``)."""
+    sizes = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            addr = blk.get("address", addr)
+            if addr in ptrs and blk["state"] == "active_allocated":
+                sizes[addr] = blk["size"]
+            addr += blk["size"]
+    return sizes
+
+
+def phase_binding(images):
+    """15c: the image-ops binding (``native.py``, host C++ built with g++)
+    on phase 15b's CACHE_RECORDS images as one batch, resized and
+    centre-cropped to 512² as the dataset does: one thread and the default
+    bit for bit, within ``tests/test_native.py``'s tolerance of the PIL
+    version; their host times, median of three."""
+    from imagharmony_tpu_torch import native
+
+    size = 512
+    h, w = CACHE_IMAGE_HW
+    nh, nw = round(h * size / min(h, w)), round(w * size / min(h, w))
+    kw = dict(tops=[(nh - size) // 2] * len(images), lefts=[(nw - size) // 2] * len(images),
+              mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
+    from imagharmony_tpu_torch.kernels import build
+
+    built = build.host_library_path("image_ops").exists()  # by 15b's dataset
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    out = native.batch_preprocess(images, size, **kw)
+    one = native.batch_preprocess(images, size, num_threads=1, **kw)
+    plain = native.batch_preprocess_plain(images, size, **kw)
+    err = np.abs(out - plain)
+
+    def timed(fn):
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t)
+        return statistics.median(walls)
+
+    t_cpp = timed(lambda: native.batch_preprocess(images, size, **kw))
+    t_one = timed(lambda: native.batch_preprocess(images, size, num_threads=1, **kw))
+    t_pil = timed(lambda: native.batch_preprocess_plain(images, size, **kw))
+    print(f"phase 15c image-ops binding (host code, not a device kernel; {os.cpu_count()} host "
+          f"CPUs): {'load (built before)' if built else 'build and load'} {build_s:.3f} s; a batch of {len(images)} {w}x{h} -> "
+          f"{size}²: C++ {t_cpp:.4f} s ({min(len(images), os.cpu_count() or 1)} threads), "
+          f"C++ one thread {t_one:.4f} s, PIL {t_pil:.4f} s; vs PIL max abs {err.max():.4e}, "
+          f"median {np.median(err):.4e}, mean {err.mean():.4e}", flush=True)
+    if not (np.array_equal(out, one) and np.median(err) < 0.02 and err.mean() < 0.05):
+        raise AssertionError("phase 15c: the binding's threads disagree or it is far from PIL")
+
+
+def phase_training_variants(fa, ca, kg, comp, step_lib, trainer):
+    """Phase 15: 15a, then 15b and 15c on one temporary directory of
+    records."""
+    lora = phase_train_lora(fa, ca, kg, comp, step_lib, trainer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        path, images = _cache_records(root)
+        cached = phase_train_cached(fa, ca, kg, comp, step_lib, trainer, path, root)
+        phase_binding(images)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return lora, cached
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -3152,6 +3464,11 @@ def main():
                      **{f"generate_ha_{f}": g for f, g in variants["fusions"].items()}}
     print(f"phase 14 CLI wall times (s): {cli_walls}", flush=True)
     _mark("phase 14")
+    (lora, lora_eager), (cached, cached_eager) = phase_training_variants(
+        fa, ca, kg, comp, step_lib, trainer)
+    train_paths = {"train_lora": lora, "train_lora_eager": lora_eager, "train_cached": cached,
+                   "train_cached_eager": cached_eager}
+    _mark("phase 15")
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -3182,6 +3499,7 @@ def main():
         "launches_by_path": {"generate": sdxl_gen["K1/K4"], "edit_eager": sdxl["K1"],
                              "generate_loaded": loaded_gen["K1/K4"],
                              "train": train["K1/K4"], "train_eager": train_eager["K1/K4"],
+                             **{p: g["K1/K4"] for p, g in train_paths.items()},
                              "probes": probes["flash_attention_nhd"],
                              **{p: g["K1/K4"] for p, g in feature_paths.items()
                                 if p != "generate_sd15_dpmpp"},
@@ -3202,6 +3520,7 @@ def main():
         "replaces": "imagharmony_tpu/kernels/flash_attention.py:220",
         "launches": train["K3"],
         "launches_by_path": {"train": train["K3"], "train_eager": train_eager["K3"],
+                             **{p: g["K3"] for p, g in train_paths.items()},
                              "sd15_unet_grad": k3_grad},
         "max_abs_err": max(k3_err, k3b_err),
         "shape": list(K3_SHAPES[0]),
@@ -3233,6 +3552,7 @@ def main():
                              "generate_loaded": loaded_gen["K2"],
                              "edit_eager_ip": sdxl["K2 IP"], "train": train["K2"],
                              "train_eager": train_eager["K2"],
+                             **{p: g["K2"] for p, g in train_paths.items()},
                              "generate_sd15": sd15_gen["K2"], "edit_eager_sd15": sd15["K2"],
                              "sd15_unet_grad": k2_grad,
                              **{p: g["K2"] for p, g in feature_paths.items()},
@@ -3255,6 +3575,7 @@ def main():
         "launches_by_path": {"generate": sdxl_gen["K5"], "edit_eager": sdxl["K5"],
                              "generate_loaded": loaded_gen["K5"],
                              "train": train["K5"], "train_eager": train_eager["K5"],
+                             **{p: g["K5"] for p, g in train_paths.items()},
                              "generate_sd15": sd15_gen["K5"],
                              "edit_eager_sd15": sd15["K5"], "sd15_unet_grad": k5_grad,
                              "probes": probes["geglu"],

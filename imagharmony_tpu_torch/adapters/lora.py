@@ -14,7 +14,10 @@ JAX package's does, into a copy of the UNet that shares every untouched
 parameter with the original; a merged weight is a new tensor, so the
 original UNet (and any CUDA graph captured on it) is left as it was. It
 merges into packed projections (``to_qkv``, ``to_kv``) row block by row
-block. Training LoRA factors is not ported (ROADMAP A13).
+block. ``merged_weights`` is the same merge for training, differentiable in
+the factors (the JAX ``apply_lora`` inside ``loss_fn``): it returns the
+merged weights by parameter name, for ``torch.func.functional_call``, and
+gives ``apply_lora``'s values bit for bit.
 
 ``load_lora`` also reads the community formats (kohya ``lora_unet_*`` and
 diffusers-peft ``unet.*.lora_A``) through ``load_community_lora``.
@@ -135,6 +138,28 @@ def apply_lora(unet: nn.Module, factors: Dict[str, torch.Tensor], cfg: LoRAConfi
         w[rows] += (a @ b).T * s
     for lin, w in merged.values():
         lin.weight = nn.Parameter(w.to(lin.weight.dtype), requires_grad=False)
+    return out
+
+
+def merged_weights(unet: nn.Module, factors: Dict[str, torch.Tensor],
+                   cfg: LoRAConfig) -> Dict[str, torch.Tensor]:
+    """{parameter name in ``unet``: W'} for every factored projection of an
+    unpacked UNet, W' = (W.float() + (alpha/r) * (A @ B)^T) cast to W's
+    dtype: the JAX order (add in fp32, then cast) and ``apply_lora``'s
+    arithmetic. Differentiable in the factors (the cast's gradient is the
+    identity, so the fp32 factors get fp32 gradients)."""
+    s = cfg.scale
+    out = {}
+    for key in sorted(k[: -len(".lora_a")] for k in factors if k.endswith(".lora_a")):
+        path = key.split(".")
+        attn_path = ".".join(path[:-2])
+        lin, rows = _row_slice(unet.get_submodule(attn_path), path[-2])
+        if rows != slice(None):
+            raise ValueError(f"{attn_path} is packed: train on the unpacked UNet")
+        name = f"{attn_path}.to_out.0.weight" if path[-2] == "to_out" else key
+        w = lin.weight
+        delta = (factors[key + ".lora_a"] @ factors[key + ".lora_b"]).T * s
+        out[name] = (w.float() + delta).to(w.dtype)
     return out
 
 

@@ -23,6 +23,12 @@ with a ControlNet gives its ``controlnet.*`` keys (the embedder's
 without the IP projections the JAX ControlNet carries unused (the port's
 ControlNet has none: its cross-attention is text only), and a LoRA factor tree gives ``adapters/lora.py``'s flat factors
 (``....to_q.weight.lora_a``, not transposed) by the same rules.
+
+``train_state_dict`` carries a JAX trainer state (``init_state``'s or a
+step's: the trainable tree with its ``"lora"`` factors, optax's AdamW
+moments and count, the EMA) into what the port's
+``TrainState.load_state_dict`` takes, so a test can run both trainers from
+the same numbers.
 """
 
 from __future__ import annotations
@@ -77,3 +83,50 @@ def state_dict(tree) -> dict:
     """Flat {diffusers key: torch tensor} for a JAX parameter tree."""
     return {key_for(path): torch.tensor(to_torch_layout(path, leaf))
             for path, leaf in _leaves(tree) if not _controlnet_ip(tree, path)}
+
+
+def trainable_state_dict(tree) -> dict:
+    """{port trainable name: tensor} of a tree shaped as the JAX trainable
+    tree: its ``"lora"`` entry's factors under ``lora.``."""
+    tree = dict(tree)
+    factors = tree.pop("lora", None)
+    out = state_dict(tree)
+    if factors is not None:
+        out.update({f"lora.{k}": v for k, v in state_dict(factors).items()})
+    return out
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
+    stack = [opt_state]
+    while stack:
+        x = stack.pop()
+        if all(hasattr(x, f) for f in ("count", "mu", "nu")):
+            return x
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+    raise ValueError("no AdamW moments in the optax state")
+
+
+def train_state_dict(jax_state, state) -> dict:
+    """A JAX trainer state -> ``state.load_state_dict``'s argument for the
+    port's ``TrainState`` ``state`` (whose optimizer's param groups give
+    the parameters' order): the trainable values, each parameter's AdamW
+    step, exp_avg and exp_avg_sq (optax's count, mu and nu), the update
+    count and the EMA. The lr is left at ``state``'s."""
+    adam = _adam_state(jax_state["opt_state"])
+    count = int(np.asarray(adam.count))
+    mu, nu = trainable_state_dict(adam.mu), trainable_state_dict(adam.nu)
+    names = {id(p): n for n, p in state.trainable.items()}
+    opt = state.optimizer.state_dict()
+    capturable = state.lr.device.type == "cuda"
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    opt["state"] = {i: {"step": torch.tensor(float(count), device=p.device if capturable
+                                             else "cpu"),
+                        "exp_avg": mu[names[id(p)]].to(p.device),
+                        "exp_avg_sq": nu[names[id(p)]].to(p.device)}
+                    for i, p in enumerate(params)}
+    ema = jax_state.get("ema")
+    return {"trainable": trainable_state_dict(jax_state["trainable"]), "optimizer": opt,
+            "count": torch.tensor([count], device=state.count.device), "lr": state.lr.clone(),
+            "step": count, "ema": None if ema is None else trainable_state_dict(ema)}

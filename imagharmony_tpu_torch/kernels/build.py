@@ -8,6 +8,10 @@ named by a hash of the source, the headers and the flags, so an edited
 source or header rebuilds and an unchanged one loads the cached library.
 Only the sources in this directory are compiled; nothing is downloaded.
 
+The host library of ``csrc/image_ops.cpp`` (the data loader's resize, crop
+and normalize, ``native.py``) builds the same way with ``g++``
+(``load_host``), into the same directory under the same naming scheme.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines with no ``nvcc`` and no card.
 """
@@ -55,26 +59,57 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is not built yet, then load
-    it. Raises RuntimeError with nvcc's stderr when the build fails."""
+def _build(so: Path, compiler: str, flags, src: Path) -> ctypes.CDLL:
+    """Compile ``src`` into the library ``so`` unless it is built, then load
+    it. Raises RuntimeError with the compiler's stderr when the build
+    fails."""
     import ctypes
 
-    so = library_path(name)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
-                f"nvcc failed to build {name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stderr}"
+                f"{os.path.basename(compiler)} failed to build {src.name} (exit "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
             )
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return ctypes.CDLL(str(so))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` with nvcc if its library is not built yet,
+    then load it. Raises RuntimeError with nvcc's stderr when the build
+    fails."""
+    return _build(library_path(name), _nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu")
+
+
+# the JAX package's flags for csrc/image_ops.cpp (its native/__init__.py)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library for the host source ``csrc/<name>.cpp`` is (or will
+    be) built, named by a hash of the compiler flags and the source."""
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    path = CSRC / f"{name}.cpp"
+    digest.update(path.name.encode() + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with g++ if its library is not built yet,
+    then load it. Raises RuntimeError with the compiler's stderr when the
+    build fails (there is no fallback)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {name}.cpp needs it")
+    return _build(host_library_path(name), gxx, GXX_FLAGS, CSRC / f"{name}.cpp")
 
 
 def resource_usage(name: str) -> dict:

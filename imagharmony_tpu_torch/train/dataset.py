@@ -13,10 +13,10 @@ train.py:39-184). Per sample:
   dropped (reference train.py:96-104);
 * both tokenizers on text and extra_text.
 
-Host side only (numpy + PIL); a background thread keeps ``prefetch``
-batches ready. The resize/crop/normalize is the PIL path of the JAX
-package's ``native.batch_preprocess``; binding its C++ version
-(csrc/image_ops.cpp) for the port is a later, host-side item.
+Host side only; a background thread keeps ``prefetch`` batches ready. The
+resize, crop and normalize is the C++ code of ``native.batch_preprocess``,
+as in the JAX package (which falls back to PIL only without a compiler;
+the port raises instead).
 """
 
 from __future__ import annotations
@@ -29,21 +29,8 @@ import threading
 import numpy as np
 from PIL import Image
 
+from imagharmony_tpu_torch import native
 from imagharmony_tpu_torch.models import clip_vision
-
-
-def resize_crop_normalize(image: np.ndarray, out_size, *, top, left, mean, std) -> np.ndarray:
-    """HWC uint8 -> (out_size, out_size, 3) float32: bilinear shortest-edge
-    resize to ``out_size``, crop at (top, left) in resized coordinates, then
-    (x / 255 - mean) / std."""
-    im = Image.fromarray(image)
-    w, h = im.size
-    short = min(w, h)
-    nw, nh = round(w * out_size / short), round(h * out_size / short)
-    im = im.resize((nw, nh), Image.BILINEAR)
-    im = im.crop((left, top, left + out_size, top + out_size))
-    arr = np.asarray(im, np.float32) / 255.0
-    return (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
 class HarmonyDataset:
@@ -80,8 +67,9 @@ class HarmonyDataset:
         else:
             top = int(rng.integers(0, dh + 1)) if dh > 0 else 0
             left = int(rng.integers(0, dw + 1)) if dw > 0 else 0
-        pixels = resize_crop_normalize(np.asarray(img, np.uint8), self.size, top=top, left=left,
-                                       mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
+        pixels = native.batch_preprocess(
+            [np.asarray(img, np.uint8)], self.size, tops=[top], lefts=[left],
+            mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))[0]
         clip_pixels = clip_vision.preprocess_numpy(img, image_size=self.clip_image_size)[0]
 
         drop_image = 0.0

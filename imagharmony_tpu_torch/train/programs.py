@@ -8,9 +8,13 @@ graph, replayed once a step: ``step.train_step`` (the forward with its
 checkpoint recompute and the backward of each microbatch, unrolled, the
 clip, AdamW, the EMA) captured at the first step of a key, after any
 resume has loaded the state. A key is (device, resolution, rows per
-microbatch, the ``TrainConfig``): the shapes, the branches (prediction
-type, Min-SNR, noise offset, EMA, clip, grad_accum) and the constants the
-graph bakes in.
+microbatch, the batch's keys, the ``TrainConfig``): the shapes, the
+branches (a live or a cached-encoder batch, prediction type, Min-SNR,
+noise offset, EMA, clip, grad_accum, the LoRA rank, alpha and targets) and
+the constants the graph bakes in. With LoRA the factors and their AdamW
+moments are state tensors like the adapters', changed in place by each
+replay, and the graph merges them into the UNet's weights anew at every
+replay (``step.loss_fn``): no merged weight outlives a step.
 
 A step copies its batch into the program's static input buffers and draws
 its random numbers with the trainer's generator, outside the graph, into
@@ -152,7 +156,7 @@ def run(programs, state: step_lib.TrainState, comps, cfgs, cfg: step_lib.TrainCo
     captured first if the key has none or its program is stale."""
     device = state.lr.device
     rows = next(iter(batch.values())).shape[0]
-    key = (device, resolution, rows // max(cfg.grad_accum, 1), cfg)
+    key = (device, resolution, rows // max(cfg.grad_accum, 1), tuple(sorted(batch)), cfg)
     with torch.cuda.device(device):
         if key not in programs or programs[key].loads != state.loads:
             programs.clear()  # one key at a time: the old graph's pool goes first

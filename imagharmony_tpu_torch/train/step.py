@@ -25,8 +25,18 @@ is gathered on the device from a table of the schedule (``lr_table``) at
 the update count, a device tensor the step advances, into the 0-dim lr
 tensor AdamW reads; the noise schedule is a device tensor cached per
 device. The optimizer is torch.optim.AdamW with optax's defaults
-(``capturable`` on a CUDA device). LoRA training (``lora_rank``) and
-cached-encoder batches are not ported yet and raise.
+(``capturable`` on a CUDA device).
+
+With ``lora_rank`` the UNet's attention projections get trainable fp32
+factors (``adapters/lora.py``), which join the trainable parameters under
+a ``lora.`` prefix (so AdamW, its weight decay, the clip and the EMA take
+them as the JAX step's ``trainable["lora"]``). ``loss_fn`` merges them into
+the frozen weights before the UNet forward, outside the checkpointed
+function, whose argument the merged weights are: as in JAX's
+``jax.checkpoint(_unet_fwd)``, they are saved for the backward and the
+recompute does not merge again. A batch with ``"context"`` is a
+cached-encoder batch (``train/cache.py``): the VAE moments and the towers'
+outputs come with it and no tower runs.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from imagharmony_tpu_torch.adapters import harmony
+from imagharmony_tpu_torch.adapters import lora as lora_lib
 from imagharmony_tpu_torch.models import clip_text
 from imagharmony_tpu_torch.pipelines import components as comp
 from imagharmony_tpu_torch.schedulers import diffusion as sched
@@ -82,6 +93,12 @@ class TrainConfig:
         return (tree_util.adapter_plus_proj_predicate if self.train_image_proj
                 else tree_util.adapter_predicate)
 
+    def lora_config(self) -> Optional[lora_lib.LoRAConfig]:
+        if not self.lora_rank:
+            return None
+        return lora_lib.LoRAConfig(rank=self.lora_rank, alpha=self.lora_alpha,
+                                   targets=tuple(self.lora_targets.split(",")))
+
 
 def decay_mask(names, unet_cfg) -> Dict[str, bool]:
     """True where AdamW weight decay applies: everywhere except the to_k_ip /
@@ -89,7 +106,7 @@ def decay_mask(names, unet_cfg) -> Dict[str, bool]:
     gradients are exactly zero; decay alone would drift the seeded weights
     toward zero in exported checkpoints)."""
     mask = {}
-    for name in names:
+    for name in names:  # LoRA factors ("lora.*") decay, as JAX's mask gives them
         segs = name.split(".")
         if segs[0] == "unet" and ("to_k_ip" in segs or "to_v_ip" in segs):
             mask[name] = unet_cfg.is_ip_active(name)
@@ -168,17 +185,22 @@ class TrainState:
     """The trainable parameters (live tensors of the model, by name), their
     optimizer, the lr schedule as a device table, the update count (on the
     device, ``count``; its host mirror ``step`` names logs and checkpoints)
-    and the optional EMA. ``loads`` counts ``load_state_dict`` calls: a load
-    replaces the optimizer's state tensors, so a program captured before it
-    is stale."""
+    and the optional EMA. With ``lora_rank``, ``factors`` holds the LoRA
+    factors by their ``adapters/lora.py`` key (A ~ N(0, 1/r²) from a CPU
+    generator seeded with ``seed``, B = 0; fp32 on the model's device), the
+    same tensors as the trainable entries ``lora.<key>``; else it is None.
+    ``loads`` counts ``load_state_dict`` calls: a load replaces the
+    optimizer's state tensors, so a program captured before it is stale."""
 
-    def __init__(self, comps: comp.Components, cfg: TrainConfig):
-        if cfg.lora_rank:
-            raise NotImplementedError(
-                "LoRA training is not ported yet: the next slice (ROADMAP A13's training "
-                "half); adapters/lora.py merges trained factors for inference")
+    def __init__(self, comps: comp.Components, cfg: TrainConfig, seed=0):
         self.trainable = tree_util.set_trainable(comps, cfg.predicate())
         device = next(iter(self.trainable.values())).device
+        self.factors = None
+        lcfg = cfg.lora_config()
+        if lcfg is not None:
+            fresh = lora_lib.init_lora(torch.Generator().manual_seed(seed), comps.unet, lcfg)
+            self.factors = {k: v.to(device).requires_grad_() for k, v in fresh.items()}
+            self.trainable.update({f"lora.{k}": v for k, v in self.factors.items()})
         self.lr_table = lr_table(cfg, device)
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.count = torch.zeros(1, dtype=torch.long, device=device)
@@ -217,9 +239,10 @@ class TrainState:
         self.loads += 1
 
 
-def init_state(comps: comp.Components, cfg: TrainConfig) -> TrainState:
-    """Mark the trainable surface on ``comps`` and build its optimizer."""
-    return TrainState(comps, cfg)
+def init_state(comps: comp.Components, cfg: TrainConfig, seed=0) -> TrainState:
+    """Mark the trainable surface on ``comps`` (and with ``lora_rank`` make
+    its factors from ``seed``) and build its optimizer."""
+    return TrainState(comps, cfg, seed)
 
 
 @dataclasses.dataclass
@@ -272,30 +295,45 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
+def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws, factors=None):
     """The training loss of one (micro)batch, fp32 scalar. ``batch``: a dict
-    of tensors on the model's device in the ``dummy_batch`` schema."""
-    if "context" in batch:
-        raise NotImplementedError(
-            "cached-encoder batches (train/cache.py) are not ported yet (ROADMAP A11)")
+    of tensors on the model's device in the ``dummy_batch`` schema, or in
+    ``train/cache.py``'s (``"context"`` among its keys). ``factors``: the
+    LoRA factors (``TrainState.factors``), merged into the UNet's weights
+    for this forward; None for none."""
+    cached = "context" in batch
+    if cached and comps.cfgs.proj_kind != "image_proj":
+        raise ValueError("cached-encoder training supports proj_kind='image_proj' only")
     dt, device = comps.unet.conv_in.weight.dtype, comps.unet.conv_in.weight.device
     acp = sched.alphas_cumprod_on(sched.NoiseScheduleConfig(
         prediction_type=cfg.prediction_type, rescale_betas_zero_snr=cfg.rescale_zero_snr,
     ), device)
     with torch.no_grad():
-        # frozen VAE encode, fp32 whatever the weights (reference train.py:628)
-        latents = comps.vae.encode(_nchw(batch["images"]), eps=_nchw(draws.latent_eps)).to(dt)
+        if cached:
+            # the VAE posterior sampled from the cached moments with the draw
+            # the live path gives vae.encode (JAX step.py:204-210)
+            mean, logvar = _nchw(batch["latent_mean"]), _nchw(batch["latent_logvar"])
+            latents = mean + torch.exp(0.5 * logvar) * _nchw(draws.latent_eps).float()
+            latents = (latents * comps.cfgs.vae.scaling_factor).to(dt)
+        else:
+            # frozen VAE encode, fp32 whatever the weights (reference train.py:628)
+            latents = comps.vae.encode(_nchw(batch["images"]),
+                                       eps=_nchw(draws.latent_eps)).to(dt)
         noise = draws.noise
         if cfg.noise_offset:
             # channel-wise offset (reference train.py:634-636)
             noise = noise + cfg.noise_offset * draws.offset
         noise = _nchw(noise).to(dt)
         noisy = sched.add_noise(acp, latents, noise, draws.timesteps)
-        context, pooled = clip_text.encode_for_sdxl(
-            comps.text_encoder, comps.text_encoder_2, batch["ids_l"], batch["ids_g"])
-        extra_ctx, _ = clip_text.encode_for_sdxl(
-            comps.text_encoder, comps.text_encoder_2, batch["extra_l"], batch["extra_g"])
-        image_embeds = comps.image_encoder(batch["clip_pixels"])["projected"]
+        if cached:
+            context, pooled = batch["context"].to(dt), batch["pooled"].to(dt)
+            extra_ctx, image_embeds = batch["extra_context"].to(dt), batch["image_embeds"].to(dt)
+        else:
+            context, pooled = clip_text.encode_for_sdxl(
+                comps.text_encoder, comps.text_encoder_2, batch["ids_l"], batch["ids_g"])
+            extra_ctx, _ = clip_text.encode_for_sdxl(
+                comps.text_encoder, comps.text_encoder_2, batch["extra_l"], batch["extra_g"])
+            image_embeds = comps.image_encoder(batch["clip_pixels"])["projected"]
     # per-sample CFG dropout of the image condition (reference train.py:651-657)
     image_embeds = image_embeds * (1.0 - batch["drop_image"]).to(image_embeds.dtype)[:, None]
 
@@ -306,17 +344,25 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws):
         [batch["original_size"], batch["crop_coords"], batch["target_size"]], dim=-1
     ).float()
 
-    def unet_fwd(noisy_, t_, ctx_, pooled_, tids_, ip_):
-        return comps.unet(noisy_, t_, ctx_, pooled_text_embeds=pooled_, time_ids=tids_,
-                          ip_tokens=ip_, ip_scale=1.0)
+    # the LoRA merge, outside the checkpointed function: its W' are that
+    # function's argument, kept for the backward, not merged again there
+    weights = (None if factors is None
+               else lora_lib.merged_weights(comps.unet, factors, cfg.lora_config()))
 
-    args = (noisy, draws.timesteps, context, pooled, time_ids, ip_tokens)
+    def unet_fwd(weights_, noisy_, t_, ctx_, pooled_, tids_, ip_):
+        kw = dict(pooled_text_embeds=pooled_, time_ids=tids_, ip_tokens=ip_, ip_scale=1.0)
+        if weights_ is None:
+            return comps.unet(noisy_, t_, ctx_, **kw)
+        return torch.func.functional_call(comps.unet, weights_, (noisy_, t_, ctx_), kw)
+
+    args = (weights, noisy, draws.timesteps, context, pooled, time_ids, ip_tokens)
     if cfg.gradient_checkpoint:
         # recompute the UNet's activations in the backward: the frozen base
-        # has no parameter gradients, only activation gradients. The UNet
-        # draws no random number, so the recompute is exact without the RNG
-        # state that checkpoint would otherwise stash and restore (which a
-        # captured step may not read)
+        # has no parameter gradients, only activation gradients (and, with
+        # LoRA, those of the merged weights). The UNet draws no random
+        # number, so the recompute is exact without the RNG state that
+        # checkpoint would otherwise stash and restore (which a captured
+        # step may not read)
         pred = checkpoint(unet_fwd, *args, use_reentrant=False, preserve_rng_state=False)
     else:
         pred = unet_fwd(*args)
@@ -388,7 +434,7 @@ def train_step(state: TrainState, comps: comp.Components, cfg: TrainConfig, batc
     loss_sum = None
     for i, d in enumerate(draws):
         mb = {k: v[i * rows // a:(i + 1) * rows // a] for k, v in batch.items()}
-        loss = loss_fn(comps, cfg, mb, d)
+        loss = loss_fn(comps, cfg, mb, d, state.factors)
         loss.backward()
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
     if a > 1:

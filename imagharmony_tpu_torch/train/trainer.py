@@ -22,13 +22,19 @@ counterpart of the JAX trainer's donated ``jax.jit`` step); the CPU runs
   and ``--image_encoder_path``); the HA head's widths come from the tree's
   towers, its other sizes from the ``--composed_*`` flags;
 * ``--fusion_method`` takes each of the HA head's four fusions;
-* not ported yet: ``--lora_rank`` (LoRA training, the next slice, ROADMAP
-  A13) and ``--cache_encoders`` (train/cache.py, the slice after, ROADMAP
-  A11); each raises.
+* ``--lora_rank`` trains LoRA factors of the UNet's attention projections
+  with the adapters (``train/step.py``), their A drawn from ``--seed``;
+* ``--cache_encoders`` with ``--data_json_file`` reads the records with a
+  centre crop, computes the towers' outputs once (``train/cache.py``),
+  then removes the four towers from the components and trains on cached
+  batches (with ``--synthetic_data`` it is ignored, as in the JAX
+  trainer).
 
 Metrics go to ``metrics.jsonl`` with the JAX trainer's keys, and every
 ``--save_steps`` (and at ``--max_steps``) the adapters are exported as
-``ip_adapter-N.bin`` (and ``ip_adapter-ema-N.bin`` with ``--ema_decay``).
+``ip_adapter-N.bin`` (and ``ip_adapter-ema-N.bin`` with ``--ema_decay``),
+with LoRA also ``lora-N.safetensors`` (and ``lora-ema-N.safetensors``) in
+the JAX ``save_lora`` format.
 """
 
 from __future__ import annotations
@@ -43,9 +49,11 @@ import time
 import torch
 
 from imagharmony_tpu_torch.adapters import harmony as harmony_lib
+from imagharmony_tpu_torch.adapters import lora as lora_lib
 from imagharmony_tpu_torch.io import checkpoints as ckpt_io
 from imagharmony_tpu_torch.models import tokenizer as tok_lib
 from imagharmony_tpu_torch.pipelines import components as comp
+from imagharmony_tpu_torch.train import cache as cache_lib
 from imagharmony_tpu_torch.train import programs as train_programs
 from imagharmony_tpu_torch.train import step as step_lib
 
@@ -85,9 +93,13 @@ def parse_args(argv=None):
     p.add_argument("--lr_warmup_steps", type=int, default=0)
     p.add_argument("--lr_scheduler", default="constant", choices=["constant", "cosine"],
                    help="cosine decays to 0 over --max_steps")
-    p.add_argument("--lora_rank", type=int, default=None)
-    p.add_argument("--lora_alpha", type=float, default=None)
-    p.add_argument("--lora_targets", default="to_q,to_k,to_v,to_out")
+    p.add_argument("--lora_rank", type=int, default=None,
+                   help="train LoRA factors of this rank on the UNet's attention projections "
+                        "with the adapters (exported as lora-N.safetensors)")
+    p.add_argument("--lora_alpha", type=float, default=None,
+                   help="the LoRA scaling numerator (default: the rank)")
+    p.add_argument("--lora_targets", default="to_q,to_k,to_v,to_out",
+                   help="comma list of the projections to factor")
     p.add_argument("--save_steps", type=int, default=2000)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -104,7 +116,9 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true", help="random tiny bundle (no checkpoints needed)")
     p.add_argument("--full_random", action="store_true",
                    help="full-size random SDXL bundle (no checkpoints needed)")
-    p.add_argument("--cache_encoders", action="store_true")
+    p.add_argument("--cache_encoders", action="store_true",
+                   help="compute the VAE and CLIP outputs once and train without the frozen "
+                        "towers on the device (centre crop only)")
     p.add_argument("--synthetic_data", type=int, default=0,
                    help="use N synthetic batches instead of --data_json_file")
     p.add_argument("--log_every", type=int, default=10,
@@ -203,6 +217,33 @@ def train_config(args, cfgs) -> step_lib.TrainConfig:
     )
 
 
+def make_batches(args, cfgs, comps, tokenizers):
+    """The trainer's batches (numpy dicts of ``--train_batch_size`` times
+    ``--grad_accum`` rows): ``--synthetic_data``'s dummy batches, else the
+    dataset of ``--data_json_file``; with ``--cache_encoders`` the
+    dataset's encoder cache (``cache.precompute``), after which the four
+    towers are dropped from ``comps``."""
+    step_rows = args.train_batch_size * max(args.grad_accum, 1)
+    if args.synthetic_data:
+        return (step_lib.dummy_batch(cfgs, batch_size=step_rows, resolution=args.resolution,
+                                     rng=i) for i in range(args.synthetic_data))
+    from imagharmony_tpu_torch.train.dataset import HarmonyDataset
+
+    ds = HarmonyDataset(
+        args.data_json_file, tokenizers, size=args.resolution,
+        clip_image_size=cfgs.vision.image_size, image_root_path=args.data_root_path,
+        max_token_length=cfgs.text_l.max_position_embeddings,
+    )
+    if not args.cache_encoders:
+        return ds.batches(step_rows, seed=args.seed, epochs=args.num_train_epochs)
+    print(f"precomputing the encoder cache over {len(ds)} records...")
+    enc_cache = cache_lib.precompute(comps, cfgs, ds)
+    freed = cache_lib.drop_towers(comps)  # the step never reads them now
+    print(f"dropped the frozen towers: {freed / 2**30:.3f} GiB")
+    return cache_lib.batches_from_cache(enc_cache, step_rows, seed=args.seed,
+                                        epochs=args.num_train_epochs)
+
+
 def _checkpoints(ckpt_dir):
     """{step: path} of the saved training states."""
     if not os.path.isdir(ckpt_dir):
@@ -230,15 +271,11 @@ def main(argv=None):
     args = parse_args(argv)
     if args.lr_scheduler == "cosine" and not args.max_steps:
         raise SystemExit("--lr_scheduler cosine needs --max_steps (the decay horizon)")
-    if args.cache_encoders and not args.synthetic_data:
-        raise NotImplementedError(
-            "--cache_encoders (train/cache.py) is not ported yet: the slice after LoRA "
-            "training (ROADMAP A11)")
     os.makedirs(args.output_dir, exist_ok=True)
 
     cfgs, comps, tokenizers = build_components(args)
     tcfg = train_config(args, cfgs)
-    state = step_lib.init_state(comps, tcfg)
+    state = step_lib.init_state(comps, tcfg, seed=args.seed)
     n_train = sum(p.numel() for p in state.trainable.values())
     print(f"trainable params: {n_train / 1e6:.2f}M")
 
@@ -255,19 +292,7 @@ def main(argv=None):
         json.dump(dataclasses.asdict(cfgs.harmony), f, indent=2)
 
     step_rows = args.train_batch_size * max(args.grad_accum, 1)
-    if args.synthetic_data:
-        batches = (step_lib.dummy_batch(cfgs, batch_size=step_rows,
-                                        resolution=args.resolution, rng=i)
-                   for i in range(args.synthetic_data))
-    else:
-        from imagharmony_tpu_torch.train.dataset import HarmonyDataset
-
-        ds = HarmonyDataset(
-            args.data_json_file, tokenizers, size=args.resolution,
-            clip_image_size=cfgs.vision.image_size, image_root_path=args.data_root_path,
-            max_token_length=cfgs.text_l.max_position_embeddings,
-        )
-        batches = ds.batches(step_rows, seed=args.seed, epochs=args.num_train_epochs)
+    batches = make_batches(args, cfgs, comps, tokenizers)
     # skip the batches the interrupted run consumed; the generator state
     # came back with the checkpoint
     for _ in range(start_step):
@@ -337,6 +362,10 @@ def _export_adapter(args, cfgs, comps, state, step):
             harmony=comps.harmony, harmony_cfg=cfgs.harmony,
         )
         print("exported", path)
+        if state.factors is not None:
+            lpath = os.path.join(args.output_dir, f"lora{tag}.safetensors")
+            lora_lib.save_lora(lpath, state.factors, train_config(args, cfgs).lora_config())
+            print("exported", lpath)
 
     export(f"-{step}")
     if state.ema is not None:

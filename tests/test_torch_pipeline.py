@@ -110,6 +110,20 @@ def test_tiny_edit_matches_golden(pipes):
     assert len(images) == 3 and scores.shape == (3,) and np.abs(scores).max() <= 1.0 + 1e-5
     np.testing.assert_array_equal(best, images[int(np.argmax(scores))])
 
+    # CLIP-I and CLIP-T (utils/clip_metrics.py) against JAX's, floats and
+    # uint8, a single reference broadcast over the edited images
+    from imagharmony_tpu.utils import clip_metrics as jcm
+    from imagharmony_tpu_torch.utils import clip_metrics as pcm
+
+    u8 = np.random.default_rng(2).integers(0, 255, (3, 40, 56, 3), dtype=np.uint8)
+    for edited, reference in ((imgs, u8[:1]), (u8, imgs), (u8, u8[:1])):
+        close(pcm.clip_i(port, edited, reference), jcm.clip_i(jpipe, edited, reference),
+              rtol=0, atol=1e-5)
+    for edited in (imgs, u8):
+        close(pcm.clip_t(port, edited, "a dog"), jcm.clip_t(jpipe, edited, "a dog"),
+              rtol=0, atol=1e-5)
+    close(pcm.image_embeds(port, u8), jcm.image_embeds(jpipe, u8), rtol=0, atol=1e-5)
+
 
 def test_build_conditioning_matches_jax(pipes):
     """CFG-packed [uncond | cond] conditioning with num_samples=2. Then

@@ -11,6 +11,7 @@ there with
 """
 
 import copy
+import dataclasses
 import json
 import os
 
@@ -83,29 +84,149 @@ def _case(fusion_method="cross_attention"):
                 grad_norm=float(optax.global_norm(grads)), state=state, frozen=frozen)
 
 
-def test_train_step_loss_and_gradients_match_jax(case):
+LORA = dict(lora_rank=2, lora_alpha=3.0)  # scale 1.5
+
+
+@pytest.fixture(scope="module")
+def lora_case(case):
+    """The JAX trainer state with LoRA factors (``LORA``) whose B is drawn
+    nonzero (a fresh B is 0, and then dA = s * dW' B^T is exactly 0), and
+    JAX's loss and gradients for the case's batch and key."""
+    import jax
+    import optax
+
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.train import step as jstep
+
+    jcfgs = case["jcfgs"]
+    tcfg_j = jstep.TrainConfig(unet_cfg=jcfgs.unet, gradient_checkpoint=False, **LORA)
+    state, frozen = jstep.init_state(case["params"], tcfg_j, seed=7)
+    r = np.random.default_rng(11)  # B at 1e-2: deltas ~15% of the weights' spread
+    state["trainable"]["lora"] = jax.tree_util.tree_map_with_path(
+        lambda path, x: (r.normal(size=x.shape).astype(np.float32) * 0.01
+                         if path[-1].key == "lora_b" else x), state["trainable"]["lora"])
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda tr, fr, b, k: jstep.loss_fn(tr, fr, jcfgs, tcfg_j, b, k, policy=jdt.FP32)))
+    loss, grads = grad_fn(state["trainable"], frozen, case["batch"], jax.random.PRNGKey(7))
+    return dict(tcfg_j=tcfg_j, state=state, loss=float(loss), grads=jax.device_get(grads),
+                grad_norm=float(optax.global_norm(grads)))
+
+
+def _cached_batch(jcfgs, rows=2, resolution=32):
+    """A batch in train/cache.py's schema, random (JAX layout, numpy)."""
+    r = np.random.default_rng(12)
+    side = resolution // jcfgs.vae.downscale
+    seq = jcfgs.text_l.max_position_embeddings
+    ctx = jcfgs.text_l.hidden_size + jcfgs.text_g.hidden_size
+
+    def f32(*shape):
+        return r.normal(size=shape).astype(np.float32)
+
+    return {"latent_mean": f32(rows, side, side, 4), "latent_logvar": f32(rows, side, side, 4) - 2,
+            "context": f32(rows, seq, ctx), "pooled": f32(rows, jcfgs.text_g.projection_dim),
+            "extra_context": f32(rows, seq, ctx),
+            "image_embeds": f32(rows, jcfgs.vision.projection_dim),
+            "original_size": np.full((rows, 2), resolution, np.float32),
+            "crop_coords": np.zeros((rows, 2), np.float32),
+            "target_size": np.full((rows, 2), resolution, np.float32),
+            "drop_image": np.array([0.0, 1.0], np.float32)[:rows]}
+
+
+def test_train_step_loss_and_gradients_match_jax(case, lora_case):
     """The port's loss on the JAX draws: loss and grad_norm within 1e-5
     relative, every trainable gradient within 1e-4 of its leaf's max-abs
     (with a floor of 1e-9: a leaf whose gradient is zero in exact arithmetic,
     such as the HA cross-attention's to_k bias, carries only ~1e-12 of fp32
     noise on both sides). Inert IP projections have no gradient in the port
     and exact zeros in JAX. Then the same with the HA head's ``qformer``
-    fusion (the trainer's ``--fusion_method qformer``)."""
+    fusion (the trainer's ``--fusion_method qformer``); with LoRA factors
+    carried from the JAX state (B nonzero), their A and B gradients
+    included; with ``lora_alpha`` 0, the plain step's loss and gradients
+    (the JAX package's own check); and on a cached-encoder batch with the
+    towers dropped, against JAX's cached branch."""
     _check_loss_and_gradients(case)
     _check_loss_and_gradients(_case("qformer"))
+    grads = _check_loss_and_gradients(
+        case, pstep.TrainConfig(unet_cfg=case["pcfgs"].unet, **LORA), lora_case)
+    lora_grads = [g for n, g in grads.items() if n.startswith("lora.")]
+    assert lora_grads and all(g is not None and float(g.abs().max()) > 0 for g in lora_grads)
+
+    # lora_alpha 0: the merge adds exact zeros, so the plain step's values
+    plain = _loss_and_grads(case, pstep.TrainConfig(unet_cfg=case["pcfgs"].unet))
+    zero = _loss_and_grads(case, pstep.TrainConfig(unet_cfg=case["pcfgs"].unet, lora_rank=2,
+                                                   lora_alpha=0.0))
+    assert abs(zero[0] - plain[0]) <= 1e-6 * abs(plain[0])
+    for name, g in plain[1].items():
+        close(zero[1][name], g, rtol=0, atol=max(1e-6 * float(g.abs().max()), 1e-9))
+    assert all(float(g.abs().max()) == 0 for n, g in zero[1].items() if n.startswith("lora."))
+
+    _check_cached(case)
 
 
-def _check_loss_and_gradients(case):
+def _loss_and_grads(case, tcfg):
+    """The port's loss on the case's batch and draws and its trainable
+    gradients by name (None for none)."""
     comps = copy.deepcopy(case["comps"])
+    state = pstep.init_state(comps, tcfg, seed=3)
+    loss = pstep.loss_fn(comps, tcfg, pstep.to_device(case["batch"], "cpu"), case["draws"],
+                         state.factors)
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in state.trainable.items() if p.grad is not None}
+
+
+def _check_cached(case):
+    """loss_fn on a cached-encoder batch, the four towers dropped, against
+    JAX's cached branch (the same latent draw as the live path's), loss and
+    gradients under the live check's tolerances."""
+    import jax
+
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.train import step as jstep
+    from imagharmony_tpu_torch.train import cache as pcache
+
+    jcfgs = case["jcfgs"]
+    batch = _cached_batch(jcfgs)
+    frozen = {k: (None if k in pcache.TOWERS else v) for k, v in case["frozen"].items()}
+    tcfg_j = jstep.TrainConfig(unet_cfg=jcfgs.unet, gradient_checkpoint=False)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda tr, fr, b, k: jstep.loss_fn(tr, fr, jcfgs, tcfg_j, b, k, policy=jdt.FP32)))(
+        case["state"]["trainable"], frozen, batch, jax.random.PRNGKey(7))
+    comps = copy.deepcopy(case["comps"])
+    assert pcache.drop_towers(comps) > 0 and comps.vae is None and comps.image_encoder is None
     tcfg = pstep.TrainConfig(unet_cfg=case["pcfgs"].unet)
     state = pstep.init_state(comps, tcfg)
-    loss = pstep.loss_fn(comps, tcfg, pstep.to_device(case["batch"], "cpu"), case["draws"])
+    got = pstep.loss_fn(comps, tcfg, pstep.to_device(batch, "cpu"), case["draws"])
+    got.backward()
+    assert abs(got.item() - float(loss)) <= 1e-5 * abs(float(loss))
+    ref = from_jax.state_dict(jax.device_get(grads))
+    for name, p in state.trainable.items():
+        r = ref[name].numpy()
+        g = np.zeros_like(r) if p.grad is None else np_(p.grad)
+        np.testing.assert_allclose(g, r, rtol=0, atol=max(1e-4 * np.abs(r).max(), 1e-9),
+                                   err_msg=name)
+    comps.cfgs = dataclasses.replace(case["pcfgs"], proj_kind="resampler")
+    with pytest.raises(ValueError, match="image_proj"):
+        pstep.loss_fn(comps, tcfg, pstep.to_device(batch, "cpu"), case["draws"])
+
+
+def _check_loss_and_gradients(case, tcfg=None, ref_case=None):
+    """The port's loss and trainable gradients against ``ref_case``'s JAX
+    ones (``case``'s by default); with LoRA the port's state is carried from
+    the JAX state (``from_jax.train_state_dict``). Returns the gradients."""
+    ref_case = ref_case or case
+    comps = copy.deepcopy(case["comps"])
+    tcfg = tcfg or pstep.TrainConfig(unet_cfg=case["pcfgs"].unet)
+    state = pstep.init_state(comps, tcfg)
+    if tcfg.lora_rank:
+        state.load_state_dict(from_jax.train_state_dict(ref_case["state"], state))
+    loss = pstep.loss_fn(comps, tcfg, pstep.to_device(case["batch"], "cpu"), case["draws"],
+                         state.factors)
     loss.backward()
-    assert abs(loss.item() - case["loss"]) <= 1e-5 * abs(case["loss"])
-    ref = from_jax.state_dict(case["grads"])
+    assert abs(loss.item() - ref_case["loss"]) <= 1e-5 * abs(ref_case["loss"])
+    ref = from_jax.trainable_state_dict(ref_case["grads"])
     assert set(ref) == set(state.trainable)
     norm = pstep.global_norm([p.grad for p in state.trainable.values()])
-    assert abs(float(norm) - case["grad_norm"]) <= 1e-5 * case["grad_norm"]
+    assert abs(float(norm) - ref_case["grad_norm"]) <= 1e-5 * ref_case["grad_norm"]
     assert case["pcfgs"].harmony.fusion_method == case["jcfgs"].harmony.fusion_method
     n_live = 0
     for name, p in state.trainable.items():
@@ -115,6 +236,7 @@ def _check_loss_and_gradients(case):
                                    err_msg=name)
         n_live += p.grad is not None
     assert 0 < n_live < len(state.trainable)  # inert projections get none
+    return {n: p.grad for n, p in state.trainable.items()}
 
 
 @pytest.mark.parametrize("train_image_proj", [False, True], ids=["adapter", "adapter+proj"])
@@ -133,13 +255,17 @@ def test_trainable_surface_matches_jax(case, train_image_proj):
     assert all(p.requires_grad == (n in trainable) for n, p in comps.named_parameters())
 
 
-def test_adamw_matches_optax(case):
+def test_adamw_matches_optax(case, lora_case):
     """The same gradients into optax (JAX make_optimizer: clip_by_global_norm
     then masked adamw) and into the port's update: parameters after one and
     two updates within 1e-6. Both branches of the port's branch-free clip:
     the gradients' norm above max_grad_norm (the clip scales them), then a
     quarter of the gradients, exact in fp32, whose norm is below it (the
-    clip keeps them)."""
+    clip keeps them). Then with LoRA factors (decayed, as JAX's mask gives
+    them) and the EMA (JAX make_train_step's formula): the port's state
+    carried from the JAX state before the first update, and a second port
+    state carried from JAX's after it (AdamW moments and count included),
+    both against optax after the second."""
     import jax
     import optax
 
@@ -169,6 +295,44 @@ def test_adamw_matches_optax(case):
             ref = from_jax.state_dict(jax.device_get(trainable))
             for n, p in state.trainable.items():
                 close(p, ref[n], rtol=0, atol=1e-6)
+
+    # LoRA factors and the EMA
+    decay = 0.9
+    lkw = dict(kw, max_grad_norm=0.5 * lora_case["grad_norm"], ema_decay=decay)
+    tx_l = jstep.make_optimizer(dataclasses.replace(lora_case["tcfg_j"], **lkw))
+    tcfg = pstep.TrainConfig(unet_cfg=case["pcfgs"].unet, **lkw, **LORA)
+
+    @jax.jit
+    def update_l(grads, opt_state, trainable):
+        updates, opt_state = tx_l.update(grads, opt_state, trainable)
+        return optax.apply_updates(trainable, updates), opt_state
+
+    jgrads = lora_case["grads"]
+    grads = from_jax.trainable_state_dict(jgrads)
+    jstate = {"trainable": lora_case["state"]["trainable"],
+              "opt_state": tx_l.init(lora_case["state"]["trainable"]),
+              "ema": lora_case["state"]["trainable"]}
+    ports = []
+    for step in range(2):
+        state = pstep.init_state(copy.deepcopy(case["comps"]), tcfg)
+        state.load_state_dict(from_jax.train_state_dict(jstate, state))
+        ports.append(state)
+        trainable, opt_state = update_l(jgrads, jstate["opt_state"], jstate["trainable"])
+        jstate = {"trainable": trainable, "opt_state": opt_state,
+                  "ema": jax.tree.map(lambda e, p: e * decay + p * (1.0 - decay),
+                                      jstate["ema"], trainable)}
+        for state in ports:
+            for n, p in state.trainable.items():
+                p.grad = grads[n].clone()
+            pstep.apply_update(state, tcfg)
+    ref = from_jax.trainable_state_dict(jax.device_get(jstate["trainable"]))
+    ref_ema = from_jax.trainable_state_dict(jax.device_get(jstate["ema"]))
+    assert any(n.startswith("lora.") for n in ref) and set(ref) == set(ports[0].trainable)
+    for state in ports:
+        assert state.step == 2 and int(state.count) == 2
+        for n, p in state.trainable.items():
+            close(p, ref[n], rtol=0, atol=1e-6)
+            close(state.ema[n], ref_ema[n], rtol=0, atol=1e-6)
 
 
 def test_inert_ip_projections_not_decayed(case):
@@ -389,17 +553,24 @@ def _records(tmp_path, n=2):
 
 
 @pytest.mark.parametrize("center_crop", [True, False], ids=["center", "random"])
-def test_dataset_load_sample_matches_jax(tmp_path, monkeypatch, center_crop):
-    """load_sample against the JAX HarmonyDataset on its PIL path (its
-    native library switched off here), the same numpy rng: equal values."""
-    from imagharmony_tpu import native
+def test_dataset_load_sample_matches_jax(case, tmp_path, monkeypatch, center_crop):
+    """load_sample against the JAX HarmonyDataset, the same numpy rng: equal
+    values, the pixels bit for bit (both through the C++ resize, the port's
+    ``native`` binding and the JAX package's). The binding on its own: bit
+    for bit the JAX ``native.batch_preprocess`` with one thread, eight and
+    the default, and within ``tests/test_native.py``'s tolerance of its PIL
+    version; a source g++ refuses raises with its message. With the centre
+    crop, the encoder cache: ``precompute`` on 4 PNG records (48², batch 2)
+    against JAX's, and ``batches_from_cache`` bit for bit JAX's, with
+    dropout rates 0 and 1."""
+    from imagharmony_tpu import native as jnative
     from imagharmony_tpu.models import tokenizer as jtok
     from imagharmony_tpu.train.dataset import HarmonyDataset as JaxDataset
+    from imagharmony_tpu_torch import native
     from imagharmony_tpu_torch.models import tokenizer as ptok
     from imagharmony_tpu_torch.train.dataset import HarmonyDataset
 
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_TRIED", True)
+    assert jnative.available()
     path = _records(tmp_path)
     kw = dict(size=32, clip_image_size=28, center_crop=center_crop, max_token_length=16,
               image_root_path=str(tmp_path), i_drop_rate=0.3, t_drop_rate=0.3)
@@ -413,6 +584,75 @@ def test_dataset_load_sample_matches_jax(tmp_path, monkeypatch, center_crop):
         for k in a:
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 255, (96, 64, 3), dtype=np.uint8),
+            rng.integers(0, 255, (64, 100, 3), dtype=np.uint8)] * 4
+    pre = dict(tops=[4, 0] * 4, lefts=[0, 6] * 4, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
+    want = jnative.batch_preprocess(imgs, 32, **pre)
+    for threads in (0, 1, 8):
+        np.testing.assert_array_equal(native.batch_preprocess(imgs, 32, num_threads=threads,
+                                                              **pre), want)
+    err = np.abs(want - native.batch_preprocess_plain(imgs, 32, **pre))
+    assert np.median(err) < 0.02 and err.mean() < 0.05
+    if center_crop:
+        _check_cache(case, tmp_path)
+    else:
+        from imagharmony_tpu_torch.kernels import build
+
+        (tmp_path / "csrc").mkdir()
+        (tmp_path / "csrc" / "image_ops.cpp").write_text("int broken(;\n")
+        monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+        with pytest.raises(RuntimeError, match=r"g\+\+ failed to build image_ops.cpp(.|\n)*"
+                                               r"error"):
+            build.load_host.__wrapped__("image_ops")
+
+
+def _check_cache(case, tmp_path):
+    from PIL import Image
+
+    from imagharmony_tpu import dtypes as jdt
+    from imagharmony_tpu.models import tokenizer as jtok
+    from imagharmony_tpu.train import cache as jcache
+    from imagharmony_tpu.train.dataset import HarmonyDataset as JaxDataset
+    from imagharmony_tpu_torch.models import tokenizer as ptok
+    from imagharmony_tpu_torch.train import cache as pcache
+    from imagharmony_tpu_torch.train.dataset import HarmonyDataset
+
+    rng = np.random.default_rng(0)
+    records = []
+    for i in range(4):  # the JAX package's own cache drill's records
+        Image.fromarray(rng.integers(0, 255, (48, 48, 3), dtype=np.uint8)).save(
+            tmp_path / f"c{i}.png")
+        records.append({"image_file": f"c{i}.png", "text": "a dog", "extra_text": "six dogs"})
+    (tmp_path / "c.json").write_text(json.dumps(records))
+    jcfgs, pcfgs = case["jcfgs"], case["pcfgs"]
+    kw = dict(size=32, clip_image_size=jcfgs.vision.image_size, center_crop=True,
+              image_root_path=str(tmp_path))
+    jt, pt = jtok.build_toy_tokenizer(), ptok.build_toy_tokenizer()
+    jds = JaxDataset(tmp_path / "c.json", jtok.SDXLTokenizers(jt, jt), **kw)
+    pds = HarmonyDataset(tmp_path / "c.json", ptok.SDXLTokenizers(pt, pt), **kw)
+    want = jcache.precompute(case["params"], jcfgs, jds, batch_size=2, policy=jdt.FP32)
+    got = pcache.precompute(case["comps"], pcfgs, pds, batch_size=2)
+    assert set(got) == set(want) and got["latent_mean"].shape == want["latent_mean"].shape
+    for k in want:
+        close(got[k], want[k], rtol=2e-5, atol=2e-5, err_msg=k)
+    assert (pds.i_drop_rate, pds.t_drop_rate) == (0.05, 0.05)
+    with pytest.raises(ValueError, match="center_crop"):
+        pds.center_crop = False
+        pcache.precompute(case["comps"], pcfgs, pds)
+    for rates in ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)):
+        drop = dict(zip(("i_drop_rate", "t_drop_rate", "ti_drop_rate"), rates))
+        a = jcache.batches_from_cache(want, 3, seed=5, epochs=2, drop_remainder=False, **drop)
+        b = pcache.batches_from_cache(want, 3, seed=5, epochs=2, drop_remainder=False, **drop)
+        n = 0
+        for x, y in zip(a, b, strict=True):
+            assert set(x) == set(y)
+            for k in x:
+                np.testing.assert_array_equal(y[k], x[k], err_msg=k)
+            n += 1
+        assert n == 4
+
 
 def _tiny_args(out, *extra):
     return ["--tiny", "--synthetic_data", "6", "--train_batch_size", "2", "--resolution", "32",
@@ -422,9 +662,17 @@ def _tiny_args(out, *extra):
 
 def test_trainer_resume_is_bit_identical(tmp_path):
     """4 steps straight equal 2 steps plus a --resume to 4, bit for bit:
-    the losses of every step and every exported tensor (live and EMA)."""
-    a, b = tmp_path / "straight", tmp_path / "resumed"
-    extra = ("--ema_decay", "0.9")
+    the losses of every step and every exported tensor (live and EMA); and
+    the same with LoRA factors in the state (``--lora_rank 2 --ema_decay
+    0.99``, the JAX package's LoRA drill), their exports included."""
+    for extra in (("--ema_decay", "0.9"), ("--lora_rank", "2", "--ema_decay", "0.99")):
+        _resume_drill(tmp_path / extra[0].strip("-"), extra)
+
+
+def _resume_drill(root, extra):
+    from imagharmony_tpu_torch.adapters import lora as plora
+
+    a, b = root / "straight", root / "resumed"
     assert ptrainer.main(_tiny_args(a, "--max_steps", "4", *extra)) == 4
     assert ptrainer.main(_tiny_args(b, "--max_steps", "2", *extra)) == 2
     assert ptrainer.main(_tiny_args(b, "--max_steps", "4", "--resume", *extra)) == 4
@@ -440,6 +688,11 @@ def test_trainer_resume_is_bit_identical(tmp_path):
             assert set(x[group]) == set(y[group])
             for k in x[group]:
                 torch.testing.assert_close(x[group][k], y[group][k], rtol=0, atol=0)
+        if "--lora_rank" in extra:
+            (x, cx), (y, cy) = (plora.load_lora(d / f"lora{tag}.safetensors") for d in (a, b))
+            assert cx == cy and set(x) == set(y) and x
+            for k in x:
+                torch.testing.assert_close(x[k], y[k], rtol=0, atol=0)
     assert sorted(os.listdir(b / "checkpoints")) == ["step-2.pt", "step-4.pt"]
     line = json.loads(open(a / "metrics.jsonl").readline())
     assert set(line) == {"step", "loss", "grad_norm", "step_time_s", "data_time_s", "wall"}
@@ -493,25 +746,95 @@ def test_trainer_json_data_one_step(tmp_path):
         torch.testing.assert_close(sd[k], sd[k.replace("_ip.", ".")], rtol=0, atol=0)
 
 
-def test_trainer_refuses_unported_modes(tmp_path):
-    """LoRA training and cached-encoder batches still raise, naming the next
-    slice; a missing tree raises. And the CLI's ``train`` passes its
-    arguments through to the trainer: two tiny steps with the qformer
-    fusion, their metrics written."""
+def test_trainer_refuses_unported_modes(tmp_path, monkeypatch):
+    """The CLI's ``train`` passes its arguments through to the trainer (two
+    tiny steps with the qformer fusion, their metrics written); a missing
+    tree raises. The modes that used to raise run: ``--lora_rank 2`` trains
+    two steps, its exported ``lora-2.safetensors`` loads with JAX's
+    ``load_lora`` to the same arrays (and a file JAX's ``save_lora`` wrote
+    loads with the port's), and the port's ``with_lora`` of it, on the
+    packed inference UNet, gives the training merge's weights bit for bit;
+    ``--cache_encoders`` on a JSON dataset trains two steps with the four
+    towers gone from the components and their tensors freed."""
+    import gc
+    import weakref
+
+    from imagharmony_tpu.adapters import lora as jlora
     from imagharmony_tpu_torch import cli as pcli
+    from imagharmony_tpu_torch.adapters import lora as plora
+    from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
+    from imagharmony_tpu_torch.train import cache as pcache
 
     assert pcli.main(["train", *_tiny_args(tmp_path / "cli", "--max_steps", "2",
                                            "--fusion_method", "qformer")]) == 0
     lines = (tmp_path / "cli" / "metrics.jsonl").read_text().splitlines()
     assert [json.loads(x)["step"] for x in lines] == [1, 2]
-    with pytest.raises(NotImplementedError, match="A13"):
-        ptrainer.main(_tiny_args(tmp_path, "--lora_rank", "2", "--max_steps", "1"))
     # a missing tree raises, as the JAX load_pipeline does
     with pytest.raises(FileNotFoundError):
         ptrainer.main(["--pretrained_model_name_or_path", str(tmp_path / "missing"),
                        "--device", "cpu", "--output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="cache"):
-        pstep.loss_fn(None, pstep.TrainConfig(), {"context": None}, None)
+
+    # LoRA: two steps, the export read by both packages
+    out = tmp_path / "lora"
+    argv = _tiny_args(out, "--lora_rank", "2", "--lora_alpha", "4", "--max_steps", "2")
+    assert ptrainer.main(argv) == 2
+    factors, cfg = plora.load_lora(out / "lora-2.safetensors")
+    assert (cfg.rank, cfg.scale) == (2, 2.0) and factors
+    trained = torch.load(out / "checkpoints" / "step-2.pt", weights_only=True)["trainable"]
+    jtree, jcfg = jlora.load_lora(str(out / "lora-2.safetensors"))
+    assert (jcfg.rank, jcfg.alpha, jcfg.targets) == (2, 4.0, cfg.targets)
+    flat = jlora.flatten(jtree)
+    assert set(flat) == set(factors)
+    for k, v in factors.items():
+        np.testing.assert_array_equal(flat[k], v.numpy(), err_msg=k)
+        torch.testing.assert_close(v, trained[f"lora.{k}"], rtol=0, atol=0)
+        assert float(v.abs().max()) > 0
+    jlora.save_lora(str(tmp_path / "jax_lora.safetensors"), jtree, jcfg)
+    back, back_cfg = plora.load_lora(tmp_path / "jax_lora.safetensors")
+    assert back_cfg == cfg and set(back) == set(factors)
+    for k in back:
+        torch.testing.assert_close(back[k], factors[k], rtol=0, atol=0)
+    # with_lora on the packed inference UNet: the training merge's bits
+    _, comps, _ = ptrainer.build_components(ptrainer.parse_args(argv))
+    merged = plora.merged_weights(comps.unet, factors, cfg)
+    pipe = HarmonyPipeline._build(copy.deepcopy(comps)).with_lora(out / "lora-2.safetensors")
+    n_proj = 0
+    for name, w in merged.items():
+        attn = name[:name.index(".attn") + len(".attn1")]
+        proj = name[len(attn) + 1:].split(".")[0]
+        lin, rows = plora._row_slice(pipe.components.unet.get_submodule(attn), proj)
+        torch.testing.assert_close(lin.weight[rows], w, rtol=0, atol=0)
+        n_proj += 1
+    assert n_proj == len(factors) // 2
+
+    # the encoder cache: the towers gone by the first step
+    data = _records(tmp_path)
+    refs, seen = [], []
+    drop = pcache.drop_towers
+
+    def drop_watched(comps):
+        refs.extend(weakref.ref(t) for name in pcache.TOWERS
+                    for t in getattr(comps, name).parameters())
+        return drop(comps)
+
+    step = pstep.train_step
+
+    def step_watched(state, comps, *a, **kw):
+        gc.collect()
+        seen.append((all(getattr(comps, n) is None for n in pcache.TOWERS),
+                     sum(r() is not None for r in refs)))
+        return step(state, comps, *a, **kw)
+
+    monkeypatch.setattr(pcache, "drop_towers", drop_watched)
+    monkeypatch.setattr(pstep, "train_step", step_watched)
+    out = tmp_path / "cached"
+    assert ptrainer.main(["--tiny", "--data_json_file", str(data), "--data_root_path",
+                          str(tmp_path), "--cache_encoders", "--train_batch_size", "2",
+                          "--resolution", "32", "--max_steps", "2", "--mixed_precision", "no",
+                          "--device", "cpu", "--output_dir", str(out)]) == 2
+    assert refs and seen == [(True, 0), (True, 0)]
+    losses = [json.loads(x)["loss"] for x in open(out / "metrics.jsonl")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def _eager_trainer(argv, steps):
@@ -521,7 +844,7 @@ def _eager_trainer(argv, steps):
     args = ptrainer.parse_args(argv)
     cfgs, comps, _ = ptrainer.build_components(args)
     tcfg = ptrainer.train_config(args, cfgs)
-    state = pstep.init_state(comps, tcfg)
+    state = pstep.init_state(comps, tcfg, seed=args.seed)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     metrics = []
     for i in range(steps):
@@ -544,29 +867,40 @@ def test_cuda_tiny_train_step_matches_cpu(cuda, tmp_path, monkeypatch):
     steps equal the eager ``train_step``'s on the same seed bit for bit
     (where two eager runs differ, they are no further from the first than
     the second is); and 2 steps plus a ``--resume`` to 4, each run through a
-    captured program, equal 4 straight, bit for bit."""
+    captured program, equal 4 straight, bit for bit. The step and the
+    trainer's 4 captured steps again with LoRA factors (``--lora_rank 2``;
+    for the step, B drawn nonzero), their gradients in the cosine."""
     from imagharmony_tpu_torch.train import programs as ptprograms
 
     cfgs = pcomp.tiny_configs()
     cpu = pcomp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
     card = copy.deepcopy(cpu).to(device=cuda, dtype=torch.bfloat16)
-    tcfg = pstep.TrainConfig(unet_cfg=cfgs.unet)
     batch = pstep.dummy_batch(cfgs, 2, 32)
-    draws = pstep.draw(torch.Generator().manual_seed(1), cfgs, tcfg, 2, 32)
-    grads = []
-    for comps, dev in ((cpu, "cpu"), (card, cuda)):
-        state = pstep.init_state(comps, tcfg)
-        d = pstep.Draws(*(x.to(dev) for x in (draws.noise, draws.timesteps, draws.latent_eps)))
-        k3 = fa.bwd_launches
-        loss = pstep.loss_fn(comps, tcfg, pstep.to_device(batch, dev), d)
-        loss.backward()
-        grads.append((float(loss.detach()), torch.cat([
-            (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu().flatten()
-            for p in state.trainable.values()])))
-    (l_cpu, g_cpu), (l_card, g_card) = grads
-    assert fa.bwd_launches > k3
-    assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu)
-    assert float(torch.nn.functional.cosine_similarity(g_card, g_cpu, dim=0)) >= 0.99
+    for tcfg in (pstep.TrainConfig(unet_cfg=cfgs.unet),
+                 pstep.TrainConfig(unet_cfg=cfgs.unet, lora_rank=2)):
+        draws = pstep.draw(torch.Generator().manual_seed(1), cfgs, tcfg, 2, 32)
+        grads = []
+        for comps, dev in ((cpu, "cpu"), (card, cuda)):
+            state = pstep.init_state(comps, tcfg)
+            gen = torch.Generator().manual_seed(2)
+            with torch.no_grad():
+                for k, f in (state.factors or {}).items():
+                    if k.endswith(".lora_b"):
+                        f.copy_(torch.randn(f.shape, generator=gen) * 0.01)
+            d = pstep.Draws(*(x.to(dev) for x in (draws.noise, draws.timesteps,
+                                                   draws.latent_eps)))
+            k3 = fa.bwd_launches
+            loss = pstep.loss_fn(comps, tcfg, pstep.to_device(batch, dev), d, state.factors)
+            loss.backward()
+            grads.append((float(loss.detach()), torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu().flatten()
+                for p in state.trainable.values()])))
+            for p in comps.parameters():
+                p.grad = None
+        (l_cpu, g_cpu), (l_card, g_card) = grads
+        assert fa.bwd_launches > k3
+        assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu)
+        assert float(torch.nn.functional.cosine_similarity(g_card, g_cpu, dim=0)) >= 0.99
 
     captures = []
     init = ptprograms.TrainProgram.__init__
@@ -597,12 +931,12 @@ def test_cuda_tiny_train_step_matches_cpu(cuda, tmp_path, monkeypatch):
     got, got_p = losses(straight), trained(straight)
     (want, want_p), (want2, want2_p) = (_eager_trainer(card_args(tmp_path, 4), 4)
                                         for _ in range(2))
+    def gap(x, y):
+        return max(abs(a - b) for u, v in zip(x, y) for a, b in zip(u, v))
+
     if want == want2 and dist(want_p, want2_p) == 0:
         assert got == want and dist(got_p, want_p) == 0
     else:  # a backward that is not deterministic: no further than two eager runs
-        def gap(x, y):
-            return max(abs(a - b) for u, v in zip(x, y) for a, b in zip(u, v))
-
         assert gap(got, want) <= gap(want2, want)
         assert dist(got_p, want_p) <= dist(want2_p, want_p)
 
@@ -610,6 +944,18 @@ def test_cuda_tiny_train_step_matches_cpu(cuda, tmp_path, monkeypatch):
     assert ptrainer.main(card_args(resumed, 4, "--resume")) == 4
     assert len(captures) == 3
     assert losses(resumed) == got and dist(trained(resumed), got_p) == 0
+
+    lora = tmp_path / "lora"
+    assert ptrainer.main(card_args(lora, 4, "--lora_rank", "2")) == 4 and len(captures) == 4
+    got, got_p = losses(lora), trained(lora)
+    (want, want_p), (want2, want2_p) = (_eager_trainer(card_args(tmp_path, 4, "--lora_rank",
+                                                                  "2"), 4) for _ in range(2))
+    assert any(n.startswith("lora.") for n in got_p)
+    if want == want2 and dist(want_p, want2_p) == 0:
+        assert got == want and dist(got_p, want_p) == 0
+    else:
+        assert gap(got, want) <= gap(want2, want)
+        assert dist(got_p, want_p) <= dist(want2_p, want_p)
 
 
 def test_profile_summary_classes_and_idle_share(tmp_path):
