@@ -251,7 +251,29 @@ is non-zero:
    replays bit for bit the eager steps, phase 7's launches; (c) the
    image-ops binding (host C++) on those 8 images: built, its threads bit
    for bit, within ``tests/test_native.py``'s tolerance of PIL, its host
-   time against PIL's on a line of its own.
+   time against PIL's on a line of its own;
+16. the parallel layer (``parallel/``; (a) runs after 3j with the kernel
+   phases, (b) after 7, whose run it repeats, (c) last): (a) K1, K2 and K5 at the 2-way
+   tensor-parallel shard shapes of the SDXL edit (heads and FFN widths
+   halved: K1 (2, 4096, 5, 64) and (2, 1024, 10, 64), K2 the same with
+   and without 4 IP keys, K5 (8192, 640, 1280) and (2048, 1280, 2560))
+   against their plain versions under phase 3's gates, timed against them
+   and the library call, K5's schedule printed; (b) a world of one process
+   through NCCL: phase 7's trainer over its 1 x 1 mesh, the all-reduce of
+   the gradients inside each captured step, bit for bit phase 7's losses,
+   grad norms and parameters with phase 7's launches by name, the
+   collective's device events printed by name from a replayed step's
+   trace; phase 5's edit through ``with_mesh``, bit for bit phase 5's
+   image with its launches; (c) with two cards or more (else skipped,
+   printed): two NCCL ranks (``parallel.drills.card_drills``), the
+   trainer data-parallel and with ``--fsdp`` against one card on the same
+   two rows a step, each rank's FSDP-sliced parameter bytes, and the
+   1 x 2 tensor-parallel 1024² edit against phase 5's image.
+
+``python3 chip_smoke.py --cards`` on a machine with two cards or more runs
+phase 16c alone (``main_cards``): the main path's kernels built, phase 5's
+1024² edit once on one card for its image, then 16c; it prints no kernels
+line and its last line is the same ok line.
 
 Each timing is taken twice: as the device time of the kernels the call
 launches, from the profiler's trace (``utils/profiling.kernel_ms``), and as
@@ -290,6 +312,9 @@ calls, "generate_controlnet", "generate_lora" and "generate_ha_<fusion>"
 14b-d's. "train_lora" and "train_cached" are one replayed train step's of
 phases 15a and 15b (by kernel name), "train_lora_eager" and
 "train_cached_eager" an eager step's (the wrappers' counts).
+"train_dp" is phase 16b's replayed step over the mesh (by kernel name),
+"generate_mesh" its replayed ``with_mesh`` edit; K1's, K2's and K5's
+``tp_shard_shapes`` rows are phase 16a's.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -3372,6 +3397,285 @@ def phase_training_variants(fa, ca, kg, comp, step_lib, trainer):
     return lora, cached
 
 
+# phase 16: the parallel layer (parallel/). The kernels at the 2-way
+# tensor-parallel shard shapes of the SDXL edit (each attention's heads and
+# each FFN's inner width halved), a world of one process through NCCL, and
+# with two cards two NCCL ranks
+TP_K1_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64)]
+TP_K2_SHAPES = [(2, 4096, 5, 64, 0, 1.0), (2, 1024, 10, 64, 0, 1.0), (2, 1024, 10, 64, 4, 1.0)]
+TP_K5_SHAPES = [(8192, 640, 1280), (2048, 1280, 2560)]
+MESH_CARD_STEPS = 3  # 16c's train steps on one card and on two ranks
+TP_MIN_COSINE = 0.999  # 16c: the TP edit against one card (JAX test_batch_generate's)
+
+
+@torch.inference_mode()
+def phase_tp_kernels(fa, ca, kg):
+    """16a: K1, K2 and K5 at the 2-way TP shard shapes against their plain
+    versions (phase 3's gates), timed against the plain versions and the
+    library call. -> {kernel: {shape: times}}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def gate(name, shape, out, ref, max_abs):
+        err, cos = float((out.float() - ref).abs().max()), _cosine(out.float(), ref)
+        ok = err <= max_abs and cos >= (K5_MIN_COSINE if name == "K5" else K1_MIN_COSINE)
+        print(f"phase 16a {name} at the TP shard shape {shape}: max_abs={err:.3e} "
+              f"cosine={cos:.7f}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+        return err
+
+    def report(name, shape, t, bound, err):
+        print(f"phase 16a time {name} {shape}, device (CUDA event): kernel {_fmt(t['kernel'])}, "
+              f"plain {_fmt(t['plain'])}, library {_fmt(t['library'])}; bound {bound[0]:.5f} "
+              f"ms ({bound[1]}), {bound[0] / t['kernel'][0]:.1%} of it", flush=True)
+        return dict(t, bound=bound, max_abs=err)
+
+    out = {"K1": {}, "K2": {}, "K5": {}}
+    for b, s, h, d in TP_K1_SHAPES:
+        q, k, v = rnd(b, s, 3 * h * d).chunk(3, dim=-1)
+        scale = d**-0.5
+        err = gate("K1", (b, s, h, d), fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d),
+                   fa.flash_attention_nhd_plain(q.float(), k.float(), v.float(), scale=scale,
+                                                head_dim=d), K1_MAX_ABS)
+        heads = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+        t = _timings({
+            "kernel": lambda: fa.flash_attention_nhd(q, k, v, scale=scale, head_dim=d),
+            "plain": lambda: fa.flash_attention_nhd_plain(q, k, v, scale=scale, head_dim=d),
+            "library": lambda: sdpa(*heads)})
+        out["K1"][(b, s, h, d)] = report("K1", (b, s, h, d), t, fwd_bound(b, s, h, d), err)
+    for b, sq, h, d, sk_ip, ip_scale in TP_K2_SHAPES:
+        q = rnd(b, sq, h * d)
+        k, v = rnd(b, TEXT_KEYS, 2 * h * d).chunk(2, dim=-1)
+        k_ip, v_ip = (rnd(b, sk_ip, h * d), rnd(b, sk_ip, h * d)) if sk_ip else (None, None)
+        kw = dict(scale=d**-0.5, head_dim=d, k_ip=k_ip, v_ip=v_ip, ip_scale=ip_scale)
+        f32 = [None if x is None else x.float() for x in (q, k, v, k_ip, v_ip)]
+        shape = (b, sq, h, d, sk_ip)
+        err = gate("K2", shape, ca.flash_cross_nhd(q, k, v, **kw), ca.flash_cross_nhd_plain(
+            *f32[:3], scale=d**-0.5, head_dim=d, k_ip=f32[3], v_ip=f32[4], ip_scale=ip_scale),
+            K1_MAX_ABS)
+        heads = [x if x is None else x.view(b, -1, h, d).transpose(1, 2)
+                 for x in (q, k, v, k_ip, v_ip)]
+
+        def library():
+            sdpa(*heads[:3])
+            if sk_ip:
+                sdpa(heads[0], heads[3], heads[4])
+
+        t = _timings({"kernel": lambda: ca.flash_cross_nhd(q, k, v, **kw),
+                      "plain": lambda: ca.flash_cross_nhd_plain(q, k, v, **kw),
+                      "library": library})
+        out["K2"][shape] = report("K2", shape, t, k2_bound(b, sq, h, d, sk_ip), err)
+    for m, k, inner in TP_K5_SHAPES:
+        x, w, bias = rnd(m, k), rnd(2 * inner, k, scale=k**-0.5), rnd(2 * inner)
+        ref = kg.geglu_plain(x.float(), w.float(), bias.float(), gelu="tanh")
+        err = gate("K5", (m, k, inner), kg.geglu(x, w, bias, gelu="tanh"), ref,
+                   K5_MAX_REL * float(ref.abs().max()))
+        print(f"phase 16a K5 schedule at {(m, k, inner)}: {_sched(kg.plan(x, w, gelu='tanh'))}",
+              flush=True)
+        t = _timings({"kernel": lambda: kg.geglu(x, w, bias, gelu="tanh"),
+                      "plain": lambda: kg.geglu_plain(x, w, bias, gelu="tanh"),
+                      "library": lambda: torch.nn.functional.linear(x, w, bias)},
+                     (GEGLU_KERNEL,))
+        _alone(t, GEGLU_KERNEL)
+        out["K5"][(m, k, inner)] = report("K5", (m, k, inner), t, geglu_bound(m, k, inner), err)
+    return out
+
+
+def _device_events(path):
+    """A chrome trace's device events: kernels, copies and sets."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+
+
+def _collective_events():
+    """The device events of the group's all-reduce of a 1 MiB fp32 tensor,
+    eager and as a replayed CUDA graph, by name: what NCCL launches for the
+    train step's flat all-reduces (a kernel, a copy, or nothing)."""
+    import collections
+
+    x = torch.ones(1 << 18, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        torch.distributed.all_reduce(x)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        torch.distributed.all_reduce(x)
+    out = {}
+    for mode, fn in (("eager", lambda: torch.distributed.all_reduce(x)),
+                     ("replayed", graph.replay)):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with tempfile.TemporaryDirectory() as tmp:
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            out[mode] = dict(collections.Counter(e["name"] for e in _device_events(path)))
+    return out, bool(torch.all(x == 1.0))
+
+
+def phase_mesh_one(fa, ca, kg, trainer, image5, run7, HarmonyPipeline):
+    """16b: a world of one process through NCCL (``init_process_group`` on
+    this card). Phase 7's trainer (``--full_random``, captured steps) over
+    its 1 x 1 mesh, the flat all-reduces of the gradients and the loss
+    inside each captured step: bit for bit phase 7's losses, grad norms
+    and parameters, and phase 7's launches by kernel name in a replayed
+    step; the device events of the collective, by name, from the trace.
+    Then phase 5's 1024² edit through ``with_mesh(make_mesh(),
+    tensor_parallel=True)``: bit for bit phase 5's image, its replayed
+    launches counted by name. -> (the replayed step's launches, the mesh
+    edit's)."""
+    from imagharmony_tpu_torch.parallel import distributed
+    from imagharmony_tpu_torch.parallel import mesh as mesh_lib
+
+    label = "phase 16b"
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed._free_port()))
+    t0 = time.perf_counter()
+    distributed.init_group("nccl", 1, 0, 0)
+    print(f"{label}: NCCL group of one on {torch.cuda.get_device_name(0)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    events = profiling.kernel_events
+    try:
+        profiling.kernel_events = _device_events  # the collective may be a copy
+        torch.backends.cudnn.allow_tf32 = True  # phase 7's setting
+        try:
+            run = captured_train(["--full_random", "--synthetic_data", str(TRAIN_STEPS),
+                                  "--max_steps", str(TRAIN_STEPS)], TRAIN_STEPS - 2, fa, ca,
+                                 kg, trainer)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            profiling.kernel_events = events
+        got = [(m["loss"], m["grad_norm"]) for m in run["metrics"]]
+        want = [(m["loss"], m["grad_norm"]) for m in run7["metrics"]]
+        same = set(run["trained"]) == set(run7["trained"]) and all(
+            torch.equal(v, run7["trained"][n]) for n, v in run["trained"].items())
+        traced = [r for r in run["replays"] if r["kernels"] is not None]
+        pair = next((b for a, b in zip(traced, traced[1:])
+                     if a["kernels"] and len(a["kernels"]) == len(b["kernels"])), None)
+        if pair is None:
+            raise AssertionError(f"{label}: no two profiled replays agree on their events")
+        by_name = {k: sum(name in e["name"] for e in pair["kernels"] if e["cat"] == "kernel")
+                   for k, name in TRAIN_KERNELS.items()}
+        import collections
+
+        step_events = collections.Counter(e["name"] for e in pair["kernels"])
+        ref = next((b for a, b in zip(run7["replays"], run7["replays"][1:]) if a["kernels"]
+                    and b["kernels"] and len(a["kernels"]) == len(b["kernels"])), None)
+        added = step_events - collections.Counter(e["name"] for e in ref["kernels"])
+        copies = {n: c for n, c in step_events.items() if n.startswith(("Memcpy", "Memset"))}
+        added = {n: c for n, c in added.items() if n not in copies}
+        collective, unchanged = _collective_events()
+        print(f"{label}: the group's all-reduce of one rank launches, by name, eager "
+              f"{collective['eager']}, replayed {collective['replayed']}; the values "
+              f"unchanged {unchanged}", flush=True)
+        print(f"{label} trainer over a 1 x 1 mesh, {TRAIN_STEPS} captured steps: losses and "
+              f"grad norms {'equal' if got == want else 'DIFFER'} to phase 7's, parameters "
+              f"bit-identical {same}; captures {len(run['captures'])} "
+              f"({run['captures'][0]['s']:.2f} s); replayed step launches {by_name}; a "
+              f"replayed step's kernels beyond phase 7's, by name {dict(added)} (and its "
+              f"copies and sets, which phase 7's trace does not list: {copies}); median step "
+              f"{statistics.median(m['step_time_s'] for m in run['metrics'][1:]):.4f} s",
+              flush=True)
+        expected = {k: run7["replayed"][k] for k in TRAIN_KERNELS}
+        missing = [n for n in collective["replayed"] if n not in step_events]
+        if got != want or not same or by_name != expected or missing or not unchanged:
+            raise AssertionError(f"{label}: the mesh trainer is not phase 7's: {got} vs {want}, "
+                                 f"parameters equal {same}, launches {by_name} vs {expected}, "
+                                 f"the collective's events not in the step {missing}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
+        meshed = pipe.with_mesh(mesh_lib.make_mesh(), tensor_parallel=True)
+        img, kw = _full_edit()
+        first, t_first = _timed(lambda: meshed.generate(img, **kw), "cuda")
+        again, t_again = _timed(lambda: meshed.generate(img, **kw), "cuda")
+        launches = replay_launches(lambda: meshed.generate(img, **kw), label)
+        ok = torch.equal(first, image5) and torch.equal(again, image5)
+        print(f"{label} 1024² edit through with_mesh(1 x 1, tensor_parallel=True): first call "
+              f"(captures) {t_first:.2f} s, replayed {t_again:.2f} s, both bit-identical to "
+              f"phase 5's image {ok}; replayed launches {launches}", flush=True)
+        expect = {"K1/K4": SELF_ATTN_PER_UNET_CALL * FULL_STEPS,
+                  "K2": SDXL_CROSS_PER_UNET_CALL * FULL_STEPS,
+                  "K5": SELF_ATTN_PER_UNET_CALL * FULL_STEPS}
+        if not ok or launches != expect:
+            raise AssertionError(f"{label}: the mesh edit is not phase 5's (equal {ok}) or "
+                                 f"launched {launches}, expected {expect}")
+        del pipe, meshed
+    finally:
+        torch.distributed.destroy_process_group()
+    return by_name, launches
+
+
+def phase_mesh_cards(image5, trainer):
+    """16c, with two or more cards (else skipped, printed): two NCCL ranks
+    on cuda:0 and cuda:1 (``parallel.drills.card_drills``). The
+    full-width trainer at two rows a step, data-parallel and then with
+    ``--fsdp``, against one card's trainer on the same two rows, loss and
+    grad norm within TRAIN_MAX_LOSS_REL (bf16; two ranks reduce in another
+    order); each rank's FSDP-sliced parameter bytes against one card's; the
+    1 x 2 tensor-parallel 1024² edit against phase 5's image, cosine >
+    TP_MIN_COSINE."""
+    from imagharmony_tpu_torch.parallel import distributed, drills
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 16c two NCCL ranks: skipped, {n} card", flush=True)
+        return
+    label = "phase 16c"
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        one_dir = os.path.join(root, "one")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            trainer.main(["--full_random", "--synthetic_data", str(MESH_CARD_STEPS),
+                          "--train_batch_size", "2", "--max_steps", str(MESH_CARD_STEPS),
+                          "--log_every", "1", "--output_dir", one_dir])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        with open(os.path.join(one_dir, "metrics.jsonl")) as f:
+            one = [(json.loads(line)["loss"], json.loads(line)["grad_norm"]) for line in f]
+        gc.collect()
+        torch.cuda.empty_cache()
+        img, kw = _full_edit()
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(drills.card_drills, 2, backend="nccl", timeout=600,
+                                  threads=4, kwargs=dict(steps=MESH_CARD_STEPS, image=img,
+                                                         kw=kw, root=root))
+        print(f"{label}: two ranks ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        worst = 0.0
+        for mode in ("dp", "fsdp"):
+            got = ranks[0][mode]
+            gaps = [max(abs(a - b) / abs(b) for a, b in zip(x, y)) for x, y in zip(got, one)]
+            worst = max(worst, *gaps)
+            print(f"{label} {mode} on two ranks (loss, grad norm) {got}; one card {one}; "
+                  f"largest relative gap a step {[f'{g:.2e}' for g in gaps]}", flush=True)
+        for r in ranks:
+            st = r["fsdp_state"]
+            print(f"{label} rank {r['rank']} ({r['device']}): FSDP sliced {st['sliced']} "
+                  f"parameters, {st['param_bytes'] / 2**30:.3f} GiB of parameters on the "
+                  f"rank against {st['one_card_param_bytes'] / 2**30:.3f} GiB on one card, "
+                  f"{st['allocated_bytes'] / 2**30:.3f} GiB allocated after the slicing",
+                  flush=True)
+        cos = _cosine(torch.as_tensor(ranks[0]["tp_image"]), image5.float().cpu())
+        print(f"{label} TP 1 x 2 1024² edit against phase 5's image: cosine {cos:.6f}",
+              flush=True)
+        if (worst > TRAIN_MAX_LOSS_REL or cos <= TP_MIN_COSINE or any(
+                r["fsdp_state"]["param_bytes"] >= 0.75 * r["fsdp_state"]["one_card_param_bytes"]
+                for r in ranks)):
+            raise AssertionError(f"{label}: two ranks disagree with one card (worst gap "
+                                 f"{worst:.3e}, TP cosine {cos:.6f}) or FSDP did not slice")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -3431,6 +3735,8 @@ def main():
         raise AssertionError(f"a kernel was not launched on the probes' path: {missing} "
                              f"of {probes}")
     p1_launches = probes["probe_mm"]
+    tp_times = phase_tp_kernels(fa, ca, kg)
+    _mark("phase 16a")
     phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
     _mark("phase 3f")
     phase_tiny(fa, ca, kg, HarmonyPipeline)
@@ -3439,6 +3745,9 @@ def main():
     phase_train_tiny(fa, ca, kg, comp, step_lib, trainer)
     train, train_eager, train_run = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
     _mark("phases 6-7")
+    train_dp, generate_mesh = phase_mesh_one(fa, ca, kg, trainer, sdxl_image, train_run,
+                                             HarmonyPipeline)
+    _mark("phase 16b")
     phase_sd15_narrow(fa, ca, kg, comp, HarmonyPipeline)
     sd15, sd15_gen = phase_sd15_full(fa, ca, kg, HarmonyPipeline)
     k4_grad, k2_grad, k3_grad, k5_grad = phase_sd15_grad(fa, ca, kg, comp, punet)
@@ -3469,6 +3778,12 @@ def main():
     train_paths = {"train_lora": lora, "train_lora_eager": lora_eager, "train_cached": cached,
                    "train_cached_eager": cached_eager}
     _mark("phase 15")
+    phase_mesh_cards(sdxl_image, trainer)
+    _mark("phase 16c")
+
+    def tp_rows(kernel):  # the kernels line's rows at the TP shard shapes
+        return [{"shape": list(shape), "max_abs_err": t["max_abs"],
+                 **_line_times(t, t["bound"])} for shape, t in tp_times[kernel].items()]
     k3 = k3_times[K3_SHAPES[0]]
     k4 = k4_times[K4_SHAPES[0]]
     k2 = k2_times[K2_SHAPES[0][:5]]
@@ -3505,7 +3820,9 @@ def main():
                                 if p != "generate_sd15_dpmpp"},
                              **{p: g["K1/K4"] for p, g in serve_paths.items()},
                              **{p: g["K1/K4"] for p, g in variant_paths.items()},
-                             "edit_eager_batch": serve_eager["K1"]},
+                             "edit_eager_batch": serve_eager["K1"],
+                             "train_dp": train_dp["K1/K4"],
+                             "generate_mesh": generate_mesh["K1/K4"]},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
@@ -3513,6 +3830,7 @@ def main():
                       **_line_times(t, fwd_bound(2, *shape))} for shape, t in main_ms.items()]
                     + [{"shape": list(shape), "with_lse": True, **_line_times(t, t["bound"])}
                        for shape, t in k1_train_times.items()],
+        "tp_shard_shapes": tp_rows("K1"),
     }, {
         "name": "flash_attention_nhd_bwd",
         "route": "cuda",
@@ -3521,7 +3839,7 @@ def main():
         "launches": train["K3"],
         "launches_by_path": {"train": train["K3"], "train_eager": train_eager["K3"],
                              **{p: g["K3"] for p, g in train_paths.items()},
-                             "sd15_unet_grad": k3_grad},
+                             "sd15_unet_grad": k3_grad, "train_dp": train_dp["K3"]},
         "max_abs_err": max(k3_err, k3b_err),
         "shape": list(K3_SHAPES[0]),
         **_line_times(k3, k3["bound"]),
@@ -3559,12 +3877,14 @@ def main():
                              **{p: g["K2"] for p, g in serve_paths.items()},
                              **{p: g["K2"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K2"],
-                             "edit_eager_batch_ip": serve_eager["K2 IP"]},
+                             "edit_eager_batch_ip": serve_eager["K2 IP"],
+                             "train_dp": train_dp["K2"], "generate_mesh": generate_mesh["K2"]},
         "max_abs_err": k2_err,
         "shape": list(K2_SHAPES[0][:5]),
         **_line_times(k2, k2["bound"]),
         "by_shape": [{"shape": list(shape), **_line_times(t, t["bound"])}
                      for shape, t in k2_times.items()],
+        "tp_shard_shapes": tp_rows("K2"),
     }, {
         "name": "geglu",
         "route": "cuda",
@@ -3582,7 +3902,8 @@ def main():
                              **{p: g["K5"] for p, g in feature_paths.items()},
                              **{p: g["K5"] for p, g in serve_paths.items()},
                              **{p: g["K5"] for p, g in variant_paths.items()},
-                             "edit_eager_batch": serve_eager["K5"]},
+                             "edit_eager_batch": serve_eager["K5"],
+                             "train_dp": train_dp["K5"], "generate_mesh": generate_mesh["K5"]},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),
         **_line_times(k5, k5["bound"]),
@@ -3590,6 +3911,7 @@ def main():
         "by_shape": [{"shape": list(shape), "no_gelu_ms": t["no_gelu"][0],
                       "schedule": t["schedule"], **_line_times(t, t["bound"])}
                      for shape, t in k5_times.items()],
+        "tp_shard_shapes": tp_rows("K5"),
     }, {
         "name": "probe_mm",
         "route": "cuda",
@@ -3647,5 +3969,38 @@ def main():
     }}), flush=True)
 
 
+def main_cards():
+    """Phase 16c alone (``--cards``): K1/K4, K3, K2 and K5 built, phase 5's
+    edit once for its image, then ``phase_mesh_cards``."""
+    from imagharmony_tpu_torch.kernels import cross_attention as ca
+    from imagharmony_tpu_torch.kernels import flash_attention as fa
+    from imagharmony_tpu_torch.kernels import geglu as kg
+    from imagharmony_tpu_torch.pipelines.harmony_edit import HarmonyPipeline
+    from imagharmony_tpu_torch.train import trainer
+
+    phase_device()
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError(f"--cards needs two cards, found {torch.cuda.device_count()}")
+    with ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(e) for e in (fa._entry, fa._bwd_entry, ca._entry, kg._entry)]:
+            f.result()
+    fa._bhsd_entry()
+    fa._bhsd_bwd_entry()
+    _mark("phase 2 (the main path's kernels)")
+    pipe = HarmonyPipeline.random_full(seed=0, device="cuda", dtype=torch.bfloat16)
+    img, kw = _full_edit()
+    image5 = pipe.generate(img, **kw)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mark("phase 5's image")
+    phase_mesh_cards(image5, trainer)
+    _mark("phase 16c")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_cards() if sys.argv[1:] == ["--cards"] else main())

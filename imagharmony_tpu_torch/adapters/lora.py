@@ -25,7 +25,6 @@ diffusers-peft ``unet.*.lora_A``) through ``load_community_lora``.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import logging
 import os
@@ -36,6 +35,7 @@ import torch
 from torch import nn
 
 from imagharmony_tpu_torch.nn.attention import Attention
+from imagharmony_tpu_torch.pipelines.components import share_copy
 
 ATTN_KEYS = ("attn1", "attn2")
 PROJECTIONS = ("to_q", "to_k", "to_v", "to_out")
@@ -110,22 +110,14 @@ def _row_slice(attn: Attention, proj: str):
     return getattr(attn, packed), slice(i * n, (i + 1) * n)
 
 
-def _share_copy(module: nn.Module) -> nn.Module:
-    """A copy of ``module`` whose submodules are new objects and whose
-    parameters and buffers are the original's tensors: replacing a
-    parameter of the copy leaves the original as it was."""
-    memo = {id(t): t for t in list(module.parameters()) + list(module.buffers())}
-    return copy.deepcopy(module, memo)
-
-
 @torch.no_grad()
 def apply_lora(unet: nn.Module, factors: Dict[str, torch.Tensor], cfg: LoRAConfig, *,
                scale: float = 1.0) -> nn.Module:
-    """A copy of ``unet`` (``_share_copy``) with ``W + scale * (alpha/r) *
+    """A copy of ``unet`` (``components.share_copy``) with ``W + scale * (alpha/r) *
     A @ B`` merged at every factored projection: in fp32, cast to the
     weight's dtype. Each merged Linear gets a new weight tensor."""
     s = cfg.scale * scale
-    out = _share_copy(unet)
+    out = share_copy(unet)
     merged = {}  # id(Linear) -> (the Linear, its fp32 merged weight)
     for key in sorted(k[: -len(".lora_a")] for k in factors if k.endswith(".lora_a")):
         path = key.split(".")

@@ -124,16 +124,22 @@ def _export(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu").contiguous().clone()
 
 
-def extract_adapter_state(unet_module: nn.Module, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
-    """Our UNet -> the reference-format ``ip_adapter`` flat dict."""
+def adapter_projections(unet_module: nn.Module, cfg: UNetConfig) -> Dict[str, nn.Module]:
+    """The reference-format ``ip_adapter`` key ("N.to_k_ip.weight") -> the
+    UNet's Linear that holds it."""
     out = {}
     for idx, (_, path) in enumerate(attn_processor_paths(cfg)):
         if path is None:
             continue
         attn = unet_module.get_submodule(path)
         for proj in ("to_k_ip", "to_v_ip"):
-            out[f"{idx}.{proj}.weight"] = _export(getattr(attn, proj).weight)
+            out[f"{idx}.{proj}.weight"] = getattr(attn, proj)
     return out
+
+
+def extract_adapter_state(unet_module: nn.Module, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """Our UNet -> the reference-format ``ip_adapter`` flat dict."""
+    return {k: _export(lin.weight) for k, lin in adapter_projections(unet_module, cfg).items()}
 
 
 @torch.no_grad()

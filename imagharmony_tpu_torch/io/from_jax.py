@@ -70,6 +70,21 @@ def to_torch_layout(path, arr) -> np.ndarray:
     return a
 
 
+def jax_order(name: str, ndim: int):
+    """The torch dims of the parameter ``name`` (a port key) in the order of
+    the JAX leaf's dims (``to_torch_layout`` inverted): a 2-D weight's
+    (in, out) is torch (1, 0), except an embedding table's; a conv's HWIO
+    is torch (2, 3, 1, 0); every other leaf keeps its order. The FSDP rule
+    walks the dims in this order, so it shards the axis JAX shards."""
+    segs = name.split(".")
+    if segs[-1] == "weight":
+        if ndim == 2 and not (len(segs) >= 2 and segs[-2] in _EMBEDDING_PARENTS):
+            return (1, 0)
+        if ndim == 4:
+            return (2, 3, 1, 0)
+    return tuple(range(ndim))
+
+
 def _controlnet_ip(tree, path) -> bool:
     """Whether ``path`` is an IP projection of a ControlNet: of the tree
     itself or of its ``controlnet`` entry."""

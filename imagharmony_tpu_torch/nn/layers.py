@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -26,8 +27,18 @@ from imagharmony_tpu_torch.kernels import geglu as kgeglu
 
 
 class Linear(nn.Linear):
+    """``tp_group`` set (``parallel/tp_rules.py``): a row-parallel shard,
+    whose partial product is all-reduced over the model group before its
+    bias is added, once."""
+
+    tp_group = None
+
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        if self.tp_group is None:
+            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        y = F.linear(x.to(self.weight.dtype), self.weight)
+        dist.all_reduce(y, group=self.tp_group)
+        return y if self.bias is None else y + self.bias
 
 
 class Conv2d(nn.Conv2d):

@@ -14,6 +14,7 @@ state_dict keys are the JAX bundle's keys in diffusers form (``unet.*``,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -188,6 +189,15 @@ class Components(nn.Module):
         penultimate patch features."""
         key = "projected" if self.cfgs.proj_kind == "image_proj" else "penultimate"
         return self.image_proj(vision_out[key])
+
+
+def share_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` whose submodules are new objects and whose
+    parameters and buffers are the original's tensors: replacing or
+    slicing a parameter of the copy leaves the original as it was (a LoRA
+    merge, a tensor-parallel clone)."""
+    memo = {id(t): t for t in list(module.parameters()) + list(module.buffers())}
+    return copy.deepcopy(module, memo)
 
 
 def load_state_dict_(comps: Components, state_dict) -> Components:

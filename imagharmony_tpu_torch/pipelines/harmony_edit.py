@@ -46,6 +46,13 @@ Besides generate(): ``generate_batch`` packs B requests into one program
 (the CFG-packed UNet batch 2B), and ``callback_on_step_end`` /
 ``chunk_steps`` run the chunked runner (``continuous.py``), whose step is
 ``denoise_rows_step``: every row at its own step of the schedule.
+
+``with_mesh`` makes a clone over a ``parallel/mesh.py`` mesh, run by every
+rank with the same arguments (one process per card, as under torchrun):
+the noise rows split over the data axis (``_local_call``: a rank denoises
+and decodes its rows, then every rank gathers all of them), and with
+``tensor_parallel`` the attention and FFN projections split over the
+model axis (``parallel/tp_rules.py``).
 """
 
 from __future__ import annotations
@@ -563,7 +570,10 @@ class EditCall:
     fp32, or None; the seed of the stochastic samplers' draws, and, for
     tests only, the draws themselves (num_steps, B, 4, h, w); the control
     images, one row a request (R, 3, Hc, Wc) in [0, 1], or None.
-    ``scalars`` holds the ControlNet's conditioning scale fifth."""
+    ``scalars`` holds the ControlNet's conditioning scale fifth.
+    ``rows``: (start, stop, total) where the call is this rank's rows of a
+    call of ``total`` rows split over a mesh's data axis (the stochastic
+    samplers then draw all ``total`` rows and keep these), else None."""
 
     opts: EditOptions
     ids: dict
@@ -578,6 +588,7 @@ class EditCall:
     step_seed: Optional[int] = None
     step_noise: Optional[torch.Tensor] = None
     control: Optional[torch.Tensor] = None
+    rows: Optional[tuple] = None
 
     @property
     def requests(self) -> int:
@@ -656,8 +667,13 @@ def step_noise_of(call: EditCall, like: torch.Tensor):
     if call.step_noise is not None:
         return lambda i: call.step_noise[i]
     gen = torch.Generator(device=like.device).manual_seed(call.step_seed)
-    return lambda i: draw_step_noise(gen, torch.empty(like.shape, dtype=torch.float32,
-                                                      device=like.device))
+    if call.rows is None:
+        return lambda i: draw_step_noise(gen, torch.empty(like.shape, dtype=torch.float32,
+                                                          device=like.device))
+    start, stop, total = call.rows
+    shape = (total,) + tuple(like.shape[1:])
+    return lambda i: draw_step_noise(gen, torch.empty(shape, dtype=torch.float32,
+                                                      device=like.device))[start:stop]
 
 
 def edit(comps: comp.Components, call: EditCall, clock: Optional[PhaseClock] = None,
@@ -801,6 +817,9 @@ class HarmonyPipeline:
         self.device, self.dtype = p.device, p.dtype
         # the captured programs by key, a bounded LRU (programs.py)
         self.programs = programs.ProgramCache()
+        # with_mesh's: the mesh, whether the projections are TP-sharded, and
+        # the unsharded pipeline the clone was made from
+        self.mesh, self.tensor_parallel, self._source = None, False, None
 
     # -- constructors ------------------------------------------------------
 
@@ -890,6 +909,47 @@ class HarmonyPipeline:
             comps.cfgs = cfgs
         return HarmonyPipeline(comps, self.tokenizers if tokenizers is None else tokenizers)
 
+    def with_mesh(self, mesh, *, tensor_parallel=False):
+        """A clone over ``mesh`` (``parallel/mesh.py``; every rank calls
+        generate with the same arguments): the request's noise rows split
+        over the ``data`` axis where their count divides it (each rank
+        denoises and decodes its rows, then all ranks gather the whole
+        output), every rank computes all rows where it does not, as JAX's
+        ``_place_request`` replicates them, and where a rank's rows would
+        cross a request's edge (``_local_call``). Each rank draws every row's
+        noise from the seed, so the rows are the one-device call's.
+
+        ``tensor_parallel=True`` also splits the attention and FFN
+        projections of every tower over the ``model`` axis
+        (``tp_rules.shard_module_tp``: heads whole, row-parallel outputs
+        all-reduced), cutting one image's latency. The clone's modules are
+        new and share every unsharded tensor with this pipeline, which is
+        left as it was; it starts with no captured programs (their key
+        holds the mesh). The decode rule of JAX's ``_use_batched_decode``
+        (batched only at two rows or fewer a shard) is ``finish``'s
+        row-by-row decode above ``BATCHED_DECODE_ROWS`` applied to each
+        rank's rows."""
+        from imagharmony_tpu_torch.parallel import tp_rules
+
+        source = self._source if self._source is not None else self
+        if tensor_parallel and mesh.n_model > 1:
+            comps = comp.share_copy(source.components)
+            tp_rules.shard_module_tp(mesh, comps)
+        else:
+            comps = copy.copy(source.components)
+            comps._modules = dict(comps._modules)
+        clone = HarmonyPipeline(comps, source.tokenizers)
+        clone.mesh, clone.tensor_parallel, clone._source = mesh, tensor_parallel, source
+        return clone
+
+    def _remesh(self, build):
+        """``build(pipeline)``'s new pipeline; on a mesh clone built from the
+        unsharded source and put on the mesh again (JAX's with_* re-establish
+        the placement the same way)."""
+        if self.mesh is None:
+            return build(self)
+        return build(self._source).with_mesh(self.mesh, tensor_parallel=self.tensor_parallel)
+
     def with_lora(self, lora, *, scale=1.0, lora_cfg=None):
         """A new pipeline whose UNet has LoRA factors merged in:
         ``W + scale * (alpha/r) * A @ B`` at every factored projection, in
@@ -904,8 +964,8 @@ class HarmonyPipeline:
             lora, lora_cfg = lora_lib.load_lora(os.fsdecode(lora))
         elif lora_cfg is None:
             raise ValueError("pass lora_cfg when giving a factor dict")
-        return self._clone(unet=lora_lib.apply_lora(self.components.unet, lora, lora_cfg,
-                                                    scale=scale))
+        return self._remesh(lambda pipe: pipe._clone(unet=lora_lib.apply_lora(
+            pipe.components.unet, lora, lora_cfg, scale=scale)))
 
     def with_controlnet(self, controlnet):
         """A new pipeline with ``controlnet`` (a ``models/controlnet``
@@ -916,9 +976,9 @@ class HarmonyPipeline:
 
         if controlnet.cn_cfg.base != self.cfgs.unet:
             raise ValueError("the ControlNet's base config is not this pipeline's UNet's")
-        return self._clone(dataclasses.replace(self.cfgs, controlnet=controlnet.cn_cfg),
-                           controlnet=pack_inference_params(
-                               controlnet.eval().requires_grad_(False)))
+        packed = pack_inference_params(controlnet.eval().requires_grad_(False))
+        return self._remesh(lambda pipe: pipe._clone(
+            dataclasses.replace(pipe.cfgs, controlnet=controlnet.cn_cfg), controlnet=packed))
 
     def with_textual_inversion(self, source, token=None):
         """A new pipeline with a learned textual-inversion embedding
@@ -972,6 +1032,12 @@ class HarmonyPipeline:
             raise ValueError("SDXL textual inversion needs the dual-tower format "
                              "{'clip_l': (n, 768), 'clip_g': (n, 1280)}")
 
+        return self._remesh(lambda pipe: pipe._install_tokens(jobs, token))
+
+    def _install_tokens(self, jobs, token):
+        """``with_textual_inversion``'s new pipeline: each job's rows
+        appended to its tower's token table and the token added to its
+        tokenizer."""
         toks = {"tok1": copy.copy(self.tokenizers.tok1), "tok2": copy.copy(self.tokenizers.tok2)}
         for t in toks.values():  # their own added tokens, even where tok1 is tok2
             t.added_tokens = dict(t.added_tokens)
@@ -1309,14 +1375,51 @@ class HarmonyPipeline:
             step_seed=step_seed(seeds) if schedule.kind in sched.STOCHASTIC else None,
             control=control)
 
+    def _local_call(self, call: EditCall) -> EditCall:
+        """This rank's part of ``call`` on a mesh clone: its rows of the
+        noise (``mesh.row_slice``), the requests those rows belong to, and
+        ``rows`` set. ``call`` itself where every rank takes all rows: where
+        the data axis does not divide the rows, and where a rank's rows
+        would cross a request's edge (3 requests of 2 samples on 2 ranks),
+        since a call's requests hold the same number of samples each."""
+        from imagharmony_tpu_torch.parallel import mesh as mesh_lib
+
+        total = call.noise.shape[0]
+        sl = mesh_lib.row_slice(self.mesh, total)
+        if sl is None:
+            return call
+        per, n = sl.stop - sl.start, call.samples
+        if per % n and n % per:
+            return call
+        first = sl.start // n
+        reqs = slice(first, sl.stop // n) if per % n == 0 else slice(first, first + 1)
+        if reqs == slice(0, call.requests):
+            ids, pixel_values, control = call.ids, call.pixel_values, call.control
+        else:
+            ids = {k: v[reqs] for k, v in call.ids.items()}
+            pixel_values = None if call.pixel_values is None else call.pixel_values[reqs]
+            control = None if call.control is None else call.control[reqs]
+        return dataclasses.replace(
+            call, ids=ids, pixel_values=pixel_values, control=control, noise=call.noise[sl],
+            step_noise=None if call.step_noise is None else call.step_noise[:, sl],
+            rows=(sl.start, sl.stop, total))
+
     def _run(self, call: EditCall, clock: PhaseClock):
         """The edit of a prepared call: its captured programs on a CUDA
-        device (``programs.py``), the eager module functions on the CPU."""
+        device (``programs.py``), the eager module functions on the CPU.
+        On a mesh clone, this rank's rows, then all rows gathered."""
+        local = self._local_call(call) if self.mesh is not None else call
         if self.device.type == "cuda":
             from imagharmony_tpu_torch.pipelines import programs
 
-            return programs.run(self, call, clock)
-        return edit(self.components, call, clock)
+            out = programs.run(self, local, clock)
+        else:
+            out = edit(self.components, local, clock)
+        if local is call:
+            return out
+        from imagharmony_tpu_torch.parallel import mesh as mesh_lib
+
+        return mesh_lib.gather_rows(self.mesh, out)
 
     @staticmethod
     def _output(out, latent: bool, output_type: str):

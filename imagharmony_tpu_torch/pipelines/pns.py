@@ -5,6 +5,9 @@ K candidate seeds are denoised as one batch (``num_samples=K``: 2K UNet
 rows with the CFG pair), each candidate is scored for agreement with the
 prompt in the OpenCLIP-bigG joint space the bundle already carries (the
 image encoder's and text_encoder_2's projections), and the best is kept.
+On a ``with_mesh`` clone the K candidates are the noise rows the data axis
+splits (JAX's data-parallel fan-out): each rank denoises its candidates,
+every rank gets all K back and scores them.
 """
 
 from __future__ import annotations

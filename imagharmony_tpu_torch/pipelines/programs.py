@@ -26,6 +26,11 @@ value and never the step count. The graphs:
     known before the loop;
 (c) the finish (``harmony_edit.finish``: decode, tiled or not), which a
     latent output does without.
+On a ``with_mesh`` clone the key also holds the mesh (rank, data and model
+sizes) and the call's rows (``EditCall.rows``): a rank captures its rows'
+programs, and with tensor parallelism the model group's all-reduces are
+inside the step graph (and the conditioning's and the decode's, where the
+towers are sharded); the gather of the rows runs after the finish.
 
 DPM++'s history lives in static buffers that every call's ``load`` zeroes
 (a first step is first order); its first/second-order choice is a
@@ -200,7 +205,12 @@ class EditProgram:
         self.index = torch.zeros(1, dtype=torch.long, device=self.device)
         self.latents = torch.empty(call.noise.shape, dtype=pipe.dtype, device=self.device)
         self.state = sched.init_solver_state(br.kind, self.latents)
-        self.z = torch.zeros_like(call.noise) if br.kind in sched.STOCHASTIC else None
+        self.z = self.z_all = None
+        if br.kind in sched.STOCHASTIC:
+            # a mesh rank's call draws every row and its graphs read its own
+            start, stop, total = call.rows or (0, call.noise.shape[0], call.noise.shape[0])
+            self.z_all = call.noise.new_zeros((total,) + tuple(call.noise.shape[1:]))
+            self.z = self.z_all[start:stop]
         self.gen = torch.Generator(device=self.device) if self.z is not None else None
         self.load(call)
         prop = br.encoder_interval > 1
@@ -284,7 +294,7 @@ class EditProgram:
         k = self.br.encoder_interval
         for i in range(call.schedule.num_steps):
             if self.z is not None:
-                he.draw_step_noise(self.gen, self.z)
+                he.draw_step_noise(self.gen, self.z_all)
             (self.key_step if i % k == 0 else self.reuse_step)()
         clock.mark("denoise_s")
         if self.finish is None:
@@ -299,7 +309,7 @@ def run(pipe, call: he.EditCall, clock: he.PhaseClock):
     """The edit of ``call`` on ``pipe``'s CUDA device through the key's
     programs, captured first if the key has none."""
     k = (pipe.device, call.opts.height, call.opts.width, call.requests, call.samples,
-         call.branches)
+         call.branches, None if pipe.mesh is None else pipe.mesh.key, call.rows)
     with torch.cuda.device(pipe.device):
         prog = pipe.programs.acquire(k, lambda: EditProgram(pipe, call))
         with prog.lock:

@@ -34,12 +34,15 @@ def _host(x) -> np.ndarray:
 
 
 @torch.no_grad()
-def precompute(comps, cfgs, dataset, *, batch_size=8):
+def precompute(comps, cfgs, dataset, *, batch_size=8, mesh=None):
     """-> dict of numpy arrays stacked over every record of ``dataset`` (a
     ``HarmonyDataset`` with ``center_crop``), in batches of ``batch_size``
     on the towers' device, plus the empty prompt's row. Dropout is off
     while caching: the dataset's three rates are set to 0 for each batch
-    and restored."""
+    and restored. Over a ``parallel/mesh.py`` mesh each rank of the data
+    group encodes one contiguous share of the records (the last record
+    repeated to make the shares equal, so FSDP's gathers pair up), and the
+    shares are all-gathered: every rank holds the whole cache."""
     if not dataset.center_crop:
         raise ValueError("the encoder cache requires center_crop")
     device = comps.unet.conv_in.weight.device
@@ -50,8 +53,13 @@ def precompute(comps, cfgs, dataset, *, batch_size=8):
         "image_embeds", "original_size", "crop_coords", "target_size",
     )}
     n = len(dataset)
-    for start in range(0, n, batch_size):
-        idx = list(range(start, min(start + batch_size, n)))
+    records = list(range(n))
+    size = 1 if mesh is None or mesh.data_group is None else mesh.data_size
+    if size > 1:
+        per = -(-n // size)
+        records = [min(mesh.data_pos * per + i, n - 1) for i in range(per)]
+    for start in range(0, len(records), batch_size):
+        idx = records[start:start + batch_size]
         saved = (dataset.i_drop_rate, dataset.t_drop_rate, dataset.ti_drop_rate)
         dataset.i_drop_rate = dataset.t_drop_rate = dataset.ti_drop_rate = 0.0
         try:
@@ -76,6 +84,8 @@ def precompute(comps, cfgs, dataset, *, batch_size=8):
         for k in ("original_size", "crop_coords", "target_size"):
             rows[k].append(batch[k])
     cache = {k: np.concatenate(v) for k, v in rows.items()}
+    if size > 1:
+        cache = {k: _gather_shares(v, n, mesh, device) for k, v in cache.items()}
 
     # the empty prompt's row, for CFG text dropout
     el, eg = dataset.tokenizers("")
@@ -85,6 +95,14 @@ def precompute(comps, cfgs, dataset, *, batch_size=8):
     cache["empty_context"] = _host(ectx)
     cache["empty_pooled"] = _host(epooled)
     return cache
+
+
+def _gather_shares(x: np.ndarray, n: int, mesh, device) -> np.ndarray:
+    """The first ``n`` rows of every data rank's share ``x``, in rank order."""
+    local = torch.as_tensor(x).to(device)
+    out = local.new_empty((mesh.data_size * local.shape[0],) + tuple(local.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, local, group=mesh.data_group)
+    return out[:n].cpu().numpy()
 
 
 def tower_bytes(comps) -> int:

@@ -14,7 +14,13 @@ noise offset, EMA, clip, grad_accum, the LoRA rank, alpha and targets) and
 the constants the graph bakes in. With LoRA the factors and their AdamW
 moments are state tensors like the adapters', changed in place by each
 replay, and the graph merges them into the UNet's weights anew at every
-replay (``step.loss_fn``): no merged weight outlives a step.
+replay (``step.loss_fn``): no merged weight outlives a step. Over a mesh
+the key holds it (rank, data and model sizes) and the graph holds the
+step's collectives: the flat all-reduces of the gradients and the loss and,
+under FSDP, each weight's gather (again in the recompute) and its
+gradient's reduce-scatter. The eager warm-up step below runs them first on
+the capture stream, so NCCL's communicator and its per-stream state exist
+before the capture and are not created under it.
 
 A step copies its batch into the program's static input buffers and draws
 its random numbers with the trainer's generator, outside the graph, into
@@ -156,7 +162,8 @@ def run(programs, state: step_lib.TrainState, comps, cfgs, cfg: step_lib.TrainCo
     captured first if the key has none or its program is stale."""
     device = state.lr.device
     rows = next(iter(batch.values())).shape[0]
-    key = (device, resolution, rows // max(cfg.grad_accum, 1), tuple(sorted(batch)), cfg)
+    mesh = None if state.mesh is None else state.mesh.key
+    key = (device, resolution, rows // max(cfg.grad_accum, 1), tuple(sorted(batch)), cfg, mesh)
     with torch.cuda.device(device):
         if key not in programs or programs[key].loads != state.loads:
             programs.clear()  # one key at a time: the old graph's pool goes first

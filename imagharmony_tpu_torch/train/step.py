@@ -37,6 +37,17 @@ function, whose argument the merged weights are: as in JAX's
 recompute does not merge again. A batch with ``"context"`` is a
 cached-encoder batch (``train/cache.py``): the VAE moments and the towers'
 outputs come with it and no tower runs.
+
+Over a mesh (``TrainState.mesh``, ``parallel/mesh.py``) every rank holds
+the global batch and its draws, taken from one generator, and computes on
+its rows of each microbatch; after the backward and the microbatch
+accumulation one flat all-reduce a dtype over the data group makes the
+replicated gradients (and the loss) the global batch's mean, before the
+clip. So a data-parallel step computes what one device computes on the
+global batch.
+Parameters FSDP sliced (``parallel/fsdp.py``) get their gradients
+reduce-scattered in the backward instead; the global norm then sums each
+slice's squares once over the group, and each whole parameter's once.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 from imagharmony_tpu_torch.adapters import harmony
 from imagharmony_tpu_torch.adapters import lora as lora_lib
 from imagharmony_tpu_torch.models import clip_text
+from imagharmony_tpu_torch.parallel import fsdp
+from imagharmony_tpu_torch.parallel import mesh as mesh_lib
 from imagharmony_tpu_torch.pipelines import components as comp
 from imagharmony_tpu_torch.schedulers import diffusion as sched
 from imagharmony_tpu_torch.utils import tree as tree_util
@@ -190,9 +203,12 @@ class TrainState:
     generator seeded with ``seed``, B = 0; fp32 on the model's device), the
     same tensors as the trainable entries ``lora.<key>``; else it is None.
     ``loads`` counts ``load_state_dict`` calls: a load replaces the
-    optimizer's state tensors, so a program captured before it is stale."""
+    optimizer's state tensors, so a program captured before it is stale.
+    ``mesh``: the data-parallel mesh the step reduces over, or None for one
+    device."""
 
-    def __init__(self, comps: comp.Components, cfg: TrainConfig, seed=0):
+    def __init__(self, comps: comp.Components, cfg: TrainConfig, seed=0, mesh=None):
+        self.mesh = mesh
         self.trainable = tree_util.set_trainable(comps, cfg.predicate())
         device = next(iter(self.trainable.values())).device
         self.factors = None
@@ -239,10 +255,11 @@ class TrainState:
         self.loads += 1
 
 
-def init_state(comps: comp.Components, cfg: TrainConfig, seed=0) -> TrainState:
+def init_state(comps: comp.Components, cfg: TrainConfig, seed=0, mesh=None) -> TrainState:
     """Mark the trainable surface on ``comps`` (and with ``lora_rank`` make
-    its factors from ``seed``) and build its optimizer."""
-    return TrainState(comps, cfg, seed)
+    its factors from ``seed``) and build its optimizer; ``mesh``: see
+    ``TrainState``."""
+    return TrainState(comps, cfg, seed, mesh)
 
 
 @dataclasses.dataclass
@@ -385,12 +402,26 @@ def loss_fn(comps: comp.Components, cfg: TrainConfig, batch, draws: Draws, facto
     return (w * sq.reshape(sq.shape[0], -1).mean(dim=1)).mean()
 
 
+def _sq_sum(grads, device):
+    sq = [g.float().pow(2).sum() for g in grads if g is not None]
+    return torch.stack(sq).sum() if sq else torch.zeros((), device=device)
+
+
 def global_norm(grads, device=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, fp32 (optax.global_norm;
     a parameter without a gradient counts as zeros, and with none at all it
     is a zero on ``device``)."""
-    sq = [g.float().pow(2).sum() for g in grads if g is not None]
-    return torch.stack(sq).sum().sqrt() if sq else torch.zeros((), device=device)
+    return _sq_sum(grads, device).sqrt()
+
+
+def sharded_global_norm(params, mesh) -> torch.Tensor:
+    """``global_norm`` of the gradients of ``params`` where some are FSDP
+    slices: the slices' squares summed over the data group, each whole
+    (replicated) gradient's counted once."""
+    device = params[0].device
+    sliced = _sq_sum([p.grad for p in params if fsdp.info(p) is not None], device)
+    torch.distributed.all_reduce(sliced, group=mesh.data_group)
+    return (sliced + _sq_sum([p.grad for p in params if fsdp.info(p) is None], device)).sqrt()
 
 
 @torch.no_grad()
@@ -401,7 +432,10 @@ def apply_update(state: TrainState, cfg: TrainConfig) -> torch.Tensor:
     pre-clip global norm."""
     params = list(state.trainable.values())
     grads = [p.grad for p in params]
-    norm = global_norm(grads, params[0].device)
+    if any(fsdp.info(p) is not None for p in params):
+        norm = sharded_global_norm(params, state.mesh)
+    else:
+        norm = global_norm(grads, params[0].device)
     if cfg.max_grad_norm:
         keep = norm < cfg.max_grad_norm
         for g in grads:
@@ -425,7 +459,11 @@ def train_step(state: TrainState, comps: comp.Components, cfg: TrainConfig, batc
     unrolled (JAX's lax.scan over them). Returns {"loss", "grad_norm"} as
     fp32 tensors on the device (read them only where the host needs them).
     The gradients are set to None first, so a captured step's backward
-    allocates them in its graph's pool and each replay overwrites them."""
+    allocates them in its graph's pool and each replay overwrites them.
+    Over ``state.mesh``, ``batch`` and ``draws`` are the global batch's:
+    this rank takes its rows of each microbatch (``mesh.shard_batch``), and
+    the gradients and the loss are reduced over the data group before the
+    update."""
     state.optimizer.zero_grad(set_to_none=True)
     rows = next(iter(batch.values())).shape[0]
     a = _microbatches(rows, cfg)
@@ -434,6 +472,8 @@ def train_step(state: TrainState, comps: comp.Components, cfg: TrainConfig, batc
     loss_sum = None
     for i, d in enumerate(draws):
         mb = {k: v[i * rows // a:(i + 1) * rows // a] for k, v in batch.items()}
+        mb = mesh_lib.shard_batch(state.mesh, mb)
+        d = Draws(**mesh_lib.shard_batch(state.mesh, vars(d)))
         loss = loss_fn(comps, cfg, mb, d, state.factors)
         loss.backward()
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
@@ -441,6 +481,10 @@ def train_step(state: TrainState, comps: comp.Components, cfg: TrainConfig, batc
         for p in state.trainable.values():
             if p.grad is not None:
                 p.grad.div_(a)
+    if state.mesh is not None:
+        # a flat all-reduce a dtype: the whole parameters' gradients and the loss
+        mesh_lib.reduce_mean(state.mesh, [p.grad for p in state.trainable.values()
+                                          if fsdp.info(p) is None] + [loss_sum])
     grad_norm = apply_update(state, cfg)
     return {"loss": loss_sum / a, "grad_norm": grad_norm}
 

@@ -3,13 +3,25 @@ the reference's train.py main()).
 
     python -m imagharmony_tpu_torch.train.trainer --full_random --synthetic_data 4 --max_steps 4
 
+    torchrun --nproc_per_node 8 -m imagharmony_tpu_torch.train.trainer --full_random --fsdp ...
+
 Runs on the card unless ``--device cpu``. On a CUDA device every optimizer
 step is one CUDA graph, captured at the first step (after any resume) and
 replayed once a step (``train/programs.py``, the program layer: the
 counterpart of the JAX trainer's donated ``jax.jit`` step); the CPU runs
 ``step.train_step`` eagerly. Against the JAX trainer:
 
-* one device, no mesh: the ``--fsdp`` flags are not ported (ROADMAP A15);
+* several devices are several processes (torchrun; ``parallel/``): each
+  joins the group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+  cpu``), the data axis is ``fit_data_mesh(--train_batch_size)``, every
+  rank reads the global batches and draws and computes its rows
+  (``step.train_step``), and ``--fsdp`` slices the parameters, AdamW
+  moments and frozen towers over it (``parallel/fsdp.py``; with
+  ``--lora_rank`` the factored projections and the factors stay whole, as
+  their merge reads them whole). Rank 0 alone writes the metrics, the
+  exports and the checkpoints, the sliced state gathered first, so a
+  checkpoint is one device's and a resume at the same world size is bit
+  for bit an uninterrupted run;
 * resume through torch.save/torch.load of the trainable weights, the
   optimizer state, the update count and lr, the EMA, the step and the
   state of the torch.Generator the draws come from (the JAX trainer used
@@ -47,11 +59,14 @@ import re
 import time
 
 import torch
+import torch.distributed as dist
 
 from imagharmony_tpu_torch.adapters import harmony as harmony_lib
 from imagharmony_tpu_torch.adapters import lora as lora_lib
 from imagharmony_tpu_torch.io import checkpoints as ckpt_io
 from imagharmony_tpu_torch.models import tokenizer as tok_lib
+from imagharmony_tpu_torch.parallel import distributed, fsdp
+from imagharmony_tpu_torch.parallel import mesh as mesh_lib
 from imagharmony_tpu_torch.pipelines import components as comp
 from imagharmony_tpu_torch.train import cache as cache_lib
 from imagharmony_tpu_torch.train import programs as train_programs
@@ -123,7 +138,16 @@ def parse_args(argv=None):
                    help="use N synthetic batches instead of --data_json_file")
     p.add_argument("--log_every", type=int, default=10,
                    help="read metrics from the device every N steps")
-    p.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard params + AdamW moments + frozen towers over the data "
+                        "axis (parallel/fsdp.py) instead of replicating them: per-card memory "
+                        "drops about linearly with the ranks; each weight is gathered where "
+                        "it is used and its gradient reduce-scattered")
+    p.add_argument("--fsdp_min_shard", type=int, default=None,
+                   help="smallest leaf (elements) FSDP shards; below it leaves replicate "
+                        "(default parallel/fsdp.py MIN_SHARD_ELEMS)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, or cpu); under torchrun cuda is cuda:LOCAL_RANK")
     return p.parse_args(argv)
 
 
@@ -217,12 +241,13 @@ def train_config(args, cfgs) -> step_lib.TrainConfig:
     )
 
 
-def make_batches(args, cfgs, comps, tokenizers):
+def make_batches(args, cfgs, comps, tokenizers, mesh=None):
     """The trainer's batches (numpy dicts of ``--train_batch_size`` times
     ``--grad_accum`` rows): ``--synthetic_data``'s dummy batches, else the
     dataset of ``--data_json_file``; with ``--cache_encoders`` the
-    dataset's encoder cache (``cache.precompute``), after which the four
-    towers are dropped from ``comps``."""
+    dataset's encoder cache (``cache.precompute``, each rank of ``mesh``
+    encoding its share of the records), after which the four towers are
+    dropped from ``comps``."""
     step_rows = args.train_batch_size * max(args.grad_accum, 1)
     if args.synthetic_data:
         return (step_lib.dummy_batch(cfgs, batch_size=step_rows, resolution=args.resolution,
@@ -237,7 +262,7 @@ def make_batches(args, cfgs, comps, tokenizers):
     if not args.cache_encoders:
         return ds.batches(step_rows, seed=args.seed, epochs=args.num_train_epochs)
     print(f"precomputing the encoder cache over {len(ds)} records...")
-    enc_cache = cache_lib.precompute(comps, cfgs, ds)
+    enc_cache = cache_lib.precompute(comps, cfgs, ds, mesh=mesh)
     freed = cache_lib.drop_towers(comps)  # the step never reads them now
     print(f"dropped the frozen towers: {freed / 2**30:.3f} GiB")
     return cache_lib.batches_from_cache(enc_cache, step_rows, seed=args.seed,
@@ -256,43 +281,73 @@ def _checkpoints(ckpt_dir):
     return found
 
 
-def _save_checkpoint(ckpt_dir, state, gen):
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"step-{state.step}.pt")
-    tmp = path + ".tmp"
-    torch.save({**state.state_dict(), "generator": gen.get_state()}, tmp)
-    os.replace(tmp, path)  # a crash never leaves half a checkpoint under the final name
-    old = sorted(_checkpoints(ckpt_dir))[:-KEEP_CHECKPOINTS]
-    for s in old:
-        os.remove(os.path.join(ckpt_dir, f"step-{s}.pt"))
+def _save_checkpoint(ckpt_dir, state, gen, sharded=False):
+    """Rank 0 writes the state (made whole first when ``sharded``: every
+    rank takes part in the gathers)."""
+    main_rank = distributed.is_main_process()
+    sd = state.state_dict() if sharded or main_rank else None
+    if sharded:
+        sd = fsdp.full_state_dict(sd, state)
+    if main_rank:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"step-{state.step}.pt")
+        tmp = path + ".tmp"
+        torch.save({**sd, "generator": gen.get_state()}, tmp)
+        os.replace(tmp, path)  # a crash never leaves half a checkpoint under the final name
+        old = sorted(_checkpoints(ckpt_dir))[:-KEEP_CHECKPOINTS]
+        for s in old:
+            os.remove(os.path.join(ckpt_dir, f"step-{s}.pt"))
+    distributed.barrier()
+
+
+def _fsdp_skip(args, cfgs, comps):
+    """The parameters ``--fsdp`` keeps whole: with ``--lora_rank`` the
+    factored projections, which the step's merge reads whole."""
+    lcfg = train_config(args, cfgs).lora_config()
+    if lcfg is None:
+        return lambda name: False
+    keep = {f"unet.{path}.to_out.0.weight" if proj == "to_out" else f"unet.{key}"
+            for key, path, proj, _ in lora_lib._targets(comps.unet, lcfg)}
+    return keep.__contains__
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.lr_scheduler == "cosine" and not args.max_steps:
         raise SystemExit("--lr_scheduler cosine needs --max_steps (the decay horizon)")
+    # one process per device: torchrun's ranks join the group here (a world
+    # of one stays the one-device path, unless the caller made a group)
+    args.device = str(distributed.local_device(args.device))
+    distributed.initialize(args.device)
+    mesh = mesh_lib.fit_data_mesh(args.train_batch_size) if dist.is_initialized() else None
+    main_rank = distributed.is_main_process()
     os.makedirs(args.output_dir, exist_ok=True)
 
     cfgs, comps, tokenizers = build_components(args)
     tcfg = train_config(args, cfgs)
-    state = step_lib.init_state(comps, tcfg, seed=args.seed)
+    if args.fsdp and mesh is not None:
+        kw = {} if args.fsdp_min_shard is None else {"min_elems": args.fsdp_min_shard}
+        fsdp.shard_tree(mesh, comps, skip=_fsdp_skip(args, cfgs, comps), **kw)
+    state = step_lib.init_state(comps, tcfg, seed=args.seed, mesh=mesh)
+    sharded = any(fsdp.info(p) is not None for p in state.trainable.values())
     n_train = sum(p.numel() for p in state.trainable.values())
-    print(f"trainable params: {n_train / 1e6:.2f}M")
+    print(f"trainable params: {n_train / 1e6:.2f}M" + (f" on this rank, {mesh}" if mesh else ""))
 
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     saved = _checkpoints(ckpt_dir)
     if args.resume and saved:
         sd = torch.load(saved[max(saved)], map_location=args.device, weights_only=True)
-        state.load_state_dict(sd)
+        state.load_state_dict(fsdp.local_state_dict(sd, state) if sharded else sd)
         gen.set_state(sd["generator"].cpu())
         print(f"resumed from step {state.step}")
     start_step = state.step
-    with open(os.path.join(args.output_dir, "harmony_config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfgs.harmony), f, indent=2)
+    if main_rank:
+        with open(os.path.join(args.output_dir, "harmony_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfgs.harmony), f, indent=2)
 
     step_rows = args.train_batch_size * max(args.grad_accum, 1)
-    batches = make_batches(args, cfgs, comps, tokenizers)
+    batches = make_batches(args, cfgs, comps, tokenizers, mesh)
     # skip the batches the interrupted run consumed; the generator state
     # came back with the checkpoint
     for _ in range(start_step):
@@ -301,7 +356,8 @@ def main(argv=None):
     device = torch.device(args.device)
     programs = {}  # the captured step, on a CUDA device
     global_step = start_step
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_log:
+    log_path = os.path.join(args.output_dir, "metrics.jsonl") if main_rank else os.devnull
+    with open(log_path, "a") as metrics_log:
         # metrics stay on the device between log points: reading one is a
         # sync; each step's are a clone, as a replay overwrites the program's
         pending = []  # (step, metrics, data_time)
@@ -322,8 +378,9 @@ def main(argv=None):
                     "wall": time.time(),
                 }) + "\n")
             metrics_log.flush()
-            print(f"step {rows[-1][0]}, {per_step * 1000:.0f} ms/step, "
-                  f"step_loss: {rows[-1][1]:.5f}")
+            if main_rank:
+                print(f"step {rows[-1][0]}, {per_step * 1000:.0f} ms/step, "
+                      f"step_loss: {rows[-1][1]:.5f}")
             pending.clear()
             window_t0 = time.perf_counter()
 
@@ -347,7 +404,7 @@ def main(argv=None):
             t_begin = time.perf_counter()
             if global_step % args.save_steps == 0 or last:
                 drain_pending()
-                _save_checkpoint(ckpt_dir, state, gen)
+                _save_checkpoint(ckpt_dir, state, gen, sharded)
                 _export_adapter(args, cfgs, comps, state, global_step)
         drain_pending()
     print("training done at step", global_step)
@@ -355,7 +412,19 @@ def main(argv=None):
 
 
 def _export_adapter(args, cfgs, comps, state, step):
+    """Rank 0 writes the adapters (and LoRA factors) of ``comps``, and with
+    an EMA the EMA weights swapped in. Every rank swaps, and gathers the
+    FSDP slices of what the export reads: the UNet's IP projections, the
+    image projection and the HA module (the LoRA factors are never
+    sliced)."""
+    ip = list(ckpt_io.adapter_projections(comps.unet, cfgs.unet).values())
+
     def export(tag):
+        with fsdp.gathered(*ip, comps.image_proj, comps.harmony):
+            if distributed.is_main_process():
+                write(tag)
+
+    def write(tag):
         path = os.path.join(args.output_dir, f"ip_adapter{tag}.bin")
         ckpt_io.save_adapter_checkpoint(
             path, unet=comps.unet, unet_cfg=cfgs.unet, image_proj=comps.image_proj,

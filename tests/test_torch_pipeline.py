@@ -248,7 +248,8 @@ def test_generate_tiny(pipes, tmp_path):
     on a free port (two same-key requests packed, one of another key
     answered, a request admitted mid-flight, a malformed payload refused,
     ``/status``, no pack error); the program cache's bound and locks. Then
-    ControlNet and LoRA (``_controlnet_and_lora``)."""
+    ControlNet and LoRA (``_controlnet_and_lora``), and ``with_mesh``
+    (``_check_mesh``)."""
     pipe = phe.HarmonyPipeline.random_tiny(seed=0, device="cpu")
     kw = dict(prompt="a dog", extra_text="six dogs", num_inference_steps=2, height=32,
               width=32, seed=3)
@@ -337,6 +338,141 @@ def test_generate_tiny(pipes, tmp_path):
     _serve_both_modes(pipe)
     _program_cache_units()
     _controlnet_and_lora(tmp_path)
+    _check_mesh(pipes, tmp_path, pipe, kw, raw)
+
+
+def _check_mesh(pipes, tmp_path, pipe, kw, raw):
+    """``with_mesh``: in a world of one (a gloo group of this process) the
+    TP clone's edit of ``pipe`` is ``raw``, its one-device edit of ``kw``,
+    bit for bit; then one spawn of four gloo
+    ranks as a 2 x 2 (data x model) mesh (``parallel.drills.edit_drills``)
+    on the tiny pipeline's weights and JAX's noise for two samples: the
+    ``tensor_parallel=True`` edit (every attention's heads halved: the
+    tiny UNet's attentions have 2 or 4) and PNS over a DP clone, whose
+    candidates are that clone's edit, against JAX's single-device images,
+    per image cosine > 0.999 and max uint8 diff <= 8 (JAX
+    test_batch_generate.py's tolerance), ``generate_batch`` on the DP clone
+    against the one-device one, bit for bit for 3 requests (which every
+    rank computes whole) and at that tolerance for 2 (one a rank), and
+    ``_local_call``'s split of packed requests (``_check_local_call``),
+    and the PNS scores against JAX's
+    single-device scores (atol 5e-3, the same winner; JAX
+    test_pns.py's); the UNet forward with TP, and with TP and FSDP
+    (``shard_params_tp_fsdp``, JAX's production layout), against the
+    one-device UNet's (which test_unet_forward holds to JAX's) at rtol =
+    atol = 2e-4 (JAX test_parallel.py's TP check); and ``with_mesh`` then ``with_lora``
+    bit for bit ``with_lora`` then ``with_mesh`` (JAX test_lora.py's
+    composition). And the sharding itself: a packed projection keeps rank
+    r's rows of each of q, k and v, and a layer whose heads the model axis
+    does not divide stays whole."""
+    import jax
+    import jax.numpy as jnp
+
+    from imagharmony_tpu.pipelines import pns as jpns
+    from imagharmony_tpu_torch.io import from_jax
+    from imagharmony_tpu_torch.parallel import distributed, drills
+    from imagharmony_tpu_torch.parallel import mesh as pmesh
+    from imagharmony_tpu_torch.utils.parity import cosine
+    from torch_port_util import group_of_one
+
+    from imagharmony_tpu_torch.nn.attention import Attention, pack_inference_params
+    from imagharmony_tpu_torch.parallel import tp_rules
+
+    second = pmesh.Mesh(n_data=1, n_model=2, world=2, rank=1)
+    odd = Attention(24, heads=3, head_dim=8)
+    even = pack_inference_params(Attention(16, heads=2, head_dim=8))
+    w, w_out = even.to_qkv.weight.detach().clone(), even.to_out[0].weight.detach().clone()
+    assert tp_rules.shard_module_tp(second, odd) == 0
+    assert odd.heads == 3 and odd.to_q.weight.shape == (24, 24) and odd.to_out[0].tp_group is None
+    assert tp_rules.shard_module_tp(second, even) == 1 and even.heads == 1
+    torch.testing.assert_close(even.to_qkv.weight, torch.cat([w[8:16], w[24:32], w[40:48]]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(even.to_out[0].weight, w_out[:, 8:], rtol=0, atol=0)
+    _check_local_call(pipe)
+
+    jpipe, port = pipes
+    one_kw = kw
+    kw = dict(extra_text="six dogs", num_inference_steps=2, height=32, width=32)
+    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (2, 16, 16, 4), jnp.float32))
+    _, jimages, jscores = jpns.generate_with_pns(jpipe, _image(), num_seeds=2, seed=3,
+                                                 prompt="a dog", return_all=True,
+                                                 output_type="np", **kw)
+    with group_of_one(tmp_path):
+        one = pipe.with_mesh(pmesh.make_mesh(), tensor_parallel=True)
+        torch.testing.assert_close(one.generate(_image(), output_type="raw", **one_kw), raw,
+                                   rtol=0, atol=0)
+    kw = dict(kw, prompt="a dog", num_samples=2, seed=3, noise=noise)
+
+    r = np.random.default_rng
+    inputs = dict(
+        sample=r(1).standard_normal((2, 8, 8, 4)).astype(np.float32),
+        timesteps=np.array([999.0, 10.0], np.float32),
+        encoder_hidden_states=r(2).standard_normal((2, 5, 64)).astype(np.float32),
+        pooled_text_embeds=r(3).standard_normal((2, 32)).astype(np.float32),
+        time_ids=np.tile(np.array([[32, 32, 0, 0, 32, 32]], np.float32), (2, 1)),
+        ip_tokens=r(4).standard_normal((2, 4, 64)).astype(np.float32))
+    x = {k: torch.as_tensor(v) for k, v in inputs.items()}
+    with torch.no_grad():
+        one_unet = port.components.unet(
+            x["sample"].permute(0, 3, 1, 2), x["timesteps"], x["encoder_hidden_states"],
+            pooled_text_embeds=x["pooled_text_embeds"], time_ids=x["time_ids"],
+            ip_tokens=x["ip_tokens"], ip_scale=0.7).permute(0, 2, 3, 1).numpy()
+    sd = {k: v.numpy() for k, v in from_jax.state_dict(jax.device_get(jpipe.params)).items()}
+    ranks = distributed.spawn(drills.edit_drills, 4, threads=1, kwargs=dict(
+        state_dict=sd, vocab_size=port.cfgs.text_l.vocab_size, image=_image(), kw=kw,
+        unet_inputs=inputs))
+
+    def images_close(got, want):
+        assert got.shape == want.shape
+        for a, b in zip(got, want):
+            assert cosine(a.astype(np.float32), b.astype(np.float32)) > 0.999
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 8
+
+    for rank in ranks:
+        assert rank["heads"] and all(a == 2 * b for a, b in rank["heads"]), rank["heads"]
+        for got in (rank["tp"], rank["pns"]["images"]):
+            images_close(got, np.asarray(jimages))
+        np.testing.assert_allclose(rank["pns"]["scores"], jscores, atol=5e-3)
+        assert int(np.argmax(rank["pns"]["scores"])) == int(np.argmax(jscores))
+        np.testing.assert_allclose(rank["unet"], one_unet, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(rank["unet_tp_fsdp"], one_unet, rtol=2e-4, atol=2e-4)
+        assert rank["tp_fsdp_sliced"] > 50, rank["tp_fsdp_sliced"]
+        assert rank["lora_equal"] and rank["lora_moved"]
+        np.testing.assert_array_equal(rank["tp"], ranks[0]["tp"])
+        one, meshed = rank["batch"][3]  # every rank computes all 3 rows
+        np.testing.assert_array_equal(meshed, one)
+        one, meshed = rank["batch"][2]  # a request a rank
+        images_close(meshed, one)
+
+
+def _check_local_call(pipe):
+    """A rank's share of a packed call over a 2-way data axis (no group
+    needed): 2 requests of 2 samples give each rank one request and its two
+    rows; 3 requests of 2 samples, whose 3-row halves would cross a
+    request's edge, leave every rank all 6 rows."""
+    import dataclasses
+
+    from imagharmony_tpu_torch.parallel import mesh as pmesh
+
+    for reqs, want in ((2, [(slice(0, 2), slice(0, 1)), (slice(2, 4), slice(1, 2))]),
+                       (3, None)):
+        call = pipe.prepare_batch([_image()] * reqs, [f"a dog {i}" for i in range(reqs)],
+                                  num_inference_steps=1, height=32, width=32)
+        call = dataclasses.replace(call, noise=call.noise.repeat_interleave(2, 0))
+        assert (call.requests, call.samples) == (reqs, 2)
+        for r in range(2):
+            local = pipe.with_mesh(pmesh.Mesh(n_data=2, n_model=1, world=2, rank=r))._local_call(
+                call)
+            if want is None:
+                assert local is call
+                continue
+            rows, req = want[r]
+            assert local.rows == (rows.start, rows.stop, 4) and local.samples == 2
+            torch.testing.assert_close(local.noise, call.noise[rows], rtol=0, atol=0)
+            for k, v in call.ids.items():
+                torch.testing.assert_close(local.ids[k], v[req], rtol=0, atol=0)
+            torch.testing.assert_close(local.pixel_values, call.pixel_values[req], rtol=0,
+                                       atol=0)
 
 
 def _lora_files(tmp_path, jpipe):

@@ -132,7 +132,7 @@ def _cached_batch(jcfgs, rows=2, resolution=32):
             "drop_image": np.array([0.0, 1.0], np.float32)[:rows]}
 
 
-def test_train_step_loss_and_gradients_match_jax(case, lora_case):
+def test_train_step_loss_and_gradients_match_jax(case, lora_case, tmp_path):
     """The port's loss on the JAX draws: loss and grad_norm within 1e-5
     relative, every trainable gradient within 1e-4 of its leaf's max-abs
     (with a floor of 1e-9: a leaf whose gradient is zero in exact arithmetic,
@@ -142,8 +142,10 @@ def test_train_step_loss_and_gradients_match_jax(case, lora_case):
     fusion (the trainer's ``--fusion_method qformer``); with LoRA factors
     carried from the JAX state (B nonzero), their A and B gradients
     included; with ``lora_alpha`` 0, the plain step's loss and gradients
-    (the JAX package's own check); and on a cached-encoder batch with the
-    towers dropped, against JAX's cached branch."""
+    (the JAX package's own check); on a cached-encoder batch with the
+    towers dropped, against JAX's cached branch; and over ranks
+    (``_check_parallel``: the spec functions, a world of one, 2-rank DP
+    and FSDP steps, the DP+FSDP resume)."""
     _check_loss_and_gradients(case)
     _check_loss_and_gradients(_case("qformer"))
     grads = _check_loss_and_gradients(
@@ -161,6 +163,148 @@ def test_train_step_loss_and_gradients_match_jax(case, lora_case):
     assert all(float(g.abs().max()) == 0 for n, g in zero[1].items() if n.startswith("lora."))
 
     _check_cached(case)
+    _check_parallel(case, tmp_path)
+
+
+def _check_spec_functions(case):
+    """``fit_data_axis``, ``fsdp_spec`` and ``tp_spec`` against the JAX
+    package's: its cases of test_parallel.py, then every leaf of the tiny
+    bundle and of the LoRA factors, where the port's spec (torch layout)
+    must put the axis on the JAX leaf's axis (``from_jax.jax_order``)."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from imagharmony_tpu.parallel import fsdp as jfsdp
+    from imagharmony_tpu.parallel import mesh as jmesh
+    from imagharmony_tpu.parallel import tp_rules as jtp
+    from imagharmony_tpu.train import step as jstep
+    from imagharmony_tpu_torch.parallel import fsdp as pfsdp
+    from imagharmony_tpu_torch.parallel import mesh as pmesh
+    from imagharmony_tpu_torch.parallel import tp_rules as ptp
+
+    for world in (1, 2, 3, 8):
+        for batch in range(1, 10):
+            want = jmesh.fit_data_mesh(batch, devices=jax.devices()[:world]).devices.shape
+            assert (pmesh.fit_data_axis(batch, world), 1) == want, (batch, world)
+    for shape, n, kw in [((128, 64), 4, {}), ((64, 128), 4, {}),
+                         ((128, 64), 4, {"base": (None, "model")}), ((3, 3, 16, 64), 4, {}),
+                         ((7, 9), 4, {}), ((32,), 4, {"min_elems": 2**13}),
+                         ((), 4, {"min_elems": 0}), ((128,), 1, {})]:
+        kw = {"min_elems": 1, **kw}
+        jkw = dict(kw, base=P(*kw["base"])) if "base" in kw else kw
+        assert pfsdp.fsdp_spec(shape, n, **kw) == tuple(
+            jfsdp.fsdp_spec(np.zeros(shape), n, **jkw)), shape
+
+    def torch_spec(jspec, order):
+        out = [None] * len(order)
+        for j, axis in enumerate(tuple(jspec) + (None,) * (len(order) - len(tuple(jspec)))):
+            out[order[j]] = axis
+        return tuple(out)
+
+    lora = jstep.init_state(case["params"], jstep.TrainConfig(
+        unet_cfg=case["jcfgs"].unet, lora_rank=2))[0]["trainable"]["lora"]
+    seen = {"data": 0, "model": 0}
+    for tree in (case["params"], lora):
+        for path, leaf in from_jax._leaves(tree):
+            key = from_jax.key_for(path)
+            order = from_jax.jax_order(key, np.ndim(leaf))
+            tshape = from_jax.to_torch_layout(path, leaf).shape
+            got = pfsdp.fsdp_spec(tshape, 2, min_elems=64, order=order)
+            want = torch_spec(jfsdp.fsdp_spec(leaf, 2, min_elems=64), order)
+            assert (got or (None,) * len(order)) == want, (key, got, want)
+            seen["data"] += "data" in want
+            got = ptp.tp_spec(key, tshape)
+            want = torch_spec(jtp.tp_spec(path, leaf), order)
+            assert (got + (None,) * (len(order) - len(got))) == want, (key, got, want)
+            seen["model"] += "model" in want
+    assert seen["data"] > 300 and seen["model"] > 50, seen
+
+
+def _check_parallel(case, tmp_path):
+    """The parallel layer: the spec functions (``_check_spec_functions``);
+    in a world of one (a gloo group of this process) the mesh's train step
+    bit for bit the one-device step; then one spawn of two gloo ranks
+    (``parallel.drills.train_drills``): a DP and a DP+FSDP step on the
+    case's global batch and draws against JAX's single-device loss (1e-5
+    relative), gradients (the tolerance above) and its optax update of the
+    parameters (rtol 1e-4, atol 1e-5: JAX's own FSDP check), FSDP slicing
+    as JAX's does (more than 20 frozen leaves, 5 trainable, 5 AdamW
+    moments, each slice global / 2); the bf16 VAE's fp32 encode sliced bit
+    for bit whole; the DP+FSDP trainer (an EMA, LoRA factors, the encoder
+    cache of 3 JSON records, which each rank encodes its share of, padded
+    to 2 and 2) 2 steps straight equal to 1 step and a --resume, bit for
+    bit: losses and exports (live and EMA adapters, the factors); the
+    straight run against the one-device run of the same arguments, losses
+    at 1e-5 relative and every export at JAX's FSDP tolerance; and
+    ``replicate`` giving every rank rank 0's tensor."""
+    import jax
+    import optax
+
+    from imagharmony_tpu.train import step as jstep
+    from imagharmony_tpu_torch.parallel import distributed, drills
+    from imagharmony_tpu_torch.parallel import mesh as pmesh
+    from torch_port_util import group_of_one
+
+    _check_spec_functions(case)
+    sd = {k: v.numpy() for k, v in from_jax.state_dict(case["params"]).items()}
+    draws = {k: np_(getattr(case["draws"], k)) for k in ("noise", "latent_eps")}
+    draws["timesteps"] = case["draws"].timesteps.numpy()
+    kw = dict(gradient_checkpoint=False, learning_rate=1e-3)
+    with group_of_one(tmp_path):
+        plain = drills.train_step_once(sd, case["batch"], draws, kw, None)
+        meshed = drills.train_step_once(sd, case["batch"], draws, kw, pmesh.make_mesh())
+    assert (meshed["loss"], meshed["grad_norm"]) == (plain["loss"], plain["grad_norm"])
+    for n, x in plain["params"].items():
+        np.testing.assert_array_equal(meshed["params"][n], x, err_msg=n)
+
+    (tmp_path / "records").mkdir()
+    records = _records(tmp_path / "records", n=3)
+    ranks = distributed.spawn(drills.train_drills, 2, threads=1, kwargs=dict(
+        state_dict=sd, batch=case["batch"], draws=draws, root=str(tmp_path / "drill"),
+        records=str(records)))
+    one_dir = tmp_path / "one_device"
+    assert ptrainer.main([*drills.resume_argv(records), "--max_steps", "2", "--output_dir",
+                          str(one_dir)]) == 2
+    one = drills.read_run(one_dir)
+    tx = jstep.make_optimizer(jstep.TrainConfig(unet_cfg=case["jcfgs"].unet, learning_rate=1e-3))
+    trainable = case["state"]["trainable"]
+    updates, _ = jax.jit(tx.update)(case["grads"], tx.init(trainable), trainable)
+    want = from_jax.trainable_state_dict(jax.device_get(optax.apply_updates(trainable, updates)))
+    grads = from_jax.trainable_state_dict(case["grads"])
+    for r in ranks:
+        for mode in ("dp", "fsdp"):
+            got = r[mode]
+            assert abs(got["loss"] - case["loss"]) <= 1e-5 * abs(case["loss"]), (mode, got["loss"])
+            assert abs(got["grad_norm"] - case["grad_norm"]) <= 1e-5 * case["grad_norm"], mode
+            for n, g in grads.items():
+                ref = g.numpy()
+                mine = np.zeros_like(ref) if got["grads"][n] is None else got["grads"][n]
+                np.testing.assert_allclose(mine, ref, rtol=0, err_msg=f"{mode} {n}",
+                                           atol=max(1e-4 * np.abs(ref).max(), 1e-9))
+                np.testing.assert_allclose(got["params"][n], want[n].numpy(), rtol=1e-4,
+                                           atol=1e-5, err_msg=f"{mode} {n}")
+        f = r["fsdp"]
+        assert f["sliced_frozen"] > 20 and f["sliced_trainable"] > 5, f
+        assert f["sliced_moments"] > 5 and f["local_numel_ok"], f
+        assert r["dp"]["sliced"] == 0
+        assert r["vae_bf16"][0] > 20 and r["vae_bf16"][1], r["vae_bf16"]
+        straight, resumed = r["resume"]["straight"], r["resume"]["resumed"]
+        assert straight["losses"] == resumed["losses"] and len(straight["losses"]) == 2
+        assert resumed["checkpoints"] == ["step-1.pt", "step-2.pt"]
+        for tag, x in straight["exports"].items():
+            assert set(x) == set(resumed["exports"][tag]) and x
+            for k, v in x.items():
+                np.testing.assert_array_equal(resumed["exports"][tag][k], v, err_msg=k)
+        np.testing.assert_allclose(straight["losses"], one["losses"], rtol=1e-5, atol=0)
+        assert set(straight["exports"]) == set(one["exports"])
+        for tag, x in one["exports"].items():
+            assert set(straight["exports"][tag]) == set(x)
+            for k, v in x.items():
+                np.testing.assert_allclose(straight["exports"][tag][k], v, rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{tag} {k}")
+        np.testing.assert_array_equal(r["replicated"], np.ones(3, np.float32))
+    for mode in ("dp", "fsdp"):
+        assert ranks[0][mode]["loss"] == ranks[1][mode]["loss"]
 
 
 def _loss_and_grads(case, tcfg):
@@ -542,7 +686,7 @@ def _records(tmp_path, n=2):
 
     rng = np.random.default_rng(3)
     recs = []
-    for i, (h, w) in enumerate([(40, 56), (64, 48)][:n]):
+    for i, (h, w) in enumerate([(40, 56), (64, 48), (48, 40)][:n]):
         Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
             tmp_path / f"img{i}.png")
         recs.append({"image_file": f"img{i}.png", "text": "a photo of six sheep",

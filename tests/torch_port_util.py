@@ -9,6 +9,7 @@ matmul precision).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -244,3 +245,17 @@ def edit_parity(jpipe, port, image, *, steps=3, seed=7, height=32, width=32, **k
     assert rep["min_cosine"] > 0.9999, rep
     assert rep["image_cosine"] > 0.9999, rep
     return cap, j_out
+
+
+@contextlib.contextmanager
+def group_of_one(tmp_path):
+    """A gloo process group of this process alone (a world of one), for the
+    block: the parallel code paths with every collective over one rank."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "group_of_one"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
