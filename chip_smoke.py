@@ -269,6 +269,31 @@ is non-zero:
    trainer data-parallel and with ``--fsdp`` against one card on the same
    two rows a step, each rank's FSDP-sliced parameter bytes, and the
    1 x 2 tensor-parallel 1024² edit against phase 5's image.
+17. the evaluation tools and profiling's helpers, on phase 5's pipeline
+   (run right after phase 5, its programs dropped at the end): (a)
+   ``tools/eval_benchmark.evaluate`` over 4 synthetic records at 1024², 30
+   steps: the first record's image bit for bit ``generate()`` called
+   directly with the same arguments, no record capturing a new key or
+   launching through a wrapper (phase 5's key serves them), every CLIP-T and
+   CLIP-I finite and in [-1, 1], and one record's launches of K1, K2 and K5
+   by kernel name in the trace ``profiling.trace`` writes around it (2100
+   each), the direct call inside an ``annotate`` span its trace holds; (b)
+   ``tools/validate_presets.validate`` over its four presets at 30 steps:
+   each preset's image bit for bit the CLI's own call
+   (``cli.edit_kwargs`` of ``edit`` with ``--fast``, ``--turbo``, both or
+   neither), with its launches by kernel name in a trace (2100, 1050, 1740
+   and 882: encoder propagation's key steps run 70 transformer blocks, its
+   reuse steps 46) and the captures it made; (c) ``profiling.compiled_stats``
+   of one eager SDXL UNet CFG call at 1024²: its flops, bytes and peak, the
+   kernels' declared flops by kernel (each the sum of its JAX formula over
+   the call's shapes) and their share; a tiny UNet's count on the card
+   (bf16, the kernels declaring) equal to the CPU's (fp32, the plain
+   versions' products) exactly, and a tiny eager train step's (its
+   backward and the checkpoint's reruns on the autograd engine's threads)
+   the CPU's less 3/11 of K3's declared flops exactly, each kernel's
+   declared launches its wrapper's count; (d) both tools' ``main`` as
+   ``python -m`` processes on the card (``--random tiny``), in parallel,
+   exit 0 with their files and last lines.
 
 ``python3 chip_smoke.py --cards`` on a machine with two cards or more runs
 phase 16c alone (``main_cards``): the main path's kernels built, phase 5's
@@ -314,7 +339,8 @@ phases 15a and 15b (by kernel name), "train_lora_eager" and
 "train_cached_eager" an eager step's (the wrappers' counts).
 "train_dp" is phase 16b's replayed step over the mesh (by kernel name),
 "generate_mesh" its replayed ``with_mesh`` edit; K1's, K2's and K5's
-``tp_shard_shapes`` rows are phase 16a's.
+``tp_shard_shapes`` rows are phase 16a's. "eval_record" is phase 17a's
+record and "preset_<name>" 17b's call of each preset (by kernel name).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1602,7 +1628,7 @@ def phase_full(fa, ca, kg, HarmonyPipeline):
         raise AssertionError(f"the replayed generate() launched {g}, expected {expected} K1, "
                              f"{expected_k2[0]} K2 and {expected} K5")
     profile_modes(pipe, img, kw, "phase 5 SDXL 1024²")
-    return n, g, out
+    return n, g, out, pipe
 
 
 def _loss_and_grads(comps, tcfg, batch, draws, dev, step_lib):
@@ -3676,6 +3702,324 @@ def phase_mesh_cards(image5, trainer):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 17: the evaluation tools on phase 5's pipeline
+EVAL_RECORDS = 4
+SDXL_REUSE = 46  # a reuse step's transformer blocks (encoder propagation), as in phase 12
+PRESET_FLAGS = {"exact": [], "fast": ["--fast"], "turbo": ["--turbo"],
+                "fast+turbo": ["--fast", "--turbo"]}
+
+
+class _Watched:
+    """A pipeline whose generate() records the captures and the wrappers'
+    launches of each call; everything else is the pipeline's."""
+
+    def __init__(self, pipe, fa, ca, kg):
+        self._pipe, self._kernels, self.calls = pipe, (fa, ca, kg), []
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
+
+    def generate(self, *args, **kw):
+        _reset_launches(*self._kernels)
+        before = self._pipe.programs.captures
+        out = self._pipe.generate(*args, **kw)
+        self.calls.append((self._pipe.programs.captures - before, _launches(*self._kernels)))
+        return out
+
+
+def _tools_eval(pipe, fa, ca, kg):
+    """17a: ``evaluate`` over EVAL_RECORDS synthetic records at 1024²."""
+    from imagharmony_tpu_torch.tools import eval_benchmark as ev
+
+    label = "phase 17a eval"
+    dev = pipe.device
+    records = ev.synthetic_records(EVAL_RECORDS)
+    args = dict(steps=FULL_STEPS, guidance_scale=5.0, seed=42, height=1024, width=1024)
+    watched = _Watched(pipe, fa, ca, kg)
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        summary, rows, images = ev.evaluate(watched, records, out_dir=out_dir,
+                                            weights="random-full", **args)
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+    r0 = records[0]
+    with tempfile.TemporaryDirectory() as log_dir:  # the direct call inside a named span
+        with profiling.trace(log_dir), profiling.annotate("direct generate"):
+            direct = pipe.generate(pil_image=r0["image"], prompt=r0["text"],
+                                   extra_text=r0["extra_text"], num_inference_steps=FULL_STEPS,
+                                   guidance_scale=5.0, seed=42, height=1024, width=1024,
+                                   output_type="raw").float().cpu().numpy()
+        [name] = os.listdir(log_dir)
+        with open(os.path.join(log_dir, name)) as f:
+            spans = sum(e.get("cat") == "user_annotation" and e.get("name") == "direct generate"
+                        for e in json.load(f)["traceEvents"])
+    same = bool(np.array_equal(direct, images[0]))
+
+    traced = []
+
+    def one_record():
+        with tempfile.TemporaryDirectory() as out_dir:
+            traced.append(ev.evaluate(pipe, records[:1], out_dir=out_dir, **args)[1][0])
+
+    torch.cuda.synchronize(dev)
+    counts = replay_launches(one_record, "eval record")
+    scores = [r[k] for r in rows for k in ("clip_t", "clip_i")]
+    print(f"{label}: {EVAL_RECORDS} synthetic records at 1024², {FULL_STEPS} steps, in "
+          f"{wall:.2f} s: {json.dumps(rows)}; summary {json.dumps(summary)}; files {files}; "
+          f"captures and wrapper launches a record {watched.calls}; the first image bit for "
+          f"bit generate() called directly: {same} (its trace holding {spans} span of "
+          f"annotate's name); one record in a trace: {counts}, its row "
+          f"{json.dumps(traced[0])}", flush=True)
+    want = FULL_STEPS * SELF_ATTN_PER_UNET_CALL
+    if not (same and spans == 1 and files == ["records.jsonl", "summary.json"]
+            and len(rows) == EVAL_RECORDS
+            and all(np.isfinite(x) and -1.0 <= x <= 1.0 for x in scores)):
+        raise AssertionError(f"{label}: first image equal {same}, {spans} spans, files {files}, "
+                             f"scores {scores}")
+    if any(n or sum(c.values()) for n, c in watched.calls[1:]):
+        raise AssertionError(f"{label}: a record after the first captured or launched "
+                             f"through a wrapper: {watched.calls}")
+    if counts != {"K1/K4": want, "K2": want, "K5": want}:
+        raise AssertionError(f"{label}: one record launched {counts}, expected {want} each")
+    return counts
+
+
+def _tools_presets(pipe, fa, ca, kg):
+    """17b: ``validate`` over the four presets, each against the CLI's own
+    call of it."""
+    from PIL import Image
+
+    from imagharmony_tpu_torch import cli
+    from imagharmony_tpu_torch.tools import validate_presets as vp
+
+    label = "phase 17b presets"
+    prompt, extra = "a photo of eight sheep", "six dogs"
+    image = vp.input_image()
+    watched = _Watched(pipe, fa, ca, kg)
+    t0 = time.perf_counter()
+    report, outputs = vp.validate(watched, image, prompt=prompt, extra_text=extra,
+                                  steps=FULL_STEPS, height=1024, width=1024,
+                                  weights="random-full")
+    wall = time.perf_counter() - t0
+    parser = cli.build_parser()
+    launches, rows = {}, {}
+    for (name, flags), (captured, _) in zip(PRESET_FLAGS.items(), watched.calls):
+        kw = cli.edit_kwargs(parser.parse_args(["edit", "--prompt", prompt, "--extra-text",
+                                                extra, "--height", "1024", "--width", "1024",
+                                                "--steps", str(FULL_STEPS), *flags]))
+        kw["output_type"] = "raw"
+        steps = kw["num_inference_steps"]
+        keys = -(-steps // kw["encoder_interval"])
+        per = keys * SELF_ATTN_PER_UNET_CALL + (steps - keys) * SDXL_REUSE
+        outs = []
+        counts = replay_launches(
+            lambda: outs.append(pipe.generate(pil_image=Image.fromarray(image), **kw).float()
+                                .cpu()), f"preset {name}")
+        same = torch.equal(outs[0], outputs[name])
+        launches[name] = counts
+        rows[name] = dict(report[name], steps=steps, encoder_interval=kw["encoder_interval"],
+                          timestep_spacing=kw["timestep_spacing"], captures=captured,
+                          launches=counts, expected=per, cli_bit_for_bit=same)
+        print(f"{label} {name}: {json.dumps(rows[name])}", flush=True)
+        if not same or counts != {"K1/K4": per, "K2": per, "K5": per}:
+            raise AssertionError(f"{label} {name}: the CLI's call equal {same}, launches "
+                                 f"{counts}, expected {per} each")
+    print(f"{label}: validate() in {wall:.2f} s, {len(pipe.programs)} keys in the pipeline's "
+          f"cache; report inputs {json.dumps(report['inputs'])}", flush=True)
+    captures = [n for n, _ in watched.calls]
+    if captures != [0, 0, 1, 0] or any(sum(c.values()) for n, c in watched.calls if not n) \
+            or not all(
+            np.isfinite(v) for row in rows.values() for k, v in row.items()
+            if k in ("raw_cosine_vs_exact", "clip_i_vs_exact", "clip_t")):
+        raise AssertionError(f"{label}: captures and wrapper launches {watched.calls} (exact "
+                             f"and fast on phase 5's key, turbo and fast+turbo on one new "
+                             f"key), rows {rows}")
+    return launches
+
+
+def _unet_inputs(cfg, batch, size, dtype, device):
+    """Random inputs of a UNet call from a seed: NCHW latents of ``size``²,
+    timesteps, TEXT_KEYS of text context, the pooled text, the
+    micro-conditioning time ids and the IP tokens."""
+    g = torch.Generator().manual_seed(17)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+    pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+    return (r(batch, cfg.in_channels, size, size), torch.full((batch,), 999.0, device=device),
+            r(batch, TEXT_KEYS, cfg.cross_attention_dim)), dict(
+        pooled_text_embeds=r(batch, pooled),
+        time_ids=torch.tensor([[size * 8.0, size * 8.0, 0, 0, size * 8.0, size * 8.0]] * batch,
+                              device=device),
+        ip_tokens=r(batch, cfg.num_ip_tokens, cfg.cross_attention_dim))
+
+
+def _unet_stats(unet, args, kw):
+    """``compiled_stats`` of one eager UNet call and what the kernels
+    declared in it."""
+    from imagharmony_tpu_torch.kernels import cost
+
+    with torch.inference_mode(), cost.counting() as declared:
+        stats = profiling.compiled_stats(lambda *a: unet(*a, **kw), *args)
+    return stats, declared
+
+
+def _tools_stats(pipe):
+    """17c: ``compiled_stats`` of an eager SDXL UNet CFG call at 1024², and
+    a tiny UNet's flops on the card against the CPU's."""
+    from imagharmony_tpu_torch.kernels import cost
+
+    label = "phase 17c compiled_stats"
+    unet, cfg = pipe.components.unet, pipe.cfgs.unet
+    args, kw = _unet_inputs(cfg, 2, 128, torch.bfloat16, pipe.device)
+    t0 = time.perf_counter()
+    stats, declared = _unet_stats(unet, args, kw)
+    wall = time.perf_counter() - t0
+    (s4, h4, d), (s1, h1, _) = MAIN_SHAPES
+    want = {"K1": 10 * cost.attention(2, h4, s4, s4, d, 2)[0]
+            + 60 * cost.attention(2, h1, s1, s1, d, 2)[0],
+            "K2": 10 * cost.cross(2, h4, s4, TEXT_KEYS, 0, d, 2)[0]
+            + 50 * cost.cross(2, h1, s1, TEXT_KEYS, 0, d, 2)[0]
+            + 10 * cost.cross(2, h1, s1, TEXT_KEYS, 4, d, 2)[0],
+            "K5": 10 * cost.geglu(*K5_SHAPES[0])[0] + 60 * cost.geglu(*K5_SHAPES[1])[0]}
+    share = declared.flops / stats["flops"]
+    print(f"{label} SDXL UNet CFG call at 1024² (eager, bf16, IP on its live layer): "
+          f"{stats['flops'] / 1e12:.4f} TFLOP ({stats['flops']}), bytes accessed "
+          f"{stats['bytes_accessed'] / 2**30:.3f} GiB ({stats['bytes_accessed']}), peak temp "
+          f"{stats['peak_temp_bytes'] / 2**30:.3f} GiB; the kernels declared "
+          f"{declared.flops / 1e12:.4f} TFLOP, {share:.4f} of the flops, by kernel "
+          f"{declared.flops_by_kernel} in {declared.launches_by_kernel} launches "
+          f"(expected {want}); {wall:.2f} s under the counters", flush=True)
+    if (declared.flops_by_kernel != want or declared.launches_by_kernel != {
+            "K1": 70, "K2": 70, "K5": 70} or not stats["peak_temp_bytes"] > 0):
+        raise AssertionError(f"{label}: declared {declared}, expected {want}; {stats}")
+
+    from imagharmony_tpu_torch.models import unet as punet
+    from imagharmony_tpu_torch.nn.attention import pack_inference_params
+
+    ucfg = punet.tiny_config()
+    torch.manual_seed(0)
+    cpu = pack_inference_params(punet.UNet2DConditionModel(ucfg).eval())
+    card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    size = 32  # phase 4's latents
+    runs = {}
+    for name, (module, dtype, dev) in {"cpu": (cpu, torch.float32, "cpu"),
+                                       "card": (card, torch.bfloat16, "cuda")}.items():
+        a, k = _unet_inputs(ucfg, 2, size, dtype, dev)
+        runs[name] = _unet_stats(module, a, k)
+    (cs, cd), (gs, gd) = runs["cpu"], runs["card"]
+    print(f"{label} tiny UNet, latents {size}², CFG pair: flops on the card {gs['flops']} "
+          f"(the kernels declaring {gd.flops} in {gd.launches_by_kernel}), on the CPU {cs['flops']} "
+          f"(declared {cd.flops}); bytes card {gs['bytes_accessed']}, CPU "
+          f"{cs['bytes_accessed']}", flush=True)
+    if gs["flops"] != cs["flops"] or cd.flops or not gd.flops or set(gd.launches_by_kernel) != {
+            "K1", "K2", "K5"}:
+        raise AssertionError(f"{label}: the tiny UNet's flops differ: card {gs}, {gd}; "
+                             f"CPU {cs}, {cd}")
+    return dict(flops=stats["flops"], bytes_accessed=stats["bytes_accessed"],
+                peak_temp_bytes=stats["peak_temp_bytes"], kernel_share=share)
+
+
+def _tools_train_stats(fa, ca, kg):
+    """17c: ``compiled_stats`` of one eager tiny train step
+    (``step.train_step``: the loss, its gradient-checkpointed backward, the
+    update) on the CPU (fp32, the plain versions' products counted) and on
+    the card (bf16, the kernels declaring: K3 and the checkpoint's reruns of
+    K1, K2 and K5 run on the autograd engine's threads). The card counts
+    3·b·h·sq·sk·d less than the CPU for each K3 launch (kernels/cost.py:
+    two K1 launches with the lse at -2, K3 at +1), so card = CPU - 3/11 of
+    K3's declared flops, exactly; the declared launches are the wrappers'."""
+    from imagharmony_tpu_torch.kernels import cost
+    from imagharmony_tpu_torch.pipelines import components as comp
+    from imagharmony_tpu_torch.train import step as step_lib
+
+    label = "phase 17c compiled_stats tiny train step"
+    cfgs = comp.tiny_configs()
+    cpu = comp.init_params(torch.Generator().manual_seed(0), cfgs, device="cpu")
+    card = copy.deepcopy(cpu).to(device="cuda", dtype=torch.bfloat16)
+    tcfg = step_lib.TrainConfig(unet_cfg=cfgs.unet)
+    batch = step_lib.dummy_batch(cfgs, 2, 32)
+    draws = step_lib.draw(torch.Generator().manual_seed(1), cfgs, tcfg, 2, 32)
+    runs = {}
+    for dev, comps in (("cpu", cpu), ("cuda", card)):
+        state = step_lib.init_state(comps, tcfg)
+        d = [step_lib.Draws(*(x.to(dev) for x in (draws.noise, draws.timesteps,
+                                                   draws.latent_eps)))]
+        _reset_train_launches(fa, ca, kg)
+        with cost.counting() as declared:
+            stats = profiling.compiled_stats(step_lib.train_step, state, comps, tcfg,
+                                             step_lib.to_device(batch, dev), d)
+        runs[dev] = stats, declared, _train_launches(fa, ca, kg)
+    (cs, cd, _), (gs, gd, wrappers) = runs["cpu"], runs["cuda"]
+    k3 = gd.flops_by_kernel.get("K3", 0)
+    launched = {("K1" if k == "K1/K4" else k): n for k, n in wrappers.items()}
+    print(f"{label}, batch 2 at 32² (gradient checkpointing): flops on the card {gs['flops']} "
+          f"(the kernels declaring {gd.flops}: {gd.flops_by_kernel} in "
+          f"{gd.launches_by_kernel} launches, the wrappers counting {launched}), on the CPU "
+          f"{cs['flops']} (declared {cd.flops}); CPU - card {cs['flops'] - gs['flops']}, "
+          f"3/11 of K3's declared {3 * k3 // 11} (K3 declares JAX's 11·b·h·sq·sk·d, its plain "
+          f"backward 10); peak temp on the card {gs['peak_temp_bytes']}", flush=True)
+    if (cd.flops or k3 % 11 or cs["flops"] - gs["flops"] != 3 * k3 // 11
+            or gd.launches_by_kernel != launched or not all(launched.values())):
+        raise AssertionError(f"{label}: card {gs}, {gd}; CPU {cs}, {cd}; wrappers {launched}")
+    return dict(cpu_flops=cs["flops"], card_flops=gs["flops"], declared=gd.flops_by_kernel,
+                launches=gd.launches_by_kernel)
+
+
+def _tools_main():
+    """17d: both tools as ``python -m`` processes on the card, in parallel."""
+    label = "phase 17d tools' main"
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    cmds = {"eval_benchmark": ["--random", "tiny", "--synthetic", "2", "--steps", "2"],
+            "validate_presets": ["--random", "tiny", "--steps", "4"]}
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for name, argv in cmds.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"imagharmony_tpu_torch.tools.{name}", *argv,
+                 "--out_dir", os.path.join(root, name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        outs = {name: p.communicate(timeout=240) for name, p in procs.items()}
+        wall = time.perf_counter() - t0
+        rcs = {name: p.returncode for name, p in procs.items()}
+        summary = json.loads(outs["eval_benchmark"][0].strip().splitlines()[-1])
+        with open(os.path.join(root, "validate_presets", "report.json")) as f:
+            report = json.load(f)
+        files = {name: sorted(os.listdir(os.path.join(root, name))) for name in cmds}
+        print(f"{label}: exit codes {rcs} in {wall:.1f} s (both at once); eval's last line "
+              f"{json.dumps(summary)}; presets' rows "
+              f"{json.dumps({k: v for k, v in report.items() if k != 'inputs'})}; files "
+              f"{files}", flush=True)
+        if any(rcs.values()) or summary["n"] != 2 or files != {
+                "eval_benchmark": ["records.jsonl", "summary.json"],
+                "validate_presets": ["exact.png", "fast.png", "fast_turbo.png", "report.json",
+                                     "turbo.png"]}:
+            raise AssertionError(f"{label}: {rcs}, {files}; stderr "
+                                 f"{ {n: o[1][-2000:] for n, o in outs.items()} }")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tools(pipe, fa, ca, kg):
+    """Phase 17 on phase 5's pipeline; its programs dropped at the end.
+    Returns the launches by path for the kernels line and the UNet call's
+    counts."""
+    t0 = time.perf_counter()
+    paths = {"eval_record": _tools_eval(pipe, fa, ca, kg)}
+    paths.update({f"preset_{name}": counts
+                  for name, counts in _tools_presets(pipe, fa, ca, kg).items()})
+    stats = _tools_stats(pipe)
+    stats["train_step"] = _tools_train_stats(fa, ca, kg)
+    _drop_programs(pipe)
+    _tools_main()
+    print(f"phase 17 tools in {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, stats
+
+
 def _line_times(t, bound):
     """The times of a kernel's entry in the kernels line: device times, all
     three taken the same way, and the CUDA-event times, which hold the
@@ -3740,8 +4084,13 @@ def main():
     phase_second_device(fa, ca, kg, pm, pa, ps, split_heads, HarmonyPipeline)
     _mark("phase 3f")
     phase_tiny(fa, ca, kg, HarmonyPipeline)
-    sdxl, sdxl_gen, sdxl_image = phase_full(fa, ca, kg, HarmonyPipeline)
+    sdxl, sdxl_gen, sdxl_image, pipe5 = phase_full(fa, ca, kg, HarmonyPipeline)
     _mark("phases 4-5")
+    tool_paths, _ = phase_tools(pipe5, fa, ca, kg)
+    del pipe5
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mark("phase 17")
     phase_train_tiny(fa, ca, kg, comp, step_lib, trainer)
     train, train_eager, train_run = phase_train_full(fa, ca, kg, comp, step_lib, trainer)
     _mark("phases 6-7")
@@ -3822,7 +4171,8 @@ def main():
                              **{p: g["K1/K4"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K1"],
                              "train_dp": train_dp["K1/K4"],
-                             "generate_mesh": generate_mesh["K1/K4"]},
+                             "generate_mesh": generate_mesh["K1/K4"],
+                             **{p: g["K1/K4"] for p, g in tool_paths.items()}},
         "max_abs_err": max_err,
         "shape": [2, *MAIN_SHAPES[0]],
         **_line_times(main_ms[MAIN_SHAPES[0]], fwd_bound(2, *MAIN_SHAPES[0])),
@@ -3878,7 +4228,8 @@ def main():
                              **{p: g["K2"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K2"],
                              "edit_eager_batch_ip": serve_eager["K2 IP"],
-                             "train_dp": train_dp["K2"], "generate_mesh": generate_mesh["K2"]},
+                             "train_dp": train_dp["K2"], "generate_mesh": generate_mesh["K2"],
+                             **{p: g["K2"] for p, g in tool_paths.items()}},
         "max_abs_err": k2_err,
         "shape": list(K2_SHAPES[0][:5]),
         **_line_times(k2, k2["bound"]),
@@ -3903,7 +4254,8 @@ def main():
                              **{p: g["K5"] for p, g in serve_paths.items()},
                              **{p: g["K5"] for p, g in variant_paths.items()},
                              "edit_eager_batch": serve_eager["K5"],
-                             "train_dp": train_dp["K5"], "generate_mesh": generate_mesh["K5"]},
+                             "train_dp": train_dp["K5"], "generate_mesh": generate_mesh["K5"],
+                             **{p: g["K5"] for p, g in tool_paths.items()}},
         "max_abs_err": k5_err,
         "shape": list(K5_SHAPES[0]),
         **_line_times(k5, k5["bound"]),

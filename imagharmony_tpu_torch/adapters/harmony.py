@@ -55,6 +55,15 @@ class HarmonyConfig:
         return self.mlp_tokens * self.query_dim
 
 
+def legacy_composed_config(**overrides) -> HarmonyConfig:
+    """The older Composed_Attention shape (reference shared_models.py:93-122;
+    JAX imagharmony_tpu/adapters/harmony.py:83): 4 blocks of 640, 10 heads,
+    value dim 32. ``io/checkpoints`` reads its legacy key names."""
+    base = dict(inter_dim=2560, reshape_blocks=4, cross_heads=10, cross_value_dim=32)
+    base.update(overrides)
+    return HarmonyConfig(**base)
+
+
 def tiny_config(**overrides) -> HarmonyConfig:
     base = dict(image_hidden_size=24, text_context_dim=80, inter_dim=64, cross_heads=2,
                 reshape_blocks=4, cross_value_dim=8, qformer_ff_dim=32, gate_hidden_dim=16)

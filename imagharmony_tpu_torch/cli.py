@@ -142,23 +142,17 @@ def _merge_loras(pipe, args):
     return pipe
 
 
-def cmd_edit(args):
-    from imagharmony_tpu_torch.io import checkpoints
-
-    pipe = checkpoints.load_pipeline(model_dir=args.model_dir, adapter_ckpt=args.adapter_ckpt,
-                                     image_encoder_dir=args.image_encoder_dir,
-                                     controlnet_dir=args.controlnet_dir, device=args.device,
-                                     dtype=_dtype(args.device))
-    pipe = _merge_loras(pipe, args)
-    image = _open(args.input).resize((512, 512))
+def edit_kwargs(args):
+    """generate()'s options for ``edit``'s arguments, the latency presets
+    applied: ``--fast`` runs 15 steps where --steps is 30 and trailing
+    spacing where none is given, ``--turbo`` encoder_interval 2."""
     steps, spacing = args.steps, args.timestep_spacing or "leading"
     if args.fast:
         if steps == 30:
             steps = 15
         if args.timestep_spacing is None:
             spacing = "trailing"
-    t0 = time.time()
-    kw = dict(
+    return dict(
         encoder_interval=2 if args.turbo else 1, control_image=_open(args.control_image),
         init_image=_open(args.init_image), mask_image=_open(args.mask_image),
         strength=args.strength, prompt=args.prompt, negative_prompt=args.negative_prompt,
@@ -168,6 +162,19 @@ def cmd_edit(args):
         clip_skip=args.clip_skip, prompt_weighting=args.prompt_weighting, seed=args.seed,
         num_samples=args.num_samples, height=args.height, width=args.width,
         scheduler=args.scheduler, tile_vae=args.tile_vae, output_type="pil")
+
+
+def cmd_edit(args):
+    from imagharmony_tpu_torch.io import checkpoints
+
+    pipe = checkpoints.load_pipeline(model_dir=args.model_dir, adapter_ckpt=args.adapter_ckpt,
+                                     image_encoder_dir=args.image_encoder_dir,
+                                     controlnet_dir=args.controlnet_dir, device=args.device,
+                                     dtype=_dtype(args.device))
+    pipe = _merge_loras(pipe, args)
+    image = _open(args.input).resize((512, 512))
+    t0 = time.time()
+    kw = edit_kwargs(args)
     if pipe.cfgs.vision is None:
         # the refiner family has no image prompt: --input is the image it
         # refines (img2img), unless --init-image names another

@@ -40,6 +40,10 @@ see the source). Like K1, it reads its operands with TMA, which takes base
 addresses and strides that are multiples of 16 bytes (checked here before
 any launch); an operand expanded over the batch (batch stride 0) is read
 as one batch.
+
+Each launch declares its cost to ``kernels/cost.py`` with the JAX
+``pl.CostEstimate`` formula (4·b·h·sq·(text + IP keys)·d flops); a CPU call
+declares nothing.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import functools
 
 import torch
 
-from imagharmony_tpu_torch.kernels import build
+from imagharmony_tpu_torch.kernels import build, cost
 from imagharmony_tpu_torch.kernels import flash_attention as fa
 
 # K2 launches since the last reset, all and those with the IP branch; only
@@ -225,6 +229,9 @@ def _launch(q, k, v, k_ip, v_ip, *, scale, head_dim, ip_scale):
     fa._check_rc("flash_cross_nhd", rc)
     cross_launches += 1
     cross_ip_launches += k_ip is not None
+    if cost.active():
+        cost.declare("K2", *cost.cross(b, hd // head_dim, sq, k.shape[1],
+                                       k_ip.shape[1] if k_ip is not None else 0, head_dim, 2))
     return out
 
 

@@ -28,6 +28,11 @@ All of them read their operands with TMA, which takes a base address and
 strides that are multiples of 16 bytes; the wrappers check that before any
 launch and raise otherwise.
 
+Each launch declares its cost to ``kernels/cost.py`` with the JAX
+``pl.CostEstimate`` formula (K1 and K4 4·b·h·sq·sk·d flops, K3
+11·b·h·sq·sk·d), so ``utils/profiling.compiled_stats`` counts it; a CPU call
+declares nothing, its plain version's products being counted instead.
+
 ``flash_attention`` (K4) replaces the TPU kernel ``_attn_kernel`` (:95, entry
 ``flash_attention`` :369 through ``_flash_fwd_impl`` :138): the same forward
 on (B, H, S, D) tensors with a batch, a head and a row stride each, at head
@@ -56,7 +61,7 @@ import functools
 
 import torch
 
-from imagharmony_tpu_torch.kernels import build
+from imagharmony_tpu_torch.kernels import build, cost
 
 # Kernel launches since the last reset; only the CUDA launches add to them.
 launches = 0       # K1
@@ -268,6 +273,8 @@ def _launch_fwd(q, k, v, *, scale, head_dim, with_lse):
         )
     _check_rc("flash_attention_nhd", rc)
     launches += 1
+    if cost.active():
+        cost.declare("K1", *cost.attention(b, hd // head_dim, sq, k.shape[1], head_dim, 2))
     return out, lse
 
 
@@ -319,6 +326,8 @@ def flash_attention_nhd_bwd(q, k, v, out, lse, dout, *, scale, head_dim):
         )
     _check_rc("flash_attention_nhd_bwd", rc)
     bwd_launches += 1
+    if cost.active():
+        cost.declare("K3", *cost.attention_bwd(b, heads, sq, sk, head_dim, 2))
     return dq, dk, dv
 
 
@@ -459,6 +468,8 @@ def _launch_bhsd(q, k, v, *, scale, with_lse):
         )
     _check_rc("flash_attention", rc)
     bhsd_launches += 1
+    if cost.active():
+        cost.declare("K4", *cost.attention(b, h, sq, k.shape[2], d, 2))
     return out, lse
 
 
@@ -513,6 +524,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale):
         )
     _check_rc("flash_attention: K3", rc)
     bwd_launches += 1
+    if cost.active():
+        cost.declare("K3", *cost.attention_bwd(b, h, sq, sk, d, 2))
     return dq, dk, dv
 
 

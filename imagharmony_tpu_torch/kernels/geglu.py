@@ -41,6 +41,10 @@ allocator here and the tile counters of ``kernels/gemm.py``; ``plan`` says
 how a shape is cut. Like the attention kernels it reads its operands with
 TMA, which takes base addresses and row strides that are multiples of 16
 bytes: checked here before any launch.
+
+Each launch declares its cost to ``kernels/cost.py`` with the formula of
+the JAX probe's ``pl.CostEstimate`` (tools/probe_geglu_v2.py:57:
+2·m·k·2·inner flops); a CPU call declares nothing.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from imagharmony_tpu_torch.kernels import build
+from imagharmony_tpu_torch.kernels import build, cost
 from imagharmony_tpu_torch.kernels import flash_attention as fa
 from imagharmony_tpu_torch.kernels import gemm
 
@@ -189,6 +193,8 @@ def _launch(x, weight, bias, *, gelu):
         )
     fa._check_rc("geglu", rc)
     geglu_launches += 1
+    if cost.active():
+        cost.declare("K5", *cost.geglu(m, k, inner))
     return out.reshape(*x.shape[:-1], inner)
 
 

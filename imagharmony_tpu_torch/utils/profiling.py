@@ -30,10 +30,23 @@ times come from the profiler's chrome trace (events of category
 CUDA-event median; ``chip_smoke.py`` and the probe tools (``probes/``) use
 them to hold a kernel, its plain version and the library call against
 each other.
+
+The JAX package's helpers (imagharmony_tpu/utils/profiling.py), on either
+device::
+
+    with profiling.trace("/tmp/torch-trace"):   # a Chrome/Perfetto trace JSON
+        with profiling.annotate("denoise"):
+            pipe.generate(...)
+
+    stats = profiling.compiled_stats(fn, *args)  # flops / bytes / peak memory
+
+    timer = profiling.StepTimer()
+    loss = step(); timer.lap(sync_on=loss)       # seconds, the card synchronized
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -41,6 +54,8 @@ import tempfile
 import time
 
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 WARMUP_STEPS = 3
 PROFILED_STEPS = 2
@@ -92,18 +107,16 @@ def kernel_events(trace_path):
 
 
 def profiled(fn):
-    """Runs ``fn`` under torch.profiler, the card synchronized at its end.
+    """Runs ``fn`` under ``trace``, the card synchronized at its end.
     Returns its result, the host ms of the run and its kernel events."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as tmp:
-        with torch.profiler.profile(activities=acts) as prof:
+        with trace(tmp):
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        return out, wall_ms, kernel_events(path)
+        [name] = os.listdir(tmp)
+        return out, wall_ms, kernel_events(os.path.join(tmp, name))
 
 
 def profiled_agreeing(fn, tries=8):
@@ -201,6 +214,129 @@ def summarize(kernels, n_steps, wall_ms):
         "kernels_per_step": len(kernels) / n_steps,
         "class_ms_per_step": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
     }
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """Profiles the block (CPU activity, and CUDA activity where a card is
+    present, the card synchronized at the block's end) and writes its
+    Chrome/Perfetto trace JSON, ``trace-<pid>-<ns>.json``, into ``log_dir``.
+    Yields the ``torch.profiler.profile``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(str(log_dir), f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def annotate(name):
+    """A named span in ``trace``'s timeline (``record_function``)."""
+    return torch.profiler.record_function(name)
+
+
+# ops that read and write no tensor data: allocations
+_NO_ACCESS = {torch.ops.aten.empty, torch.ops.aten.empty_strided, torch.ops.aten.empty_like,
+              torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
+
+
+def _nbytes(tree):
+    return sum(x.numel() * x.element_size() for x in _pytree.tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+class _BytesAccessed(TorchDispatchMode):
+    """Sums each dispatched op's operand and result bytes, as XLA's cost
+    analysis counts "bytes accessed" per op; views (an aliasing, read-only
+    result) and allocations move no data and add nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        view = any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
+        if not view and func.overloadpacket not in _NO_ACCESS:
+            self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        return out
+
+
+def _cuda_tensors(tree):
+    return [x for x in _pytree.tree_leaves(tree)
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
+
+
+def compiled_stats(fn, *args, **kwargs):
+    """Runs ``fn(*args, **kwargs)`` once, eagerly, and reports what it
+    costs: {"flops", "bytes_accessed", "peak_temp_bytes"}, the counterpart
+    of the JAX package's cost analysis of the compiled ``fn``.
+
+    flops: ``FlopCounterMode``'s count of the aten ops it runs plus what the
+    hand-written kernels it launches declare (``kernels/cost.py``, the JAX
+    ``pl.CostEstimate`` formulas; ctypes launches are invisible to aten),
+    a backward's included, which autograd runs on threads of its own.
+    bytes_accessed: each dispatched op's operand and result bytes, views
+    and allocations left out, plus the kernels' declared bytes.
+    peak_temp_bytes: the CUDA allocator's peak over the call less what was
+    allocated before it, on the device of the first CUDA tensor among the
+    arguments; None when no argument is on a card.
+
+    Only what runs eagerly is counted: replaying a captured program (a
+    ``generate()`` on a card after its key's first call, a trainer's
+    captured step) runs no Python and dispatches no op, so count an eager
+    call (a UNet call, ``harmony_edit.edit``, ``step.train_step``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from imagharmony_tpu_torch.kernels import cost
+
+    cuda = _cuda_tensors((args, kwargs))
+    dev = cuda[0].device if cuda else None
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    flop_mode, byte_mode = FlopCounterMode(display=False), _BytesAccessed()
+    with flop_mode, byte_mode, cost.counting() as declared:
+        fn(*args, **kwargs)
+    peak = None
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+    return {"flops": flop_mode.get_total_flops() + declared.flops,
+            "bytes_accessed": byte_mode.bytes + declared.bytes_accessed,
+            "peak_temp_bytes": peak}
+
+
+class StepTimer:
+    """Rolling step timer for train loops: ``lap`` reads the host clock
+    after the card has finished the work of ``sync_on``."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.history = []
+
+    def lap(self, sync_on=None):
+        """Seconds since the last lap (or the timer's start). ``sync_on``: a
+        tensor, or a tuple, list or dict of them; the devices of its CUDA
+        tensors are synchronized before the clock is read."""
+        for dev in {x.device for x in _cuda_tensors(sync_on)}:
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        dt = now - self.t0
+        self.t0 = now
+        self.history.append(dt)
+        return dt
+
+    @property
+    def mean(self):
+        return sum(self.history) / max(len(self.history), 1)
 
 
 def main():

@@ -12,6 +12,8 @@ run the card's tests there with
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -p no:cacheprovider
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -101,7 +103,17 @@ def test_function_on_cpu_matches_autograd_of_plain():
 def test_wrapper_routes_cpu_to_plain_and_takes_strided_slices():
     """A CPU tensor takes the plain version (no launch counted); q/k/v as
     column views of one packed (B, S, 3*H*D) tensor give the result of
-    contiguous copies."""
+    contiguous copies. And the cost the kernels declare (kernels/cost.py):
+    ``profiling.compiled_stats`` of a CPU call counts the plain version's
+    products, which equal what the kernel declares on a card for K1, K4,
+    K2 (text + IP keys) and K5, 10/11 of K3's declared 11·b·h·sq·sk·d for
+    the plain backward, and nothing is declared on the CPU; a declaration
+    reaches every open count, from any thread, and none outside one; a
+    forward and backward through K1's autograd Function counts the plain
+    lse's product and the plain backward's five; ``(x @ x).sum()`` at
+    64² counts 2·64³ flops, within 1% of the JAX package's
+    ``compiled_stats`` (its reduction included), with no peak on the
+    CPU."""
     qkv = t(randn(3, 2, 70, 3 * 2 * 32))
     q, k, v = qkv.chunk(3, dim=-1)
     assert q.stride(1) == 3 * 2 * 32
@@ -112,6 +124,65 @@ def test_wrapper_routes_cpu_to_plain_and_takes_strided_slices():
                                        scale=32**-0.5, head_dim=32)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert out.shape == (2, 70, 64) and out.is_contiguous()
+
+    from imagharmony_tpu_torch.kernels import cost
+    from imagharmony_tpu_torch.kernels import cross_attention as ca
+    from imagharmony_tpu_torch.kernels import geglu as kg
+    from imagharmony_tpu_torch.utils import profiling
+
+    def flops(fn):
+        with cost.counting() as declared:
+            stats = profiling.compiled_stats(fn)
+        assert declared.flops == 0 and stats["peak_temp_bytes"] is None
+        return stats["flops"]
+
+    kw = dict(scale=32**-0.5, head_dim=32)
+    assert flops(lambda: fa.flash_attention_nhd(q, k, v, **kw)) == cost.attention(
+        2, 2, 70, 70, 32, 2)[0]
+    qh, kh, vh, gh = (t(randn(i, 2, 3, n, 40)) for i, n in ((4, 50), (5, 30), (6, 30), (7, 50)))
+    assert flops(lambda: fa.flash_attention(qh, kh, vh, scale=0.1)) == cost.attention(
+        2, 3, 50, 30, 40, 2)[0]
+    assert 11 * flops(lambda: fa.flash_attention_bwd_plain(qh, kh, vh, gh, scale=0.1)) == \
+        10 * cost.attention_bwd(2, 3, 50, 30, 40, 2)[0]
+    kip, vip = t(randn(8, 2, 4, 64)), t(randn(9, 2, 4, 64))
+    assert flops(lambda: ca.flash_cross_nhd(q, k[:, :9], v[:, :9], k_ip=kip, v_ip=vip,
+                                            ip_scale=0.5, **kw)) == \
+        cost.cross(2, 2, 70, 9, 4, 32, 2)[0]
+    x, w, b = t(randn(10, 2, 6, 48)), t(randn(11, 2 * 24, 48)), t(randn(12, 2 * 24))
+    assert flops(lambda: kg.geglu(x, w, b, gelu="tanh")) == cost.geglu(12, 48, 24)[0]
+
+    # a backward through K1's autograd Function: the plain forward with the
+    # lse (4 + 2 products of b·h·sq·sk·d) and the plain backward (10); on a
+    # card K1 declares 4 and K3 11, one b·h·sq·sk·d less
+    x1 = cost.attention(2, 2, 70, 70, 32, 2)[0] // 4
+    qg = q.detach().requires_grad_()
+    assert flops(lambda: fa.flash_attention_nhd(qg, k, v, **kw).sum().backward()) == 16 * x1
+    assert cost.attention(2, 2, 70, 70, 32, 2)[0] + cost.attention_bwd(
+        2, 2, 70, 70, 32, 2)[0] == 15 * x1
+
+    cost.declare("K1", 1, 2, 3)  # no count open: nothing to add to
+    with cost.counting() as outer, cost.counting() as inner:
+        cost.declare("K1", 5, 6, 7)
+    assert outer == inner == cost.Count(5, 6, 7, {"K1": 5}, {"K1": 1})
+    # a count takes what other threads declare (the autograd engine runs a
+    # CUDA backward, K3 and the checkpointed reruns, on threads of its own)
+    with cost.counting() as outer:
+        with cost.counting() as inner:
+            worker = threading.Thread(target=cost.declare, args=("K3", 11, 12, 13))
+            worker.start()
+            worker.join()
+        cost.declare("K1", 5, 6, 7)
+    assert inner == cost.Count(11, 12, 13, {"K3": 11}, {"K3": 1})
+    assert outer == cost.Count(16, 18, 20, {"K3": 11, "K1": 5}, {"K3": 1, "K1": 1})
+    assert not cost.active()
+
+    import jax.numpy as jnp
+    from imagharmony_tpu.utils import profiling as jprofiling
+
+    stats = profiling.compiled_stats(lambda x: (x @ x).sum(), torch.ones(64, 64))
+    want = jprofiling.compiled_stats(lambda x: (x @ x).sum(), jnp.ones((64, 64)))["flops"]
+    assert stats["flops"] == 2 * 64**3 and abs(stats["flops"] - want) <= 0.01 * want, want
+    assert stats["peak_temp_bytes"] is None
 
 
 def test_wrapper_raises_off_cpu_and_cuda():

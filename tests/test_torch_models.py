@@ -301,7 +301,10 @@ def test_clip_preprocess_matches_jax():
 
 def test_harmony_cross_attention_and_image_proj():
     """HA cross_attention fusion (image_embed + delta) then ImageProjModel
-    into 4 prompt tokens."""
+    into 4 prompt tokens. And the older Composed_Attention shape,
+    ``legacy_composed_config``: JAX's defaults, and the head built at the
+    overrides of tests/test_pipeline_features.py's legacy test from its
+    JAX params against JAX's forward."""
     jcfg = jha.tiny_config(image_hidden_size=32, text_context_dim=64)
     jp_ha = jha.init(0, jcfg)
     jp_proj = jproj.image_proj_init(1, clip_embed_dim=32, cross_attention_dim=64, num_tokens=4)
@@ -322,6 +325,22 @@ def test_harmony_cross_attention_and_image_proj():
     close(fused, ref_fused)
     close(tokens, ref_tokens)
     assert tuple(tokens.shape) == (2, 4, 64)
+
+    jlegacy, plegacy = jha.legacy_composed_config(), pha.legacy_composed_config()
+    assert {f.name: getattr(jlegacy, f.name) for f in dataclasses.fields(plegacy)} == \
+        dataclasses.asdict(plegacy)
+    assert (plegacy.inter_dim, plegacy.reshape_blocks, plegacy.cross_heads,
+            plegacy.cross_value_dim) == (2560, 4, 10, 32)
+    over = dict(image_hidden_size=16, text_context_dim=24, inter_dim=32, reshape_blocks=4,
+                cross_heads=2, cross_value_dim=4)
+    jcfg = jha.legacy_composed_config(**over)
+    jp_ha = jha.init(0, jcfg)
+    ha = load(pha.HarmonyAttention(pha.legacy_composed_config(**over)), jp_ha)
+    text, img = randn(12, 2, 7, 24), randn(13, 2, 16)
+    ref = jax.jit(functools.partial(jha.fuse_image_embeds, cfg=jcfg, policy=FP32))(
+        jp_ha, text_embeds=jnp.asarray(text), image_embeds=jnp.asarray(img))
+    with torch.no_grad():
+        close(pha.fuse_image_embeds(ha, t(text), t(img)), ref)
 
 
 def test_harmony_other_fusions_not_ported(tmp_path):

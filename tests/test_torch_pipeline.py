@@ -69,13 +69,15 @@ def _image():
     return np.random.default_rng(0).integers(0, 255, (48, 48, 3), dtype=np.uint8)
 
 
-def test_tiny_edit_matches_golden(pipes):
+def test_tiny_edit_matches_golden(pipes, tmp_path, monkeypatch):
     """The call and thresholds of tests/test_golden.py, with the golden's
     initial noise handed to the port, through the denoise loop's body that
     generate() runs; generate() gives the capture's image bit for bit. And
     PNS: ``clip_scores`` (an antialiased bilinear resize into the bigG
     joint space) against JAX's (abs <= 1e-5), and ``generate_with_pns``
-    keeping the argmax of K seeds' scores."""
+    keeping the argmax of K seeds' scores. Then the evaluation tools
+    against the JAX package's (``_check_eval_tools``), and profiling's
+    ``trace``, ``annotate`` and ``StepTimer`` around a CPU generate()."""
     _, port = pipes
     gold = parity.load(GOLDEN)
     cap = parity.run_capture(port, _image(), prompt="a dog", extra_text="six dogs",
@@ -123,6 +125,144 @@ def test_tiny_edit_matches_golden(pipes):
         close(pcm.clip_t(port, edited, "a dog"), jcm.clip_t(jpipe, edited, "a dog"),
               rtol=0, atol=1e-5)
     close(pcm.image_embeds(port, u8), jcm.image_embeds(jpipe, u8), rtol=0, atol=1e-5)
+
+    _check_eval_tools(jpipe, port, tmp_path, monkeypatch)
+
+    from imagharmony_tpu_torch.utils import profiling
+
+    timer = profiling.StepTimer()
+    with profiling.trace(tmp_path / "trace"):
+        with profiling.annotate("denoise"):
+            out = port.generate(_image(), prompt="a dog", num_inference_steps=1, height=32,
+                                width=32, output_type="raw")
+    timer.lap(sync_on=(out, {"image": out}))
+    [path] = (tmp_path / "trace").glob("*.json")
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    assert "denoise" in names, names
+    assert len(timer.history) == 1 and timer.mean >= 0
+
+
+class _JaxNoise:
+    """A pipeline whose generate() starts from the JAX package's initial
+    noise for the seed it is given (the frameworks draw different numbers
+    from one seed; ``edit_parity`` hands the port JAX's noise the same
+    way); everything else is the pipeline's."""
+
+    def __init__(self, pipe):
+        self._pipe = pipe
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
+
+    def generate(self, *args, seed, height, width, **kw):
+        down = self._pipe.cfgs.vae.downscale
+        noise = jax.random.normal(jax.random.PRNGKey(seed), (1, height // down, width // down, 4))
+        return self._pipe.generate(*args, seed=seed, height=height, width=width,
+                                   noise=np.asarray(noise, np.float32), **kw)
+
+
+def _jax_tool(name):
+    """The JAX package's tools/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_eval_tools(jpipe, port, tmp_path, monkeypatch):
+    """The port's tools/eval_benchmark.py and validate_presets.py against
+    the JAX package's, each run once through its ``main`` on the CPU: the
+    JAX tools unchanged on the fp32 JAX tiny pipeline, the port's on the
+    port over the same weights, started from JAX's noise for the seed. The
+    eval at 2 synthetic records, 2 steps, 32²: each record's CLIP-T and
+    CLIP-I within 1e-3 of JAX's, the files' keys JAX's, the last line the
+    summary written. The presets: ``presets`` is the JAX tool's table at 2,
+    5 and 30 steps; at 2 steps, 32², the exact and fast+turbo rows (raw
+    cosine and CLIP-I against exact, CLIP-T) within 1e-3 of the JAX tool's
+    (fast and turbo, each a JAX compile of its own, are left out for CPU
+    time), the report and the PNGs written."""
+    from PIL import Image
+
+    from imagharmony_tpu_torch.tools import eval_benchmark as pev
+    from imagharmony_tpu_torch.tools import validate_presets as pvp
+
+    jdir, pdir = tmp_path / "jax_eval", tmp_path / "port_eval"
+    monkeypatch.setattr(JaxPipeline, "random_tiny", classmethod(lambda cls, seed=0: jpipe))
+    for tool in (pev, pvp):  # each tool's main imports the builder by name
+        monkeypatch.setattr(tool, "build_pipeline", lambda args: _JaxNoise(port))
+    argv = ["--random", "tiny", "--steps", "2"]
+    monkeypatch.setattr(sys, "argv", ["eval_benchmark.py", *argv, "--synthetic", "2",
+                                      "--out_dir", str(jdir)])
+    _jax_tool("eval_benchmark").main()
+    summary = pev.main([*argv, "--synthetic", "2", "--device", "cpu", "--out_dir", str(pdir)])
+    read = lambda d: ([json.loads(line) for line in (d / "records.jsonl").read_text()
+                       .splitlines()], json.loads((d / "summary.json").read_text()))
+    (jrows, jsum), (prows, psum) = read(jdir), read(pdir)
+    assert psum == summary and len(prows) == 2
+    assert set(psum) == set(jsum) and [set(r) for r in prows] == [set(r) for r in jrows]
+    assert {k: psum[k] for k in ("n", "steps", "res", "weights")} == \
+        {k: jsum[k] for k in ("n", "steps", "res", "weights")}
+    for p, j in zip(prows, jrows):
+        assert p["text"] == j["text"] and p["index"] == j["index"], (p, j)
+        assert abs(p["clip_t"] - j["clip_t"]) <= 1e-3 and abs(p["clip_i"] - j["clip_i"]) <= 1e-3, \
+            (p, j)
+
+    jvp = _jax_tool("validate_presets")
+    seen = []
+
+    class Done(Exception):
+        pass
+
+    class TableOnly:  # records the presets' options; stops before any scoring
+        def generate(self, **kw):
+            seen.append(kw)
+            if len(seen) % 4 == 0:
+                raise Done
+            return np.full((1, 8, 8, 3), 0.5, np.float32)
+
+    base = {"pil_image", "prompt", "extra_text", "guidance_scale", "seed", "height", "width",
+            "output_type"}
+    for steps in (2, 5, 30):
+        monkeypatch.setattr(jvp, "build_pipe", lambda args: TableOnly())
+        monkeypatch.setattr(sys, "argv", ["validate_presets.py", "--random", "tiny", "--steps",
+                                          str(steps), "--out_dir", str(tmp_path / "table")])
+        with pytest.raises(Done):
+            jvp.main()
+        table = [{k: v for k, v in kw.items() if k not in base} for kw in seen[-4:]]
+        assert table == list(pvp.presets(steps).values()) and list(pvp.PRESETS) == [
+            "exact", "fast", "turbo", "fast+turbo"], (steps, table)
+
+    compared = ("exact", "fast+turbo")
+    which = lambda kw: tuple(kw.get(k) for k in ("num_inference_steps", "timestep_spacing",
+                                                 "encoder_interval"))
+    run_jax = {which(pvp.presets(2)[name]) for name in compared}
+
+    class TwoPresets:  # the JAX pipeline for exact and fast+turbo, a stand-in for the others
+        def __getattr__(self, name):
+            return getattr(jpipe, name)
+
+        def generate(self, **kw):
+            if which(kw) in run_jax:
+                return jpipe.generate(**kw)
+            return np.full((1, 32, 32, 3), 0.5, np.float32)
+
+    jout, pout = tmp_path / "jax_presets", tmp_path / "port_presets"
+    monkeypatch.setattr(jvp, "build_pipe", lambda args: TwoPresets())
+    monkeypatch.setattr(sys, "argv", ["validate_presets.py", *argv, "--out_dir", str(jout)])
+    jvp.main()
+    jrep = json.loads((jout / "report.json").read_text())
+    prep = pvp.main([*argv, "--device", "cpu", "--out_dir", str(pout)])
+    assert prep == json.loads((pout / "report.json").read_text())
+    assert prep["inputs"] == jrep["inputs"] and list(prep) == list(jrep)
+    assert [set(prep[n]) for n in pvp.PRESETS] == [set(jrep[n]) for n in pvp.PRESETS]
+    for name in compared:
+        for key in set(jrep[name]) - {"seconds"}:
+            assert abs(prep[name][key] - jrep[name][key]) <= 1e-3, (name, key, prep, jrep)
+    pngs = sorted(pout.glob("*.png"))
+    assert [p.name for p in pngs] == ["exact.png", "fast.png", "fast_turbo.png", "turbo.png"]
+    assert all(np.asarray(Image.open(p)).shape == (32, 32, 3) for p in pngs)
 
 
 def test_build_conditioning_matches_jax(pipes):
@@ -1280,16 +1420,19 @@ def test_from_jax_keys_and_shapes_match_export_tree(pipes, tmp_path, monkeypatch
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without JAX or
-    the JAX package; and no line of their sources imports either, lazily
-    inside a function included (the JAX serving.main's
-    ``from imagharmony_tpu.cli import _merge_loras`` is such an import)."""
+    """Every module of the port (its ``tools/`` included), and
+    chip_smoke.py, import without JAX or the JAX package; and no line of
+    their sources imports either, lazily inside a function included (the
+    JAX serving.main's ``from imagharmony_tpu.cli import _merge_loras`` is
+    such an import)."""
     pattern = re.compile(r"^\s*(from\s+(jax|jaxlib|imagharmony_tpu)(\.|\s)"
                          r"|import\s+(jax|jaxlib|imagharmony_tpu)(\.|\s|,|$))")
     sources = sorted((REPO / "imagharmony_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     bad = [f"{path.relative_to(REPO)}:{n}: {line.strip()}" for path in sources
            for n, line in enumerate(path.read_text().splitlines(), 1) if pattern.match(line)]
     assert len(sources) > 40 and not bad, bad
+    assert {"__init__.py", "eval_benchmark.py", "validate_presets.py"} <= {
+        p.name for p in sources if p.parent == REPO / "imagharmony_tpu_torch" / "tools"}
     assert pattern.match("    from imagharmony_tpu.cli import _merge_loras")
     assert pattern.match("import jax.numpy as jnp") and pattern.match("  import jax")
     assert not pattern.match("from imagharmony_tpu_torch.pipelines import serving")
@@ -1299,6 +1442,8 @@ def test_port_imports_no_jax():
         "import imagharmony_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import imagharmony_tpu_torch.tools.eval_benchmark\n"
+        "import imagharmony_tpu_torch.tools.validate_presets\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'imagharmony_tpu')]\n"
         "assert not bad, bad\n"
